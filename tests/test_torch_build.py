@@ -1,0 +1,52 @@
+"""Kernel build logic of the torch port, on a machine without nvcc: the
+library name follows the sources' content, and a missing compiler raises
+a clear error and leaves nothing behind. (The build itself runs only
+where nvcc and a GPU are, through chip_smoke.py.)"""
+import os
+import shutil
+
+import pytest
+
+from ssqueeze_rs_tpu_torch import _build
+
+
+@pytest.fixture
+def src_tree(tmp_path, monkeypatch):
+    """A private copy of csrc/ and an empty build directory."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    return csrc
+
+
+def test_library_name_follows_source_content(src_tree):
+    first = _build.library_path()
+    assert first == _build.library_path()
+    assert os.path.basename(first).startswith("libssq_kernels_")
+    src = src_tree / "reassign.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path() != first
+
+
+def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):
+    import torch.utils.cpp_extension as cpp
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not os.path.exists(_build.BUILD_DIR) or \
+        not os.listdir(_build.BUILD_DIR)
+
+
+def test_existing_library_is_reused_without_nvcc(src_tree, monkeypatch):
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    path = _build.library_path()
+    os.makedirs(_build.BUILD_DIR)
+    with open(path, "wb"):
+        pass
+    assert _build.build() == path
+    assert _build.report_path(path).endswith(".txt")
+    assert _build.report_path(path) != path
