@@ -6,10 +6,12 @@
 Drives `ssqueeze_rs_tpu_torch.ssq_cwt` (and `issq_cwt`) at the headline
 configuration: N = 160 000 float32 samples, default GMW, log-piecewise
 scales cut to the first 300 (293 rows), maprange='peak', trig phase,
-sum squeezing. Phases, one line each:
+sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
+`issq_stft`) at the benchmark's STFT width: N = 160 000, n_fft = 598
+(300 frequency rows), hop 1, the default window. Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
-  2. build both kernels from csrc/ with nvcc, or load the library the
+  2. build every kernel from csrc/ with nvcc, or load the library the
      sources' hash names (ptxas report copied to
      chiprun_out/chip_smoke_build.txt)
   3. kernel A (cwt_phase) against its plain-torch version at the headline
@@ -22,6 +24,26 @@ sum squeezing. Phases, one line each:
      finite Tx, the sine's peak within 1 % of 100 Hz, issq_cwt of the
      sine, end-to-end time; then the device result against the CPU
      (plain-torch) result for a batch of two signals at N = 20 000
+  6. kernels B and B' at nf = 1025 (STFT planes at n_fft = 2048,
+     N = 20 000; 16 columns per block) against their plain versions:
+     every entry within 1e-5 max|Tx|, bitwise repeat
+  7. kernel F (stft_dft) against plain F at the STFT width, derivative off
+     (600 rows) and on (1200 rows): max|dS| / max|S| < 2e-6; timed
+  8. kernel B' (reassign4, lin bins, nf = 300) on F's planes against plain
+     B': every entry within 1e-5 max|Tx|, column sums within 1e-5,
+     bitwise repeat; timed
+  9. kernel G (ssq_stft): Sx against F's within 2e-6 relative; Tx against
+     kernel B' on F's planes (>= 99.9 % of entries within 1e-5 max|Tx|,
+     column sums within 1e-5) and against plain G (the same bars);
+     bitwise repeat; timed against plain G
+ 10. kernel H (istft_ola) against plain H within 2e-6 of the largest
+     sample; istft(stft(x)) with mad_rms < 1e-5; timed
+ 11. three requests (noise, a 100 Hz sine at fs = 1000, a chirp) through
+     stft (kernel F once), ssq_stft (G once), ssq_stft with given
+     ssq_freqs (F and B' once each) and istft (H once); outputs finite on
+     the GPU; the sine's ssq_stft peak within 1 % of 100 Hz; issq_stft of
+     the sine at fs = 1; steady stft and ssq_stft times; the device
+     results against the CPU results for two signals at N = 20 000
 
 Any failed check raises and exits non-zero. The last three lines are a
 JSON object of the kernels' numbers, the card's name and power limit, and
@@ -38,6 +60,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 N = 160_000
 N_SMALL = 20_000    # M = 2^15 = 128 x 256: an unequal split
+N_FFT = 598         # the benchmark's STFT width (bench.py): 300 rows
 
 
 class SmokeFailure(Exception):
@@ -77,6 +100,32 @@ def cuda_ms(torch, fn, warmup=2, iters=10):
 def rel(torch, a, b):
     """max|a - b| / max|b|"""
     return float((a - b).abs().max() / b.abs().max())
+
+
+def host_ms(torch, fn, n=5):
+    """Median host time of fn() in ms over n calls, each ending in a
+    synchronize (after one untimed call)."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2], times
+
+
+def entry_metrics(torch, Tk, Tp):
+    """(max|Tk - Tp| / max|Tp|, share of entries within 1e-5 max|Tp|,
+    max column-sum difference / max|column sum|, max|Tk - Tp|)."""
+    d = (Tk - Tp).abs()
+    top = float(Tp.abs().max())
+    cs_k, cs_p = Tk.sum(-2), Tp.sum(-2)
+    col = float((cs_k - cs_p).abs().max() / cs_p.abs().max())
+    return (float(d.max()) / top, float((d <= 1e-5 * top).float().mean()),
+            col, float(d.max()))
 
 
 def tx_metrics(np, Tx, Tx_ref):
@@ -288,6 +337,8 @@ def main():
     check(col_small < 1e-4 and tot_small < 1e-5,
           f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
 
+    stft_kernels = stft_phases(np, torch, dev, card, results)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     kernels = [
@@ -301,12 +352,300 @@ def main():
          "replaces": "ssqueeze_rs_tpu/ops/reassign_pallas.py:175",
          "launches": launches["reassign"], "max_abs_err": absB,
          "ms": msB, "plain_ms": msB_plain},
-    ]
+    ] + stft_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def stft_phases(np, torch, dev, card, results):
+    """Phases 6-11: kernels B at nf = 1025, F, B', G, H, and the STFT family
+    end to end. Returns the four new kernels' entries of the JSON line."""
+    from ssqueeze_rs_tpu_torch import (stft, istft, ssq_stft, issq_stft,
+                                       mad_rms)
+    from ssqueeze_rs_tpu_torch.ops import reassign_cuda, stft_cuda
+    from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes,
+                                                _irfft_mats_weighted)
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
+    from ssqueeze_rs_tpu_torch.utils.pad import padsignal
+    from ssqueeze_rs_tpu_torch.utils.windows import get_window
+    from ssqueeze_rs_tpu_torch.config import EPS32
+
+    gamma = 10 * EPS32
+    rng = np.random.default_rng(2)
+
+    def lin_plan(nf, fs):
+        Sfs = np.linspace(0, 0.5 * fs, nf, dtype=np.float32)
+        const, mode, params = plan_reassignment(Sfs, nf, False,
+                                                transform="stft")
+        return (torch.as_tensor(Sfs, device=dev),
+                torch.as_tensor(const, dtype=torch.float32, device=dev),
+                mode, params)
+
+    # 6. kernels B and B' at nf = 1025 (16 columns per block)
+    x20 = torch.as_tensor(rng.standard_normal(N_SMALL), dtype=torch.float32,
+                          device=dev)
+    (sr, si), (dr, di) = stft(x20, n_fft=2048, derivative=True,
+                              planar_out=True)
+    nf6 = sr.shape[-2]
+    Sfs6, const6, mode6, params6 = lin_plan(nf6, 1.0)
+    a4 = (sr, si, dr, di, const6, Sfs6, gamma, params6, mode6, False, nf6,
+          "stft")
+    w6 = reassign_cuda.phase_w(sr, si, dr, di, Sfs6, gamma, "stft")
+    a3 = (sr, si, w6, const6, params6, mode6, False, nf6)
+    line = []
+    for name, fn, plain, args in (
+            ("B", reassign_cuda.reassign, reassign_cuda.reassign_plain, a3),
+            ("B'", reassign_cuda.reassign4, reassign_cuda.reassign4_plain,
+             a4)):
+        k1, k2, p = fn(*args), fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        r6, _, col, _ = entry_metrics(torch, torch.complex(*k1),
+                                      torch.complex(*p))
+        results[f"nf1025_{name}"] = dict(tx_rel=r6, colsum_rel=col,
+                                         bitwise=bitwise)
+        line.append(f"{name} Tx rel={r6:.3e} col rel={col:.3e} "
+                    f"bitwise-repeat={bitwise}")
+        check(bitwise, f"kernel {name} at nf={nf6} differs between two runs")
+        check(r6 <= 1e-5, f"kernel {name} at nf={nf6}: Tx rel {r6:.3e}")
+    cols = reassign_cuda._block_cols(nf6)
+    print(f"[6] nf={nf6} ({cols} columns per block): {'; '.join(line)}")
+    check(nf6 == 1025 and cols == 16, f"nf={nf6}, {cols} columns")
+    del sr, si, dr, di, w6, a3, a4
+
+    # 7. kernel F against plain F at the STFT width
+    x = torch.as_tensor(rng.standard_normal(N), dtype=torch.float32,
+                        device=dev)
+    win, dwin = get_window(None, N_FFT, N_FFT, derivative=True,
+                           dtype="float32")
+    K2 = _k_t(_win_bytes(win), None, N_FFT, True, dev)
+    K4 = _k_t(_win_bytes(win), _win_bytes(dwin), N_FFT, True, dev)
+    xp = padsignal(x, "reflect", padlength=N + N_FFT - 1)
+    F = {}
+    for K, fs in ((K2, None), (K4, 1.0)):
+        rows = K.shape[0]
+        kF = stft_cuda.stft_dft(xp, K, N_FFT, N, fs=fs)
+        pF = stft_cuda.stft_dft_plain(xp, K, N_FFT, N, fs=fs)
+        torch.cuda.synchronize()
+        d = (kF - pF).abs()
+        F[rows] = dict(rel=float(d.max() / pF.abs().max()),
+                       abs=float(d.max()),
+                       ms=cuda_ms(torch, lambda: stft_cuda.stft_dft(
+                           xp, K, N_FFT, N, fs=fs)),
+                       plain_ms=cuda_ms(torch, lambda: stft_cuda.stft_dft_plain(
+                           xp, K, N_FFT, N, fs=fs)))
+        del pF
+        if rows == K4.shape[0]:
+            planes = kF
+    results["F"] = F
+    print("[7] kernel F: " + "; ".join(
+        f"{r} rows rel={v['rel']:.3e} | {v['ms']:.3f} ms vs plain "
+        f"{v['plain_ms']:.3f} ms" for r, v in F.items()) + f" ({card})")
+    for r, v in F.items():
+        check(v["rel"] < 2e-6, f"kernel F ({r} rows) rel {v['rel']:.3e}")
+
+    # 8. kernel B' on F's planes (lin bins, nf = 300)
+    nf = N_FFT // 2 + 1
+    Sfs, const, mode, params = lin_plan(nf, 1.0)
+    sr, si, dr, di = planes.split(nf, dim=-2)
+    a4 = (sr, si, dr, di, const, Sfs, gamma, params, mode, False, nf, "stft")
+    k1, k2 = reassign_cuda.reassign4(*a4), reassign_cuda.reassign4(*a4)
+    p4 = reassign_cuda.reassign4_plain(*a4)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+    Tb = torch.complex(*k1)
+    rel4, _, col4, abs4 = entry_metrics(torch, Tb, torch.complex(*p4))
+    ms4 = cuda_ms(torch, lambda: reassign_cuda.reassign4(*a4))
+    ms4_plain = cuda_ms(torch, lambda: reassign_cuda.reassign4_plain(*a4))
+    results["B4"] = dict(tx_rel=rel4, colsum_rel=col4, tx_abs=abs4,
+                         bitwise=bitwise, ms=ms4, plain_ms=ms4_plain, nf=nf)
+    print(f"[8] kernel B': nf={nf} mode={mode} Tx rel={rel4:.3e} column-sum "
+          f"rel={col4:.3e} bitwise-repeat={bitwise} | {ms4:.3f} ms vs plain "
+          f"{ms4_plain:.3f} ms ({card})")
+    check(bitwise, "kernel B' differs between two runs")
+    check(rel4 <= 1e-5 and col4 < 1e-5,
+          f"kernel B' Tx rel {rel4:.3e}, column sums {col4:.3e}")
+    del p4, k2
+
+    # 9. kernel G
+    ga = (xp, K4, N_FFT, N, 1.0, Sfs, const, gamma, params, mode, False)
+    Tg, Sg = stft_cuda.ssq_stft_fused(*ga)
+    Tg2, Sg2 = stft_cuda.ssq_stft_fused(*ga)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(Tg, Tg2) and torch.equal(Sg, Sg2)
+    del Tg2, Sg2
+    Sf = torch.complex(sr, si)
+    sx_rel = float((Sg - Sf).abs().max() / Sf.abs().max())
+    sx_equal = bool(torch.equal(Sg, Sf))
+    relG, withinG, colG, _ = entry_metrics(torch, Tg, Tb)
+    Tp, Sp = stft_cuda.ssq_stft_fused_plain(*ga)
+    torch.cuda.synchronize()
+    relP, withinP, colP, absG = entry_metrics(torch, Tg, Tp)
+    sx_plain = float((Sg - Sp).abs().max() / Sp.abs().max())
+    del Tp, Sp
+    msG = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused(*ga))
+    msG_plain = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused_plain(*ga))
+    results["G"] = dict(sx_rel_F=sx_rel, sx_equal_F=sx_equal,
+                        tx_within_vs_B4=withinG, tx_rel_vs_B4=relG,
+                        colsum_vs_B4=colG, sx_rel_plain=sx_plain,
+                        tx_within_vs_plain=withinP, colsum_vs_plain=colP,
+                        tx_abs_vs_plain=absG, bitwise=bitwise, ms=msG,
+                        plain_ms=msG_plain)
+    print(f"[9] kernel G: Sx vs F rel={sx_rel:.3e} (bitwise {sx_equal}); Tx "
+          f"vs B'(F) within 1e-5: {withinG:.6f} (rel {relG:.3e}, col "
+          f"{colG:.3e}); vs plain G: Sx rel {sx_plain:.3e}, Tx within "
+          f"{withinP:.6f}, col {colP:.3e}; bitwise-repeat={bitwise} | "
+          f"{msG:.3f} ms vs plain {msG_plain:.3f} ms ({card})")
+    check(bitwise, "kernel G differs between two runs")
+    check(sx_rel < 2e-6 and sx_plain < 2e-6,
+          f"kernel G Sx rel {sx_rel:.3e} / {sx_plain:.3e}")
+    check(withinG >= 0.999 and colG < 1e-5,
+          f"kernel G Tx vs B'(F): {withinG:.6f} within, col {colG:.3e}")
+    check(withinP >= 0.999 and colP < 1e-5,
+          f"kernel G Tx vs plain: {withinP:.6f} within, col {colP:.3e}")
+    del Tg, Sg, Tb, k1, planes, sr, si, dr, di, Sf
+
+    # 10. kernel H
+    S = stft(x, n_fft=N_FFT)
+    Fr, Fs = _irfft_mats_weighted(N_FFT, True, _win_bytes(win), 1, dev)
+    ha = (S.real, S.imag, Fr, Fs, N_FFT)
+    kH, pH = stft_cuda.istft_ola(*ha), stft_cuda.istft_ola_plain(*ha)
+    torch.cuda.synchronize()
+    relH = float((kH - pH).abs().max() / pH.abs().max())
+    absH = float((kH - pH).abs().max())
+    xr = istft(S, n_fft=N_FFT, N=N)
+    madH = mad_rms(x, xr)
+    msH = cuda_ms(torch, lambda: stft_cuda.istft_ola(*ha))
+    msH_plain = cuda_ms(torch, lambda: stft_cuda.istft_ola_plain(*ha))
+    results["H"] = dict(rel=relH, abs=absH, roundtrip_mad_rms=madH, ms=msH,
+                        plain_ms=msH_plain)
+    print(f"[10] kernel H: rel={relH:.3e}; istft(stft(x)) mad_rms "
+          f"{madH:.3e} | {msH:.3f} ms vs plain {msH_plain:.3f} ms ({card})")
+    check(relH < 2e-6, f"kernel H rel {relH:.3e}")
+    check(madH < 1e-5, f"istft(stft(x)) mad_rms {madH:.3e}")
+    del kH, pH, S, xr
+
+    # 11. the STFT family end to end: three requests
+    t = np.arange(N) / 1000.0
+    requests = {
+        "noise": (x, 1.0),
+        "sine100": (torch.as_tensor(np.cos(2 * np.pi * 100 * t),
+                                    dtype=torch.float32, device=dev), 1000.0),
+        "chirp": (torch.as_tensor(np.cos(2 * np.pi * (5 * t + 1.5 * t * t)),
+                                  dtype=torch.float32, device=dev), 1000.0),
+    }
+    counts = lambda: dict(stft_cuda.LAUNCHES,
+                          reassign4=reassign_cuda.LAUNCHES4,
+                          reassign=reassign_cuda.LAUNCHES)
+    for key in stft_cuda.LAUNCHES:
+        stft_cuda.LAUNCHES[key] = 0
+    reassign_cuda.LAUNCHES4 = reassign_cuda.LAUNCHES = 0
+    req_ms, peak = {}, None
+    for name, (xq, fs) in requests.items():
+        nf_fs = np.linspace(0, 0.5 * fs, nf, dtype=np.float32)
+        calls = (
+            ("stft", lambda: (stft(xq, n_fft=N_FFT, fs=fs),),
+             dict(stft_dft=1)),
+            ("ssq_stft", lambda: ssq_stft(xq, n_fft=N_FFT, fs=fs),
+             dict(ssq_stft=1)),
+            ("ssq_stft(ssq_freqs)", lambda: ssq_stft(
+                xq, n_fft=N_FFT, fs=fs, ssq_freqs=nf_fs),
+             dict(stft_dft=1, reassign4=1)),
+        )
+        for cname, call, expect in calls:
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            req_ms[f"{name} {cname}"] = (time.perf_counter() - t0) * 1e3
+            moved = {k: v - before[k] for k, v in counts().items()
+                     if v != before[k]}
+            check(moved == expect, f"{name} {cname}: launches moved by "
+                  f"{moved}, expected {expect}")
+            check(out[0].is_cuda and tuple(out[0].shape) == (nf, N),
+                  f"{name} {cname}: {out[0].device} {tuple(out[0].shape)}")
+            check(bool(torch.isfinite(out[0]).all()),
+                  f"{name} {cname}: output not finite")
+            if cname == "ssq_stft" and name == "sine100":
+                peak = float(out[2][int(out[0].abs().mean(-1).argmax())])
+            if cname == "stft":
+                Sq = out[0]
+        before = counts()
+        xr = istft(Sq, n_fft=N_FFT, N=N)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in counts().items()
+                 if v != before[k]}
+        check(moved == dict(istft_ola=1), f"{name} istft: launches moved "
+              f"by {moved}")
+        check(xr.is_cuda and tuple(xr.shape) == (N,) and
+              bool(torch.isfinite(xr).all()), f"{name} istft output")
+    launches = counts()
+    check(launches == dict(stft_dft=6, ssq_stft=3, istft_ola=3, reassign4=3,
+                           reassign=0), f"launch counts {launches}")
+
+    Tx1 = ssq_stft(requests["sine100"][0], n_fft=N_FFT)[0]
+    issq_mad = mad_rms(requests["sine100"][0],
+                       issq_stft(Tx1, n_fft=N_FFT))
+    del Tx1
+    stft_ms, stft_all = host_ms(torch, lambda: stft(x, n_fft=N_FFT))
+    ssq_ms, ssq_all = host_ms(torch, lambda: ssq_stft(x, n_fft=N_FFT))
+
+    # the device results against the CPU (plain-torch) results
+    xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
+    xs = xs.astype(np.float32)
+    g = ssq_stft(torch.as_tensor(xs, device=dev), n_fft=N_FFT, fs=1000.0)
+    c = ssq_stft(torch.as_tensor(xs), n_fft=N_FFT, fs=1000.0)
+    sx_small = rel(torch, g[1].cpu(), c[1])
+    col_small, tot_small = tx_metrics(np, g[0].cpu().numpy(), c[0].numpy())
+    xg = istft(g[1], n_fft=N_FFT, N=N_SMALL).cpu()
+    xc = istft(c[1], n_fft=N_FFT, N=N_SMALL)
+    x_small = rel(torch, xg, xc)
+
+    results["stft_e2e"] = dict(
+        request_ms=req_ms, launches=launches, sine_peak_hz=peak,
+        issq_mad_rms_fs1=issq_mad, stft_ms=stft_ms, stft_steady=stft_all,
+        stft_msamples_s=N / stft_ms / 1e3, ssq_stft_ms=ssq_ms,
+        ssq_stft_steady=ssq_all, ssq_stft_msamples_s=N / ssq_ms / 1e3,
+        small_sx_rel=sx_small, small_col_rel=col_small,
+        small_total_rel=tot_small, small_istft_rel=x_small)
+    print(f"[11] STFT family N={N} n_fft={N_FFT}: launches {launches}; sine "
+          f"ssq peak {peak:.3f} Hz; issq_stft mad_rms (fs=1) "
+          f"{issq_mad:.3e}; steady stft {stft_ms:.2f} ms = "
+          f"{N / stft_ms / 1e3:.2f} MSamples/s, ssq_stft {ssq_ms:.2f} ms = "
+          f"{N / ssq_ms / 1e3:.2f} MSamples/s ({card}); GPU vs CPU at "
+          f"N={N_SMALL}: Sx rel {sx_small:.2e}, Tx col rel {col_small:.2e}, "
+          f"total rel {tot_small:.2e}, istft rel {x_small:.2e}")
+    check(abs(peak - 100.0) <= 1.0, f"ssq_stft sine peak at {peak} Hz")
+    check(issq_mad < 0.1, f"issq_stft mad_rms {issq_mad:.3e}")
+    check(sx_small < 1e-5 and x_small < 1e-5,
+          f"GPU vs CPU Sx rel {sx_small:.2e}, istft rel {x_small:.2e}")
+    check(col_small < 1e-4 and tot_small < 1e-5,
+          f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
+
+    src = "ssqueeze_rs_tpu_torch/csrc/"
+    tpu = "ssqueeze_rs_tpu/ops/"
+    return [
+        {"name": "reassign4", "route": "cuda", "source": src + "reassign.cu",
+         "replaces": tpu + "reassign_pallas.py:175",
+         "launches": launches["reassign4"], "max_abs_err": abs4,
+         "ms": ms4, "plain_ms": ms4_plain},
+        {"name": "stft_dft", "route": "cuda", "source": src + "stft_dft.cu",
+         "replaces": tpu + "stft_pallas.py:188",
+         "launches": launches["stft_dft"], "max_abs_err": F[1200]["abs"],
+         "ms": F[1200]["ms"], "plain_ms": F[1200]["plain_ms"]},
+        {"name": "ssq_stft", "route": "cuda", "source": src + "ssq_stft.cu",
+         "replaces": tpu + "stft_pallas.py:537",
+         "launches": launches["ssq_stft"], "max_abs_err": absG,
+         "ms": msG, "plain_ms": msG_plain},
+        {"name": "istft_ola", "route": "cuda", "source": src + "istft_ola.cu",
+         "replaces": tpu + "stft_pallas.py:338",
+         "launches": launches["istft_ola"], "max_abs_err": absH,
+         "ms": msH, "plain_ms": msH_plain},
+    ]
 
 
 if __name__ == "__main__":

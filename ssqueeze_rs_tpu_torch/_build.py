@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-`nvcc` compiles every source in ``csrc/`` into one shared library with a
-plain C interface for sm_90a (Hopper), which is loaded with ctypes. The
+`nvcc` compiles every source in ``csrc/`` (one process per source, all
+started together) and links them into one shared library with a plain C
+interface for sm_90a (Hopper), which is loaded with ctypes. The
 library lands in ``_build/`` under a name that carries the hash of the
 sources and flags, so an edited source rebuilds at its next use and an
 unchanged one is loaded as it is. Nothing is built or imported until a
@@ -22,15 +23,23 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-lineinfo"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PLAN = [_F] * 5        # the binning plan p0..p4 (reassign_cuda._plan_floats)
 _SIGNATURES = {
     "ssq_cwt_phase": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _LL, _I, _I, _I,
                       _I, _I, _F, _P, _LL, _P, _P, _P, _P],
-    "ssq_reassign": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _F, _F, _F, _F,
-                     _F, _P, _P, _P],
+    "ssq_reassign": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
+                    [_I, _P, _P, _P],
+    "ssq_reassign4": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] + _PLAN +
+                     [_I, _P, _P, _P],
+    "ssq_stft_dft": [_P, _P, _I, _LL, _I, _I, _I, _LL, _F, _I, _P, _P],
+    "ssq_stft_fused": [_P, _P, _I, _LL, _I, _I, _I, _LL, _F, _P, _P, _F, _I,
+                       _I] + _PLAN + [_I, _P, _P, _P, _P, _P],
+    "ssq_istft_ola": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _P, _P, _P],
 }
 
 _LIB = None
@@ -75,30 +84,46 @@ def report_path(path: str) -> str:
 
 
 def build() -> str:
-    """Compile ``csrc/*.cu`` unless the library for their hash exists, and
-    keep nvcc's output, with ptxas's per-kernel report, beside it
-    (`report_path`). Returns the library path."""
+    """Compile ``csrc/*.cu`` unless the library for their hash exists: one
+    nvcc per source, all at once, then one link. nvcc's output, with
+    ptxas's per-kernel report, is kept beside the library (`report_path`).
+    Returns the library path."""
     path = library_path()
     if os.path.exists(path):
         return path
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-o", tmp] + srcs
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
+        jobs = []
+        for src in srcs:
+            obj = os.path.join(work, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        report, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            report.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc] + ARCH + ["-shared", "-o", tmp] + [o for _, o, _ in jobs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         with open(report_path(path), "w") as f:
-            f.write(res.stdout + res.stderr)
+            f.write("\n".join(report))
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     BUILD_LOG.update(seconds=time.perf_counter() - t0, path=path)
     return path
 

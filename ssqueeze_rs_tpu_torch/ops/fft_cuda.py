@@ -34,6 +34,12 @@ def best_split(M: int):
     return M1, M2
 
 
+def _device_of(a):
+    """The device a wrapper dispatches on: a tensor's own, the CPU for
+    an array."""
+    return a.device if isinstance(a, torch.Tensor) else torch.device("cpu")
+
+
 def _f32(a, device):
     """`a` as float32 on `device`. Arrays are copied there; a tensor on
     another device raises, so no tensor changes device (and route)."""
@@ -48,7 +54,7 @@ def _f32(a, device):
 def _prepare(Pw, xr, xi, xig, nyq_w, nyq_d):
     """Common input handling: everything float32 on Pw's device (numpy
     inputs go to the CPU), signal planes given a batch dim."""
-    device = Pw.device if isinstance(Pw, torch.Tensor) else torch.device("cpu")
+    device = _device_of(Pw)
     Pw, xr, xi, xig = (_f32(a, device) for a in (Pw, xr, xi, xig))
     if xr.ndim == 2:
         xr, xi = xr[None], xi[None]

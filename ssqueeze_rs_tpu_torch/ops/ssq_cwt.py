@@ -15,6 +15,7 @@ import torch
 
 from ..config import DEFAULTS, EPS32
 from ..scales import process_scales, process_fs_and_t
+from ..utils.common import as_signal, unported as _unported
 from ..utils.pad import padsignal
 from ..wavelets.adm import adm_ssq
 from ..wavelets.base import Wavelet
@@ -25,38 +26,27 @@ from .ssqueeze import ssqueeze, check_ssqueezing_args
 __all__ = ["ssq_cwt", "issq_cwt"]
 
 
-def _unported(what, item):
-    raise NotImplementedError(f"{what} is not ported to the torch package "
-                              f"yet (ROADMAP {item})")
-
-
 def _check_slice(dtype, order, get_w, get_dWx, difftype, squeezing):
     if str(dtype or DEFAULTS["dtype"]) != "float32":
         _unported(f"dtype={dtype!r}", "Queue 1 item 3, float64 route")
     if isinstance(order, (tuple, list, range)) or order != 0:
         _unported(f"order={order!r}", "Queue 1 item 6, cwt_higher_order")
     if get_w or get_dWx:
-        _unported("get_w / get_dWx", "Queue 1 item 3, phase.py and diff.py")
+        _unported("get_w / get_dWx",
+                  "Queue 1 item 3 and Queue 2 D, the dWx planes")
     if difftype in ("phase", "numeric"):
         _unported(f"difftype={difftype!r}",
                   "Queue 1 item 3, phase.py and diff.py")
     if callable(squeezing) or squeezing in ("lebesgue", "abs"):
         _unported(f"squeezing={squeezing!r}",
-                  "Queue 1 item 3 and Queue 2 B, the 4-plane contract")
+                  "Queue 1 item 3 and Queue 2 D, the dWx planes")
 
 
 def _as_signal(x, device):
     """x as a float32 tensor on `device` (default: x's own device, or the
     CPU for array input), with non-finite samples zeroed."""
-    if isinstance(x, torch.Tensor):
-        device = torch.device(device) if device is not None else x.device
-    else:
-        x = torch.as_tensor(np.asarray(x))
-        device = torch.device(device if device is not None else "cpu")
-    if x.requires_grad and device.type == "cuda":
-        _unported("requires_grad input on CUDA",
-                  "Queue 1 item 5 and Queue 2 C, the backward kernel")
-    x = torch.nan_to_num(x.to(device), nan=0.0, posinf=0.0, neginf=0.0)
+    x = torch.nan_to_num(as_signal(x, device), nan=0.0, posinf=0.0,
+                         neginf=0.0)
     return x.to(torch.float32)
 
 
@@ -98,17 +88,59 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
                            wavelet=wavelet, N=N, n1=n1, gamma=gamma)
     if ssq_freqs is None:
         ssq_freqs = cwt_scaletype
-    Tx, ssq_freqs = ssqueeze((wxr, wxi), w, ssq_freqs, scales, fs=fs,
-                             maprange=maprange, wavelet=wavelet,
-                             was_padded=padtype is not None, flipud=flipud)
-    return Tx, torch.complex(wxr, wxi), ssq_freqs, np.asarray(scales).squeeze()
+    Wx = torch.complex(wxr, wxi)
+    Tx, ssq_freqs = ssqueeze(Wx, None, ssq_freqs, scales, fs=fs,
+                             maprange=maprange, wavelet=wavelet, gamma=gamma,
+                             was_padded=padtype is not None, flipud=flipud,
+                             wx_planes=(wxr, wxi), w_plane=w)
+    return Tx, Wx, ssq_freqs, np.asarray(scales).squeeze()
+
+
+# -- inverse ----------------------------------------------------------------
+def _process_component_inversion_args(cc, cw):
+    if cc is None and cw is None:
+        return None, None, True
+    cc = torch.as_tensor(np.asarray(cc), dtype=torch.int64)
+    cw = torch.as_tensor(np.asarray(cw), dtype=torch.int64)
+    if cc.ndim == 1:
+        cc = cc[:, None]
+    if cw.ndim == 1:
+        cw = cw[:, None]
+    return cc, cw, False
+
+
+def _invert_components(Tx, cc, cw):
+    """Sum Re Tx over the band [cc - cw, cc + cw] of each of the K curves
+    (cc, cw: (n_times, K); cc = -1 where a curve is absent); the last
+    output row is the residual, the rows no curve claims. Tx may have
+    leading batch dims: output (..., K + 1, n_times)."""
+    n_freqs = Tx.shape[-2]
+    cc = cc.to(Tx.device).T                       # (K, n_times)
+    cw = cw.to(Tx.device).T
+    rows = torch.arange(n_freqs, device=Tx.device)[None, :, None]
+
+    upper = torch.clamp(cc + cw, 0, n_freqs)
+    lower = torch.clamp(cc - cw, 0, n_freqs)
+    no_curve = cc == -1
+    upper = torch.where(no_curve, torch.zeros_like(upper), upper)
+    lower = torch.where(no_curve, torch.ones_like(lower), lower)
+    # (K, n_freqs, n_times) band masks
+    mask = (rows >= lower[:, None, :]) & (rows <= upper[:, None, :])
+
+    Txr = Tx.real
+    comps = torch.einsum("...fn,kfn->...kn", Txr, mask.to(Txr.dtype))
+    remainder = ~mask.any(dim=0)
+    resid = (Txr * remainder.to(Txr.dtype)).sum(dim=-2)
+    return torch.cat([comps, resid[..., None, :]], dim=-2)
 
 
 def issq_cwt(Tx, wavelet="gmw", cc=None, cw=None):
-    """Inverse synchrosqueezed CWT, full inversion:
-    x = (2/Css) * sum over frequency rows of Re Tx."""
-    if cc is not None or cw is not None:
-        _unported("component inversion (cc/cw)", "Queue 1 item 3")
+    """Inverse synchrosqueezed CWT. Full inversion:
+    x = (2/Css) * sum over frequency rows of Re Tx; with `cc`/`cw`, one
+    row per curve band plus the residual (`_invert_components`)."""
+    cc, cw, full_inverse = _process_component_inversion_args(cc, cw)
     Tx = torch.as_tensor(Tx)
+    x = Tx.real.sum(dim=-2) if full_inverse else _invert_components(Tx, cc,
+                                                                    cw)
     Css = adm_ssq(Wavelet.build(wavelet))
-    return Tx.real.sum(dim=-2) * (2 / Css)
+    return x * (2 / Css)

@@ -1,10 +1,11 @@
-"""Synchrosqueezing engine: reassignment planning and the w-plane route
+"""Synchrosqueezing engine: reassignment planning and the squeeze
 (counterpart of ``ssqueeze_rs_tpu/ops/ssqueeze.py``).
 
 The frequency bin of each phase value is computed in closed form per
 scaletype (log / log-piecewise / linear); the ssq frequency grid, the
 per-row normalization constants and the bin constants are host numpy
-planning. The scatter itself is kernel B (`reassign_cuda.reassign`).
+planning. The scatter itself is kernel B (`reassign_cuda.reassign`, from
+a phase plane) or B' (`reassign_cuda.reassign4`, from Wx and dWx).
 
 Normalization constants:
   CWT log:    const = ln(2)/nv          (per-row array for log-piecewise)
@@ -21,11 +22,11 @@ import torch
 from ..config import EPS64
 from ..scales import (process_scales, process_fs_and_t, infer_scaletype,
                       logscale_transition_idx)
-from ..utils.common import WARN, NOTE, assert_is_one_of
+from ..utils.common import WARN, NOTE, assert_is_one_of, unported
 from ..utils.pad import p2up
 from ..wavelets.base import Wavelet
 from ..wavelets.props import center_frequency
-from .reassign_cuda import reassign
+from .reassign_cuda import reassign, reassign4
 
 __all__ = ["bin_params", "plan_reassignment", "plan_ssqueeze", "ssqueeze",
            "compute_associated_frequencies", "ssq_freqrange",
@@ -199,16 +200,22 @@ def check_ssqueezing_args(squeezing, maprange=None, wavelet=None,
 
 # -- public engine --------------------------------------------------------------
 def plan_ssqueeze(N, na, ssq_freqs, scales, fs=None, t=None,
-                  maprange="maximal", wavelet=None, was_padded=True):
-    """Host planning of a CWT squeeze: (ssq_freqs, const_arr, mode, params)
-    for `reassign`, ssq_freqs in ascending (unflipped) order."""
-    check_ssqueezing_args("sum", maprange, transform="cwt", wavelet=wavelet)
-    if scales is None:
+                  maprange="maximal", wavelet=None, was_padded=True,
+                  transform="cwt"):
+    """Host planning of a squeeze of na rows of N columns: (ssq_freqs,
+    const_arr, mode, params) for `reassign` / `reassign4`, ssq_freqs in
+    ascending (unflipped) order. `ssq_freqs`: an array, a scaletype name,
+    or None (the CWT's own scaletype; for the STFT, linear)."""
+    if scales is None and transform == "cwt":
         raise ValueError("`scales` can't be None if `transform == 'cwt'`")
     dt, _, _ = process_fs_and_t(fs, t, N)
-    scales, cwt_scaletype, _, nv = process_scales(scales, N, get_params=True)
+    if transform == "cwt":
+        scales, cwt_scaletype, _, nv = process_scales(scales, N,
+                                                      get_params=True)
+    else:
+        cwt_scaletype, nv = None, None
 
-    if not isinstance(ssq_freqs, np.ndarray):
+    if not isinstance(ssq_freqs, (np.ndarray, torch.Tensor)):
         ssq_scaletype = (ssq_freqs if isinstance(ssq_freqs, str)
                          else cwt_scaletype)
         if ((maprange == "maximal" or isinstance(maprange, tuple)) and
@@ -219,31 +226,88 @@ def plan_ssqueeze(N, na, ssq_freqs, scales, fs=None, t=None,
         wavelet_b = Wavelet.build(wavelet) if wavelet is not None else None
         ssq_freqs = compute_associated_frequencies(
             scales, N, wavelet_b, ssq_scaletype, maprange, was_padded, dt,
-            "cwt")
+            transform)
+    elif transform == "stft":
+        ssq_scaletype = "linear"
+        ssq_freqs = np.asarray(ssq_freqs)
     else:
+        ssq_freqs = np.asarray(ssq_freqs)
         ssq_scaletype, _ = infer_scaletype(ssq_freqs)
 
     const_arr, mode, params = plan_reassignment(
-        ssq_freqs, na, ssq_scaletype.startswith("log"), transform="cwt",
+        ssq_freqs, na, ssq_scaletype.startswith("log"), transform=transform,
         cwt_scaletype=cwt_scaletype, nv=nv, scales=scales)
     return ssq_freqs, const_arr, mode, params
 
 
-def ssqueeze(Wx_planes, w_plane, ssq_freqs=None, scales=None, fs=None, t=None,
-             maprange="maximal", wavelet=None, was_padded=True, flipud=False):
-    """Synchrosqueeze a CWT given as f32 planes with its phase plane
-    already computed (the w-plane route of the JAX package's `ssqueeze`).
+def _planes(Wx):
+    """(real, imag) float32 planes of a complex or real tensor."""
+    if Wx.is_complex():
+        return Wx.real, Wx.imag
+    return Wx, torch.zeros_like(Wx)
 
-    Wx_planes: (Wxr, Wxi), each (..., na, n); w_plane: (..., na, n), +inf
-    where masked. Returns (Tx complex64 (..., nf, n), ssq_freqs).
-    The other squeezing routes (`w`, `dWx`, 'lebesgue'/'abs'/callable
-    squeezing, STFT) wait for ROADMAP Queue 1 item 3."""
-    wr, wi = Wx_planes
+
+def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
+             t=None, squeezing="sum", maprange="maximal", wavelet=None,
+             gamma=None, was_padded=True, flipud=False, dWx=None,
+             transform="cwt", wx_planes=None, w_plane=None):
+    """Synchrosqueeze a CWT or STFT. Returns (Tx complex64 (..., nf, n),
+    ssq_freqs).
+
+    Wx: complex64 (..., na, n) tensor or array; the scatter runs on its
+    device. Routes, by what is given:
+      * `w_plane` (phase already computed in kernel A, +inf where masked)
+        or `w` (a phase transform, +inf where masked): kernel B, the
+        3-plane contract (`reassign_cuda.reassign`);
+      * else `dWx` (complex, or a (real, imag) plane tuple) with `gamma`:
+        kernel B' forms w and the mask |Wx|^2 > gamma^2 itself, for
+        `transform` 'cwt' or 'stft' (`reassign_cuda.reassign4`).
+    `wx_planes`: (real, imag) planes of Wx to feed the kernel directly
+    (used with squeezing='sum' only). With squeezing 'lebesgue', 'abs' or
+    a callable and no `w`, the phase comes from the TRANSFORMED Wx, as in
+    the reference's fused ssqueeze."""
+    if w is None and w_plane is None and (dWx is None or gamma is None):
+        raise ValueError("if `w` is None, `dWx` and `gamma` must not be.")
+    if isinstance(w, np.ndarray) and (w < 0).any():
+        raise ValueError("found negatives in `w`")
+    check_ssqueezing_args(squeezing, maprange, transform=transform,
+                          wavelet=wavelet)
+
+    Wx = Wx if isinstance(Wx, torch.Tensor) else torch.as_tensor(
+        np.asarray(Wx))
+    if Wx.dtype in (torch.complex128, torch.float64):
+        unported("float64 / complex128 Wx", "Queue 1 item 3, float64 route")
+    device = Wx.device
     ssq_freqs, const_arr, mode, params = plan_ssqueeze(
-        wr.shape[-1], wr.shape[-2], ssq_freqs, scales, fs, t, maprange,
-        wavelet, was_padded)
-    const = torch.as_tensor(const_arr, dtype=torch.float32, device=wr.device)
-    txr, txi = reassign(wr, wi, w_plane, const, params, mode, flipud,
-                        len(ssq_freqs))
-    # `scales` go high -> low: the frequency grid is reported reversed
-    return torch.complex(txr, txi), ssq_freqs[::-1]
+        Wx.shape[-1], Wx.shape[-2], ssq_freqs, scales, fs, t, maprange,
+        wavelet, was_padded, transform)
+
+    # squeezing transform of Wx
+    if isinstance(squeezing, FunctionType):
+        Wx = squeezing(Wx)
+    elif squeezing == "lebesgue":
+        # normalized by the scale count (shape[-2]) for any batch shape
+        Wx = torch.ones(Wx.shape, dtype=Wx.dtype, device=device) / Wx.shape[-2]
+    elif squeezing == "abs":
+        Wx = Wx.abs().to(Wx.dtype)
+
+    const = torch.as_tensor(const_arr, dtype=torch.float32, device=device)
+    nf = len(ssq_freqs)
+    wr, wi = (wx_planes if (wx_planes is not None and squeezing == "sum")
+              else _planes(Wx))
+    phase = w_plane if w_plane is not None else w
+    if phase is not None:
+        txr, txi = reassign(wr, wi, phase, const, params, mode, flipud, nf)
+    else:
+        dr, di = dWx if isinstance(dWx, tuple) else _planes(
+            dWx if isinstance(dWx, torch.Tensor) else
+            torch.as_tensor(np.asarray(dWx), device=device))
+        if Sfs is None:
+            Sfs = np.zeros(len(const_arr), np.float32)
+        txr, txi = reassign4(wr, wi, dr, di, const, Sfs, gamma, params,
+                             mode, flipud, nf, transform)
+
+    # `scales` go high -> low: the CWT frequency grid is reported reversed
+    if (transform == "cwt" and not flipud) or flipud:
+        ssq_freqs = ssq_freqs[::-1]
+    return torch.complex(txr, txi), ssq_freqs

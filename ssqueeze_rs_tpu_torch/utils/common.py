@@ -3,6 +3,9 @@ from __future__ import annotations
 
 import logging
 
+import numpy as np
+import torch
+
 _logger = logging.getLogger("ssqueeze_rs_tpu_torch")
 if not _logger.handlers:        # never touch the host app's root logger
     _h = logging.StreamHandler()
@@ -22,3 +25,45 @@ def NOTE(msg: str):
 def assert_is_one_of(x, name, supported, e=ValueError):
     if x not in supported:
         raise e(f"`{name}` must be one of: {', '.join(map(str, supported))} (got {x})")
+
+
+def unported(what, item):
+    """Refuse an option the port does not have yet, naming the ROADMAP
+    item that ports it."""
+    raise NotImplementedError(f"{what} is not ported to the torch package "
+                              f"yet (ROADMAP {item})")
+
+
+def as_signal(x, device=None):
+    """x as a tensor on `device` (default: x's own device, or the CPU for
+    array input). A tensor that requires grad on CUDA is refused: the
+    kernels have no backward yet."""
+    if isinstance(x, torch.Tensor):
+        device = torch.device(device) if device is not None else x.device
+    else:
+        a = np.asarray(x)
+        x = torch.as_tensor(a if a.flags.writeable else a.copy())
+        device = torch.device(device if device is not None else "cpu")
+    if x.requires_grad and device.type == "cuda":
+        unported("requires_grad input on CUDA",
+                 "Queue 1 item 5 and Queue 2 C, the backward kernels")
+    return x.to(device)
+
+
+def _host(a):
+    return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a))
+
+
+def mad(data, axis=None):
+    """Mean absolute deviation (host numpy; tensors are copied to the
+    host)."""
+    data = _host(data)
+    return np.mean(np.abs(data - np.mean(data, axis)), axis)
+
+
+def mad_rms(x, xrec):
+    """Reconstruction error metric of the inversion checks:
+    mean|x - xrec| / rms(x) (host numpy; tensors are copied to the host)."""
+    x, xrec = _host(x), _host(xrec)
+    return float(np.mean(np.abs(x - xrec)) / np.sqrt(np.mean(x**2)))

@@ -1,7 +1,9 @@
 """Kernel build logic of the torch port, on a machine without nvcc: the
-library name follows the sources' content, and a missing compiler raises
-a clear error and leaves nothing behind. (The build itself runs only
-where nvcc and a GPU are, through chip_smoke.py.)"""
+library name follows the content of every source the build compiles
+(headers included), every C entry point the wrappers call has its ctypes
+signature, and a missing compiler raises a clear error and leaves nothing
+behind. (The build itself runs only where nvcc and a GPU are, through
+chip_smoke.py.)"""
 import os
 import shutil
 
@@ -27,6 +29,31 @@ def test_library_name_follows_source_content(src_tree):
     src = src_tree / "reassign.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build.library_path() != first
+
+
+@pytest.mark.parametrize("name", ["bins.cuh", "dft_tile.cuh", "stft_dft.cu",
+                                  "ssq_stft.cu", "istft_ola.cu"])
+def test_library_name_covers_every_source(src_tree, name):
+    first = _build.library_path()
+    src = src_tree / name
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path() != first
+
+
+def test_entry_points_have_signatures():
+    """Each extern "C" entry point of csrc/*.cu has argtypes, with one
+    entry per parameter."""
+    import re
+    for path in _build._sources():
+        if not path.endswith(".cu"):
+            continue
+        text = open(path).read()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            assert name in _build._SIGNATURES, name
+            assert len(_build._SIGNATURES[name]) == params.count(",") + 1, name
+    assert {"ssq_reassign4", "ssq_stft_dft", "ssq_stft_fused",
+            "ssq_istft_ola"} <= set(_build._SIGNATURES)
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

@@ -163,9 +163,11 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_inverse_and_grad_raise():
+    """Gradients on CUDA still raise; the component inversion (cc/cw) is
+    ported (tests/test_torch_ssq_stft.py holds it to the JAX package)."""
     Tx = torch.zeros((4, 16), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        issq_cwt(Tx, cc=np.zeros(16, int), cw=np.ones(16, int))
+    x = issq_cwt(Tx, cc=np.zeros(16, int), cw=np.ones(16, int))
+    assert x.shape == (2, 16)
     x = torch.zeros(1000, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssq_cwt(x, device="cuda")
