@@ -44,6 +44,21 @@ sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
      the GPU; the sine's ssq_stft peak within 1 % of 100 Hz; issq_stft of
      the sine at fs = 1; steady stft and ssq_stft times; the device
      results against the CPU results for two signals at N = 20 000
+ 12. kernels C and C' (the reassignment's VJP gather): C on the headline
+     w plane (nf = 293), C' on F's STFT planes (lin, nf = 300) and at
+     nf = 1025, each with a seeded Tx cotangent, against the plain gather
+     entry by entry (one product per entry: equal), bitwise repeat; timed
+ 13. the gradient of ssq_cwt at the headline width, loss sum|Tx|^2 +
+     sum|Wx|^2, for the three requests of phase 5: kernels A, B and C once
+     per call, finite, bitwise repeat; forward+backward time and peak
+     device memory; the device gradient against the CPU gradient for two
+     signals at N = 20 000 (< 5e-3; the Wx-only loss < 1e-4)
+ 14. the STFT family's gradients at N = 160 000, n_fft = 598: F's and H's
+     adjoints (kernels H and F) against autograd of their plain versions
+     (< 2e-6); stft (F forward, H backward), istft (H, then F), ssq_stft
+     (G, then F, C', H) and ssq_stft with given ssq_freqs (F and B', then
+     C' and H), each with its launch counts, finite and bitwise repeated,
+     timed with its peak memory; device against CPU at N = 20 000
 
 Any failed check raises and exits non-zero. The last three lines are a
 JSON object of the kernels' numbers, the card's name and power limit, and
@@ -338,6 +353,9 @@ def main():
           f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
 
     stft_kernels = stft_phases(np, torch, dev, card, results)
+    grad_kernels = grad_phases(np, torch, dev, card, results, dict(
+        requests=requests, wavelet=wavelet, scales=scales, w=kA[2],
+        const=const, params=params, mode=mode, nf=nf))
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
@@ -352,7 +370,7 @@ def main():
          "replaces": "ssqueeze_rs_tpu/ops/reassign_pallas.py:175",
          "launches": launches["reassign"], "max_abs_err": absB,
          "ms": msB, "plain_ms": msB_plain},
-    ] + stft_kernels
+    ] + stft_kernels + grad_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -645,6 +663,255 @@ def stft_phases(np, torch, dev, card, results):
          "replaces": tpu + "stft_pallas.py:338",
          "launches": launches["istft_ola"], "max_abs_err": absH,
          "ms": msH, "plain_ms": msH_plain},
+    ]
+
+
+def peak_gb(torch, fn):
+    """(fn(), peak device memory during fn in GB, memory allocated before
+    it in GB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9, base / 1e9
+
+
+def grad_phases(np, torch, dev, card, results, cwt):
+    """Phases 12-14: kernels C and C', the gradient of ssq_cwt, the STFT
+    family's gradients. Returns C's and C''s entries of the JSON line."""
+    from ssqueeze_rs_tpu_torch import ssq_cwt, stft, istft, ssq_stft
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda, stft_cuda
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
+    from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes,
+                                                _irfft_mats_weighted)
+    from ssqueeze_rs_tpu_torch.utils.pad import padsignal
+    from ssqueeze_rs_tpu_torch.utils.windows import get_window
+    from ssqueeze_rs_tpu_torch.config import EPS32
+
+    gamma = 10 * EPS32
+    rng = np.random.default_rng(3)
+    f32 = torch.float32
+    x = cwt["requests"]["noise"][0]
+
+    def seeded(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=f32,
+                               device=dev)
+
+    def lin_planes(xs, n_fft):
+        planes = stft(xs, n_fft=n_fft, derivative=True, planar_out=True)
+        nf = planes[0][0].shape[-2]
+        Sfs = np.linspace(0, 0.5, nf, dtype=np.float32)
+        const, mode, params = plan_reassignment(Sfs, nf, False,
+                                                transform="stft")
+        return (*planes[0], *planes[1], torch.as_tensor(const, dtype=f32,
+                                                        device=dev),
+                torch.as_tensor(Sfs, device=dev)), mode, params, nf
+
+    # 12. kernels C and C' against the plain gather
+    cases = {}
+    cases["C"] = (reassign_cuda.reassign_bwd, reassign_cuda.reassign_bwd_plain,
+                  lambda gr, gi: (cwt["w"], cwt["const"], gr, gi,
+                                  cwt["params"], cwt["mode"], True,
+                                  cwt["nf"]), cwt["nf"], x.shape[-1])
+    for key, xs, n_fft in (("C' nf=300", x, N_FFT),
+                           ("C' nf=1025", seeded(N_SMALL), 2048)):
+        a4, mode4, params4, nf4 = lin_planes(xs, n_fft)
+        cases[key] = (reassign_cuda.reassign4_bwd,
+                      reassign_cuda.reassign4_bwd_plain,
+                      lambda gr, gi, a4=a4, m=mode4, p=params4, n=nf4:
+                      (*a4, gr, gi, gamma, p, m, False, n, "stft"),
+                      nf4, xs.shape[-1])
+    C, line = {}, []
+    for key, (fn, plain, args, nfc, n) in cases.items():
+        a = args(seeded((nfc, n)), seeded((nfc, n)))
+        k1, k2, p = fn(*a), fn(*a), plain(*a)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(k1, k2))
+        equal = all(torch.equal(u, v) for u, v in zip(k1, p))
+        err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+        C[key] = dict(equal=equal, max_abs_err=err, bitwise=bitwise, nf=nfc,
+                      masked=float((p[0] == 0).float().mean()),
+                      ms=cuda_ms(torch, lambda: fn(*a)),
+                      plain_ms=cuda_ms(torch, lambda: plain(*a)))
+        line.append(f"{key} equal={equal} (max abs {err:.2e}) "
+                    f"bitwise-repeat={bitwise} | {C[key]['ms']:.3f} ms vs "
+                    f"plain {C[key]['plain_ms']:.3f} ms")
+        check(bitwise, f"kernel {key} differs between two runs")
+        check(equal, f"kernel {key} differs from the plain gather "
+              f"(max abs {err:.3e})")
+        del a, k1, k2, p
+    results["C"] = C
+    print(f"[12] {'; '.join(line)} ({card})")
+
+    # 13. the gradient of ssq_cwt at the headline width
+    wavelet, scales = cwt["wavelet"], cwt["scales"]
+    counts = lambda: dict(stft_cuda.LAUNCHES, cwt_phase=fft_cuda.LAUNCHES,
+                          reassign=reassign_cuda.LAUNCHES,
+                          reassign4=reassign_cuda.LAUNCHES4,
+                          reassign_bwd=reassign_cuda.LAUNCHES_BWD,
+                          reassign4_bwd=reassign_cuda.LAUNCHES4_BWD)
+
+    def zero_counts():
+        for key in stft_cuda.LAUNCHES:
+            stft_cuda.LAUNCHES[key] = 0
+        fft_cuda.LAUNCHES = reassign_cuda.LAUNCHES = 0
+        reassign_cuda.LAUNCHES4 = reassign_cuda.LAUNCHES_BWD = 0
+        reassign_cuda.LAUNCHES4_BWD = 0
+
+    def moved_by(fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in counts().items()
+                     if v != before[k]}
+
+    def sq(z):
+        return (z.abs() ** 2).sum()
+
+    def cwt_grad(x0, fs, nv=None, wx_only=False):
+        xg = x0.detach().clone().requires_grad_()
+        kw = dict(nv=nv) if nv else dict(scales=scales)
+        Tx, Wx, *_ = ssq_cwt(xg, wavelet, fs=fs, **kw)
+        (sq(Wx) if wx_only else sq(Tx) + sq(Wx)).backward()
+        return xg.grad
+
+    zero_counts()
+    grads = {}
+    for name, (xq, fs) in cwt["requests"].items():
+        grads[name], moved = moved_by(lambda: cwt_grad(xq, fs))
+        check(moved == dict(cwt_phase=1, reassign=1, reassign_bwd=1),
+              f"ssq_cwt grad {name}: launches moved by {moved}")
+        check(bool(torch.isfinite(grads[name]).all()),
+              f"ssq_cwt grad {name}: not finite")
+    launches_c = counts()["reassign_bwd"]
+    repeat = torch.equal(cwt_grad(x, 1.0), grads["noise"])
+    ms_cwt, all_cwt = host_ms(torch, lambda: cwt_grad(x, 1.0))
+    _, peak, base = peak_gb(torch, lambda: cwt_grad(x, 1.0))
+    xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
+    xs = xs.astype(np.float32)
+    small = {}
+    for wx_only in (False, True):
+        g = cwt_grad(torch.as_tensor(xs, device=dev), 1000.0, 8, wx_only)
+        c = cwt_grad(torch.as_tensor(xs), 1000.0, 8, wx_only)
+        small["wx" if wx_only else "ssq"] = rel(torch, g.cpu(), c)
+    results["grad_ssq_cwt"] = dict(launches_per_call=moved, bitwise=repeat,
+                                   ms=ms_cwt, steady_ms=all_cwt,
+                                   peak_gb=peak, base_gb=base,
+                                   small_rel=small)
+    print(f"[13] ssq_cwt grad N={N}: launches per call {moved}; "
+          f"bitwise-repeat={repeat}; forward+backward {ms_cwt:.2f} ms, peak "
+          f"{peak:.2f} GB (of which {base:.2f} GB held before) ({card}); "
+          f"GPU vs CPU at N={N_SMALL}: rel {small['ssq']:.2e}, Wx-only "
+          f"{small['wx']:.2e}")
+    check(repeat, "ssq_cwt gradient differs between two runs")
+    check(small["ssq"] < 5e-3 and small["wx"] < 1e-4,
+          f"ssq_cwt gradient GPU vs CPU: {small}")
+
+    # 14. the STFT family's gradients
+    win, dwin = get_window(None, N_FFT, N_FFT, derivative=True,
+                           dtype="float32")
+    xp = padsignal(x, "reflect", padlength=N + N_FFT - 1)
+    adj = {}
+    for rows, K, fs in ((600, _k_t(_win_bytes(win), None, N_FFT, True, dev),
+                         None),
+                        (1200, _k_t(_win_bytes(win), _win_bytes(dwin), N_FFT,
+                                    True, dev), 1.0)):
+        g = seeded((rows, N))
+        xk, xq = (xp.detach().clone().requires_grad_() for _ in range(2))
+        gk, = torch.autograd.grad(stft_cuda.stft_dft(xk, K, N_FFT, N, fs=fs),
+                                  xk, g)
+        gq, = torch.autograd.grad(stft_cuda.stft_dft_plain(
+            xq, K, N_FFT, N, fs=fs), xq, g)
+        adj[f"F {rows} rows"] = rel(torch, gk, gq)
+    S = stft(x, n_fft=N_FFT)
+    Fr, Fs = _irfft_mats_weighted(N_FFT, True, _win_bytes(win), 1, dev)
+    g = seeded((N + N_FFT - 1,))
+    hk = [S.real.contiguous().requires_grad_(),
+          S.imag.contiguous().requires_grad_()]
+    hq = [t.detach().clone().requires_grad_() for t in hk]
+    gk = torch.autograd.grad(stft_cuda.istft_ola(*hk, Fr, Fs, N_FFT), hk, g)
+    gq = torch.autograd.grad(stft_cuda.istft_ola_plain(*hq, Fr, Fs, N_FFT),
+                             hq, g)
+    adj["H"] = max(rel(torch, a, b) for a, b in zip(gk, gq))
+    del g, hk, hq, gk, gq, xk, xq
+    for key, r in adj.items():
+        check(r < 2e-6, f"{key} adjoint vs plain: rel {r:.3e}")
+
+    nf = N_FFT // 2 + 1
+    ssq_freqs = np.linspace(0, 0.5, nf, dtype=np.float32)
+
+    def stft_grad(x0):
+        xg = x0.detach().clone().requires_grad_()
+        sq(stft(xg, n_fft=N_FFT)).backward()
+        return xg.grad
+
+    def istft_grad(S0):
+        Sg = S0.detach().clone().requires_grad_()
+        (istft(Sg, n_fft=N_FFT, N=S0.shape[-1]) ** 2).sum().backward()
+        return torch.view_as_real(Sg.grad)
+
+    def ssq_grad(x0, **kw):
+        xg = x0.detach().clone().requires_grad_()
+        Tx, Sx, *_ = ssq_stft(xg, n_fft=N_FFT, **kw)
+        (sq(Tx) + sq(Sx)).backward()
+        return xg.grad
+
+    # inputs: (at N, two signals at N_SMALL on the GPU, the same on the CPU)
+    sig = (x, torch.as_tensor(xs, device=dev), torch.as_tensor(xs))
+    S_small = stft(sig[2], n_fft=N_FFT)
+    spec = (S, S_small.to(dev), S_small)
+    entries = {
+        "stft": (stft_grad, sig, dict(stft_dft=1, istft_ola=1), 1e-4),
+        "istft": (istft_grad, spec, dict(istft_ola=1, stft_dft=1), 1e-4),
+        "ssq_stft": (ssq_grad, sig, dict(ssq_stft=1, stft_dft=1,
+                                         reassign4_bwd=1, istft_ola=1), 5e-3),
+        "ssq_stft(ssq_freqs)": (lambda x0: ssq_grad(x0, ssq_freqs=ssq_freqs),
+                                sig, dict(stft_dft=1, reassign4=1,
+                                          reassign4_bwd=1, istft_ola=1),
+                                5e-3),
+    }
+    zero_counts()
+    fam, line = {}, []
+    for key, (fn, inputs, expect, bar) in entries.items():
+        g1, moved = moved_by(lambda: fn(inputs[0]))
+        check(moved == expect, f"{key} grad: launches moved by {moved}, "
+              f"expected {expect}")
+        check(bool(torch.isfinite(g1).all()), f"{key} grad: not finite")
+        fam[key] = dict(launches=moved)
+    launches_c4 = counts()["reassign4_bwd"]
+    for key, (fn, inputs, expect, bar) in entries.items():
+        g1 = fn(inputs[0])
+        repeat = torch.equal(fn(inputs[0]), g1)
+        del g1
+        ms, steady = host_ms(torch, lambda: fn(inputs[0]))
+        _, peak, base = peak_gb(torch, lambda: fn(inputs[0]))
+        small_rel = rel(torch, fn(inputs[1]).cpu(), fn(inputs[2]))
+        fam[key].update(bitwise=repeat, ms=ms, steady_ms=steady, peak_gb=peak,
+                        base_gb=base, small_rel=small_rel)
+        line.append(f"{key} {ms:.2f} ms peak {peak:.2f} GB repeat={repeat} "
+                    f"GPU vs CPU {small_rel:.2e}")
+        check(repeat, f"{key} gradient differs between two runs")
+        check(small_rel < bar, f"{key} gradient GPU vs CPU rel "
+              f"{small_rel:.2e} >= {bar}")
+    results["grad_stft"] = dict(adjoint_rel=adj, entries=fam)
+    print(f"[14] STFT family grads N={N} n_fft={N_FFT}: adjoints vs plain "
+          + ", ".join(f"{k} {v:.2e}" for k, v in adj.items()) + "; "
+          + "; ".join(line) + f"; launches "
+          + ", ".join(f"{k} {v['launches']}" for k, v in fam.items())
+          + f" ({card})")
+
+    src = "ssqueeze_rs_tpu_torch/csrc/reassign_bwd.cu"
+    tpu = "ssqueeze_rs_tpu/ops/reassign_pallas.py:485"
+    return [
+        {"name": "reassign_bwd", "route": "cuda", "source": src,
+         "replaces": tpu, "launches": launches_c,
+         "max_abs_err": C["C"]["max_abs_err"], "ms": C["C"]["ms"],
+         "plain_ms": C["C"]["plain_ms"]},
+        {"name": "reassign4_bwd", "route": "cuda", "source": src,
+         "replaces": tpu, "launches": launches_c4,
+         "max_abs_err": C["C' nf=300"]["max_abs_err"],
+         "ms": C["C' nf=300"]["ms"], "plain_ms": C["C' nf=300"]["plain_ms"]},
     ]
 
 

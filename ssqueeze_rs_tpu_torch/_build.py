@@ -40,6 +40,9 @@ _SIGNATURES = {
     "ssq_stft_fused": [_P, _P, _I, _LL, _I, _I, _I, _LL, _F, _P, _P, _F, _I,
                        _I] + _PLAN + [_I, _P, _P, _P, _P, _P],
     "ssq_istft_ola": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _P, _P, _P],
+    "ssq_reassign_bwd": [_P, _P, _I, _I, _LL, _I, _I, _I] + _PLAN + [_P] * 5,
+    "ssq_reassign4_bwd": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
+                         _PLAN + [_P] * 5,
 }
 
 _LIB = None

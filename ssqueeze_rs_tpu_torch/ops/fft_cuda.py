@@ -6,14 +6,18 @@
 launches the hand-written kernel (``csrc/cwt_phase.cu``) or raises; on a
 CPU tensor it runs `cwt_phase_plain`, the same function in plain torch.
 `LAUNCHES` counts kernel launches, so a run can show that it went
-through the kernel.
+through the kernel. It is differentiable (`CwtPhaseFn`) with the JAX
+package's gradient (`_cwt_fused_bwd`, phase mode): `cwt_phase_vjp`, plain
+torch on either device, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-__all__ = ["cwt_phase", "cwt_phase_plain", "best_split", "LAUNCHES"]
+__all__ = ["cwt_phase", "cwt_phase_plain", "cwt_phase_vjp", "CwtPhaseFn",
+           "best_split", "LAUNCHES"]
 
 LAUNCHES = 0
 _TWO_PI = 6.283185307179586
@@ -49,6 +53,13 @@ def _f32(a, device):
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()    # torch would share a buffer it may not write
     return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def _zeros_for(ctx, pairs):
+    """The zero cotangents a backward returns for the inputs (index,
+    tensor) that ask for one (the JAX VJPs return zeros for them)."""
+    return [torch.zeros_like(t) if ctx.needs_input_grad[i] else None
+            for i, t in pairs]
 
 
 def _prepare(Pw, xr, xi, xig, nyq_w, nyq_d):
@@ -134,6 +145,81 @@ def _cwt_phase_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, gamma):
     return owr, owi, ow
 
 
+def cwt_phase_vjp(Pw, xr, xi, gwr, gwi, keep, need_pw=True):
+    """Adjoint of `cwt_phase`'s (Wxr, Wxi) outputs (the JAX package's
+    `_cwt_fused_bwd`, phase mode: the derivative pipe and the phase plane
+    get zero cotangent). Per row: the cotangent zero-filled outside the
+    kept window, `torch.fft.fft` / M (the adjoint of the inverse DFT),
+    bins [0, M/2) to Z and bin M/2 to the Nyquist value; then the adjoint
+    of Z = Pw * x: gx = sum_i gZ * Pw, gPw = sum_b (gZr*xr + gZi*xi)
+    (only if `need_pw`). Rows go in chunks, as the forward's, so the
+    (rows, M) cotangent spectrum is never whole; each signal's and each
+    row's sums are taken in a fixed order. Returns (gPw or None, gxr, gxi,
+    gnyq_r, gnyq_i)."""
+    na, K1, M2 = Pw.shape
+    b = xr.shape[0]
+    half = K1 * M2
+    M = 2 * half
+    start, L = keep
+    rchunk = max(1, min(na, _Y_BYTES // (2 * M * 8)))
+    Pf = Pw.reshape(na, half)
+    xrf, xif = xr.reshape(b, half), xi.reshape(b, half)
+    gxr, gxi = torch.zeros_like(xrf), torch.zeros_like(xif)
+    gPw = torch.zeros_like(Pf) if need_pw else None
+    gnr = torch.empty((b * na,), dtype=torch.float32, device=Pw.device)
+    gni = torch.empty_like(gnr)
+    for bi in range(b):
+        for i0 in range(0, na, rchunk):
+            i1 = min(na, i0 + rchunk)
+            r0, r1 = bi * na + i0, bi * na + i1
+            g = torch.zeros((i1 - i0, M), dtype=torch.complex64,
+                            device=Pw.device)
+            g[:, start:start + L] = torch.complex(gwr[r0:r1], gwi[r0:r1])
+            spec = torch.fft.fft(g, dim=-1, norm="forward")
+            del g
+            gZr, gZi = spec.real[:, :half], spec.imag[:, :half]
+            gnr[r0:r1] = spec.real[:, half]
+            gni[r0:r1] = spec.imag[:, half]
+            P = Pf[i0:i1]
+            gxr[bi] += (gZr * P).sum(0)
+            gxi[bi] += (gZi * P).sum(0)
+            if need_pw:
+                gPw[i0:i1] += gZr * xrf[bi] + gZi * xif[bi]
+    return (gPw.reshape(na, K1, M2) if need_pw else None,
+            gxr.reshape(b, K1, M2), gxi.reshape(b, K1, M2), gnr, gni)
+
+
+class CwtPhaseFn(torch.autograd.Function):
+    """Kernel A with the JAX package's gradient (`_cwt_fused_vjp`, phase
+    mode): the backward is `cwt_phase_vjp` (plain torch); w is not
+    differentiable, and the grid, 1/dt and the derivative pipe's Nyquist
+    values get zero. Saves Pw and the signal planes (the JAX residuals)."""
+
+    @staticmethod
+    def forward(ctx, Pw, xr, xi, xig, nwr, nwi, ndr, ndi, inv_dt, keep,
+                gamma):
+        ctx.save_for_backward(Pw, xr, xi, xig, ndr, ndi)
+        ctx.keep = keep
+        nyq = (nwr, nwi, ndr, ndi)
+        if Pw.device.type == "cuda":
+            out = _cwt_phase_cuda(Pw.device, Pw, xr, xi, xig, inv_dt, nyq,
+                                  keep, gamma)
+        else:
+            out = cwt_phase_plain(Pw, xr, xi, xig, inv_dt, nyq[:2], nyq[2:],
+                                  keep, gamma)
+        ctx.mark_non_differentiable(out[2])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gwr, gwi, _):
+        Pw, xr, xi, xig, ndr, ndi = ctx.saved_tensors
+        gPw, gxr, gxi, gnr, gni = cwt_phase_vjp(
+            Pw, xr, xi, gwr, gwi, ctx.keep, need_pw=ctx.needs_input_grad[0])
+        return (gPw, gxr, gxi, *_zeros_for(ctx, [(3, xig)]), gnr, gni,
+                *_zeros_for(ctx, [(6, ndr), (7, ndi)]), None, None, None)
+
+
 def cwt_phase(Pw, xr, xi, xig, inv_dt, nyq_w, nyq_d, keep, gamma):
     """Fused CWT core with the phase epilogue.
 
@@ -144,12 +230,9 @@ def cwt_phase(Pw, xr, xi, xig, inv_dt, nyq_w, nyq_d, keep, gamma):
     dWx spectra; keep: (start, L) output window; gamma: mask threshold.
     Returns (Wxr, Wxi, w), each (b*na, L), rows b-major, with
     w = |Im(dWx/Wx)|/2pi and +inf where |Wx| <= gamma. Arrays may be
-    numpy (they go to the CPU) or tensors."""
+    numpy (they go to the CPU) or tensors. Differentiable in Pw, the
+    signal planes and the Wx Nyquist values (`CwtPhaseFn`)."""
     device, Pw, xr, xi, xig, nyq = _prepare(Pw, xr, xi, xig, nyq_w, nyq_d)
-    if device.type == "cuda":
-        return _cwt_phase_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep,
-                               gamma)
-    if device.type == "cpu":
-        return cwt_phase_plain(Pw, xr, xi, xig, inv_dt, nyq[:2], nyq[2:],
-                               keep, gamma)
-    raise ValueError(f"cwt_phase: unsupported device {device}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"cwt_phase: unsupported device {device}")
+    return CwtPhaseFn.apply(Pw, xr, xi, xig, *nyq, inv_dt, keep, gamma)

@@ -9,21 +9,31 @@ Pallas body is `_make_kernel`), in its two input contracts:
 
 Both dispatch on the device of their inputs: on a CUDA tensor they
 launch the hand-written kernel (``csrc/reassign.cu``) or raise; on a CPU
-tensor they run their plain-torch versions. `LAUNCHES` (B) and
-`LAUNCHES4` (B') count kernel launches.
+tensor they run their plain-torch versions. Both are differentiable with
+the JAX package's gradient semantics (`ReassignFn`, `Reassign4Fn`): the
+backward is the VJP gather C / C' (`reassign_bwd`, `reassign4_bwd`,
+``csrc/reassign_bwd.cu``; counterpart of `_make_bwd_kernel`), which
+dispatches the same way. `LAUNCHES` (B), `LAUNCHES4` (B'), `LAUNCHES_BWD`
+(C) and `LAUNCHES4_BWD` (C') count kernel launches.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-from .fft_cuda import _device_of, _f32
+from .fft_cuda import _device_of, _f32, _zeros_for
 
 __all__ = ["reassign", "reassign_plain", "reassign4", "reassign4_plain",
-           "phase_w", "bin_indices", "LAUNCHES", "LAUNCHES4"]
+           "reassign_bwd", "reassign_bwd_plain", "reassign4_bwd",
+           "reassign4_bwd_plain", "ReassignFn", "Reassign4Fn", "phase_w",
+           "bin_indices", "LAUNCHES", "LAUNCHES4", "LAUNCHES_BWD",
+           "LAUNCHES4_BWD"]
 
 LAUNCHES = 0
 LAUNCHES4 = 0
+LAUNCHES_BWD = 0
+LAUNCHES4_BWD = 0
 MODES = {"log": 0, "log-piecewise": 1, "lin": 2}
 TRANSFORMS = {"cwt": 0, "stft": 1}
 _PARAM_ORDER = {"log": ("vlmin", "dvl"),
@@ -140,25 +150,117 @@ def reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf):
     return txr.scatter_add_(-2, k, vr), txi.scatter_add_(-2, k, vi)
 
 
-def _launch(entry, device, planes, vecs, ints, plan, nf, what):
-    """Common launch of the two C entry points: planes (..., na, n) and
-    per-row vectors, outputs (..., nf, n)."""
+def reassign_bwd_plain(w, const, gr, gi, plan_params, mode, flipud, nf):
+    """Plain-torch kernel C: gW[i,j] = gTx[k(i,j), j] * const[i] with
+    `torch.gather`, 0 where masked. gr/gi: (..., nf, n) cotangents of Tx.
+    Returns (gWr, gWi), each (..., na, n)."""
+    k = bin_indices(w, mode, plan_params, flipud, nf)
+    mask = k >= 0
+    k = torch.where(mask, k, torch.zeros_like(k))
+    c = const[:, None]
+    zero = torch.zeros((), dtype=gr.dtype, device=gr.device)
+    return (torch.where(mask, torch.gather(gr, -2, k) * c, zero),
+            torch.where(mask, torch.gather(gi, -2, k) * c, zero))
+
+
+def reassign4_bwd_plain(wr, wi, dr, di, const, Sfs, gr, gi, gamma,
+                        plan_params, mode, flipud, nf, transform):
+    """Plain-torch kernel C': `phase_w`, then `reassign_bwd_plain`."""
+    w = phase_w(wr, wi, dr, di, Sfs, gamma, transform)
+    return reassign_bwd_plain(w, const, gr, gi, plan_params, mode, flipud, nf)
+
+
+def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None):
+    """Common launch of the four C entry points: planes (..., na, n) and
+    per-row vectors in. The forward ones (B, B'; `grads` None) take the
+    columns per block and write (Txr, Txi), each (..., nf, n); the
+    backward ones (C, C') read the cotangents `grads` = (gr, gi), each
+    (..., nf, n), and write (gWr, gWi), each (..., na, n)."""
     from .. import _build
+    device = planes[0].device
     na, n = planes[0].shape[-2:]
     batch = planes[0].shape[:-2]
     B = int(np.prod(batch)) if batch else 1
-    cols = _block_cols(nf)
     planes = [t.contiguous() for t in planes]
     vecs = [t.contiguous() for t in vecs]
-    txr, txi = (torch.empty(batch + (nf, n), dtype=torch.float32,
-                            device=device) for _ in range(2))
+    if grads is None:
+        mid, rows = [_block_cols(nf)], nf
+    else:
+        grads = [_f32(g, device).contiguous() for g in grads]
+        if any(g.shape != batch + (nf, n) for g in grads):
+            raise ValueError(f"{what}: cotangents " +
+                             ", ".join(str(tuple(g.shape)) for g in grads) +
+                             f" are not {batch + (nf, n)}")
+        mid, rows = [g.data_ptr() for g in grads], na
+    outs = [torch.empty(batch + (rows, n), dtype=torch.float32,
+                        device=device) for _ in range(2)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(_build.lib())(
             *(t.data_ptr() for t in planes + vecs), B, na, n, nf, *ints,
-            *plan, cols, txr.data_ptr(), txi.data_ptr(), stream)
+            *plan, *mid, *(o.data_ptr() for o in outs), stream)
     _build.check(err, what)
-    return txr, txi
+    return tuple(outs)
+
+
+def _reassign_dispatch(device, wr, wi, w, const, plan_params, mode, flipud,
+                       nf):
+    global LAUNCHES
+    if device.type == "cuda":
+        plan = _plan_floats(mode, plan_params)
+        out = _launch(lambda lib: lib.ssq_reassign, [wr, wi, w], [const],
+                      [MODES[mode], int(bool(flipud))], plan, nf,
+                      "reassign kernel")
+        LAUNCHES += 1
+        return out
+    if device.type == "cpu":
+        return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
+    raise ValueError(f"reassign: unsupported device {device}")
+
+
+def reassign_bwd(w, const, gr, gi, plan_params, mode, flipud, nf):
+    """VJP gather of the 3-plane reassignment (kernel C): (gWr, gWi),
+    each (..., na, n), from the cotangents gr/gi (..., nf, n) of (Txr,
+    Txi); gW[i,j] = gTx[k(i,j), j] * const[i] with the bins of `reassign`,
+    0 where masked. On a CUDA tensor it launches the kernel or raises; on
+    a CPU tensor it runs `reassign_bwd_plain`."""
+    global LAUNCHES_BWD
+    device = _device_of(w)
+    w, const = _f32(w, device), _f32(const, device)
+    if device.type == "cuda":
+        out = _launch(lambda lib: lib.ssq_reassign_bwd, [w], [const],
+                      [MODES[mode], int(bool(flipud))],
+                      _plan_floats(mode, plan_params), nf,
+                      "reassign_bwd kernel", grads=(gr, gi))
+        LAUNCHES_BWD += 1
+        return out
+    if device.type == "cpu":
+        return reassign_bwd_plain(w, const, _f32(gr, device),
+                                  _f32(gi, device), plan_params, mode,
+                                  flipud, nf)
+    raise ValueError(f"reassign_bwd: unsupported device {device}")
+
+
+class ReassignFn(torch.autograd.Function):
+    """Kernel B with the JAX package's gradient (`_reassign_with_vjp`,
+    phase_in): the bins are piecewise constant, so the cotangent reaches
+    Wx only, through kernel C; w and const get zero. Saves w and const,
+    as the JAX residuals do (no bin plane: C recomputes the bins)."""
+
+    @staticmethod
+    def forward(ctx, wr, wi, w, const, plan_params, mode, flipud, nf):
+        ctx.save_for_backward(w, const)
+        ctx.plan = (plan_params, mode, flipud, nf)
+        return _reassign_dispatch(w.device, wr, wi, w, const, plan_params,
+                                  mode, flipud, nf)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        w, const = ctx.saved_tensors
+        gwr, gwi = reassign_bwd(w, const, gr, gi, *ctx.plan)
+        return (gwr, gwi, *_zeros_for(ctx, [(2, w), (3, const)]),
+                None, None, None, None)
 
 
 def reassign(wr, wi, w, const, plan_params, mode, flipud, nf):
@@ -169,19 +271,9 @@ def reassign(wr, wi, w, const, plan_params, mode, flipud, nf):
     bin constants from `bin_params` for `mode` ('log', 'log-piecewise',
     'lin'); flipud: reverse the bin order; nf: number of frequency rows.
     Returns (Txr, Txi), each (..., nf, n). Arrays may be numpy (they go to
-    the CPU) or tensors."""
-    global LAUNCHES
-    device, wr, wi, w, const = _prepare(wr, wi, w, const)
-    if device.type == "cuda":
-        plan = _plan_floats(mode, plan_params)
-        out = _launch(lambda lib: lib.ssq_reassign, device, [wr, wi, w],
-                      [const], [MODES[mode], int(bool(flipud))], plan, nf,
-                      "reassign kernel")
-        LAUNCHES += 1
-        return out
-    if device.type == "cpu":
-        return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
-    raise ValueError(f"reassign: unsupported device {device}")
+    the CPU) or tensors. Differentiable (`ReassignFn`: kernel C on CUDA)."""
+    _, wr, wi, w, const = _prepare(wr, wi, w, const)
+    return ReassignFn.apply(wr, wi, w, const, plan_params, mode, flipud, nf)
 
 
 def _prepare4(wr, wi, dr, di, const, Sfs):
@@ -209,23 +301,13 @@ def reassign4_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
     return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
 
 
-def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
-              nf, transform):
-    """Synchrosqueezing reassignment from Wx and dWx (kernel B').
-
-    wr/wi, dr/di: (..., na, n) Wx and dWx planes; const, Sfs: (na,) row
-    normalization and row frequencies (Sfs is read for 'stft' only);
-    gamma: entries with |Wx|^2 <= gamma^2 are masked; transform: 'stft'
-    (w = |Sfs - Im(dWx/Wx)/2pi|) or 'cwt' (w = |Im(dWx/Wx)/2pi|); the rest
-    as `reassign`. Returns (Txr, Txi), each (..., nf, n)."""
+def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
+                        plan_params, mode, flipud, nf, transform):
     global LAUNCHES4
-    _check_transform(transform)
-    device, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const,
-                                                   Sfs)
     if device.type == "cuda":
         plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
-        out = _launch(lambda lib: lib.ssq_reassign4, device,
-                      [wr, wi, dr, di], [const, Sfs],
+        out = _launch(lambda lib: lib.ssq_reassign4, [wr, wi, dr, di],
+                      [const, Sfs],
                       [TRANSFORMS[transform], MODES[mode],
                        int(bool(flipud))], plan, nf, "reassign4 kernel")
         LAUNCHES4 += 1
@@ -234,3 +316,69 @@ def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
         return reassign4_plain(wr, wi, dr, di, const, Sfs, gamma,
                                plan_params, mode, flipud, nf, transform)
     raise ValueError(f"reassign4: unsupported device {device}")
+
+
+def reassign4_bwd(wr, wi, dr, di, const, Sfs, gr, gi, gamma, plan_params,
+                  mode, flipud, nf, transform):
+    """VJP gather of the 4-plane reassignment (kernel C'): as
+    `reassign_bwd`, with the bins of `reassign4` (w and the mask formed
+    from Wx and dWx)."""
+    global LAUNCHES4_BWD
+    _check_transform(transform)
+    device, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const,
+                                                   Sfs)
+    if device.type == "cuda":
+        plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
+        out = _launch(lambda lib: lib.ssq_reassign4_bwd, [wr, wi, dr, di],
+                      [const, Sfs], [TRANSFORMS[transform], MODES[mode],
+                                     int(bool(flipud))], plan, nf,
+                      "reassign4_bwd kernel", grads=(gr, gi))
+        LAUNCHES4_BWD += 1
+        return out
+    if device.type == "cpu":
+        return reassign4_bwd_plain(wr, wi, dr, di, const, Sfs,
+                                   _f32(gr, device), _f32(gi, device), gamma,
+                                   plan_params, mode, flipud, nf, transform)
+    raise ValueError(f"reassign4_bwd: unsupported device {device}")
+
+
+class Reassign4Fn(torch.autograd.Function):
+    """Kernel B' with the JAX package's gradient (`_reassign_with_vjp`, 4
+    planes): the cotangent reaches Wx only, through kernel C'; dWx, const
+    and Sfs get zero. Saves the four planes, const and Sfs (the JAX
+    residuals)."""
+
+    @staticmethod
+    def forward(ctx, wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
+                flipud, nf, transform):
+        ctx.save_for_backward(wr, wi, dr, di, const, Sfs)
+        ctx.plan = (gamma, plan_params, mode, flipud, nf, transform)
+        return _reassign4_dispatch(wr.device, wr, wi, dr, di, const, Sfs,
+                                   gamma, plan_params, mode, flipud, nf,
+                                   transform)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gi):
+        wr, wi, dr, di, const, Sfs = ctx.saved_tensors
+        gwr, gwi = reassign4_bwd(wr, wi, dr, di, const, Sfs, gr, gi,
+                                 *ctx.plan)
+        return (gwr, gwi, *_zeros_for(ctx, [(2, dr), (3, di), (4, const),
+                                            (5, Sfs)]),
+                None, None, None, None, None, None)
+
+
+def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
+              nf, transform):
+    """Synchrosqueezing reassignment from Wx and dWx (kernel B').
+
+    wr/wi, dr/di: (..., na, n) Wx and dWx planes; const, Sfs: (na,) row
+    normalization and row frequencies (Sfs is read for 'stft' only);
+    gamma: entries with |Wx|^2 <= gamma^2 are masked; transform: 'stft'
+    (w = |Sfs - Im(dWx/Wx)/2pi|) or 'cwt' (w = |Im(dWx/Wx)/2pi|); the rest
+    as `reassign`. Returns (Txr, Txi), each (..., nf, n). Differentiable
+    (`Reassign4Fn`: kernel C' on CUDA)."""
+    _check_transform(transform)
+    _, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const, Sfs)
+    return Reassign4Fn.apply(wr, wi, dr, di, const, Sfs, gamma, plan_params,
+                             mode, flipud, nf, transform)

@@ -15,8 +15,9 @@
     product (or irfft) and a deterministic overlap-add run in torch.
 
 Rows are frequencies, columns time: Sx is (..., n_fft//2 + 1, n_segs).
-float64 and gradients on CUDA raise NotImplementedError naming their
-ROADMAP item.
+Both directions are differentiable on either device (kernels F and H are
+each other's adjoint, `stft_cuda.StftDftFn` / `IstftOlaFn`). float64
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 

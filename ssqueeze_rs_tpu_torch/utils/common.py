@@ -36,17 +36,13 @@ def unported(what, item):
 
 def as_signal(x, device=None):
     """x as a tensor on `device` (default: x's own device, or the CPU for
-    array input). A tensor that requires grad on CUDA is refused: the
-    kernels have no backward yet."""
+    array input); a tensor stays in its autograd graph."""
     if isinstance(x, torch.Tensor):
         device = torch.device(device) if device is not None else x.device
     else:
         a = np.asarray(x)
         x = torch.as_tensor(a if a.flags.writeable else a.copy())
         device = torch.device(device if device is not None else "cpu")
-    if x.requires_grad and device.type == "cuda":
-        unported("requires_grad input on CUDA",
-                 "Queue 1 item 5 and Queue 2 C, the backward kernels")
     return x.to(device)
 
 

@@ -32,7 +32,8 @@ def test_library_name_follows_source_content(src_tree):
 
 
 @pytest.mark.parametrize("name", ["bins.cuh", "dft_tile.cuh", "stft_dft.cu",
-                                  "ssq_stft.cu", "istft_ola.cu"])
+                                  "ssq_stft.cu", "istft_ola.cu",
+                                  "reassign_bwd.cu"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -53,7 +54,8 @@ def test_entry_points_have_signatures():
             assert name in _build._SIGNATURES, name
             assert len(_build._SIGNATURES[name]) == params.count(",") + 1, name
     assert {"ssq_reassign4", "ssq_stft_dft", "ssq_stft_fused",
-            "ssq_istft_ola"} <= set(_build._SIGNATURES)
+            "ssq_istft_ola", "ssq_reassign_bwd",
+            "ssq_reassign4_bwd"} <= set(_build._SIGNATURES)
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

@@ -163,11 +163,16 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_inverse_and_grad_raise():
-    """Gradients on CUDA still raise; the component inversion (cc/cw) is
-    ported (tests/test_torch_ssq_stft.py holds it to the JAX package)."""
+    """The component inversion (cc/cw) is ported
+    (tests/test_torch_ssq_stft.py holds it to the JAX package), and a
+    signal that requires grad gets a finite gradient through ssq_cwt
+    (tests/test_torch_grad.py holds it to jax.grad)."""
     Tx = torch.zeros((4, 16), dtype=torch.complex64)
     x = issq_cwt(Tx, cc=np.zeros(16, int), cw=np.ones(16, int))
     assert x.shape == (2, 16)
-    x = torch.zeros(1000, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssq_cwt(x, device="cuda")
+    x = torch.tensor(np.random.default_rng(0).standard_normal(1000),
+                     dtype=torch.float32, requires_grad=True)
+    Tx, Wx, *_ = ssq_cwt(x, "gmw", nv=8)
+    ((Tx.abs() ** 2).sum() + (Wx.abs() ** 2).sum()).backward()
+    assert x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all())
+    assert bool(x.grad.abs().max() > 0)

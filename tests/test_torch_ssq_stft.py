@@ -174,12 +174,16 @@ def test_component_inversion_matches_jax(which):
 
 
 def test_unported_raise():
-    """float64 and gradients on CUDA are refused, naming their ROADMAP
-    item (the CUDA check comes before anything touches the card)."""
+    """float64 is refused, naming its ROADMAP item; a signal that requires
+    grad stays in its graph and gets a finite gradient through ssq_stft
+    (tests/test_torch_grad.py holds it to jax.grad)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssq_stft(_signal(), n_fft=N_FFT, dtype="float64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssqueeze(np.zeros((5, 40), np.complex128), w=np.zeros((5, 40)),
                  ssq_freqs=np.linspace(0, 1, 5), transform="stft")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        as_signal(torch.zeros(100, requires_grad=True), device="cuda")
+    x = torch.tensor(_signal(), requires_grad=True)
+    assert as_signal(x) is x
+    Tx, Sx, *_ = ssq_stft(x, n_fft=N_FFT, fs=FS)
+    ((Tx.abs() ** 2).sum() + (Sx.abs() ** 2).sum()).backward()
+    assert x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all())
