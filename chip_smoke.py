@@ -8,7 +8,9 @@ configuration: N = 160 000 float32 samples, default GMW, log-piecewise
 scales cut to the first 300 (293 rows), maprange='peak', trig phase,
 sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
 `issq_stft`) at the benchmark's STFT width: N = 160 000, n_fft = 598
-(300 frequency rows), hop 1, the default window. Phases, one line each:
+(300 frequency rows), hop 1, the default window; then the CWT family
+(`cwt`, `icwt`, the `ssq_cwt` routes through the dWx planes) at the
+ssq_cwt widths. Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
   2. build every kernel from csrc/ with nvcc, or load the library the
@@ -59,10 +61,29 @@ sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
      (G, then F, C', H) and ssq_stft with given ssq_freqs (F and B', then
      C' and H), each with its launch counts, finite and bitwise repeated,
      timed with its peak memory; device against CPU at N = 20 000
+ 15. kernels D (cwt_fused) and E (ifft_halfband) against their plain
+     versions (each plane within 1e-5 of its largest value), bitwise
+     repeat, timed beside their bound and torch.fft.ifft of the same
+     (rows, M) spectrum: D at the cwt headline with the derivative off
+     and on, D at M = 2^21 (N = 1 000 000, the first 64 scales, with the
+     derivative), E on the complex-psih headline (bump, om = 0.5, 318 rows)
+ 16. three requests through cwt (D once), cwt(derivative) (D once), the
+     bump cwt (E once), ssq_cwt(get_dWx) and ssq_cwt(squeezing='lebesgue')
+     (D and B' once each): outputs finite on the GPU, the sine's cwt ridge
+     (Im(dWx/Wx)/2pi on the strongest row) and ssq_cwt peak within 1 % of
+     100 Hz, icwt(cwt(x)) of the sine with mad_rms < 0.02; steady times;
+     cwt's device time by kernel (torch.profiler) and idle share; device
+     against CPU for two signals at N = 20 000
+ 17. the gradient of cwt at the headline, loss sum|Wx|^2 + sum|dWx|^2: D
+     once per call, finite, bitwise repeat, forward+backward time and peak
+     memory, device against CPU at N = 20 000 within 1e-4
 
 Any failed check raises and exits non-zero. The last three lines are a
-JSON object of the kernels' numbers, the card's name and power limit, and
-`{"ok": true, "device": ...}`.
+JSON object of the ten kernels' numbers (each with its launches on its
+path, its time, its plain version's, its bound from the bytes it must
+move and the operations it must do at the card's published rates, and
+the time of one PyTorch call computing the same function where there is
+one), the card's name and power limit, and `{"ok": true, "device": ...}`.
 Full results also go to chiprun_out/chip_smoke.json.
 """
 import json
@@ -76,6 +97,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 N = 160_000
 N_SMALL = 20_000    # M = 2^15 = 128 x 256: an unequal split
 N_FFT = 598         # the benchmark's STFT width (bench.py): 300 rows
+N_LARGE = 1_000_000  # M = 2^21, the largest M the JAX CWT kernels took
 
 
 class SmokeFailure(Exception):
@@ -117,6 +139,82 @@ def rel(torch, a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def where_off(torch, a, b, bar=1e-5):
+    """Where a is off b by more than bar * max|b| (for a failure message):
+    the count, and the spans of the offending indices per dimension."""
+    off = ((a - b).abs() > bar * b.abs().max()).nonzero()
+    if not len(off):
+        return "nowhere"
+    spans = ", ".join(f"dim {d}: {int(col.min())}..{int(col.max())}"
+                      for d, col in enumerate(off.T))
+    return f"{len(off)} entries ({spans})"
+
+
+# The card's published rates (NVIDIA H100 SXM data sheet, at 700 W): the
+# least time a kernel could take is the larger of its bytes (each input
+# read once, each output written once) over the memory rate and its
+# float32 operations over the CUDA cores' float32 peak.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+
+
+def tensor_bytes(*objs):
+    """Bytes of every tensor among `objs` (nested tuples/lists walked)."""
+    import torch
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+    return total
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by) of a kernel that must move `nbytes` and do
+    `flops` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fft_flops(rows, M):
+    """Operations of `rows` complex inverse FFTs of length M, by the
+    radix-2 count 5 M log2 M."""
+    return 5.0 * rows * M * (M.bit_length() - 1)
+
+
+# float32 operations per entry of the binning and scatter / gather kernels
+# (bin from w: a log2 or a product and a rounding; w from four planes; the
+# product and the two adds of the accumulation): far below their bytes
+BIN_FLOPS = 8
+BIN4_FLOPS = 16
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
+                 plain_ms, bnd, library_ms):
+    return {"name": name, "route": "cuda",
+            "source": "ssqueeze_rs_tpu_torch/csrc/" + source,
+            "replaces": "ssqueeze_rs_tpu/ops/" + replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms}
+
+
+def cpu_ref(torch, fn):
+    """fn() on one CPU thread: the plain-torch references the device is
+    held to. With the intra-op pool, about one process in ten had one
+    worker compute its share of the GMW filterbank ~4e-5 of max|Wx| off
+    (in that run only: a second call agreed with the device again to
+    2e-6), which the device-vs-CPU bars of 1e-5 caught."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(n)
+
+
 def host_ms(torch, fn, n=5):
     """Median host time of fn() in ms over n calls, each ending in a
     synchronize (after one untimed call)."""
@@ -141,6 +239,57 @@ def entry_metrics(torch, Tk, Tp):
     col = float((cs_k - cs_p).abs().max() / cs_p.abs().max())
     return (float(d.max()) / top, float((d <= 1e-5 * top).float().mean()),
             col, float(d.max()))
+
+
+def device_breakdown(torch, fn, groups, calls=3):
+    """Where the device time of fn() goes: torch.profiler over `calls`
+    steady calls (after one more), the CUDA kernels' self time summed by
+    the first of `groups` (name, substrings) whose substring is in the
+    kernel's name ("other" for the rest), per call in ms, with the wall
+    time per call and the device's idle share. None if the profiler sees
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    split = {name: 0.0 for name, _ in groups}
+    split["other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((name for name, subs in groups
+                    if any(s in e.key for s in subs)), "other")
+        split[key] += e.self_device_time_total / 1e3 / calls
+    device = sum(split.values())
+    if device == 0:
+        return None
+    return dict(wall_ms=wall, device_ms=device, split_ms=split,
+                idle=1 - device / wall)
+
+
+# kernel-name substrings of the profiled groups (first match wins)
+K_A = ("A", ("cwt_stage1", "cwt_stage2"))
+K_D = ("D", ("cwt_planes_stage1", "planes_stage2"))
+K_B = ("B", ("reassign_kernel",))
+K_C = ("C", ("reassign_bwd_kernel",))
+K_FFT = ("cuFFT", ("fft",))
+K_CPLX = ("torch.complex", ("complex_kernel",))
+K_PAD = ("pad", ("index",))
+
+
+def breakdown_line(prof):
+    if prof is None:
+        return "not measured"
+    return (f"wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} "
+            "ms (" + ", ".join(f"{k} {v:.2f}" for k, v in
+                               prof["split_ms"].items()) +
+            f"), idle {prof['idle']:.1%}")
 
 
 def tx_metrics(np, Tx, Tx_ref):
@@ -235,15 +384,18 @@ def main():
                                                     gamma=gamma))
     msA_plain = cuda_ms(torch, lambda: fft_cuda.cwt_phase_plain(
         *args, keep=keep, gamma=gamma))
+    boundA = bound(tensor_bytes(args, kA), 2 * fft_flops(len(sc), M))
     results["A"] = dict(wx_rel=errA, wx_abs=absA, w_rel_max=w_err,
                         w_within_1e4=w_ok, mask_agree=mask_agree,
                         chunks_equal=chunks_equal, ms=msA,
-                        plain_ms=msA_plain, rows=int(args[0].shape[0]))
+                        plain_ms=msA_plain, rows=int(args[0].shape[0]),
+                        bound_ms=boundA[0], bound_by=boundA[1])
     print(f"[3] kernel A: rows={args[0].shape[0]} M={xp.shape[-1]} "
           f"Wx rel={errA:.3e} w within 1e-4: {w_ok:.6f} (max rel "
           f"{w_err:.3e}) mask agree={mask_agree:.6f} chunked-equal="
           f"{chunks_equal} | {msA:.3f} ms vs "
-          f"plain {msA_plain:.3f} ms ({card})")
+          f"plain {msA_plain:.3f} ms, bound {boundA[0]:.3f} ms "
+          f"({boundA[1]}) ({card})")
     check(errA < 1e-5, f"kernel A Wx rel error {errA:.3e} >= 1e-5")
     check(w_ok >= 0.999, f"kernel A w: only {w_ok:.6f} within 1e-4")
     check(mask_agree >= 0.999, f"kernel A mask agreement {mask_agree}")
@@ -271,13 +423,14 @@ def main():
     same = float((Tk == Tp).float().mean())
     msB = cuda_ms(torch, lambda: reassign_cuda.reassign(*bargs))
     msB_plain = cuda_ms(torch, lambda: reassign_cuda.reassign_plain(*bargs))
+    boundB = bound(tensor_bytes(bargs, kB), BIN_FLOPS * kA[0].numel())
     results["B"] = dict(colsum_rel=errB, tx_abs=absB, tx_rel=relB,
                         equal_frac=same,
                         bitwise=bitwise, ms=msB, plain_ms=msB_plain, nf=nf,
-                        mode=mode)
+                        mode=mode, bound_ms=boundB[0], bound_by=boundB[1])
     print(f"[4] kernel B: nf={nf} mode={mode} Tx rel={relB:.3e} column-sum "
           f"rel={errB:.3e} Tx equal={same:.6f} bitwise-repeat={bitwise} | {msB:.3f} ms vs "
-          f"plain {msB_plain:.3f} ms ({card})")
+          f"plain {msB_plain:.3f} ms, bound {boundB[0]:.3f} ms ({card})")
     check(bitwise, "kernel B differs between two runs")
     check(errB < 1e-5, f"kernel B column-sum rel error {errB:.3e} >= 1e-5")
     check(relB <= 1e-5, f"kernel B Tx rel error {relB:.3e} > 1e-5: "
@@ -326,51 +479,68 @@ def main():
         steady.append((time.perf_counter() - t0) * 1e3)
     steady.sort()
     e2e_ms = steady[len(steady) // 2]
+    prof5 = device_breakdown(torch, lambda: ssq_cwt(
+        x_noise, wavelet, scales=scales, fs=1.0),
+        (K_A, K_B, K_FFT, K_CPLX, K_PAD))
 
     # the device result against the CPU plain-torch result, small batch
     xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
     xs = xs.astype(np.float32)
     g = ssq_cwt(torch.as_tensor(xs, device=dev), wavelet, fs=1000.0, nv=8)
-    c = ssq_cwt(torch.as_tensor(xs), wavelet, fs=1000.0, nv=8)
+    c = cpu_ref(torch, lambda: ssq_cwt(torch.as_tensor(xs), wavelet,
+                                       fs=1000.0, nv=8))
     wx_small = rel(torch, g[1].cpu(), c[1])
     col_small, tot_small = tx_metrics(np, g[0].cpu().numpy(), c[0].numpy())
 
     results["e2e"] = dict(request_ms=req_ms, steady_ms=steady, ms=e2e_ms,
                           msamples_s=N / e2e_ms / 1e3, sine_peak_hz=f_peak,
                           issq_mad_rms=mad_rms, launches=launches,
+                          profile=prof5,
                           small_wx_rel=wx_small, small_col_rel=col_small,
                           small_total_rel=tot_small)
     print(f"[5] ssq_cwt N={N}: requests {', '.join(f'{k} {v:.1f} ms' for k, v in req_ms.items())}; "
           f"steady {e2e_ms:.2f} ms = {N / e2e_ms / 1e3:.2f} MSamples/s ({card}); "
           f"launches {launches}; sine peak {f_peak:.3f} Hz; issq mad_rms "
-          f"{mad_rms:.3e}; GPU vs CPU at N={N_SMALL}: Wx rel {wx_small:.2e}, "
+          f"{mad_rms:.3e}; profile: {breakdown_line(prof5)}; GPU vs CPU at "
+          f"N={N_SMALL}: Wx rel {wx_small:.2e}, "
           f"col rel {col_small:.2e}, total rel {tot_small:.2e}")
     check(abs(f_peak - 100.0) <= 1.0, f"sine peak at {f_peak} Hz, not 100")
     check(launches == {"cwt_phase": 3, "reassign": 3},
           f"launch counts {launches}")
-    check(wx_small < 1e-5, f"GPU vs CPU Wx rel {wx_small:.2e}")
+    if wx_small >= 1e-5:
+        # before failing: where, and whether each side repeats itself
+        g2 = ssq_cwt(torch.as_tensor(xs, device=dev), wavelet, fs=1000.0,
+                     nv=8)
+        c2 = cpu_ref(torch, lambda: ssq_cwt(torch.as_tensor(xs), wavelet,
+                                            fs=1000.0, nv=8))
+        check(False, f"GPU vs CPU Wx rel {wx_small:.2e}, off at "
+              f"{where_off(torch, g[1].cpu(), c[1])}; GPU again vs CPU "
+              f"{rel(torch, g2[1].cpu(), c[1]):.2e}, GPU again vs GPU "
+              f"{rel(torch, g2[1], g[1]):.2e}, CPU again vs CPU "
+              f"{rel(torch, c2[1], c[1]):.2e}")
     check(col_small < 1e-4 and tot_small < 1e-5,
           f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
 
+    del kA_chunked, pB, Tk, Tp, kB2
     stft_kernels = stft_phases(np, torch, dev, card, results)
-    grad_kernels = grad_phases(np, torch, dev, card, results, dict(
-        requests=requests, wavelet=wavelet, scales=scales, w=kA[2],
-        const=const, params=params, mode=mode, nf=nf))
+    ctx = dict(requests=requests, wavelet=wavelet, scales=scales, w=kA[2],
+               const=const, params=params, mode=mode, nf=nf)
+    grad_kernels = grad_phases(np, torch, dev, card, results, ctx)
+    del kA, kB, args, bargs
+    cwt_kernels = cwt_family_phases(np, torch, dev, card, results, ctx)
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     kernels = [
-        {"name": "cwt_phase", "route": "cuda",
-         "source": "ssqueeze_rs_tpu_torch/csrc/cwt_phase.cu",
-         "replaces": "ssqueeze_rs_tpu/ops/fft_pallas.py:646",
-         "launches": launches["cwt_phase"], "max_abs_err": absA,
-         "ms": msA, "plain_ms": msA_plain},
-        {"name": "reassign", "route": "cuda",
-         "source": "ssqueeze_rs_tpu_torch/csrc/reassign.cu",
-         "replaces": "ssqueeze_rs_tpu/ops/reassign_pallas.py:175",
-         "launches": launches["reassign"], "max_abs_err": absB,
-         "ms": msB, "plain_ms": msB_plain},
-    ] + stft_kernels + grad_kernels
+        # A's and B's yardstick: no one PyTorch call forms Wx and the
+        # phase from the filterbank, or bins and scatters
+        kernel_entry("cwt_phase", "cwt_phase.cu", "fft_pallas.py:646",
+                     launches["cwt_phase"], absA, msA, msA_plain, boundA,
+                     None),
+        kernel_entry("reassign", "reassign.cu", "reassign_pallas.py:175",
+                     launches["reassign"], absB, msB, msB_plain, boundB,
+                     None),
+    ] + stft_kernels + grad_kernels + cwt_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -454,14 +624,25 @@ def stft_phases(np, torch, dev, card, results):
                        ms=cuda_ms(torch, lambda: stft_cuda.stft_dft(
                            xp, K, N_FFT, N, fs=fs)),
                        plain_ms=cuda_ms(torch, lambda: stft_cuda.stft_dft_plain(
-                           xp, K, N_FFT, N, fs=fs)))
+                           xp, K, N_FFT, N, fs=fs)),
+                       bound=bound(tensor_bytes(xp, K, kF),
+                                   2.0 * rows * N_FFT * N))
         del pF
         if rows == K4.shape[0]:
             planes = kF
+    # the yardstick: torch.stft over the same padded signal and window
+    # (hop 1, no centring; it does not fftshift the frames, the port's
+    # modulated STFT does)
+    win_t = torch.as_tensor(win, device=dev)
+    F[600]["library_ms"] = cuda_ms(torch, lambda: torch.stft(
+        xp, N_FFT, hop_length=1, win_length=N_FFT, window=win_t,
+        center=False, return_complex=True))
     results["F"] = F
     print("[7] kernel F: " + "; ".join(
         f"{r} rows rel={v['rel']:.3e} | {v['ms']:.3f} ms vs plain "
-        f"{v['plain_ms']:.3f} ms" for r, v in F.items()) + f" ({card})")
+        f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms "
+        f"({v['bound'][1]})" for r, v in F.items()) +
+        f"; torch.stft (600 rows) {F[600]['library_ms']:.3f} ms ({card})")
     for r, v in F.items():
         check(v["rel"] < 2e-6, f"kernel F ({r} rows) rel {v['rel']:.3e}")
 
@@ -478,8 +659,10 @@ def stft_phases(np, torch, dev, card, results):
     rel4, _, col4, abs4 = entry_metrics(torch, Tb, torch.complex(*p4))
     ms4 = cuda_ms(torch, lambda: reassign_cuda.reassign4(*a4))
     ms4_plain = cuda_ms(torch, lambda: reassign_cuda.reassign4_plain(*a4))
+    bound4 = bound(tensor_bytes(a4, k1), BIN4_FLOPS * sr.numel())
     results["B4"] = dict(tx_rel=rel4, colsum_rel=col4, tx_abs=abs4,
-                         bitwise=bitwise, ms=ms4, plain_ms=ms4_plain, nf=nf)
+                         bitwise=bitwise, ms=ms4, plain_ms=ms4_plain, nf=nf,
+                         bound=bound4)
     print(f"[8] kernel B': nf={nf} mode={mode} Tx rel={rel4:.3e} column-sum "
           f"rel={col4:.3e} bitwise-repeat={bitwise} | {ms4:.3f} ms vs plain "
           f"{ms4_plain:.3f} ms ({card})")
@@ -506,12 +689,14 @@ def stft_phases(np, torch, dev, card, results):
     del Tp, Sp
     msG = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused(*ga))
     msG_plain = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused_plain(*ga))
+    boundG = bound(tensor_bytes(ga, Tg, Sg),
+                   2.0 * K4.shape[0] * N_FFT * N + BIN4_FLOPS * sr.numel())
     results["G"] = dict(sx_rel_F=sx_rel, sx_equal_F=sx_equal,
                         tx_within_vs_B4=withinG, tx_rel_vs_B4=relG,
                         colsum_vs_B4=colG, sx_rel_plain=sx_plain,
                         tx_within_vs_plain=withinP, colsum_vs_plain=colP,
                         tx_abs_vs_plain=absG, bitwise=bitwise, ms=msG,
-                        plain_ms=msG_plain)
+                        plain_ms=msG_plain, bound=boundG)
     print(f"[9] kernel G: Sx vs F rel={sx_rel:.3e} (bitwise {sx_equal}); Tx "
           f"vs B'(F) within 1e-5: {withinG:.6f} (rel {relG:.3e}, col "
           f"{colG:.3e}); vs plain G: Sx rel {sx_plain:.3e}, Tx within "
@@ -538,10 +723,19 @@ def stft_phases(np, torch, dev, card, results):
     madH = mad_rms(x, xr)
     msH = cuda_ms(torch, lambda: stft_cuda.istft_ola(*ha))
     msH_plain = cuda_ms(torch, lambda: stft_cuda.istft_ola_plain(*ha))
+    boundH = bound(tensor_bytes(ha, kH),
+                   4.0 * N_FFT * S.shape[-2] * S.shape[-1])
+    # the yardstick: torch.istft of the same spectrum at hop 1 (centred,
+    # so the window envelope it checks has no near-zero edge)
+    msH_lib = cuda_ms(torch, lambda: torch.istft(
+        S, N_FFT, hop_length=1, win_length=N_FFT, window=win_t, center=True,
+        length=N))
     results["H"] = dict(rel=relH, abs=absH, roundtrip_mad_rms=madH, ms=msH,
-                        plain_ms=msH_plain)
+                        plain_ms=msH_plain, bound=boundH, library_ms=msH_lib)
     print(f"[10] kernel H: rel={relH:.3e}; istft(stft(x)) mad_rms "
-          f"{madH:.3e} | {msH:.3f} ms vs plain {msH_plain:.3f} ms ({card})")
+          f"{madH:.3e} | {msH:.3f} ms vs plain {msH_plain:.3f} ms, bound "
+          f"{boundH[0]:.3f} ms ({boundH[1]}), torch.istft {msH_lib:.3f} ms "
+          f"({card})")
     check(relH < 2e-6, f"kernel H rel {relH:.3e}")
     check(madH < 1e-5, f"istft(stft(x)) mad_rms {madH:.3e}")
     del kH, pH, S, xr
@@ -611,16 +805,22 @@ def stft_phases(np, torch, dev, card, results):
     del Tx1
     stft_ms, stft_all = host_ms(torch, lambda: stft(x, n_fft=N_FFT))
     ssq_ms, ssq_all = host_ms(torch, lambda: ssq_stft(x, n_fft=N_FFT))
+    prof11 = {
+        "stft": device_breakdown(torch, lambda: stft(x, n_fft=N_FFT), (
+            ("F", ("stft_dft_kernel",)), K_PAD)),
+        "ssq_stft": device_breakdown(torch, lambda: ssq_stft(
+            x, n_fft=N_FFT), (("G", ("ssq_stft_kernel",)), K_PAD))}
 
     # the device results against the CPU (plain-torch) results
     xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
     xs = xs.astype(np.float32)
     g = ssq_stft(torch.as_tensor(xs, device=dev), n_fft=N_FFT, fs=1000.0)
-    c = ssq_stft(torch.as_tensor(xs), n_fft=N_FFT, fs=1000.0)
+    c = cpu_ref(torch, lambda: ssq_stft(torch.as_tensor(xs), n_fft=N_FFT,
+                                        fs=1000.0))
     sx_small = rel(torch, g[1].cpu(), c[1])
     col_small, tot_small = tx_metrics(np, g[0].cpu().numpy(), c[0].numpy())
     xg = istft(g[1], n_fft=N_FFT, N=N_SMALL).cpu()
-    xc = istft(c[1], n_fft=N_FFT, N=N_SMALL)
+    xc = cpu_ref(torch, lambda: istft(c[1], n_fft=N_FFT, N=N_SMALL))
     x_small = rel(torch, xg, xc)
 
     results["stft_e2e"] = dict(
@@ -629,14 +829,15 @@ def stft_phases(np, torch, dev, card, results):
         stft_msamples_s=N / stft_ms / 1e3, ssq_stft_ms=ssq_ms,
         ssq_stft_steady=ssq_all, ssq_stft_msamples_s=N / ssq_ms / 1e3,
         small_sx_rel=sx_small, small_col_rel=col_small,
-        small_total_rel=tot_small, small_istft_rel=x_small)
+        small_total_rel=tot_small, small_istft_rel=x_small, profile=prof11)
     print(f"[11] STFT family N={N} n_fft={N_FFT}: launches {launches}; sine "
           f"ssq peak {peak:.3f} Hz; issq_stft mad_rms (fs=1) "
           f"{issq_mad:.3e}; steady stft {stft_ms:.2f} ms = "
           f"{N / stft_ms / 1e3:.2f} MSamples/s, ssq_stft {ssq_ms:.2f} ms = "
           f"{N / ssq_ms / 1e3:.2f} MSamples/s ({card}); GPU vs CPU at "
           f"N={N_SMALL}: Sx rel {sx_small:.2e}, Tx col rel {col_small:.2e}, "
-          f"total rel {tot_small:.2e}, istft rel {x_small:.2e}")
+          f"total rel {tot_small:.2e}, istft rel {x_small:.2e}; profiles: "
+          + "; ".join(f"{k} {breakdown_line(v)}" for k, v in prof11.items()))
     check(abs(peak - 100.0) <= 1.0, f"ssq_stft sine peak at {peak} Hz")
     check(issq_mad < 0.1, f"issq_stft mad_rms {issq_mad:.3e}")
     check(sx_small < 1e-5 and x_small < 1e-5,
@@ -644,25 +845,22 @@ def stft_phases(np, torch, dev, card, results):
     check(col_small < 1e-4 and tot_small < 1e-5,
           f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
 
-    src = "ssqueeze_rs_tpu_torch/csrc/"
-    tpu = "ssqueeze_rs_tpu/ops/"
+    F6 = F[600]
     return [
-        {"name": "reassign4", "route": "cuda", "source": src + "reassign.cu",
-         "replaces": tpu + "reassign_pallas.py:175",
-         "launches": launches["reassign4"], "max_abs_err": abs4,
-         "ms": ms4, "plain_ms": ms4_plain},
-        {"name": "stft_dft", "route": "cuda", "source": src + "stft_dft.cu",
-         "replaces": tpu + "stft_pallas.py:188",
-         "launches": launches["stft_dft"], "max_abs_err": F[1200]["abs"],
-         "ms": F[1200]["ms"], "plain_ms": F[1200]["plain_ms"]},
-        {"name": "ssq_stft", "route": "cuda", "source": src + "ssq_stft.cu",
-         "replaces": tpu + "stft_pallas.py:537",
-         "launches": launches["ssq_stft"], "max_abs_err": absG,
-         "ms": msG, "plain_ms": msG_plain},
-        {"name": "istft_ola", "route": "cuda", "source": src + "istft_ola.cu",
-         "replaces": tpu + "stft_pallas.py:338",
-         "launches": launches["istft_ola"], "max_abs_err": absH,
-         "ms": msH, "plain_ms": msH_plain},
+        # B' and G: no one PyTorch call bins and scatters
+        kernel_entry("reassign4", "reassign.cu", "reassign_pallas.py:175",
+                     launches["reassign4"], abs4, ms4, ms4_plain, bound4,
+                     None),
+        # F at 600 rows (derivative off), where torch.stft is its yardstick
+        kernel_entry("stft_dft", "stft_dft.cu", "stft_pallas.py:188",
+                     launches["stft_dft"], F6["abs"], F6["ms"],
+                     F6["plain_ms"], F6["bound"], F6["library_ms"]),
+        kernel_entry("ssq_stft", "ssq_stft.cu", "stft_pallas.py:537",
+                     launches["ssq_stft"], absG, msG, msG_plain, boundG,
+                     None),
+        kernel_entry("istft_ola", "istft_ola.cu", "stft_pallas.py:338",
+                     launches["istft_ola"], absH, msH, msH_plain, boundH,
+                     msH_lib),
     ]
 
 
@@ -730,10 +928,13 @@ def grad_phases(np, torch, dev, card, results, cwt):
         bitwise = all(torch.equal(u, v) for u, v in zip(k1, k2))
         equal = all(torch.equal(u, v) for u, v in zip(k1, p))
         err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+        per_entry = BIN_FLOPS if key == "C" else BIN4_FLOPS
         C[key] = dict(equal=equal, max_abs_err=err, bitwise=bitwise, nf=nfc,
                       masked=float((p[0] == 0).float().mean()),
                       ms=cuda_ms(torch, lambda: fn(*a)),
-                      plain_ms=cuda_ms(torch, lambda: plain(*a)))
+                      plain_ms=cuda_ms(torch, lambda: plain(*a)),
+                      bound=bound(tensor_bytes(a, k1),
+                                  per_entry * k1[0].numel()))
         line.append(f"{key} equal={equal} (max abs {err:.2e}) "
                     f"bitwise-repeat={bitwise} | {C[key]['ms']:.3f} ms vs "
                     f"plain {C[key]['plain_ms']:.3f} ms")
@@ -788,22 +989,25 @@ def grad_phases(np, torch, dev, card, results, cwt):
     repeat = torch.equal(cwt_grad(x, 1.0), grads["noise"])
     ms_cwt, all_cwt = host_ms(torch, lambda: cwt_grad(x, 1.0))
     _, peak, base = peak_gb(torch, lambda: cwt_grad(x, 1.0))
+    prof13 = device_breakdown(torch, lambda: cwt_grad(x, 1.0),
+                              (K_A, K_C, K_B, K_FFT, K_CPLX, K_PAD))
     xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
     xs = xs.astype(np.float32)
     small = {}
     for wx_only in (False, True):
         g = cwt_grad(torch.as_tensor(xs, device=dev), 1000.0, 8, wx_only)
-        c = cwt_grad(torch.as_tensor(xs), 1000.0, 8, wx_only)
+        c = cpu_ref(torch, lambda: cwt_grad(torch.as_tensor(xs), 1000.0, 8,
+                                            wx_only))
         small["wx" if wx_only else "ssq"] = rel(torch, g.cpu(), c)
     results["grad_ssq_cwt"] = dict(launches_per_call=moved, bitwise=repeat,
                                    ms=ms_cwt, steady_ms=all_cwt,
                                    peak_gb=peak, base_gb=base,
-                                   small_rel=small)
+                                   small_rel=small, profile=prof13)
     print(f"[13] ssq_cwt grad N={N}: launches per call {moved}; "
           f"bitwise-repeat={repeat}; forward+backward {ms_cwt:.2f} ms, peak "
           f"{peak:.2f} GB (of which {base:.2f} GB held before) ({card}); "
           f"GPU vs CPU at N={N_SMALL}: rel {small['ssq']:.2e}, Wx-only "
-          f"{small['wx']:.2e}")
+          f"{small['wx']:.2e}; profile: {breakdown_line(prof13)}")
     check(repeat, "ssq_cwt gradient differs between two runs")
     check(small["ssq"] < 5e-3 and small["wx"] < 1e-4,
           f"ssq_cwt gradient GPU vs CPU: {small}")
@@ -886,7 +1090,8 @@ def grad_phases(np, torch, dev, card, results, cwt):
         del g1
         ms, steady = host_ms(torch, lambda: fn(inputs[0]))
         _, peak, base = peak_gb(torch, lambda: fn(inputs[0]))
-        small_rel = rel(torch, fn(inputs[1]).cpu(), fn(inputs[2]))
+        small_rel = rel(torch, fn(inputs[1]).cpu(),
+                        cpu_ref(torch, lambda: fn(inputs[2])))
         fam[key].update(bitwise=repeat, ms=ms, steady_ms=steady, peak_gb=peak,
                         base_gb=base, small_rel=small_rel)
         line.append(f"{key} {ms:.2f} ms peak {peak:.2f} GB repeat={repeat} "
@@ -901,19 +1106,294 @@ def grad_phases(np, torch, dev, card, results, cwt):
           + ", ".join(f"{k} {v['launches']}" for k, v in fam.items())
           + f" ({card})")
 
-    src = "ssqueeze_rs_tpu_torch/csrc/reassign_bwd.cu"
-    tpu = "ssqueeze_rs_tpu/ops/reassign_pallas.py:485"
+    # C and C': no one PyTorch call bins and gathers
+    c, c4 = C["C"], C["C' nf=300"]
     return [
-        {"name": "reassign_bwd", "route": "cuda", "source": src,
-         "replaces": tpu, "launches": launches_c,
-         "max_abs_err": C["C"]["max_abs_err"], "ms": C["C"]["ms"],
-         "plain_ms": C["C"]["plain_ms"]},
-        {"name": "reassign4_bwd", "route": "cuda", "source": src,
-         "replaces": tpu, "launches": launches_c4,
-         "max_abs_err": C["C' nf=300"]["max_abs_err"],
-         "ms": C["C' nf=300"]["ms"], "plain_ms": C["C' nf=300"]["plain_ms"]},
+        kernel_entry("reassign_bwd", "reassign_bwd.cu",
+                     "reassign_pallas.py:485", launches_c, c["max_abs_err"],
+                     c["ms"], c["plain_ms"], c["bound"], None),
+        kernel_entry("reassign4_bwd", "reassign_bwd.cu",
+                     "reassign_pallas.py:485", launches_c4,
+                     c4["max_abs_err"], c4["ms"], c4["plain_ms"],
+                     c4["bound"], None),
     ]
 
+
+def cwt_family_phases(np, torch, dev, card, results, ctx):
+    """Phases 15-17: kernels D and E against their plain versions, the CWT
+    family end to end, the cwt gradient. Returns D's and E's entries of
+    the JSON line."""
+    from ssqueeze_rs_tpu_torch import cwt, icwt, ssq_cwt, mad_rms
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
+    from ssqueeze_rs_tpu_torch.ops.cwt import cwt_phase_args
+    from ssqueeze_rs_tpu_torch.scales import process_scales
+    from ssqueeze_rs_tpu_torch.utils.pad import padsignal
+    from ssqueeze_rs_tpu_torch.wavelets import Wavelet
+
+    f32, c64 = torch.float32, torch.complex64
+    wavelet, scales = ctx["wavelet"], ctx["scales"]
+    requests = ctx["requests"]
+    x = requests["noise"][0]
+    rng = np.random.default_rng(4)
+    bump = Wavelet.build(("bump", {"om": 0.5}), l1_norm=True)
+
+    def spectrum(Zr, Zi, nr, ni):
+        """The (rows, M) complex spectrum of half-band planes, as
+        torch.fft.ifft (the yardstick) takes it."""
+        rows = Zr.shape[0]
+        half = Zr[0].numel()
+        spec = torch.zeros((rows, 2 * half), dtype=c64, device=dev)
+        spec[:, :half] = torch.complex(Zr.reshape(rows, half),
+                                       Zi.reshape(rows, half))
+        spec[:, half] = torch.complex(nr, ni)
+        return spec
+
+    def hold(name, kernel, plain, spec, nbytes, flops):
+        """Kernel against plain (per plane, max|d| / max|plain|), bitwise
+        repeat, times of kernel, plain and torch.fft.ifft of `spec`."""
+        k1, k2, p = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        err = max(rel(torch, a, b) for a, b in zip(k1, p))
+        err_abs = max(float((a - b).abs().max()) for a, b in zip(k1, p))
+        bnd = bound(nbytes + tensor_bytes(k1), flops)
+        del k2, p
+        out = dict(rel=err, abs=err_abs, bitwise=bitwise,
+                   rows=int(k1[0].shape[0]), planes=len(k1),
+                   ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
+                   library_ms=cuda_ms(torch, lambda: torch.fft.ifft(
+                       spec, dim=-1)), bound_ms=bnd[0], bound_by=bnd[1])
+        check(bitwise, f"kernel {name} differs between two runs")
+        check(err < 1e-5, f"kernel {name}: rel error {err:.3e} >= 1e-5")
+        return out
+
+    # 15. kernels D and E against their plain versions
+    DE = {}
+    xp, _, n1, _ = padsignal(x, "reflect", get_params=True)
+    M = xp.shape[-1]
+    argsD = cwt_phase_args(xp, scales.squeeze(-1), 1.0, wavelet)
+    x1m = torch.as_tensor(rng.standard_normal(N_LARGE), dtype=f32,
+                          device=dev)
+    sc1m = process_scales("log-piecewise", N_LARGE, wavelet)[:64].squeeze(-1)
+    xp1m, _, n1m, _ = padsignal(x1m, "reflect", get_params=True)
+    args1m = cwt_phase_args(xp1m, sc1m, 1.0, wavelet)
+    for key, a, keep, d in (("D 160k", argsD, (n1, N), False),
+                            ("D 160k derivative", argsD, (n1, N), True),
+                            ("D 1M derivative", args1m, (n1m, N_LARGE),
+                             True)):
+        Pw, xr, xi, xig, inv_dt, nw, nd = a
+        Zr, Zi = fft_cuda._cwt_spectra(Pw, xr[None] if xr.ndim == 2 else xr,
+                                       xi[None] if xi.ndim == 2 else xi,
+                                       xig, inv_dt, d)
+        spec = spectrum(Zr, Zi, torch.cat([nw[0], nd[0]]) if d else nw[0],
+                        torch.cat([nw[1], nd[1]]) if d else nw[1])
+        del Zr, Zi
+        Mk = 2 * Pw.shape[1] * Pw.shape[2]
+        DE[key] = hold(
+            key, lambda: fft_cuda.cwt_fused(*a, keep=keep, derivative=d),
+            lambda: fft_cuda.cwt_fused_plain(*a, keep=keep, derivative=d),
+            spec, tensor_bytes(a[:4], nw, nd if d else ()),
+            fft_flops(spec.shape[0], Mk))
+        DE[key].update(M=Mk, keep=list(keep))
+        del spec
+    del x1m, xp1m, args1m
+    # E on the complex-psih headline: bump (om = 0.5), 318 rows
+    scb = process_scales("log-piecewise", N, bump).squeeze(-1)
+    M1, M2 = fft_cuda.best_split(M)
+    Psih = bump.sample(scb.astype(np.float32), M, half=True,
+                       device=dev).to(c64)
+    Z = Psih * torch.fft.rfft(xp)[None]
+    del Psih
+    Zr = Z[:, :M // 2].real.reshape(-1, M1 // 2, M2).contiguous()
+    Zi = Z[:, :M // 2].imag.reshape(-1, M1 // 2, M2).contiguous()
+    nr, ni = Z[:, -1].real.contiguous(), Z[:, -1].imag.contiguous()
+    del Z
+    spec = spectrum(Zr, Zi, nr, ni)
+    ea = (Zr, Zi, (n1, N), nr, ni)
+    DE["E 160k bump"] = hold(
+        "E", lambda: fft_cuda.ifft_halfband_planar(*ea),
+        lambda: fft_cuda.ifft_halfband_planar_plain(*ea), spec,
+        tensor_bytes(Zr, Zi, nr, ni), fft_flops(Zr.shape[0], M))
+    del spec, ea, Zr, Zi
+    results["DE"] = DE
+    print("[15] " + "; ".join(
+        f"{k}: rows={v['rows']} rel={v['rel']:.3e} bitwise-repeat="
+        f"{v['bitwise']} | {v['ms']:.3f} ms vs plain {v['plain_ms']:.3f}, "
+        f"bound {v['bound_ms']:.3f} ({v['bound_by']}), torch.fft.ifft "
+        f"{v['library_ms']:.3f}" for k, v in DE.items()) + f" ({card})")
+
+    # 16. cwt / icwt / ssq_cwt end to end: three requests
+    def counts():
+        return dict(cwt_phase=fft_cuda.LAUNCHES,
+                    cwt_fused=fft_cuda.LAUNCHES_D,
+                    ifft_halfband=fft_cuda.LAUNCHES_E,
+                    reassign=reassign_cuda.LAUNCHES,
+                    reassign4=reassign_cuda.LAUNCHES4)
+
+    def zero_counts():
+        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
+        reassign_cuda.LAUNCHES = reassign_cuda.LAUNCHES4 = 0
+
+    calls = {
+        "cwt": (lambda xq, fs: cwt(xq, wavelet, scales=scales, fs=fs),
+                dict(cwt_fused=1)),
+        "cwt(derivative)": (lambda xq, fs: cwt(
+            xq, wavelet, scales=scales, fs=fs, derivative=True),
+            dict(cwt_fused=1)),
+        "bump cwt": (lambda xq, fs: cwt(xq, bump, fs=fs),
+                     dict(ifft_halfband=1)),
+        "ssq_cwt(get_dWx)": (lambda xq, fs: ssq_cwt(
+            xq, wavelet, scales=scales, fs=fs, get_dWx=True),
+            dict(cwt_fused=1, reassign4=1)),
+        "ssq_cwt(lebesgue)": (lambda xq, fs: ssq_cwt(
+            xq, wavelet, scales=scales, fs=fs, squeezing="lebesgue"),
+            dict(cwt_fused=1, reassign4=1)),
+    }
+    zero_counts()
+    req_ms, sine = {}, {}
+    for name, (xq, fs) in requests.items():
+        for cname, (call, expect) in calls.items():
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(xq, fs)
+            torch.cuda.synchronize()
+            req_ms[f"{name} {cname}"] = (time.perf_counter() - t0) * 1e3
+            moved = {k: v - before[k] for k, v in counts().items()
+                     if v != before[k]}
+            check(moved == expect, f"{name} {cname}: launches moved by "
+                  f"{moved}, expected {expect}")
+            for o in out:
+                if isinstance(o, torch.Tensor):
+                    check(o.is_cuda and o.shape[-1] == N,
+                          f"{name} {cname}: {o.device} {tuple(o.shape)}")
+                    check(bool(torch.isfinite(o).all()),
+                          f"{name} {cname}: output not finite")
+            if name == "sine100":
+                sine[cname] = out
+    launches = counts()
+    check(launches == dict(cwt_phase=0, cwt_fused=12, ifft_halfband=3,
+                           reassign=0, reassign4=6),
+          f"launch counts {launches}")
+
+    # the sine's ridge: the instantaneous frequency Im(dWx/Wx)/2pi (Hz,
+    # dWx is per second) on the row of largest mean |Wx|, over the
+    # middle half of the columns
+    Wx, _, dWx = sine["cwt(derivative)"]
+    r = int(Wx.abs().mean(-1).argmax())
+    mid = slice(N // 4, 3 * N // 4)
+    inst = (dWx[r, mid] * Wx[r, mid].conj()).imag / (
+        Wx[r, mid].abs() ** 2 * 2 * np.pi)
+    f_ridge = float(inst.median())
+    Tx, _, ssq_freqs, *_ = sine["ssq_cwt(get_dWx)"]
+    f_ssq = float(ssq_freqs[int(Tx.abs().mean(-1).argmax())])
+    x_sine = requests["sine100"][0]
+    xrec = icwt(sine["cwt"][0], wavelet, scales=scales)
+    icwt_mad = mad_rms(x_sine, xrec)
+    del sine, Wx, dWx, Tx, xrec
+    steady = {}
+    for cname, (call, _) in calls.items():
+        steady[cname] = host_ms(torch, lambda: call(x, 1.0))
+    # where cwt's device time goes (kernel names: D's two launches; cuFFT
+    # and the psih evaluation's elementwise kernels; torch.complex)
+    prof = device_breakdown(torch, lambda: calls["cwt"][0](x, 1.0),
+                            (K_D, K_FFT, K_CPLX, K_PAD))
+
+    # the device results against the CPU (plain-torch) results
+    xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
+    xs = xs.astype(np.float32)
+    gx, cx = torch.as_tensor(xs, device=dev), torch.as_tensor(xs)
+    small = {}
+    g = cwt(gx, wavelet, fs=1000.0, nv=8, derivative=True)
+    c = cpu_ref(torch, lambda: cwt(cx, wavelet, fs=1000.0, nv=8,
+                                   derivative=True))
+    small["cwt Wx"] = rel(torch, g[0].cpu(), c[0])
+    small["cwt dWx"] = rel(torch, g[2].cpu(), c[2])
+    g, c = cwt(gx, bump, nv=8), cpu_ref(torch, lambda: cwt(cx, bump, nv=8))
+    small["bump Wx"] = rel(torch, g[0].cpu(), c[0])
+    g = ssq_cwt(gx, wavelet, fs=1000.0, nv=8, get_dWx=True)
+    c = cpu_ref(torch, lambda: ssq_cwt(cx, wavelet, fs=1000.0, nv=8,
+                                       get_dWx=True))
+    small["ssq Wx"] = rel(torch, g[1].cpu(), c[1])
+    col_small, tot_small = tx_metrics(np, g[0].cpu().numpy(), c[0].numpy())
+    del g, c
+
+    prof_line = breakdown_line(prof)
+    results["cwt_e2e"] = dict(
+        request_ms=req_ms, launches=launches, ridge_hz=f_ridge,
+        cwt_profile=prof,
+        ssq_peak_hz=f_ssq, icwt_mad_rms=icwt_mad,
+        steady_ms={k: v[0] for k, v in steady.items()},
+        steady_all={k: v[1] for k, v in steady.items()},
+        small_rel=small, small_col_rel=col_small, small_total_rel=tot_small)
+    print(f"[16] CWT family N={N}: launches {launches}; sine ridge "
+          f"{f_ridge:.3f} Hz, ssq peak {f_ssq:.3f} Hz; icwt(cwt(x)) mad_rms "
+          f"{icwt_mad:.3e}; steady " + ", ".join(
+              f"{k} {v[0]:.2f} ms" for k, v in steady.items()) +
+          f" ({card}); cwt profile: {prof_line}; GPU vs CPU at "
+          f"N={N_SMALL}: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in small.items()) +
+          f", Tx col {col_small:.2e}, total {tot_small:.2e}")
+    check(abs(f_ridge - 100.0) <= 1.0, f"cwt ridge at {f_ridge} Hz")
+    check(abs(f_ssq - 100.0) <= 1.0, f"ssq_cwt peak at {f_ssq} Hz")
+    check(icwt_mad < 0.02, f"icwt(cwt(x)) mad_rms {icwt_mad:.3e}")
+    check(max(small.values()) < 1e-5, f"GPU vs CPU: {small}")
+    check(col_small < 1e-4 and tot_small < 1e-5,
+          f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
+
+    # 17. the gradient of cwt at the headline width
+    def sq(z):
+        return (z.abs() ** 2).sum()
+
+    def cwt_grad(x0, fs, **kw):
+        xg = x0.detach().clone().requires_grad_()
+        Wx, _, dWx = cwt(xg, wavelet, fs=fs, derivative=True, **kw)
+        (sq(Wx) + sq(dWx)).backward()
+        return xg.grad
+
+    zero_counts()
+    grads = {}
+    for name, (xq, fs) in requests.items():
+        before = counts()
+        grads[name] = cwt_grad(xq, fs, scales=scales)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in counts().items()
+                 if v != before[k]}
+        check(moved == dict(cwt_fused=1),
+              f"cwt grad {name}: launches moved by {moved}")
+        check(bool(torch.isfinite(grads[name]).all()),
+              f"cwt grad {name}: not finite")
+    repeat = torch.equal(cwt_grad(x, 1.0, scales=scales), grads["noise"])
+    del grads
+    ms_g, all_g = host_ms(torch, lambda: cwt_grad(x, 1.0, scales=scales))
+    _, peak, base = peak_gb(torch, lambda: cwt_grad(x, 1.0, scales=scales))
+    prof17 = device_breakdown(torch, lambda: cwt_grad(x, 1.0, scales=scales),
+                              (K_D, K_FFT, K_CPLX, K_PAD))
+    g_small = rel(torch, cwt_grad(gx, 1000.0, nv=8).cpu(),
+                  cpu_ref(torch, lambda: cwt_grad(cx, 1000.0, nv=8)))
+    results["grad_cwt"] = dict(launches_per_call=moved, bitwise=repeat,
+                               ms=ms_g, steady_ms=all_g, peak_gb=peak,
+                               base_gb=base, small_rel=g_small,
+                               profile=prof17)
+    print(f"[17] cwt grad N={N} (loss sum|Wx|^2 + sum|dWx|^2): launches per "
+          f"call {moved}; bitwise-repeat={repeat}; forward+backward "
+          f"{ms_g:.2f} ms, peak {peak:.2f} GB (of which {base:.2f} GB held "
+          f"before) ({card}); profile: {breakdown_line(prof17)}; GPU vs CPU "
+          f"at N={N_SMALL}: rel {g_small:.2e}")
+    check(repeat, "cwt gradient differs between two runs")
+    check(g_small < 1e-4, f"cwt gradient GPU vs CPU rel {g_small:.2e}")
+
+    d0, e0 = DE["D 160k"], DE["E 160k bump"]
+    return [
+        kernel_entry("cwt_fused", "cwt_planes.cu", "fft_pallas.py:704",
+                     launches["cwt_fused"], d0["abs"], d0["ms"],
+                     d0["plain_ms"], (d0["bound_ms"], d0["bound_by"]),
+                     d0["library_ms"]),
+        kernel_entry("ifft_halfband", "cwt_planes.cu", "fft_pallas.py:296",
+                     launches["ifft_halfband"], e0["abs"], e0["ms"],
+                     e0["plain_ms"], (e0["bound_ms"], e0["bound_by"]),
+                     e0["library_ms"]),
+    ]
 
 if __name__ == "__main__":
     try:

@@ -1,19 +1,25 @@
 """ssqueeze_rs_tpu_torch: the PyTorch + CUDA port of ssqueeze_rs_tpu.
 
 Same public names, signatures and return tuples as the JAX package for
-what is ported so far: the synchrosqueezed CWT (`ssq_cwt`, `issq_cwt`) and
-the STFT family (`stft`, `istft`, `ssq_stft`, `issq_stft`, `phase_stft`)
-with their host planning. On a CUDA tensor the hand-written Hopper
-kernels run (``csrc/*.cu``, built with nvcc at first use); on a CPU tensor
-their plain-torch versions run. ROADMAP.md lists what is still to be
-ported.
+what is ported so far: the CWT family (`cwt`, `icwt`, `phase_cwt`,
+`phase_cwt_num`), the synchrosqueezed CWT (`ssq_cwt`, `issq_cwt`) and the
+STFT family (`stft`, `istft`, `ssq_stft`, `issq_stft`, `phase_stft`) with
+their host planning. Array input runs on the CUDA device unless
+`device="cpu"` is given; a tensor runs on its own device. On a CUDA
+tensor the hand-written Hopper kernels run (``csrc/*.cu``, built with nvcc
+at first use); on a CPU tensor their plain-torch versions run. ROADMAP.md
+lists what is still to be ported.
 """
-from .ops import (ssq_cwt, issq_cwt, ssq_stft, issq_stft, ssqueeze, stft,
-                  istft, phase_stft)
+from .ops import (cwt, icwt, ssq_cwt, issq_cwt, ssq_stft, issq_stft,
+                  ssqueeze, stft, istft, phase_cwt, phase_cwt_num, phase_stft)
+from .ops.cwt import cwt_higher_order
+from .ops.diff import trigdiff
 from .scales import process_scales
 from .utils import get_window, mad_rms
-from .wavelets import Wavelet, center_frequency, adm_ssq
+from .wavelets import Wavelet, center_frequency, adm_ssq, adm_cwt
 
-__all__ = ["ssq_cwt", "issq_cwt", "ssq_stft", "issq_stft", "ssqueeze", "stft",
-           "istft", "phase_stft", "get_window", "mad_rms", "process_scales",
-           "Wavelet", "center_frequency", "adm_ssq"]
+__all__ = ["cwt", "icwt", "ssq_cwt", "issq_cwt", "ssq_stft", "issq_stft",
+           "ssqueeze", "stft", "istft", "phase_cwt", "phase_cwt_num",
+           "phase_stft", "get_window", "mad_rms", "process_scales", "Wavelet",
+           "center_frequency", "adm_ssq", "adm_cwt", "cwt_higher_order",
+           "trigdiff"]

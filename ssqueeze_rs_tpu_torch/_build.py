@@ -32,6 +32,9 @@ _PLAN = [_F] * 5        # the binning plan p0..p4 (reassign_cuda._plan_floats)
 _SIGNATURES = {
     "ssq_cwt_phase": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _LL, _I, _I, _I,
                       _I, _I, _F, _P, _LL, _P, _P, _P, _P],
+    "ssq_cwt_planes": [_P] * 4 + [_F] + [_P] * 4 + [_LL] + [_I] * 6 +
+                      [_P, _LL] + [_P] * 5,
+    "ssq_ifft_halfband": [_P] * 4 + [_LL] + [_I] * 4 + [_P, _LL] + [_P] * 3,
     "ssq_reassign": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
                     [_I, _P, _P, _P],
     "ssq_reassign4": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] + _PLAN +
@@ -50,6 +53,8 @@ BUILD_LOG = {}    # the last compile in this process: seconds, path
 
 
 def _sources():
+    """Every source the build reads: the .cu files and the headers they
+    include, so the library name follows each of them."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
                   glob.glob(os.path.join(CSRC, "*.cuh")))
 

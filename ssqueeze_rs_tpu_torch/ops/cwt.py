@@ -1,24 +1,41 @@
-"""CWT core, planar route (counterpart of ``ssqueeze_rs_tpu/ops/cwt.py``'s
-`cwt_core` with `planar_out=True` and `phase_gamma`).
+"""Continuous Wavelet Transform, forward and inverse (counterpart of
+``ssqueeze_rs_tpu/ops/cwt.py``).
 
-For analytic wavelets with a real psih the whole transform stays in f32
-real/imag planes: `rfft` of the padded signal, psih sampled on the
-half-band grid (k = M2*k1 + k2, k < M/2) on the signal's device, the
-Nyquist term, then kernel A (`fft_cuda.cwt_phase`), which also computes
-the phase transform w. The planes come back N wide; the TPU package's
-512-column alignment of the kept width is not carried over. The public
-`cwt`/`icwt` and the complex / float64 routes wait for ROADMAP Queue 1
-item 3.
+`cwt_core` takes the JAX package's routes, chosen by dtype, psih and the
+padded length M only (never by device):
+
+  * planar (float32, real psih, M a power of 2 that `best_split` takes):
+    `rfft` of the padded signal, psih sampled on the half-band grid
+    (k = M2*k1 + k2, k < M/2) on the signal's device, the Nyquist term,
+    then kernel D (`fft_cuda.cwt_fused`: Wx and, with the derivative, dWx
+    planes) or, for `ssq_cwt`'s phase, kernel A (`fft_cuda.cwt_phase`);
+  * complex half-band (float32, complex psih, the same M): Z = psih * xhat
+    on bins 0..M/2 in torch, stacked over rows with Z * i*xi/dt for the
+    derivative, then kernel E (`fft_cuda.ifft_halfband_planar`);
+  * full length (float64, or M not a power of 2): plain `torch.fft`, as
+    the JAX package runs XLA there.
+
+The planes come back N wide (or M with `rpadded`); the TPU package's
+512-column alignment of the kept width is not carried over.
+`icwt` is plain torch on the input's device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..config import DEFAULTS
+from ..scales import (process_scales, process_fs_and_t,
+                      logscale_transition_idx)
+from ..utils.common import as_signal, unported
+from ..utils.fft import xifn
+from ..utils.pad import padsignal
+from ..wavelets.adm import adm_cwt, adm_ssq
 from ..wavelets.base import Wavelet
-from .fft_cuda import best_split, cwt_phase
+from .fft_cuda import best_split, cwt_phase, cwt_fused, ifft_halfband_planar
 
-__all__ = ["cwt_core", "cwt_phase_args", "xi_grid"]
+__all__ = ["cwt", "icwt", "cwt_core", "cwt_higher_order", "cwt_phase_args",
+           "xi_grid"]
 
 
 def xi_grid(M: int, device="cpu") -> torch.Tensor:
@@ -31,10 +48,10 @@ def xi_grid(M: int, device="cpu") -> torch.Tensor:
 
 
 def cwt_phase_args(xp: torch.Tensor, scales, dt: float, wavelet: Wavelet):
-    """Kernel A's inputs for an already padded f32 signal xp (..., M):
-    the filterbank Pw sampled on xp's device, the signal spectrum planes,
-    the grid, 1/dt and the Nyquist vectors (rows b-major), as the tuple
-    (Pw, xr, xi, xig, inv_dt, nyq_w, nyq_d)."""
+    """Kernel A's and D's inputs for an already padded f32 signal xp
+    (..., M): the filterbank Pw sampled on xp's device, the signal
+    spectrum planes, the grid, 1/dt and the Nyquist vectors (rows
+    b-major), as the tuple (Pw, xr, xi, xig, inv_dt, nyq_w, nyq_d)."""
     M = xp.shape[-1]
     split = best_split(M)
     if split is None:
@@ -64,14 +81,281 @@ def cwt_phase_args(xp: torch.Tensor, scales, dt: float, wavelet: Wavelet):
     return Pw, xr, xi, xig, inv_dt, (znyq, zeros), (zeros, znyq * pi_dt)
 
 
-def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
-             N: int, n1: int, gamma: float):
-    """CWT + derivative phase of an already padded f32 signal.
+def _route(xp, wavelet):
+    """'planar', 'halfband' or 'full' (see the module docstring)."""
+    if xp.dtype == torch.float32 and best_split(xp.shape[-1]) is not None:
+        return "planar" if wavelet.psih_is_real else "halfband"
+    return "full"
 
-    xp: (..., M) with M a power of 2; scales: (na,) host array; the kept
-    window is [n1, n1+N). Returns (Wxr, Wxi, w), each (..., na, N), with
-    w = |Im(dWx/Wx)|/2pi and +inf where |Wx| <= gamma (l1 norm)."""
-    args = cwt_phase_args(xp, scales, dt, wavelet)
-    wxr, wxi, w = cwt_phase(*args, keep=(n1, N), gamma=gamma)
-    shape = tuple(xp.shape[:-1]) + (len(scales), N)
-    return wxr.reshape(shape), wxi.reshape(shape), w.reshape(shape)
+
+def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
+             derivative: bool, l1_norm: bool, N: int, n1: int,
+             rpadded: bool, planar_out: bool = False, phase_gamma=None):
+    """CWT of an already padded signal xp (..., M); scales: (na,) host
+    array. Keeps [n1, n1+N) (or all M with `rpadded`). Returns
+    (Wx, dWx or None), complex (..., na, L).
+
+    `planar_out=True` (planar route only) returns float32 plane tuples
+    ((Wxr, Wxi), (dWxr, dWxi) or None) instead. `phase_gamma` (with
+    `planar_out` and `derivative`) runs kernel A: the second item is then
+    the phase plane w = |Im(dWx/Wx)|/2pi, +inf where |Wx| <= gamma."""
+    M = xp.shape[-1]
+    route = _route(xp, wavelet)
+    if planar_out and route != "planar":
+        raise ValueError("planar_out requires float32, a real-valued psih "
+                         "and a padded length best_split accepts")
+    batch = tuple(xp.shape[:-1])
+    b = int(np.prod(batch)) if batch else 1
+    rdt = np.float64 if xp.dtype == torch.float64 else np.float32
+    sc = np.asarray(scales, dtype=rdt).reshape(-1)
+    na = len(sc)
+    keep = (0, M) if rpadded else (n1, N)
+    L = keep[1]
+    root = (None if l1_norm else
+            torch.as_tensor(np.sqrt(sc), device=xp.device)[:, None])
+
+    if route == "planar":
+        args = cwt_phase_args(xp, sc, dt, wavelet)
+        if phase_gamma is not None:
+            if not (planar_out and derivative):
+                raise ValueError("phase_gamma needs planar_out and derivative")
+            wxr, wxi, w = cwt_phase(*args, keep=keep, gamma=phase_gamma)
+            planes = [wxr, wxi]
+        else:
+            planes = list(cwt_fused(*args, keep=keep, derivative=derivative))
+        if root is not None:
+            # rows b-major: the per-scale root repeats over the batch
+            planes = [p * root.repeat(b, 1) for p in planes]
+        planes = [p.reshape(batch + (na, L)) for p in planes]
+        if phase_gamma is not None:
+            # w is invariant under the per-row rescale (same factor on Wx
+            # and dWx), so it needs no root
+            return tuple(planes), w.reshape(batch + (na, L))
+        pw, pd = tuple(planes[:2]), tuple(planes[2:]) or None
+        if planar_out:
+            return pw, pd
+        return (torch.complex(*pw),
+                torch.complex(*pd) if pd is not None else None)
+
+    cdt = torch.complex128 if rdt == np.float64 else torch.complex64
+    if route == "halfband":
+        M1, M2 = best_split(M)
+        xh = torch.fft.rfft(xp, dim=-1)                      # (..., M/2+1)
+        Psih = wavelet.sample(sc, M, nohalf=False, half=True,
+                              device=xp.device).to(cdt)
+        Z = Psih * xh[..., None, :]                          # (..., na, M/2+1)
+        if derivative:
+            xi = torch.as_tensor(xifn(1, M, rdt)[:M // 2 + 1],
+                                 device=xp.device)
+            Z = torch.cat([Z, Z * (1j * xi / dt)], dim=-2)
+        rows = Z.shape[-2]
+        Zf = Z.reshape(b * rows, M // 2 + 1)
+        zp = Zf[:, :M // 2].reshape(b * rows, M1 // 2, M2)
+        outr, outi = ifft_halfband_planar(zp.real, zp.imag, keep,
+                                          Zf[:, -1].real, Zf[:, -1].imag)
+        W = torch.complex(outr, outi).reshape(batch + (rows, L))
+    else:
+        xh = torch.fft.fft(xp, dim=-1)
+        Psih = wavelet.sample(sc, M, nohalf=False, device=xp.device).to(cdt)
+        Z = Psih * xh[..., None, :]
+        if derivative:
+            # one batched inverse FFT over [spectra; derivative spectra]
+            xi = torch.as_tensor(xifn(1, M, rdt), device=xp.device)
+            Z = torch.cat([Z, Z * (1j * xi / dt)], dim=-2)
+        W = torch.fft.ifft(Z, dim=-1)
+        if not rpadded:
+            W = W[..., n1:n1 + N]
+    Wx, dWx = (W[..., :na, :], W[..., na:, :]) if derivative else (W, None)
+    if root is not None:
+        Wx = Wx * root
+        dWx = dWx * root if derivative else None
+    return Wx, dWx
+
+
+def _torch_dtype(dtype):
+    dtype = np.dtype(dtype or DEFAULTS["dtype"])
+    if dtype not in (np.float32, np.float64):
+        raise ValueError(f"`dtype` must be float32 or float64 (got {dtype})")
+    return torch.float64 if dtype == np.float64 else torch.float32
+
+
+def cwt(x, wavelet="gmw", scales="log-piecewise", fs=None, t=None, nv=32,
+        l1_norm=True, derivative=False, padtype="reflect", rpadded=False,
+        vectorized=True, astensor=True, cache_wavelet=None, order=0,
+        average=None, nan_checks=None, patience=0, dtype=None, device=None):
+    """Continuous Wavelet Transform of `x` ((N,) or (..., N)).
+
+    Runs on x's device (`utils.common.as_signal`: array input goes to the
+    CUDA device unless `device` says otherwise). `vectorized`, `astensor`
+    and `patience` are accepted and ignored, as in the JAX package;
+    `cache_wavelet=True` is not ported. `order > 0` or a tuple of orders
+    goes to `cwt_higher_order`.
+
+    Returns (Wx, scales) or (Wx, scales, dWx) if `derivative`: Wx, dWx
+    complex (..., na, N) tensors (M wide with `rpadded`), scales a numpy
+    array."""
+    if isinstance(order, (tuple, list, range)) or order > 0:
+        return cwt_higher_order(
+            x, wavelet=wavelet, order=order, average=average, scales=scales,
+            fs=fs, t=t, nv=nv, l1_norm=l1_norm, derivative=derivative,
+            padtype=padtype, rpadded=rpadded, nan_checks=nan_checks,
+            dtype=dtype, device=device)
+    if cache_wavelet:
+        unported("cache_wavelet=True", "Queue 1 item 3, cache_wavelet")
+
+    x = as_signal(x, device)
+    if nan_checks is None or nan_checks:
+        x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    x = x.to(_torch_dtype(dtype))
+
+    N = x.shape[-1]
+    dt, fs, _ = process_fs_and_t(fs, t, N)
+    if not isinstance(scales, str):
+        nv = None
+
+    wavelet = Wavelet.build(wavelet, l1_norm=l1_norm)
+    scales_arr = process_scales(scales, N, wavelet, nv=nv)
+
+    if padtype is not None:
+        xp, _, n1, _ = padsignal(x, padtype, get_params=True)
+    else:
+        xp, n1 = x, 0
+
+    Wx, dWx = cwt_core(xp, scales_arr.squeeze(-1), dt, wavelet=wavelet,
+                       derivative=derivative, l1_norm=l1_norm, N=N, n1=n1,
+                       rpadded=rpadded)
+    scales_out = scales_arr.squeeze()
+    if derivative:
+        return Wx, scales_out, dWx
+    return Wx, scales_out
+
+
+def cwt_higher_order(x, wavelet="gmw", order=1, average=None, **kw):
+    """CWT with higher-order GMWs, order by order through `cwt` (kernel D
+    on the planar route); a tuple `order` is averaged unless
+    `average=False`."""
+    if isinstance(order, (list, range)):
+        order = tuple(order)
+    single = not isinstance(order, tuple)
+    orders = (order,) if single else order
+
+    wavelet = Wavelet.build(wavelet, l1_norm=kw.get("l1_norm", True))
+    if wavelet.name != "gmw":
+        raise ValueError("`wavelet` must be GMW for higher-order transforms "
+                         f"(got {wavelet.name})")
+    wavopts = wavelet.config
+    wavopts.pop("order", None)
+
+    # fix scales from the zeroth-order wavelet so all orders share a grid
+    scales = kw.pop("scales", "log-piecewise")
+    if isinstance(scales, str):
+        wav0 = Wavelet.build(("gmw", dict(order=0, **wavopts)))
+        scales = process_scales(scales, np.shape(x)[-1], wav0,
+                                nv=kw.pop("nv", 32))
+    else:
+        kw.pop("nv", None)
+
+    derivative = kw.get("derivative", False)
+    Wx_all, dWx_all = [], []
+    for k in orders:
+        wav_k = Wavelet.build(("gmw", dict(order=int(k), **wavopts)))
+        out = cwt(x, wav_k, scales=scales, **kw)
+        Wx_all.append(out[0])
+        if derivative:
+            dWx_all.append(out[-1])
+
+    if (average or (average is None and not single)) and len(Wx_all) > 1:
+        Wx_all = torch.stack(Wx_all).mean(dim=0)
+        if derivative:
+            dWx_all = torch.stack(dWx_all).mean(dim=0)
+    elif len(Wx_all) == 1:
+        Wx_all = Wx_all[0]
+        if derivative:
+            dWx_all = dWx_all[0]
+
+    scales_out = np.asarray(scales).squeeze()
+    return ((Wx_all, scales_out, dWx_all) if derivative else
+            (Wx_all, scales_out))
+
+
+# -- inverse --------------------------------------------------------------------
+def _icwt_norm(scaletype: str, l1_norm: bool):
+    if l1_norm:
+        return (lambda s: 1.0) if scaletype == "log" else (lambda s: s)
+    if scaletype == "log":
+        return lambda s: s**0.5
+    return lambda s: s**1.5
+
+
+def icwt(Wx, wavelet="gmw", scales="log-piecewise", nv=None, one_int=True,
+         x_len=None, x_mean=0, padtype="reflect", rpadded=False, l1_norm=True,
+         device=None):
+    """Inverse CWT by the one- or two-integral formula, with leading batch
+    dims, plain torch on Wx's device (`as_signal`'s rule for arrays and
+    `device`). A log-piecewise grid is inverted as its two log segments,
+    and `x_mean` is added once (the JAX package's fix of the reference,
+    which added it to both segments)."""
+    Wx = as_signal(Wx, device)
+    *_, na, n = Wx.shape
+    x_len = x_len or n
+    if not isinstance(scales, (np.ndarray, torch.Tensor)) and nv is None:
+        nv = 32
+
+    wavelet = Wavelet.build(wavelet, l1_norm=l1_norm)
+    scales, scaletype, _, nv = process_scales(np.asarray(scales) if
+                                              isinstance(scales, torch.Tensor)
+                                              else scales, x_len, wavelet,
+                                              nv=nv, get_params=True)
+    assert len(scales) == na, f"{len(scales)} != {na}"
+
+    if scaletype == "log-piecewise":
+        idx = logscale_transition_idx(scales)
+        kw = dict(wavelet=wavelet, one_int=one_int, x_len=x_len,
+                  x_mean=0, padtype=padtype, rpadded=rpadded,
+                  l1_norm=l1_norm)
+        x = icwt(Wx[..., :idx, :], scales=scales[:idx], **kw)
+        x = x + icwt(Wx[..., idx:, :], scales=scales[idx:], **kw)
+        return x + x_mean
+
+    rdt = np.float64 if Wx.dtype in (torch.complex128, torch.float64) \
+        else np.float32
+    sc = np.asarray(scales.squeeze(-1), dtype=rdt)
+    if one_int:
+        x = _icwt_1int(Wx, sc, scaletype, l1_norm)
+    else:
+        x = _icwt_2int(Wx, sc, scaletype, l1_norm, wavelet, x_len, padtype,
+                       rpadded)
+
+    Cpsi = adm_ssq(wavelet) if one_int else adm_cwt(wavelet)
+    if scaletype == "log":
+        x = x * ((2 / Cpsi) * np.log(2 ** (1 / nv)))
+    else:
+        x = x * ((2 / Cpsi) * np.pi / 4)
+    return x + x_mean
+
+
+def _icwt_1int(Wx, scales, scaletype, l1_norm):
+    """One-integral iCWT (analytic wavelets): sum over scales of
+    Re(Wx)/norm."""
+    norm = _icwt_norm(scaletype, l1_norm)
+    s = torch.as_tensor(scales, device=Wx.device)[:, None]
+    return (Wx.real / norm(s)).sum(dim=-2)
+
+
+def _icwt_2int(Wx, scales, scaletype, l1_norm, wavelet, x_len, padtype,
+               rpadded):
+    """Two-integral iCWT, all scales in one batched FFT product."""
+    if not rpadded:
+        Wx, n_up, n1, _ = padsignal(Wx, padtype=padtype, get_params=True)
+    else:
+        n_up, n1 = Wx.shape[-1], 0
+
+    norm = _icwt_norm(scaletype, l1_norm)
+    pn = torch.as_tensor((-1.0) ** np.arange(n_up), dtype=Wx.real.dtype,
+                         device=Wx.device)
+    Psih = wavelet.sample(scales, n_up, nohalf=True, device=Wx.device) * pn
+    xa = torch.fft.ifft(torch.fft.fft(Wx, dim=-1) * Psih, dim=-1)
+    xa = torch.fft.ifftshift(xa, dim=-1)
+    s = torch.as_tensor(scales, device=Wx.device)[:, None]
+    x = (xa.real / norm(s)).sum(dim=-2)
+    return x[..., n1:n1 + x_len]

@@ -1,99 +1,169 @@
 """Synchrosqueezed CWT, forward and inverse (counterpart of
 ``ssqueeze_rs_tpu/ops/ssq_cwt.py``).
 
-Forward pipeline, all on the input's device:
-    pad -> rfft -> psih on the half-band grid -> kernel A (CWT planes and
-    the phase plane w) -> host planning -> kernel B (Tx)
-
-Options outside this slice raise NotImplementedError naming the ROADMAP
-item that ports them; none of them takes another route silently.
+Forward routes, all on the input's device, as the JAX package's:
+  * the planar route (float32, real psih, sum squeezing, trig phase):
+    pad -> rfft -> psih on the half-band grid -> kernel A (Wx planes and
+    the phase plane w) -> host planning -> kernel B; with `get_dWx`,
+    kernel D (Wx and dWx planes) -> kernel B';
+  * `cwt(derivative=True)` for every other option (squeezing 'lebesgue',
+    'abs' or a callable, difftype 'phase' / 'numeric', a complex psih,
+    `padtype=None` with N not a power of 2): kernel D, E or plain torch
+    FFTs (see `cwt.cwt_core`), then B' from dWx or B from `phase_cwt` /
+    `phase_cwt_num` with `get_w`;
+  * `order > 0`: `cwt_higher_order` (kernel D per order) + `trigdiff`.
+float64 is refused: the squeeze (kernels B, B') takes float32 planes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import DEFAULTS, EPS32
+from ..config import DEFAULTS, EPS32, EPS64
 from ..scales import process_scales, process_fs_and_t
 from ..utils.common import as_signal, unported as _unported
-from ..utils.pad import padsignal
+from ..utils.pad import padsignal, p2up
 from ..wavelets.adm import adm_ssq
 from ..wavelets.base import Wavelet
-from .cwt import cwt_core
+from .cwt import cwt, cwt_core, cwt_higher_order
+from .diff import trigdiff
 from .fft_cuda import best_split
+from .phase import phase_cwt, phase_cwt_num
 from .ssqueeze import ssqueeze, check_ssqueezing_args
 
 __all__ = ["ssq_cwt", "issq_cwt"]
 
 
-def _check_slice(dtype, order, get_w, get_dWx, difftype, squeezing):
-    if str(dtype or DEFAULTS["dtype"]) != "float32":
-        _unported(f"dtype={dtype!r}", "Queue 1 item 3, float64 route")
-    if isinstance(order, (tuple, list, range)) or order != 0:
-        _unported(f"order={order!r}", "Queue 1 item 6, cwt_higher_order")
-    if get_w or get_dWx:
-        _unported("get_w / get_dWx",
-                  "Queue 1 item 3 and Queue 2 D, the dWx planes")
-    if difftype in ("phase", "numeric"):
-        _unported(f"difftype={difftype!r}",
-                  "Queue 1 item 3, phase.py and diff.py")
-    if callable(squeezing) or squeezing in ("lebesgue", "abs"):
-        _unported(f"squeezing={squeezing!r}",
-                  "Queue 1 item 3 and Queue 2 D, the dWx planes")
-
-
-def _as_signal(x, device):
-    """x as a float32 tensor on `device` (default: x's own device, or the
-    CPU for array input), with non-finite samples zeroed."""
-    x = torch.nan_to_num(as_signal(x, device), nan=0.0, posinf=0.0,
-                         neginf=0.0)
-    return x.to(torch.float32)
+def _planar_ssq_ok(N, wavelet, padtype, squeezing):
+    """Is the planar route (f32 planes end to end) applicable? (float32
+    is checked before.)"""
+    M = p2up(N)[0] if padtype is not None else N
+    return (best_split(M) is not None and wavelet.psih_is_real and
+            squeezing == "sum")
 
 
 def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
             t=None, ssq_freqs=None, padtype="reflect", squeezing="sum",
-            maprange="peak", difftype="trig", gamma=None, flipud=True,
-            dtype=None, device=None, order=0, get_w=False, get_dWx=False):
+            maprange="peak", difftype="trig", difforder=None, gamma=None,
+            vectorized=True, preserve_transform=None, astensor=True, order=0,
+            nan_checks=None, patience=0, flipud=True, cache_wavelet=None,
+            get_w=False, get_dWx=False, dtype=None, device=None):
     """Synchrosqueezed CWT of `x` ((N,) or (..., N)).
 
-    Returns (Tx, Wx, ssq_freqs, scales): Tx (..., nf, N) and Wx
-    (..., na, N) complex64 tensors on `device` (default: x's device, or
-    the CPU for array input); ssq_freqs and scales numpy arrays.
-    `order`, `get_w` and `get_dWx` exist only to refuse them."""
-    _check_slice(dtype, order, get_w, get_dWx, difftype, squeezing)
-    check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
-                          transform="cwt")
-    x = _as_signal(x, device)
+    Returns (Tx, Wx, ssq_freqs, scales[, w][, dWx]): Tx (..., nf, N), Wx
+    (..., na, N), w and dWx complex64 / float32 tensors on x's device
+    (`utils.common.as_signal`: array input goes to the CUDA device unless
+    `device` says otherwise); ssq_freqs and scales numpy arrays.
+    `vectorized`, `preserve_transform`, `astensor` and `patience` are
+    accepted and ignored, as in the JAX package."""
+    difforder = check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
+                                      difforder, get_w, transform="cwt")
+    if str(dtype or DEFAULTS["dtype"]) != "float32":
+        _unported(f"dtype={dtype!r}", "Queue 1 item 3, float64 route")
+    if cache_wavelet:
+        _unported("cache_wavelet=True", "Queue 1 item 3, cache_wavelet")
+    planes_w = w_plane = dwx_planes = None
+    x = as_signal(x, device)
     N = x.shape[-1]
     dt, fs, _ = process_fs_and_t(fs, t, N)
     if nv is None and isinstance(scales, str):
         nv = 32
 
     wavelet = Wavelet.build(wavelet, l1_norm=True)
-    if not wavelet.psih_is_real:
-        _unported("a complex-valued psih",
-                  "Queue 1 item 3, the complex half-band route")
-    scales, cwt_scaletype, *_ = process_scales(scales, N, wavelet, nv=nv,
-                                               get_params=True)
-    if padtype is not None:
-        xp, _, n1, _ = padsignal(x, padtype, get_params=True)
-    elif best_split(N) is not None:
-        xp, n1 = x, 0
+    higher = isinstance(order, (tuple, list, range)) or order > 0
+    if higher:
+        # averaged higher-order CWT; the derivative by trig differentiation
+        # of the padded transform
+        _, n1, _ = p2up(N)
+        Wxp, scales_arr = cwt_higher_order(
+            x, wavelet=wavelet, order=order,
+            average=isinstance(order, (tuple, list, range)), scales=scales,
+            fs=fs, nv=nv, l1_norm=True, derivative=False, padtype=padtype,
+            rpadded=True, nan_checks=nan_checks, dtype=dtype)
+        dWx = trigdiff(Wxp, fs, rpadded=True, N=N, n1=n1)
+        Wx = Wxp[..., n1:n1 + N]
+        scales = np.asarray(scales_arr).reshape(-1, 1)
+        cwt_scaletype = process_scales(scales, N, wavelet, nv=nv,
+                                       get_params=True)[1]
     else:
-        _unported("padtype=None with N not a power of 2",
-                  "Queue 1 item 3, the full-length route")
-    gamma = float(gamma if gamma is not None else 10 * EPS32)
+        scales, cwt_scaletype, *_ = process_scales(scales, N, wavelet, nv=nv,
+                                                   get_params=True)
+        rpadded = difftype == "numeric"
+        if (not rpadded and not get_w and
+                _planar_ssq_ok(N, wavelet, padtype, squeezing)):
+            xx = x
+            if nan_checks is None or nan_checks:
+                xx = torch.nan_to_num(xx, nan=0.0, posinf=0.0, neginf=0.0)
+            xx = xx.to(torch.float32)
+            if padtype is not None:
+                xp, _, n1, _ = padsignal(xx, padtype, get_params=True)
+            else:
+                xp, n1 = xx, 0
+            # kernel A forms the phase itself unless the dWx planes are
+            # asked for (then kernel D emits them for B')
+            phase_gamma = (float(gamma if gamma is not None else 10 * EPS32)
+                           if not get_dWx and difftype == "trig" else None)
+            planes_w, planes_d = cwt_core(
+                xp, np.asarray(scales).squeeze(-1), dt, wavelet=wavelet,
+                derivative=True, l1_norm=True, N=N, n1=n1, rpadded=False,
+                planar_out=True, phase_gamma=phase_gamma)
+            Wx = torch.complex(*planes_w)
+            if phase_gamma is not None:
+                w_plane, dWx = planes_d, None
+            else:
+                dwx_planes = planes_d
+                dWx = torch.complex(*planes_d) if get_dWx else None
+        else:
+            Wx, _, dWx = cwt(x, wavelet, scales=scales, fs=fs, nv=nv,
+                             l1_norm=True, derivative=True, padtype=padtype,
+                             rpadded=rpadded, nan_checks=nan_checks,
+                             dtype=dtype)
 
-    wxr, wxi, w = cwt_core(xp, np.asarray(scales).squeeze(-1), dt,
-                           wavelet=wavelet, N=N, n1=n1, gamma=gamma)
+    if gamma is None:
+        gamma = 10 * (EPS64 if Wx.dtype == torch.complex128 else EPS32)
+
+    if get_w:
+        if difftype == "trig":
+            w = phase_cwt(Wx, dWx, "trig", gamma)
+        elif difftype == "phase":
+            w = phase_cwt(Wx, None, "phase", gamma)
+        else:
+            # numeric: Wx is the padded transform; the phase is taken over
+            # the N+8 window around the signal
+            if padtype is None or higher:
+                raise ValueError(
+                    "difftype='numeric' requires padtype != None and "
+                    "order=0 (the phase window reads the padded CWT)")
+            _, n1, _ = p2up(N)
+            Wx = Wx[..., (n1 - 4):(n1 + N + 4)]
+            w = phase_cwt_num(Wx, dt, difforder, gamma)
+        _dWx = None
+    else:
+        w = None
+        _dWx = dwx_planes if dwx_planes is not None else dWx
+
     if ssq_freqs is None:
         ssq_freqs = cwt_scaletype
-    Wx = torch.complex(wxr, wxi)
-    Tx, ssq_freqs = ssqueeze(Wx, None, ssq_freqs, scales, fs=fs,
-                             maprange=maprange, wavelet=wavelet, gamma=gamma,
+    Tx, ssq_freqs = ssqueeze(Wx, w, ssq_freqs, scales, fs=fs,
+                             squeezing=squeezing, maprange=maprange,
+                             wavelet=wavelet, gamma=gamma,
                              was_padded=padtype is not None, flipud=flipud,
-                             wx_planes=(wxr, wxi), w_plane=w)
-    return Tx, Wx, ssq_freqs, np.asarray(scales).squeeze()
+                             dWx=_dWx, transform="cwt", wx_planes=planes_w,
+                             w_plane=w_plane)
+
+    if difftype == "numeric":
+        Wx = Wx[..., 4:-4]
+        Tx = Tx[..., 4:-4]
+        w = w[..., 4:-4] if w is not None else None
+
+    scales = np.asarray(scales).squeeze()
+    if get_w and get_dWx:
+        return Tx, Wx, ssq_freqs, scales, w, dWx
+    elif get_w:
+        return Tx, Wx, ssq_freqs, scales, w
+    elif get_dWx:
+        return Tx, Wx, ssq_freqs, scales, dWx
+    return Tx, Wx, ssq_freqs, scales
 
 
 # -- inverse ----------------------------------------------------------------
@@ -134,12 +204,13 @@ def _invert_components(Tx, cc, cw):
     return torch.cat([comps, resid[..., None, :]], dim=-2)
 
 
-def issq_cwt(Tx, wavelet="gmw", cc=None, cw=None):
-    """Inverse synchrosqueezed CWT. Full inversion:
-    x = (2/Css) * sum over frequency rows of Re Tx; with `cc`/`cw`, one
-    row per curve band plus the residual (`_invert_components`)."""
+def issq_cwt(Tx, wavelet="gmw", cc=None, cw=None, device=None):
+    """Inverse synchrosqueezed CWT, on Tx's device (`as_signal`'s rule for
+    arrays and `device`). Full inversion: x = (2/Css) * sum over
+    frequency rows of Re Tx; with `cc`/`cw`, one row per curve band plus
+    the residual (`_invert_components`)."""
     cc, cw, full_inverse = _process_component_inversion_args(cc, cw)
-    Tx = torch.as_tensor(Tx)
+    Tx = as_signal(Tx, device)
     x = Tx.real.sum(dim=-2) if full_inverse else _invert_components(Tx, cc,
                                                                     cw)
     Css = adm_ssq(Wavelet.build(wavelet))

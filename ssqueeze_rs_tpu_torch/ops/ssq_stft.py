@@ -39,14 +39,16 @@ def make_Sfs(Sx, fs):
 def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
              t=None, modulated=True, ssq_freqs=None, padtype="reflect",
              squeezing="sum", gamma=None, preserve_transform=None, dtype=None,
-             astensor=True, flipud=False, get_w=False, get_dWx=False):
-    """Synchrosqueezed STFT of `x` ((N,) or (..., N)), on x's device (the
-    CPU for array input).
+             astensor=True, flipud=False, get_w=False, get_dWx=False,
+             device=None):
+    """Synchrosqueezed STFT of `x` ((N,) or (..., N)), on x's device
+    (`utils.common.as_signal`: array input goes to the CUDA device unless
+    `device` says otherwise).
 
     Returns (Tx, Sx, ssq_freqs, Sfs[, w][, dSx]): Tx, Sx complex64
     (..., n_fft//2 + 1, n_hops); ssq_freqs, Sfs numpy. `preserve_transform`
     and `astensor` are accepted for signature parity and unused."""
-    x = as_signal(x)
+    x = as_signal(x, device)
     N = x.shape[-1]
     _, fs, _ = process_fs_and_t(fs, t, N)
     check_ssqueezing_args(squeezing)
@@ -127,7 +129,7 @@ def _ssq_stft_fused(x, window, n_fft, win_len, fs, modulated, padtype,
 
 
 def issq_stft(Tx, window=None, cc=None, cw=None, n_fft=None, win_len=None,
-              hop_len=1, modulated=True):
+              hop_len=1, modulated=True, device=None):
     """Inverse synchrosqueezed STFT: x = (2 / window[center]) * sum over
     rows of Re Tx (or per curve band with `cc`/`cw`); requires hop_len=1
     and a modulated STFT.
@@ -142,7 +144,7 @@ def issq_stft(Tx, window=None, cc=None, cw=None, n_fft=None, win_len=None,
         raise ValueError("inversion with `hop_len != 1` is unsupported.")
 
     cc, cw, full_inverse = _process_component_inversion_args(cc, cw)
-    Tx = torch.as_tensor(Tx)
+    Tx = as_signal(Tx, device)
     n_fft = int(n_fft or (Tx.shape[-2] - 1) * 2)
     win_len = int(win_len or n_fft)
 

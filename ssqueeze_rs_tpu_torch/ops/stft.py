@@ -128,16 +128,17 @@ def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
 
 def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
          padtype="reflect", modulated=True, derivative=False, dtype=None,
-         planar_out=False):
+         planar_out=False, device=None):
     """Short-Time Fourier Transform.
 
     `x`: array or tensor, time on the last axis, any leading batch dims.
-    Returns `Sx` (..., n_fft//2 + 1, n_hops) complex64 on x's device (the
-    CPU for array input), plus `dSx` if `derivative`. `dSx` is scaled by
+    Returns `Sx` (..., n_fft//2 + 1, n_hops) complex64 on x's device
+    (`utils.common.as_signal`: array input goes to the CUDA device unless
+    `device` says otherwise), plus `dSx` if `derivative`. `dSx` is scaled by
     `fs` for modulated and unmodulated STFTs alike, as in the JAX package.
     `planar_out` returns float32 plane tuples ((Sxr, Sxi)[, (dSxr, dSxi)])
     from the matrix-product route."""
-    x = as_signal(x)
+    x = as_signal(x, device)
     N = x.shape[-1]
     _, fs, _ = process_fs_and_t(fs, t, N)
     n_fft = int(n_fft or min(N // hop_len, 512))
@@ -213,11 +214,12 @@ def _irfft_mats_weighted(n_fft, modulated, win_bytes, win_exp, device):
 
 
 def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
-          modulated=True, win_exp=1):
+          modulated=True, win_exp=1, device=None):
     """Inverse STFT, Griffin-Lim least-squares for win_exp=1, with leading
     batch dims. Sx: complex64 (..., n_freqs, n_segs) array or tensor.
-    Returns float32 (..., N) on Sx's device."""
-    Sx = as_signal(Sx)
+    Returns float32 (..., N) on Sx's device (`as_signal`'s rule for
+    arrays and `device`)."""
+    Sx = as_signal(Sx, device)
     if Sx.dtype in (torch.complex128, torch.float64):
         unported("complex128 input", "Queue 1 item 3, float64 route")
     Sx = Sx.to(torch.complex64)

@@ -35,15 +35,22 @@ def unported(what, item):
 
 
 def as_signal(x, device=None):
-    """x as a tensor on `device` (default: x's own device, or the CPU for
-    array input); a tensor stays in its autograd graph."""
+    """x as a tensor on `device`. By default a tensor stays on its own
+    device (a CPU tensor is the caller asking for the CPU) and array input
+    goes to the CUDA device; with no CUDA device, array input raises
+    unless `device="cpu"` is given. A tensor stays in its autograd graph."""
     if isinstance(x, torch.Tensor):
-        device = torch.device(device) if device is not None else x.device
-    else:
-        a = np.asarray(x)
-        x = torch.as_tensor(a if a.flags.writeable else a.copy())
-        device = torch.device(device if device is not None else "cpu")
-    return x.to(device)
+        return x if device is None else x.to(torch.device(device))
+    a = np.asarray(x)
+    x = torch.as_tensor(a if a.flags.writeable else a.copy())
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "array input runs on the CUDA device by default and none is "
+                "available: pass device='cpu' (or a CPU tensor) to run on "
+                "the CPU")
+        device = "cuda"
+    return x.to(torch.device(device))
 
 
 def _host(a):

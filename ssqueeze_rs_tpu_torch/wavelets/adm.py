@@ -1,10 +1,8 @@
-"""Synchrosqueezing admissibility constant by numeric integration (host
-numpy; counterpart of ``ssqueeze_rs_tpu/wavelets/adm.py``):
+"""Admissibility constants by numeric integration (host numpy;
+counterpart of ``ssqueeze_rs_tpu/wavelets/adm.py``):
 
-    adm_ssq = int_0^inf conj(psih(w)) / w dw
-
-`adm_cwt` (the double-integral iCWT constant) waits for ROADMAP Queue 1
-item 2.
+    adm_ssq = int_0^inf conj(psih(w)) / w dw     (one-integral / ssq inversion)
+    adm_cwt = int_0^inf |psih(w)|^2 / w dw       (two-integral icwt)
 """
 from __future__ import annotations
 
@@ -63,3 +61,19 @@ def adm_ssq(wavelet):
 def _adm_ssq_cached(wavelet):
     Css = integrate_analytic(lambda w: np.conj(np.asarray(wavelet(w))) / w)
     return float(Css.real) if abs(np.imag(Css)) < 1e-15 else complex(Css)
+
+
+def adm_cwt(wavelet):
+    """CWT admissibility: int |psih(w)|^2 / w dw, w=0..inf.
+    Accepts str / (str, dict) / Wavelet specs."""
+    from .base import Wavelet
+    return _adm_cwt_cached(Wavelet.build(wavelet))
+
+
+@lru_cache(maxsize=256)
+def _adm_cwt_cached(wavelet):
+    def fn(w):
+        p = np.asarray(wavelet(w))
+        return np.conj(p) * p / w
+    Cpsi = integrate_analytic(fn)
+    return float(Cpsi.real) if abs(np.imag(Cpsi)) < 1e-15 else complex(Cpsi)

@@ -79,12 +79,34 @@ class Wavelet:
         """Does psih evaluate real-valued? (the planar path's requirement)"""
         return bool(np.isrealobj(self(np.array([0.31, 0.7, 1.3]))))
 
-    def sample(self, scales, N: int, nohalf: bool = False):
-        """Host filterbank `psih(scales[:, None] * xi(1, N))`, shape
-        (len(scales), N). `nohalf=False` halves the even-N Nyquist bin."""
-        xi = xifn(1, N)
-        w = np.asarray(scales).reshape(-1, 1) * xi[None, :]
-        psih = np.array(self.psih(w, np))
-        if not nohalf and N % 2 == 0:
-            psih[..., N // 2] /= 2
+    def sample(self, scales, N: int, nohalf: bool = False,
+               half: bool = False, device=None):
+        """Filterbank `psih(scales[:, None] * xi(1, N))`, shape
+        (len(scales), N): host numpy, or torch on `device` when one is
+        given (the grid in the scales' float type: float32 for float32
+        scales, as the JAX package's traced sampling). `nohalf=False`
+        halves the even-N Nyquist bin. `half=True` samples only the bins
+        k = 0..N/2 (shape (len(scales), N/2 + 1), even N; exact for
+        analytic wavelets, psih = 0 for w < 0), whose last bin is the
+        Nyquist bin."""
+        if half and N % 2:
+            raise ValueError(f"half=True needs an even N (got {N})")
+        nyq = N // 2 if (half or N % 2 == 0) else None
+        if device is None:
+            xi = xifn(1, N)[:N // 2 + 1] if half else xifn(1, N)
+            w = np.asarray(scales).reshape(-1, 1) * xi[None, :]
+            psih = np.array(self.psih(w, np))
+        else:
+            import torch
+            sc = torch.as_tensor(np.asarray(scales), device=device)
+            xi = torch.as_tensor(xifn(1, N, np.float32 if sc.dtype ==
+                                      torch.float32 else np.float64),
+                                 device=device)
+            if half:
+                xi = xi[:N // 2 + 1]
+            psih = self.psih(sc.reshape(-1, 1) * xi[None, :], torch)
+            if not nohalf and nyq is not None:
+                psih = psih.clone()
+        if not nohalf and nyq is not None:
+            psih[..., nyq] /= 2
         return psih

@@ -33,7 +33,8 @@ def test_library_name_follows_source_content(src_tree):
 
 @pytest.mark.parametrize("name", ["bins.cuh", "dft_tile.cuh", "stft_dft.cu",
                                   "ssq_stft.cu", "istft_ola.cu",
-                                  "reassign_bwd.cu"])
+                                  "reassign_bwd.cu", "fft4.cuh",
+                                  "cwt_phase.cu", "cwt_planes.cu"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -54,8 +55,21 @@ def test_entry_points_have_signatures():
             assert name in _build._SIGNATURES, name
             assert len(_build._SIGNATURES[name]) == params.count(",") + 1, name
     assert {"ssq_reassign4", "ssq_stft_dft", "ssq_stft_fused",
-            "ssq_istft_ola", "ssq_reassign_bwd",
-            "ssq_reassign4_bwd"} <= set(_build._SIGNATURES)
+            "ssq_istft_ola", "ssq_reassign_bwd", "ssq_reassign4_bwd",
+            "ssq_cwt_planes", "ssq_ifft_halfband"} <= set(_build._SIGNATURES)
+
+
+def test_cwt_kernels_share_the_four_step_header():
+    """Kernels A (cwt_phase.cu), D and E (cwt_planes.cu) include one
+    four-step header, and the build hashes it with them."""
+    sources = [os.path.basename(p) for p in _build._sources()]
+    assert "fft4.cuh" in sources
+    for name in ("cwt_phase.cu", "cwt_planes.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            assert '#include "fft4.cuh"' in f.read(), name
+    # 23 and 14 parameters (D: planes, E: given Z planes)
+    assert len(_build._SIGNATURES["ssq_cwt_planes"]) == 23
+    assert len(_build._SIGNATURES["ssq_ifft_halfband"]) == 14
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

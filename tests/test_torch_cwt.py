@@ -1,0 +1,476 @@
+"""The CWT family of the torch port against the JAX package, on the CPU.
+
+Kernel level: kernel D's plain version (`cwt_fused_plain`) against the
+JAX package's fused CWT kernel (`cwt_halfband_fused`, Pallas in interpret
+mode) and kernel E's (`ifft_halfband_planar_plain`) against
+`ifft_halfband_planar_fused`, fed the same inputs: white noise, N = 9000
+(M = 2^14, the smallest M the JAX kernels build for), GMW log-piecewise
+scales at nv = 4, one and two signals, keep (n1, N) and (0, M). The JAX
+kernels multiply in bf16x3, about 5e-6 of max|Wx| off the exact
+transform, while the torch versions are float32 FFTs; so each is also held
+to a float64 transform of the same inputs.
+
+Entry points: `cwt`, `icwt`, `phase_cwt`, `phase_cwt_num` against the
+JAX package's public functions on the CPU (its XLA routes).
+
+Tolerances:
+  D, E planes    max|d| / max|plane|: JAX vs torch < 1e-5 (bf16x3);
+                 torch vs float64 < 1e-6
+  cwt            Wx, dWx max|d| / max|.| < 1e-5 (float32 FFTs in other
+                 orders and a float32 grid rounded once); float64 < 1e-10
+  icwt           max|d| / max|x_jax| < 1e-5 (float64 where the JAX test
+                 runs float64); the round trip's mad_rms under the JAX
+                 package's own bars (tests/test_cwt.py: 0.1, 0.02, 0.12)
+  phase          w where |Wx|^2 > 1e4 gamma^2: relative error < 1e-4 on
+                 >= 99.9 % of entries (w is ill-conditioned near 0, so no
+                 max bar); the +inf mask agrees on >= 99.9 % of entries.
+                 Both packages get the same Wx, dWx. difftype='phase':
+                 within 1e-3, since its unwrapped phase reaches ~5e3 rad
+                 here, where the two packages' cumulative sums differ by
+                 an ulp (~5e-4 rad) against phase steps of ~0.2 rad.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import ssqueeze_rs_tpu as J
+from ssqueeze_rs_tpu.ops.cwt import _xi_grid_np
+from ssqueeze_rs_tpu.ops.fft_pallas import (cwt_halfband_fused,
+                                            ifft_halfband_planar_fused)
+from ssqueeze_rs_tpu.scales import process_scales
+from ssqueeze_rs_tpu.utils.pad import padsignal
+from ssqueeze_rs_tpu.wavelets import Wavelet
+import ssqueeze_rs_tpu_torch as T
+from ssqueeze_rs_tpu_torch.ops import fft_cuda
+from ssqueeze_rs_tpu_torch.ops.phase import unwrap
+
+N, NV, FS = 9000, 4, 1000.0
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    torch.set_num_threads(2)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+# -- kernel level ---------------------------------------------------------------
+@pytest.fixture(scope="module")
+def kcase():
+    """JAX-planned kernel inputs for two white-noise signals."""
+    wav = Wavelet.build("gmw", l1_norm=True)
+    sc = process_scales("log-piecewise", N, wav, nv=NV).squeeze(-1)
+    sc = sc.astype(np.float32)
+    rng = np.random.default_rng(12)
+    planes = []
+    for _ in range(2):
+        x = rng.standard_normal(N).astype(np.float32)
+        xp, M, n1, _ = padsignal(jnp.asarray(x), "reflect", get_params=True)
+        xh = np.asarray(jnp.fft.rfft(xp))
+        planes.append(xh)
+    xig = _xi_grid_np(M)
+    K1, M2 = xig.shape
+    Pw = np.asarray(wav.psih(jnp.asarray(sc)[:, None, None] *
+                             jnp.asarray(xig)[None], jnp), np.float32)
+    pnyq = np.asarray(wav.psih(jnp.asarray(sc) * np.float32(np.pi), jnp) / 2,
+                      np.float32)
+    xr = np.stack([np.asarray(h.real[:M // 2], np.float32).reshape(K1, M2)
+                   for h in planes])
+    xi = np.stack([np.asarray(h.imag[:M // 2], np.float32).reshape(K1, M2)
+                   for h in planes])
+    znyq = np.concatenate([np.float32(h[-1].real) * pnyq for h in planes])
+    dt32 = np.float32(1 / FS)
+    inv_dt, pi_dt = np.float32(1) / dt32, np.float32(np.pi) / dt32
+    return dict(Pw=Pw, xr=xr, xi=xi, xig=xig, inv_dt=inv_dt, znyq=znyq,
+                pi_dt=pi_dt, M=M, n1=n1, na=len(sc))
+
+
+def _args(c, b):
+    na = c["na"]
+    znyq = c["znyq"][:b * na]
+    zeros = np.zeros_like(znyq)
+    return (c["Pw"], c["xr"][:b], c["xi"][:b], c["xig"], c["inv_dt"],
+            (znyq, zeros), (zeros, znyq * c["pi_dt"]))
+
+
+def _float64_planes(c, b, keep):
+    """The float64 transform of the same float32 inputs: (W, dW), each
+    (b*na, L) complex."""
+    Pw, xr, xi, xig, inv_dt, (znyq, _), _ = _args(c, b)
+    M, na = c["M"], c["na"]
+    Z = (Pw[None].astype(np.float64) *
+         (xr[:, None] + 1j * xi[:, None].astype(np.float64))
+         ).reshape(b * na, -1)
+    s = xig.astype(np.float64).reshape(-1) * np.float64(inv_dt)
+    spec = np.zeros((2, b * na, M), complex)
+    spec[0, :, :M // 2], spec[1, :, :M // 2] = Z, 1j * Z * s
+    spec[0, :, M // 2] = znyq
+    spec[1, :, M // 2] = 1j * znyq.astype(np.float64) * np.float64(c["pi_dt"])
+    start, L = keep
+    W, dW = np.fft.ifft(spec)[..., start:start + L]
+    return W, dW
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("keep", ["signal", "all"])
+@pytest.mark.parametrize("derivative", [False, True], ids=["wx", "dwx"])
+def test_cwt_fused_plain_matches_jax(kcase, derivative, keep, b):
+    keep = (kcase["n1"], N) if keep == "signal" else (0, kcase["M"])
+    args = _args(kcase, b)
+    ref = cwt_halfband_fused(
+        *(jnp.asarray(a) for a in args[:5]), tuple(map(jnp.asarray, args[5])),
+        tuple(map(jnp.asarray, args[6])), keep=keep, derivative=derivative,
+        interpret=True)
+    ref = [np.asarray(o) for o in ref]
+    out = [o.numpy() for o in fft_cuda.cwt_fused_plain(
+        *args, keep=keep, derivative=derivative)]
+    assert len(out) == (4 if derivative else 2)
+    W, dW = _float64_planes(kcase, b, keep)
+    for p, exact in ((0, W), (2, dW))[:len(out) // 2]:
+        scale = np.abs(ref[p] + 1j * ref[p + 1]).max()
+        for a, r, e in ((out[p], ref[p], exact.real),
+                        (out[p + 1], ref[p + 1], exact.imag)):
+            assert a.shape == (b * kcase["na"], keep[1])
+            assert np.abs(a - r).max() / scale < 1e-5
+            assert np.abs(a - e).max() / np.abs(exact).max() < 1e-6
+
+
+def test_cwt_fused_cpu_dispatch_and_planes(kcase):
+    """A CPU tensor (or numpy input) runs the plain version and never the
+    kernel; D's Wx planes are kernel A's plain Wx planes bit for bit, and
+    without the derivative they are the derivative run's first two."""
+    args = _args(kcase, 2)
+    keep = (kcase["n1"], N)
+    before = (fft_cuda.LAUNCHES, fft_cuda.LAUNCHES_D, fft_cuda.LAUNCHES_E)
+    d4 = fft_cuda.cwt_fused(*args, keep=keep, derivative=True)
+    d2 = fft_cuda.cwt_fused(*args, keep=keep, derivative=False)
+    assert (fft_cuda.LAUNCHES, fft_cuda.LAUNCHES_D,
+            fft_cuda.LAUNCHES_E) == before
+    a = fft_cuda.cwt_phase_plain(*args, keep=keep, gamma=1e-6)
+    for p in range(2):
+        assert d4[p].device.type == "cpu"
+        assert torch.equal(d4[p], a[p])
+        np.testing.assert_allclose(d2[p].numpy(), d4[p].numpy(), rtol=0,
+                                   atol=1e-6 * float(d4[p].abs().max()))
+
+
+def _zcase(B=6):
+    rng = np.random.default_rng(13)
+    M1, M2 = fft_cuda.best_split(1 << 14)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return f(B, M1 // 2, M2), f(B, M1 // 2, M2), f(B), f(B)
+
+
+@pytest.mark.parametrize("keep", [(0, 1 << 14), (3000, 9000)],
+                         ids=["all", "window"])
+def test_ifft_halfband_plain_matches_jax(keep):
+    Zr, Zi, nr, ni = _zcase()
+    ref = [np.asarray(o) for o in ifft_halfband_planar_fused(
+        jnp.asarray(Zr), jnp.asarray(Zi), keep=keep, nyq_r=jnp.asarray(nr),
+        nyq_i=jnp.asarray(ni), interpret=True)]
+    out = [o.numpy() for o in fft_cuda.ifft_halfband_planar_plain(
+        Zr, Zi, keep, nr, ni)]
+    M = 1 << 14
+    spec = np.zeros((len(nr), M), complex)
+    spec[:, :M // 2] = (Zr + 1j * Zi.astype(np.float64)).reshape(len(nr), -1)
+    spec[:, M // 2] = nr + 1j * ni.astype(np.float64)
+    exact = np.fft.ifft(spec)[:, keep[0]:keep[0] + keep[1]]
+    scale = np.abs(ref[0] + 1j * ref[1]).max()
+    for a, r, e in zip(out, ref, (exact.real, exact.imag)):
+        assert a.shape == (len(nr), keep[1])
+        assert np.abs(a - r).max() / scale < 1e-5
+        assert np.abs(a - e).max() / np.abs(exact).max() < 1e-6
+
+
+def test_ifft_halfband_cpu_dispatch_and_checks():
+    Zr, Zi, nr, ni = _zcase(3)
+    before = fft_cuda.LAUNCHES_E
+    got = fft_cuda.ifft_halfband_planar(Zr, Zi, None, nr, ni)
+    assert fft_cuda.LAUNCHES_E == before
+    ref = fft_cuda.ifft_halfband_planar_plain(Zr, Zi, None, nr, ni)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert got[0].shape == (3, 1 << 14)
+    zero = fft_cuda.ifft_halfband_planar(Zr, Zi, (0, 100))
+    ref0 = fft_cuda.ifft_halfband_planar_plain(
+        Zr, Zi, (0, 100), np.zeros(3, np.float32), np.zeros(3, np.float32))
+    assert all(torch.equal(a, b) for a, b in zip(zero, ref0))
+    with pytest.raises(ValueError, match="both"):
+        fft_cuda.ifft_halfband_planar(Zr, Zi, None, nr, None)
+    with pytest.raises(ValueError, match="shape"):
+        fft_cuda.ifft_halfband_planar(Zr, Zi[:, :2], None)
+
+
+# -- cwt --------------------------------------------------------------------------
+WAVELETS = {"gmw": "gmw", "gmw_b8": ("gmw", {"beta": 8.0}),
+            "morlet": "morlet", "bump_om": ("bump", {"om": 0.5})}
+
+
+def _signal(n=2048, seed=5):
+    t = np.arange(n) / FS
+    rng = np.random.default_rng(seed)
+    return (np.cos(2 * np.pi * (30 * t + 50 * t * t)) +
+            0.3 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _check_cwt(out, ref, bar=1e-5):
+    """Each complex plane of `out` (torch) against `ref` (JAX): same
+    shape, same NaN entries, max|d| / max|ref| < bar on the rest."""
+    assert len(out) == len(ref)
+    for a, r in zip(out, ref):
+        r = np.asarray(r)
+        if isinstance(a, torch.Tensor):
+            a = a.numpy()
+            assert a.shape == r.shape
+            nan = np.isnan(r)
+            assert np.array_equal(np.isnan(a), nan)
+            assert _rel(a[~nan], r[~nan]) < bar
+        else:
+            assert np.array_equal(a, r)
+
+
+@pytest.mark.parametrize("l1_norm", [True, False], ids=["l1", "l2"])
+@pytest.mark.parametrize("derivative", [False, True], ids=["wx", "dwx"])
+@pytest.mark.parametrize("wavelet", list(WAVELETS))
+def test_cwt_matches_jax(wavelet, derivative, l1_norm):
+    """gmw, morlet: the planar route (kernel D); bump with om != 0: the
+    complex half-band route (kernel E). GMW at its default beta = 60
+    with the energy norm overflows float32 (w^60) into NaN rows in both
+    packages alike: the NaN entries are held equal."""
+    x = _signal()
+    kw = dict(nv=8, fs=FS, derivative=derivative, l1_norm=l1_norm)
+    ref = J.cwt(x, WAVELETS[wavelet], dtype="float32", **kw)
+    out = T.cwt(torch.as_tensor(x), WAVELETS[wavelet], **kw)
+    _check_cwt(out, ref)
+
+
+@pytest.mark.parametrize("n,padtype", [(2048, "reflect"), (2048, None),
+                                       (1500, "reflect"), (1500, None),
+                                       (1500, "zero"), (1500, "wrap")])
+def test_cwt_padtypes_match_jax(n, padtype):
+    """N = 2^k without padding takes the planar route on the signal
+    itself; N = 1500 without padding the full-length route (plain FFTs)."""
+    x = _signal(n)
+    kw = dict(nv=8, fs=FS, derivative=True, padtype=padtype)
+    _check_cwt(T.cwt(torch.as_tensor(x), **kw),
+               J.cwt(x, dtype="float32", **kw))
+
+
+@pytest.mark.parametrize("wavelet", ["gmw", "bump_om"])
+def test_cwt_rpadded_matches_jax(wavelet):
+    x = _signal(1500)
+    kw = dict(nv=8, derivative=True, rpadded=True)
+    out = T.cwt(torch.as_tensor(x), WAVELETS[wavelet], **kw)
+    assert out[0].shape[-1] == 4096      # p2up(1500)
+    _check_cwt(out, J.cwt(x, WAVELETS[wavelet], dtype="float32", **kw))
+
+
+@pytest.mark.parametrize("wavelet", ["gmw", "bump_om"])
+def test_cwt_batched_matches_single_and_jax(wavelet):
+    """(2, N) input against each signal alone (1e-6 of max|Wx|: a batched
+    FFT may be planned differently) and against JAX's batched call."""
+    X = np.stack([_signal(seed=6), _signal(seed=7)])
+    kw = dict(nv=8, derivative=True)
+    Wb, sc, dWb = T.cwt(torch.as_tensor(X), WAVELETS[wavelet], **kw)
+    assert Wb.shape[:2] == (2, len(sc))
+    for i in range(2):
+        Wi, _, dWi = T.cwt(torch.as_tensor(X[i]), WAVELETS[wavelet], **kw)
+        assert _rel(Wb[i].numpy(), Wi.numpy()) < 1e-6
+        assert _rel(dWb[i].numpy(), dWi.numpy()) < 1e-6
+    _check_cwt((Wb, sc, dWb), J.cwt(X, WAVELETS[wavelet], dtype="float32",
+                                    **kw))
+
+
+@pytest.mark.parametrize("derivative", [False, True], ids=["wx", "dwx"])
+def test_cwt_float64_matches_jax(derivative):
+    """float64 takes the full-length route in both packages."""
+    x = _signal().astype(np.float64)
+    kw = dict(nv=8, fs=FS, derivative=derivative, dtype="float64")
+    out = T.cwt(torch.as_tensor(x), **kw)
+    assert out[0].dtype == torch.complex128
+    _check_cwt(out, J.cwt(x, **kw), bar=1e-10)
+
+
+@pytest.mark.parametrize("order,average", [(1, None), ((0, 1, 2), None),
+                                           ((0, 1), False), ([1, 2], True)],
+                         ids=["1", "012", "01_list", "12_avg"])
+def test_cwt_higher_order_matches_jax(order, average):
+    x = _signal()
+    kw = dict(scales="log", nv=8, order=order, average=average,
+              derivative=True)
+    ref = J.cwt(x, "gmw", dtype="float32", **kw)
+    out = T.cwt(torch.as_tensor(x), "gmw", **kw)
+    if isinstance(ref[0], list):      # unaveraged orders: one per order
+        assert len(out[0]) == len(ref[0])
+        for k in range(len(ref[0])):
+            _check_cwt((out[0][k], out[2][k]), (ref[0][k], ref[2][k]))
+        assert np.array_equal(out[1], ref[1])
+    else:
+        _check_cwt(out, ref)
+
+
+def test_cwt_nan_checks_and_cache_wavelet():
+    x = _signal(1024)
+    x[10] = np.nan
+    Wx, _ = T.cwt(torch.as_tensor(x), nv=8)
+    assert bool(torch.isfinite(Wx).all())
+    _check_cwt((Wx,), (J.cwt(x, nv=8, dtype="float32")[0],))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.cwt(torch.as_tensor(x), cache_wavelet=True)
+
+
+# -- icwt -------------------------------------------------------------------------
+def _echirp(n):
+    t = np.linspace(0, 10, n, endpoint=False)
+    return np.cos(2 * np.pi * 3 * np.exp(t / 3)), t
+
+
+@pytest.mark.parametrize("one_int", [True, False], ids=["1int", "2int"])
+@pytest.mark.parametrize("scales", ["log", "log-piecewise"])
+def test_icwt_matches_jax(scales, one_int):
+    """Inversion of the same Wx (JAX's float64 transform) in both
+    packages, x_mean = 0.5 (added once), and each package's own round
+    trip under the JAX tests' bars."""
+    x, ts = _echirp(1024)
+    wav = ("gmw", {"beta": 8.0}) if scales == "log" else "gmw"
+    Wx, sc = J.cwt(x, wav, scales=scales, t=ts, dtype="float64")
+    Wx = np.array(Wx)
+    kw = dict(scales=sc, one_int=one_int, x_len=len(x), x_mean=0.5)
+    ref = np.asarray(J.icwt(Wx, wav, **kw))
+    out = T.icwt(torch.as_tensor(Wx), wav, **kw).numpy()
+    assert out.shape == ref.shape and out.dtype == np.float64
+    assert _rel(out, ref) < 1e-10
+    bar = {(True, "log"): 0.1, (True, "log-piecewise"): 0.02}.get(
+        (one_int, scales), 0.12)
+    Wt, sct = T.cwt(torch.as_tensor(x), wav, scales=scales, t=ts,
+                    dtype="float64")
+    xr = T.icwt(Wt, wav, scales=sct, one_int=one_int, x_len=len(x))
+    assert T.mad_rms(x, xr) < bar
+
+
+def test_icwt_float32_and_batched():
+    """float32 input (one- and two-integral) against JAX, and a (2, N)
+    batch against each row."""
+    x = np.stack([_signal(1024, 8), _signal(1024, 9)])
+    Wx, sc = J.cwt(x, "gmw", scales="log", nv=16, dtype="float32")
+    Wx = np.array(Wx)
+    for one_int in (True, False):
+        kw = dict(scales=sc, one_int=one_int)
+        ref = np.asarray(J.icwt(Wx, "gmw", **kw))
+        out = T.icwt(torch.as_tensor(Wx), "gmw", **kw)
+        assert out.dtype == torch.float32
+        assert _rel(out.numpy(), ref) < 1e-5
+        for i in range(2):
+            one = T.icwt(torch.as_tensor(Wx[i]), "gmw", **kw)
+            assert _rel(out[i].numpy(), one.numpy()) < 1e-6
+
+
+# -- phase transforms --------------------------------------------------------------
+@pytest.fixture(scope="module")
+def wx_pair():
+    x = _signal(2048, 10)
+    Wx, _, dWx = J.cwt(x, "gmw", nv=8, fs=FS, derivative=True,
+                       dtype="float32")
+    Wxp, _, _ = J.cwt(x, "gmw", nv=8, fs=FS, derivative=True,
+                      dtype="float32", rpadded=True)
+    return np.array(Wx), np.array(dWx), np.array(Wxp)
+
+
+def _check_w(w, w_ref, Wx, gamma, bar=1e-4):
+    w, w_ref = np.asarray(w), np.asarray(w_ref)
+    assert w.shape == w_ref.shape
+    assert (np.isinf(w) == np.isinf(w_ref)).mean() >= 0.999
+    strong = (np.abs(Wx) ** 2 > 1e4 * gamma ** 2) & np.isfinite(w_ref)
+    assert strong.mean() > 0.3
+    rel = np.abs(w - w_ref)[strong] / np.abs(w_ref)[strong]
+    assert (rel < bar).mean() >= 0.999
+
+
+@pytest.mark.parametrize("difftype", ["trig", "phase"])
+def test_phase_cwt_matches_jax(wx_pair, difftype):
+    Wx, dWx, _ = wx_pair
+    d = dWx if difftype == "trig" else None
+    ref = J.phase_cwt(jnp.asarray(Wx), None if d is None else jnp.asarray(d),
+                      difftype)
+    out = T.phase_cwt(torch.as_tensor(Wx),
+                      None if d is None else torch.as_tensor(d), difftype)
+    _check_w(out.numpy(), ref, Wx, np.sqrt(np.finfo(np.float32).eps),
+             1e-4 if difftype == "trig" else 1e-3)
+
+
+@pytest.mark.parametrize("difforder", [1, 2, 4])
+def test_phase_cwt_num_matches_jax(wx_pair, difforder):
+    _, _, Wxp = wx_pair
+    ref = J.phase_cwt_num(jnp.asarray(Wxp), 1 / FS, difforder)
+    out = T.phase_cwt_num(torch.as_tensor(Wxp), 1 / FS, difforder)
+    _check_w(out.numpy(), ref, Wxp, 10 * np.finfo(np.float32).eps)
+
+
+def test_unwrap_is_numpys():
+    rng = np.random.default_rng(14)
+    p = np.cumsum(rng.uniform(-4, 4, (3, 500)), axis=-1)
+    p[0, 7] = p[0, 6] + np.pi       # a jump of exactly pi stays
+    p[1, 9] = p[1, 8] - np.pi
+    out = unwrap(torch.as_tensor(p), dim=-1).numpy()
+    np.testing.assert_allclose(out, np.unwrap(p, axis=-1), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(unwrap(torch.as_tensor(p.T), dim=0).numpy(),
+                               np.unwrap(p.T, axis=0), rtol=0, atol=1e-9)
+
+
+def test_trigdiff_matches_jax():
+    x = _signal(1500, 11)
+    Wxp, _ = J.cwt(x, "gmw", nv=8, rpadded=True, dtype="float32")
+    Wxp = np.array(Wxp)
+    ref = np.asarray(J.trigdiff(Wxp, FS, rpadded=True, N=1500, n1=274))
+    out = T.trigdiff(torch.as_tensor(Wxp), FS, rpadded=True, N=1500, n1=274)
+    assert out.shape == ref.shape
+    assert _rel(out.numpy(), ref) < 1e-5
+    Wx = Wxp[..., 274:274 + 1500]
+    ref2 = np.asarray(J.trigdiff(Wx, FS))
+    assert _rel(T.trigdiff(torch.as_tensor(Wx), FS).numpy(), ref2) < 1e-5
+
+
+# -- the device rule of the entry points --------------------------------------------
+def _entry_calls():
+    x = np.zeros(512, np.float32)
+    W = np.zeros((4, 512), np.complex64)
+    S = np.zeros((33, 512), np.complex64)
+    return {
+        "cwt": lambda **k: T.cwt(x, nv=4, **k),
+        "icwt": lambda **k: T.icwt(W, scales=np.geomspace(2, 16, 4), **k),
+        "ssq_cwt": lambda **k: T.ssq_cwt(x, nv=4, **k),
+        "issq_cwt": lambda **k: T.issq_cwt(W, **k),
+        "stft": lambda **k: T.stft(x, n_fft=64, **k),
+        "istft": lambda **k: T.istft(S, n_fft=64, **k),
+        "ssq_stft": lambda **k: T.ssq_stft(x, n_fft=64, **k),
+        "issq_stft": lambda **k: T.issq_stft(S, n_fft=64, **k),
+    }
+
+
+ENTRIES = ["cwt", "icwt", "ssq_cwt", "issq_cwt", "stft", "istft", "ssq_stft",
+           "issq_stft"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_array_input_needs_cuda_or_device_cpu(monkeypatch, entry):
+    """Array input goes to the CUDA device by default: without one it
+    raises, naming device='cpu'; with device='cpu' it runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _entry_calls()[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu"
+
+
+def test_tensor_input_stays_on_its_device():
+    x = torch.as_tensor(_signal(512))
+    Wx, _ = T.cwt(x, nv=4)
+    assert Wx.device.type == "cpu"
+    Wx2, _ = T.cwt(x.numpy(), nv=4, device="cpu")
+    assert torch.equal(Wx, Wx2)

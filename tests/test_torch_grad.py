@@ -14,9 +14,14 @@ Tolerances, and why:
           wherever the bins agree (one float32 product per entry on both
           sides); gw, gdWx exactly 0; the hand backward bitwise equal to
           torch.autograd through the plain forward
-  A       max|d| / max|g| < 1e-5 against JAX (its own bar between the
-          kernel's VJP and XLA autodiff); < 1e-6 against autograd of
-          `cwt_phase_plain` (the same float32 FFTs, other sum orders)
+  A, D, E max|d| / max|g| < 1e-5 against JAX (its own bar between the
+          kernel's VJP and XLA autodiff); A < 1e-6 against autograd of
+          `cwt_phase_plain` (the same float32 FFTs, other sum orders);
+          D's grid cotangent (sums over every row) < 1e-4; 1/dt's (one
+          sum over every row and bin, which cancels) < 1e-5 of the sum of
+          its terms' magnitudes
+  cwt     end to end (loss sum|Wx|^2 + sum|dWx|^2) < 1e-4 against
+          jax.grad of the JAX cwt (a linear pipeline)
   F, H    < 1e-5 against JAX (sums of <= 598 float32 products in other
           orders; JAX's backward runs in HIGHEST precision)
   G       < 5e-3 (a bin that flips between the two packages moves an
@@ -35,13 +40,14 @@ import jax
 import jax.numpy as jnp
 
 from ssqueeze_rs_tpu import (ssq_cwt as j_ssq_cwt, ssq_stft as j_ssq_stft,
-                             stft as j_stft, istft as j_istft)
-from ssqueeze_rs_tpu.ops.fft_pallas import cwt_halfband_fused
+                             stft as j_stft, istft as j_istft, cwt as j_cwt)
+from ssqueeze_rs_tpu.ops.fft_pallas import (cwt_halfband_fused,
+                                            ifft_halfband_planar_fused)
 from ssqueeze_rs_tpu.ops.reassign_pallas import _bin_indices, reassign_pallas
 from ssqueeze_rs_tpu.ops.ssqueeze import bin_params
 from ssqueeze_rs_tpu.ops.stft_pallas import (stft_dft_fused, istft_ola_fused,
                                              ssq_stft_fused as j_ssq_fused)
-from ssqueeze_rs_tpu_torch import ssq_cwt, ssq_stft, stft, istft
+from ssqueeze_rs_tpu_torch import cwt, ssq_cwt, ssq_stft, stft, istft
 from ssqueeze_rs_tpu_torch.config import EPS32
 from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda, stft_cuda
 from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
@@ -246,6 +252,110 @@ def test_cwt_phase_grad_matches_jax():
         assert _rel(a.numpy(), p.numpy()) < 1e-6
 
 
+# -- D and E: CwtFusedFn, IfftHalfbandFn ------------------------------------------
+def _fused_inputs(rng, na=3, b=2):
+    M1, M2 = fft_cuda.best_split(1 << 14)
+    K1 = M1 // 2
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return (f(na, K1, M2), f(b, K1, M2), f(b, K1, M2),
+            rng.uniform(0, 3, (K1, M2)).astype(np.float32),
+            f(b * na), f(b * na), f(b * na), f(b * na))
+
+
+@pytest.mark.parametrize("derivative", [False, True], ids=["wx", "dwx"])
+def test_cwt_fused_grad_matches_jax(derivative):
+    """M = 2^14, na = 3, b = 2, keep = (100, 9000), loss sum o * R over
+    every output plane; cotangents of Pw, the signal planes, the grid,
+    1/dt and the four Nyquist vectors."""
+    rng = np.random.default_rng(9)
+    inputs = _fused_inputs(rng)
+    inv_dt = np.float32(1.7)
+    keep = (100, 9000)
+    n_out = 4 if derivative else 2
+    R = [rng.standard_normal((6, keep[1])).astype(np.float32)
+         for _ in range(n_out)]
+
+    def j_loss(Pw, xr, xi, xig, inv_dt, nwr, nwi, ndr, ndi):
+        out = cwt_halfband_fused(Pw, xr, xi, xig, inv_dt, (nwr, nwi),
+                                 (ndr, ndi), keep=keep, derivative=derivative,
+                                 interpret=True)
+        return sum(jnp.sum(o * r) for o, r in zip(out, R))
+
+    args = [jnp.asarray(a) for a in inputs]
+    args.insert(4, jnp.asarray(inv_dt))
+    gj = [np.asarray(g) for g in jax.grad(j_loss, argnums=tuple(range(9)))(
+        *args)]
+    leaves = [_leaf(a) for a in inputs]
+    t_inv = torch.tensor(inv_dt, requires_grad=True)
+    out = fft_cuda.cwt_fused(*leaves[:4], t_inv, leaves[4:6], leaves[6:],
+                             keep=keep, derivative=derivative)
+    assert len(out) == n_out
+    gt = _grads(sum((o * torch.as_tensor(r)).sum() for o, r in zip(out, R)),
+                leaves[:4] + [t_inv] + leaves[4:])
+    names = ["Pw", "xr", "xi", "xig", "inv_dt", "nwr", "nwi", "ndr", "ndi"]
+    for name, a, j in zip(names, gt, gj):
+        a = a.numpy()
+        assert a.shape == j.shape, name
+        if not derivative and name in ("xig", "inv_dt", "ndr", "ndi"):
+            assert not a.any() and not j.any(), name
+            continue
+        if name == "inv_dt":
+            # one sum over every (row, bin) that cancels: held relative
+            # to the sum of its terms' magnitudes, sum|g_xig * xig| * dt
+            terms = np.abs(gj[3] * inputs[3]).sum() / inv_dt
+            assert abs(a - j) / terms < 1e-5, name
+            continue
+        assert _rel(a, j) < (1e-4 if name == "xig" else 1e-5), name
+
+
+def test_ifft_halfband_grad_matches_jax():
+    rng = np.random.default_rng(10)
+    M1, M2 = fft_cuda.best_split(1 << 14)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    Zr, Zi, nr, ni = f(4, M1 // 2, M2), f(4, M1 // 2, M2), f(4), f(4)
+    keep = (3000, 9000)
+    R = [f(4, keep[1]) for _ in range(2)]
+
+    def j_loss(Zr, Zi, nr, ni):
+        out = ifft_halfband_planar_fused(Zr, Zi, keep=keep, nyq_r=nr,
+                                         nyq_i=ni, interpret=True)
+        return sum(jnp.sum(o * r) for o, r in zip(out, R))
+
+    gj = jax.grad(j_loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (Zr, Zi, nr, ni)))
+    leaves = [_leaf(a) for a in (Zr, Zi, nr, ni)]
+    out = fft_cuda.ifft_halfband_planar(leaves[0], leaves[1], keep,
+                                        leaves[2], leaves[3])
+    gt = _grads(sum((o * torch.as_tensor(r)).sum() for o, r in zip(out, R)),
+                leaves)
+    for a, j in zip(gt, gj):
+        assert _rel(a.numpy(), np.asarray(j)) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["gmw", "bump", "full"])
+def test_cwt_grad_matches_jax(case):
+    """Loss sum|Wx|^2 + sum|dWx|^2 of cwt(derivative=True) on the planar
+    route (kernel D), the complex half-band route (kernel E, bump with
+    om = 0.5) and the full-length route (N = 1500, padtype=None)."""
+    n = 1500 if case == "full" else 2048
+    x = np.cos(2 * np.pi * 40 * np.arange(n) / 1000.0).astype(np.float32)
+    x += 0.2 * np.random.default_rng(11).standard_normal(n).astype(np.float32)
+    wav = ("bump", {"om": 0.5}) if case == "bump" else "gmw"
+    kw = dict(nv=8, fs=1000.0, derivative=True,
+              padtype=None if case == "full" else "reflect")
+
+    def loss(Wx, dWx, xp):
+        return xp.sum(xp.abs(Wx) ** 2) + xp.sum(xp.abs(dWx) ** 2)
+
+    gj = np.asarray(jax.grad(lambda x: loss(
+        *j_cwt(x, wav, dtype="float32", **kw)[::2], jnp))(jnp.asarray(x)))
+    x_t = _leaf(x)
+    Wx, _, dWx = cwt(x_t, wav, **kw)
+    (gt,) = _grads(loss(Wx, dWx, torch), [x_t])
+    assert np.isfinite(gt.numpy()).all()
+    assert _rel(gt.numpy(), gj) < 1e-4
+
+
 # -- F and H: StftDftFn, IstftOlaFn -----------------------------------------------
 @pytest.mark.parametrize("fs", [None, 500.0], ids=["plain", "derivative"])
 def test_stft_dft_grad_matches_jax(fs):
@@ -401,7 +511,7 @@ def test_istft_grad_matches_jax(monkeypatch):
     """Loss sum x^2 of istft, with respect to the planes of Sx."""
     N, n_fft = 2000, 256
     x = np.random.default_rng(5).standard_normal(N).astype(np.float32)
-    Sx = stft(x, n_fft=n_fft).numpy()
+    Sx = stft(x, n_fft=n_fft, device="cpu").numpy()
     Sr, Si = Sx.real.copy(), Sx.imag.copy()
     monkeypatch.setenv("SSQ_TPU_KERNELS", "0")
     jax.clear_caches()

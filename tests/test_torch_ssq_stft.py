@@ -70,7 +70,7 @@ def test_fused_route_matches_jax_kernel(monkeypatch):
     """Plain G against the JAX kernel G (interpret mode)."""
     Tj, Sj, fj, sfj = _jax(monkeypatch, True)
     before = _counts()
-    Tx, Sx, f, sf = ssq_stft(_signal(), n_fft=N_FFT, fs=FS)
+    Tx, Sx, f, sf = ssq_stft(_signal(), device="cpu", n_fft=N_FFT, fs=FS)
     assert _counts() == before
     assert Tx.dtype == Sx.dtype == torch.complex64
     assert Tx.shape == Sx.shape == Tj.shape == (N_FFT // 2 + 1, N)
@@ -89,7 +89,7 @@ def test_two_kernel_route_matches_jax(monkeypatch, kw):
         kw = dict(ssq_freqs=np.linspace(0, FS / 2, N_FFT // 2 + 1,
                                         dtype=np.float32))
     Tj, Sj, fj, sfj = _jax(monkeypatch, False, **kw)
-    Tx, Sx, f, sf = ssq_stft(_signal(), n_fft=N_FFT, fs=FS, **kw)
+    Tx, Sx, f, sf = ssq_stft(_signal(), device="cpu", n_fft=N_FFT, fs=FS, **kw)
     assert Tx.shape == Tj.shape and Sx.shape == Sj.shape
     assert np.array_equal(f, fj) and np.array_equal(sf, sfj)
     assert _rel(Sx.numpy(), Sj) < 2e-6
@@ -103,8 +103,8 @@ def test_fused_route_equals_two_kernel_route():
     B' the same way)."""
     x = _signal(1)
     Sfs = np.linspace(0, FS / 2, N_FFT // 2 + 1, dtype=np.float32)
-    Tg, Sg, *_ = ssq_stft(x, n_fft=N_FFT, fs=FS)
-    Tb, Sb, *_ = ssq_stft(x, n_fft=N_FFT, fs=FS, ssq_freqs=Sfs)
+    Tg, Sg, *_ = ssq_stft(x, device="cpu", n_fft=N_FFT, fs=FS)
+    Tb, Sb, *_ = ssq_stft(x, device="cpu", n_fft=N_FFT, fs=FS, ssq_freqs=Sfs)
     assert torch.equal(Sg, Sb)
     top = float(Tb.abs().max())
     assert float(((Tg - Tb).abs() <= 1e-6 * top).float().mean()) >= 0.999
@@ -115,8 +115,8 @@ def test_get_w_and_get_dWx_match_jax(monkeypatch):
     kernel B; get_dWx: dSx."""
     Tj, Sj, _, _, wj, dSj = _jax(monkeypatch, False, get_w=True,
                                  get_dWx=True)
-    Tx, Sx, _, _, w, dSx = ssq_stft(_signal(), n_fft=N_FFT, fs=FS,
-                                    get_w=True, get_dWx=True)
+    Tx, Sx, _, _, w, dSx = ssq_stft(_signal(), device="cpu", n_fft=N_FFT,
+                                    fs=FS, get_w=True, get_dWx=True)
     assert _rel(dSx.numpy(), dSj) < 2e-6
     assert _col_rel(Tx.numpy(), Tj) < 1e-3
     w = w.numpy()
@@ -124,7 +124,8 @@ def test_get_w_and_get_dWx_match_jax(monkeypatch):
     strong = np.abs(Sj) > 100 * 10 * np.finfo(np.float32).eps
     ok = np.abs(w - wj)[strong] <= 1e-4 * np.abs(wj)[strong]
     assert ok.mean() >= 0.999
-    _, _, _, _, dSx2 = ssq_stft(_signal(), n_fft=N_FFT, fs=FS, get_dWx=True)
+    _, _, _, _, dSx2 = ssq_stft(_signal(), device="cpu", n_fft=N_FFT, fs=FS,
+                                get_dWx=True)
     assert torch.equal(dSx2, dSx)
 
 
@@ -133,14 +134,15 @@ def test_squeezing_matches_jax(monkeypatch, squeezing):
     """'abs' and 'lebesgue' squeeze the transformed Sx, with the phase
     from the transformed Sx too (the reference quirk)."""
     Tj, *_ = _jax(monkeypatch, False, squeezing=squeezing)
-    Tx, *_ = ssq_stft(_signal(), n_fft=N_FFT, fs=FS, squeezing=squeezing)
+    Tx, *_ = ssq_stft(_signal(), device="cpu", n_fft=N_FFT, fs=FS,
+                      squeezing=squeezing)
     assert _col_rel(Tx.numpy(), Tj) < 1e-3
 
 
 def test_issq_stft_matches_jax():
-    Tx = ssq_stft(_signal(2), n_fft=N_FFT)[0]
+    Tx = ssq_stft(_signal(2), device="cpu", n_fft=N_FFT)[0]
     xj = np.asarray(j_issq_stft(jnp.asarray(Tx.numpy()), n_fft=N_FFT))
-    x = issq_stft(Tx, n_fft=N_FFT)
+    x = issq_stft(Tx, device="cpu", n_fft=N_FFT)
     assert x.shape == (N,) and _rel(x.numpy(), xj) < 1e-5
     assert np.mean(np.abs(x.numpy() - _signal(2))) < 0.1
 
@@ -178,12 +180,12 @@ def test_unported_raise():
     grad stays in its graph and gets a finite gradient through ssq_stft
     (tests/test_torch_grad.py holds it to jax.grad)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssq_stft(_signal(), n_fft=N_FFT, dtype="float64")
+        ssq_stft(_signal(), device="cpu", n_fft=N_FFT, dtype="float64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssqueeze(np.zeros((5, 40), np.complex128), w=np.zeros((5, 40)),
                  ssq_freqs=np.linspace(0, 1, 5), transform="stft")
     x = torch.tensor(_signal(), requires_grad=True)
     assert as_signal(x) is x
-    Tx, Sx, *_ = ssq_stft(x, n_fft=N_FFT, fs=FS)
+    Tx, Sx, *_ = ssq_stft(x, device="cpu", n_fft=N_FFT, fs=FS)
     ((Tx.abs() ** 2).sum() + (Sx.abs() ** 2).sum()).backward()
     assert x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all())

@@ -105,7 +105,7 @@ def test_stft_matches_jax(monkeypatch, n_fft):
     x = _signal(N)
     Sj, dSj = j_stft(x, n_fft=n_fft, fs=FS, derivative=True, dtype="float32")
     before = dict(stft_cuda.LAUNCHES)
-    Sx, dSx = stft(x, n_fft=n_fft, fs=FS, derivative=True)
+    Sx, dSx = stft(x, device="cpu", n_fft=n_fft, fs=FS, derivative=True)
     assert stft_cuda.LAUNCHES == before
     assert Sx.dtype == torch.complex64 and Sx.shape == Sj.shape
     assert _rel(Sx.numpy(), Sj) < 2e-6
@@ -119,7 +119,7 @@ def test_stft_batch_matches_jax(monkeypatch):
     Sx, dSx = stft(torch.as_tensor(x), n_fft=256, fs=FS, derivative=True)
     assert Sx.shape == Sj.shape == (2, 129, N)
     assert _rel(Sx.numpy(), Sj) < 2e-6 and _rel(dSx.numpy(), dSj) < 2e-6
-    one = stft(x[1], n_fft=256)
+    one = stft(x[1], device="cpu", n_fft=256)
     torch.testing.assert_close(Sx[1], one, rtol=0, atol=0)
 
 
@@ -130,7 +130,8 @@ def test_stft_matches_jax_kernel(monkeypatch):
     x = _signal(1500, seed=2)
     Sj, dSj = j_stft(x, n_fft=121, fs=FS, derivative=True, modulated=False,
                      dtype="float32")
-    Sx, dSx = stft(x, n_fft=121, fs=FS, derivative=True, modulated=False)
+    Sx, dSx = stft(x, device="cpu", n_fft=121, fs=FS, derivative=True,
+                   modulated=False)
     assert _rel(Sx.numpy(), Sj) < 2e-6 and _rel(dSx.numpy(), dSj) < 2e-6
 
 
@@ -141,7 +142,8 @@ def test_stft_hop_matches_jax(monkeypatch, hop):
     x = _signal(N, seed=3)
     Sj, dSj = j_stft(x, n_fft=256, hop_len=hop, fs=FS, derivative=True,
                      dtype="float32")
-    Sx, dSx = stft(x, n_fft=256, hop_len=hop, fs=FS, derivative=True)
+    Sx, dSx = stft(x, device="cpu", n_fft=256, hop_len=hop, fs=FS,
+                   derivative=True)
     assert Sx.shape == Sj.shape
     assert _rel(Sx.numpy(), Sj) < 2e-6 and _rel(dSx.numpy(), dSj) < 2e-6
 
@@ -151,7 +153,7 @@ def test_stft_rfft_route_matches_jax(monkeypatch):
     _jax_kernels(monkeypatch, False)
     x = _signal(3000, seed=4)
     Sj = j_stft(x, n_fft=2100, hop_len=64, dtype="float32")
-    Sx = stft(x, n_fft=2100, hop_len=64)
+    Sx = stft(x, device="cpu", n_fft=2100, hop_len=64)
     assert Sx.shape == Sj.shape
     assert _rel(Sx.numpy(), Sj) < 2e-6
 
@@ -166,7 +168,8 @@ def test_istft_matches_jax_kernel(monkeypatch, win_exp):
     _jax_kernels(monkeypatch, True)
     xj = np.asarray(j_istft(Sj, n_fft=121, N=2000, win_exp=win_exp))
     before = dict(stft_cuda.LAUNCHES)
-    xr = istft(np.asarray(Sj), n_fft=121, N=2000, win_exp=win_exp)
+    xr = istft(np.asarray(Sj), device="cpu", n_fft=121, N=2000,
+               win_exp=win_exp)
     assert stft_cuda.LAUNCHES == before
     assert xr.dtype == torch.float32 and xr.shape == xj.shape
     assert _rel(xr.numpy(), xj) < 2e-6
@@ -181,7 +184,7 @@ def test_istft_unfused_matches_jax(monkeypatch, hop, n_fft):
     Sj = j_stft(x, n_fft=n_fft, hop_len=hop, dtype="float32")
     n_out = hop * Sj.shape[-1] - (1 if hop == 1 else 0)
     xj = np.asarray(j_istft(Sj, n_fft=n_fft, hop_len=hop, N=n_out))
-    xr = istft(np.asarray(Sj), n_fft=n_fft, hop_len=hop, N=n_out)
+    xr = istft(np.asarray(Sj), device="cpu", n_fft=n_fft, hop_len=hop, N=n_out)
     assert xr.shape == xj.shape
     assert _rel(xr.numpy(), xj) < 2e-6
 
@@ -242,6 +245,6 @@ def test_shape_contracts_and_gates():
 def test_float64_raises():
     x = _signal(1000)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stft(x, n_fft=64, dtype="float64")
+        stft(x, device="cpu", n_fft=64, dtype="float64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        istft(np.zeros((33, 100), np.complex128), n_fft=64)
+        istft(np.zeros((33, 100), np.complex128), device="cpu", n_fft=64)
