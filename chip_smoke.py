@@ -10,7 +10,9 @@ sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
 `issq_stft`) at the benchmark's STFT width: N = 160 000, n_fft = 598
 (300 frequency rows), hop 1, the default window; then the CWT family
 (`cwt`, `icwt`, the `ssq_cwt` routes through the dWx planes) at the
-ssq_cwt widths. Phases, one line each:
+ssq_cwt widths; then kernel I and the serving and long-signal entry
+points (the SSQ streamers, `TransformServer`, `process_recording`).
+Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
   2. build every kernel from csrc/ with nvcc, or load the library the
@@ -77,9 +79,36 @@ ssq_cwt widths. Phases, one line each:
  17. the gradient of cwt at the headline, loss sum|Wx|^2 + sum|dWx|^2: D
      once per call, finite, bitwise repeat, forward+backward time and peak
      memory, device against CPU at N = 20 000 within 1e-4
+ 18. kernel I (reassign_mxu, the digit-split tensor-core scatter, reached
+     through reassign4 under SSQ_TPU_REASSIGN_IMPL=mxu) against its plain
+     version and against B' on D's ssq_cwt planes (293 x 160 000, nf =
+     293) and on F's STFT planes at n_fft = 598 (nf = 300) and 2048 (nf =
+     1025, N = 20 000), timed beside B' and its bound (B''s: the same
+     function); then untimed at n_fft = 510 (nf = 256, 1 tile a pass),
+     2046 (nf = 1024, 4 tiles) and on a batch of two at n_fft = 598:
+     sum |d| / sum |ref| < 2e-5 and nonzero patterns equal on >= 99.99 %,
+     bitwise repeat, the gradient through I bitwise the one through B'
+ 19. StreamingSSQSTFT(block=16384, n_fft=598) and StreamingSSQCWT(block=
+     16384, plan_N=160000) on 160 000 samples of noise, a 100 Hz sine and a
+     chirp at fs = 1000 in ragged chunks of 1000-20000, under the default
+     scatter and under SSQ_TPU_REASSIGN_IMPL=mxu: per step one F or D and
+     one B' (or one I, B' none); against offline ssq_stft (bin-flip bars)
+     and ssq_cwt (Wx on rows whose tail mass beyond the halo is < 1e-6,
+     interior columns, within 1e-5), the sine's peak within 5 %; each Tx
+     under 'mxu' against the same stream's Tx under 'vpu' by phase 18's
+     bar; ms per step and MSamples/s
+ 20. TransformServer('ssq_cwt') on requests of 3000, 10 000, 100 000 and
+     160 000 samples (A and B once each, equal to the direct transform of
+     the padded request), batch() of 16 x 10 000 (one launch each, equal
+     to singles within 1e-6), TransformServer('ssq_stft', n_fft=598) (G
+     once); process_recording(ssq_cwt) over 64 channels x 600 000 samples
+     at 1 kHz in chunks of 250 000 (out='energy': tone rows, channel
+     sub-batches consistent, MSamples/s, peak memory) and over 8 x 60 000
+     in chunks of 20 000 (out='numpy', against offline ssq_cwt per channel)
 
-Any failed check raises and exits non-zero. The last three lines are a
-JSON object of the ten kernels' numbers (each with its launches on its
+A line "[t]" gives the wall seconds of each part of the script. Any
+failed check raises and exits non-zero. The last three lines are a
+JSON object of the eleven kernels' numbers (each with its launches on its
 path, its time, its plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
@@ -107,6 +136,18 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+LAPS = {}                         # wall seconds by part of the script
+_LAP_T = [time.perf_counter()]
+
+
+def lap(name):
+    """Record under `name` the wall seconds since the previous lap (the
+    first counts from the script's start)."""
+    now = time.perf_counter()
+    LAPS[name] = now - _LAP_T[0]
+    _LAP_T[0] = now
 
 
 def card_line():
@@ -241,15 +282,17 @@ def entry_metrics(torch, Tk, Tp):
             col, float(d.max()))
 
 
-def device_breakdown(torch, fn, groups, calls=3):
+def device_breakdown(torch, fn, groups, calls=3, warm=False):
     """Where the device time of fn() goes: torch.profiler over `calls`
-    steady calls (after one more), the CUDA kernels' self time summed by
+    steady calls (after one more, unless the caller has just made it:
+    `warm`), the CUDA kernels' self time summed by
     the first of `groups` (name, substrings) whose substring is in the
     kernel's name ("other" for the rest), per call in ms, with the wall
     time per call and the device's idle share. None if the profiler sees
     no device time."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -344,6 +387,7 @@ def main():
     print(f"[2] build: {results['build_s']:.1f} s "
           f"({'compiled' if built else 'cached'}) -> "
           f"{os.path.relpath(path, HERE)}")
+    lap("1-2 start, card, build")
 
     # 3. kernel A against plain A at the headline shape
     wavelet = Wavelet.build("gmw", l1_norm=True)
@@ -522,13 +566,22 @@ def main():
           f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
 
     del kA_chunked, pB, Tk, Tp, kB2
+    lap("3-5 A, B, ssq_cwt")
     stft_kernels = stft_phases(np, torch, dev, card, results)
+    lap("6-11 STFT family")
     ctx = dict(requests=requests, wavelet=wavelet, scales=scales, w=kA[2],
                const=const, params=params, mode=mode, nf=nf)
     grad_kernels = grad_phases(np, torch, dev, card, results, ctx)
+    lap("12-14 gradients")
     del kA, kB, args, bargs
     cwt_kernels = cwt_family_phases(np, torch, dev, card, results, ctx)
+    lap("15-17 CWT family")
+    serving_kernels = serving_phases(np, torch, dev, card, results, ctx)
 
+    results["phase_s"] = LAPS
+    print("[t] wall seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in LAPS.items()) +
+        f"; total {sum(LAPS.values()):.1f}")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     kernels = [
@@ -540,7 +593,7 @@ def main():
         kernel_entry("reassign", "reassign.cu", "reassign_pallas.py:175",
                      launches["reassign"], absB, msB, msB_plain, boundB,
                      None),
-    ] + stft_kernels + grad_kernels + cwt_kernels
+    ] + stft_kernels + grad_kernels + cwt_kernels + serving_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1394,6 +1447,484 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
                      e0["plain_ms"], (e0["bound_ms"], e0["bound_by"]),
                      e0["library_ms"]),
     ]
+
+class scatter_impl:
+    """SSQ_TPU_REASSIGN_IMPL set to `value` inside the block, restored
+    after."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.old = os.environ.get("SSQ_TPU_REASSIGN_IMPL")
+        os.environ["SSQ_TPU_REASSIGN_IMPL"] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("SSQ_TPU_REASSIGN_IMPL", None)
+        else:
+            os.environ["SSQ_TPU_REASSIGN_IMPL"] = self.old
+
+
+def serving_phases(np, torch, dev, card, results, ctx):
+    """Phases 18-20: kernel I against its plain version and B', the
+    streaming transforms, the server and the recording pipeline. Returns
+    I's entry of the JSON line."""
+    from ssqueeze_rs_tpu_torch import (StreamingSSQSTFT, StreamingSSQCWT,
+                                       TransformServer, ssq_cwt, ssq_stft,
+                                       stft)
+    from ssqueeze_rs_tpu_torch.parallel import process_recording
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda, stft_cuda
+    from ssqueeze_rs_tpu_torch.ops.cwt import cwt_phase_args
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import (plan_ssqueeze,
+                                                    plan_reassignment)
+    from ssqueeze_rs_tpu_torch.utils.pad import padsignal
+    from ssqueeze_rs_tpu_torch.config import EPS32
+
+    gamma = 10 * EPS32
+    wavelet, scales = ctx["wavelet"], ctx["scales"]
+    x = ctx["requests"]["noise"][0]
+    R = reassign_cuda
+
+    def counts():
+        return dict(cwt_phase=fft_cuda.LAUNCHES, cwt_fused=fft_cuda.LAUNCHES_D,
+                    reassign=R.LAUNCHES, reassign4=R.LAUNCHES4,
+                    reassign_mxu=R.LAUNCHES_MXU, **stft_cuda.LAUNCHES)
+
+    def zero_counts():
+        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
+        R.LAUNCHES = R.LAUNCHES4 = R.LAUNCHES_MXU = 0
+        R.LAUNCHES_BWD = R.LAUNCHES4_BWD = 0
+        for key in stft_cuda.LAUNCHES:
+            stft_cuda.LAUNCHES[key] = 0
+
+    def moved_since(before):
+        return {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+
+    def held(Tk, Tr):
+        """(sum |Tk - Tr| / sum |Tr|, share of entries whose nonzero
+        pattern agrees): the JAX package's bar for I against B'."""
+        s = float((Tk - Tr).abs().sum() / Tr.abs().sum())
+        nz = float(((Tk.abs() > 0) == (Tr.abs() > 0)).float().mean())
+        return s, nz
+
+    # 18. kernel I against plain I and B'
+    def stft_case(xs, n_fft):
+        (sr, si), (dr, di) = stft(xs, n_fft=n_fft, derivative=True,
+                                  planar_out=True)
+        nf = sr.shape[-2]
+        Sfs = np.linspace(0, 0.5, nf, dtype=np.float32)
+        const, mode, params = plan_reassignment(Sfs, nf, False,
+                                                transform="stft")
+        return (sr, si, dr, di,
+                torch.as_tensor(const, dtype=torch.float32, device=dev),
+                torch.as_tensor(Sfs, device=dev), gamma, params, mode, False,
+                nf, "stft")
+
+    def cwt_case():
+        xp, _, n1, _ = padsignal(x, "reflect", get_params=True)
+        planes = fft_cuda.cwt_fused(*cwt_phase_args(
+            xp, scales.squeeze(-1), 1.0, wavelet), keep=(n1, N),
+            derivative=True)
+        na = planes[0].shape[0]
+        freqs, const, mode, params = plan_ssqueeze(
+            N, na, None, scales, fs=1.0, maprange="peak", wavelet=wavelet)
+        return (*planes,
+                torch.as_tensor(const, dtype=torch.float32, device=dev),
+                torch.zeros(na, device=dev), gamma, params, mode, True,
+                len(freqs), "cwt")
+
+    x20 = torch.as_tensor(np.random.default_rng(18).standard_normal(N_SMALL),
+                          dtype=torch.float32, device=dev)
+    xb = torch.as_tensor(np.random.default_rng(21).standard_normal(
+        (2, N_SMALL)), dtype=torch.float32, device=dev)
+    # the first three are timed; the last three run I's other
+    # instantiations (1 and 4 tiles a pass) and a batch of two planes
+    cases = {"cwt nf=293": cwt_case,
+             "stft nf=300": lambda: stft_case(x, N_FFT),
+             "stft nf=1025": lambda: stft_case(x20, 2048),
+             "stft nf=256": lambda: stft_case(x20, 510),
+             "stft nf=1024": lambda: stft_case(x20, 2046),
+             "stft nf=300 batch 2": lambda: stft_case(xb, N_FFT)}
+    timed = ("cwt nf=293", "stft nf=300", "stft nf=1025")
+    I = {}
+    for key, make in cases.items():
+        a = make()
+        nf = a[10]
+        with scatter_impl("mxu"):
+            k1, k2 = R.reassign4(*a), R.reassign4(*a)
+        p = R.reassign_mxu_plain(*a)
+        with scatter_impl("vpu"):
+            b4 = R.reassign4(*a)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(k1, k2))
+        TI, TP, TB = (torch.complex(*o) for o in (k1, p, b4))
+        sB, nzB = held(TI, TB)
+        sP, nzP = held(TI, TP)
+        absP = float((TI - TP).abs().max())
+        del k2, p, TP
+        # the gradient through I against the one through B' (both C')
+        g = torch.randn((2,) + tuple(k1[0].shape), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+
+        def grad(impl):
+            with scatter_impl(impl):
+                wr = a[0].detach().clone().requires_grad_()
+                wi = a[1].detach().clone().requires_grad_()
+                txr, txi = R.reassign4(wr, wi, *a[2:])
+                (txr * g[0] + txi * g[1]).sum().backward()
+                return wr.grad, wi.grad
+        grad_equal = all(torch.equal(u, v)
+                         for u, v in zip(grad("vpu"), grad("mxu")))
+        del g
+        I[key] = dict(nf=nf, shape=list(a[0].shape),
+                      tiles_per_pass=R._mxu_tiles_per_pass(nf),
+                      sum_rel_vs_B4=sB, nonzero_agree_B4=nzB,
+                      sum_rel_vs_plain=sP, nonzero_agree_plain=nzP,
+                      abs_vs_plain=absP, bitwise=bitwise,
+                      grad_equal_B4=grad_equal)
+        if key in timed:
+            with scatter_impl("mxu"):
+                ms = cuda_ms(torch, lambda: R.reassign4(*a))
+            ms_plain = cuda_ms(torch, lambda: R.reassign_mxu_plain(*a))
+            with scatter_impl("vpu"):
+                ms_b4 = cuda_ms(torch, lambda: R.reassign4(*a))
+            # the function is B''s scatter: B''s bound
+            bnd = bound(tensor_bytes(a, k1), BIN4_FLOPS * a[0].numel())
+            I[key].update(ms=ms, plain_ms=ms_plain, b4_ms=ms_b4,
+                          bound_ms=bnd[0], bound_by=bnd[1])
+        del a, k1, b4, TI, TB
+        check(bitwise, f"kernel I ({key}) differs between two runs")
+        check(sB < 2e-5 and nzB >= 0.9999, f"kernel I ({key}) against B': "
+              f"sum rel {sB:.3e}, nonzero patterns {nzB:.6f}")
+        check(sP < 2e-5 and nzP >= 0.9999, f"kernel I ({key}) against its "
+              f"plain version: sum rel {sP:.3e}, nonzero patterns {nzP:.6f}")
+        check(grad_equal, f"kernel I ({key}): gradient differs from B''s")
+    results["I"] = I
+    print("[18] kernel I: " + "; ".join(
+        f"{k} ({v['tiles_per_pass']} tiles/pass): vs B' sum rel "
+        f"{v['sum_rel_vs_B4']:.3e} nonzero {v['nonzero_agree_B4']:.6f}, vs "
+        f"plain {v['sum_rel_vs_plain']:.3e}, bitwise-repeat={v['bitwise']}, "
+        f"grad == B' {v['grad_equal_B4']}" +
+        (f" | {v['ms']:.3f} ms vs plain {v['plain_ms']:.3f}, B' "
+         f"{v['b4_ms']:.3f}, bound {v['bound_ms']:.3f} ({v['bound_by']})"
+         if "ms" in v else "") for k, v in I.items()) + f" ({card})")
+    lap("18 kernel I")
+
+    # 19. the streaming transforms: three 160k-sample signals at fs = 1000
+    # in ragged chunks, under each implementation of the 4-plane scatter
+    fs = 1000.0
+    rng = np.random.default_rng(19)
+    t = np.arange(N) / fs
+    sig = {"noise": rng.standard_normal(N),
+           "sine100": np.cos(2 * np.pi * 100 * t),
+           "chirp": np.cos(2 * np.pi * (5 * t + 1.5 * t * t))}
+    sig = {k: v.astype(np.float32) for k, v in sig.items()}
+    sizes = [int(s) for s in rng.integers(1000, 20001, size=64)]
+
+    def counting(s):
+        """Count the steps of streamer `s` (its `_run` calls)."""
+        run, steps = s._run, [0]
+
+        def counted(seg):
+            steps[0] += 1
+            return run(seg)
+        s._run = counted
+        return steps
+
+    def run_stream(s, steps, xs):
+        s.reset()
+        steps[0] = 0
+        outs, i, k = [], 0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while i < N:
+            outs.append(s.feed(xs[i:i + sizes[k % len(sizes)]]))
+            i += sizes[k % len(sizes)]
+            k += 1
+        outs.append(s.flush())
+        wall = time.perf_counter() - t0
+        return (tuple(np.concatenate(p, axis=-1) for p in zip(*outs)),
+                steps[0], wall)
+
+    offline = {}
+    for name, xs in sig.items():
+        xd = torch.as_tensor(xs, device=dev)
+        Tq, Sq = ssq_stft(xd, n_fft=N_FFT, fs=fs)[:2]
+        Tc, Wc, fc = ssq_cwt(xd, wavelet, fs=fs)[:3]
+        offline[name] = (Tq, Sq, Tc, Wc, fc)
+    lap("19 offline references")
+    S19 = {}
+    sq_stft = StreamingSSQSTFT(block=16384, n_fft=N_FFT, fs=fs)
+    sq_cwt = StreamingSSQCWT(block=16384, plan_N=N, fs=fs)
+    steps_stft, steps_cwt = counting(sq_stft), counting(sq_cwt)
+    tight = torch.as_tensor(sq_cwt.row_tail_mass < 1e-6, device=dev)
+    streamed_vpu = {}
+
+    def against_vpu(key, Tx):
+        """Under 'mxu', the streamed Tx against the same stream's Tx under
+        'vpu', by the bar of phase 18 (sum-relative, nonzero patterns)."""
+        if key not in streamed_vpu:
+            streamed_vpu[key] = Tx
+            return {}
+        s, nz = held(Tx, streamed_vpu.pop(key))
+        check(s < 2e-5 and nz >= 0.9999, f"{key} under 'mxu' against 'vpu': "
+              f"sum rel {s:.3e}, nonzero patterns {nz:.6f}")
+        return dict(tx_sum_rel_vs_vpu=s, tx_nonzero_agree_vpu=nz)
+
+    zero_counts()
+    for impl in ("vpu", "mxu"):
+        with scatter_impl(impl):
+            for name, xs in sig.items():
+                Tq, Sq, Tc, Wc, fc = offline[name]
+                before = counts()
+                (Tx, Sx), steps, wall = run_stream(sq_stft, steps_stft, xs)
+                moved = moved_since(before)
+                scatter = "reassign4" if impl == "vpu" else "reassign_mxu"
+                check(moved == {"stft_dft": steps, scatter: steps},
+                      f"StreamingSSQSTFT {impl} {name}: launches {moved} "
+                      f"in {steps} steps")
+                # the checks run on the card (numpy took ~1 s a stream)
+                Tx, Sx = (torch.as_tensor(o, device=dev) for o in (Tx, Sx))
+                col, tot = tx_metrics(torch, Tx, Tq)
+                sx = float((Sx - Sq).abs().max() / Sq.abs().max())
+                S19[f"ssq_stft {impl} {name}"] = dict(
+                    steps=steps, ms_per_step=wall * 1e3 / steps,
+                    msamples_s=N / wall / 1e6, tx_col_rel=col,
+                    tx_total_rel=tot, sx_rel=sx, launches=moved,
+                    **against_vpu(f"StreamingSSQSTFT {name}", Tx))
+                check(Tx.shape == Tq.shape and sx < 1e-5 and col < 1e-4 and
+                      tot < 1e-5, f"StreamingSSQSTFT {impl} {name} against "
+                      f"ssq_stft: Sx {sx:.2e}, Tx col {col:.2e}, total "
+                      f"{tot:.2e}")
+
+                before = counts()
+                s = sq_cwt
+                (Tx, Wx), steps, wall = run_stream(s, steps_cwt, xs)
+                moved = moved_since(before)
+                check(moved == {"cwt_fused": steps, scatter: steps},
+                      f"StreamingSSQCWT {impl} {name}: launches {moved} "
+                      f"in {steps} steps")
+                Tx, Wx = (torch.as_tensor(o, device=dev) for o in (Tx, Wx))
+                inner = slice(s.halo, N - s.halo)
+                wx = float((Wx[:, inner][tight] - Wc[:, inner][tight]).abs()
+                           .max() / Wc.abs().max())
+                f_peak = float(s.ssq_freqs[int(Tx[:, inner].abs().sum(-1)
+                                              .argmax())])
+                S19[f"ssq_cwt {impl} {name}"] = dict(
+                    steps=steps, ms_per_step=wall * 1e3 / steps,
+                    msamples_s=N / wall / 1e6, E=s._E, halo=s.halo,
+                    tight_rows=int(tight.sum()), wx_tight_rel=wx,
+                    peak_hz=f_peak, launches=moved,
+                    **against_vpu(f"StreamingSSQCWT {name}", Tx))
+                check(Tx.shape == Tc.shape and bool(torch.isfinite(Tx).all())
+                      and int(tight.sum()) > 0.25 * len(tight) and wx < 1e-5,
+                      f"StreamingSSQCWT {impl} {name}: {int(tight.sum())} "
+                      f"tight rows, Wx {wx:.2e}")
+                if name == "sine100":
+                    check(abs(f_peak - 100) <= 5, f"StreamingSSQCWT {impl} "
+                          f"sine peak at {f_peak} Hz")
+                del Tx, Wx
+    launches19 = counts()
+    # the references leave the card before phase 20's peak memory is read
+    del offline, Tq, Sq, Tc, Wc
+    lap("19 streams")
+    # where a step's time goes: the step's kernels and its fetch
+    K_I = ("I", ("reassign_mxu_kernel",))
+    K_D2H = ("D2H", ("Memcpy DtoH",))
+    K_H2D = ("H2D", ("Memcpy HtoD",))
+    seg_c = np.pad(sig["chirp"], (sq_cwt._prefix_len, 0),
+                   mode="reflect")[:sq_cwt._E]
+    seg_q = sig["chirp"][:sq_stft._E]
+    S19["profile ssq_cwt step"] = device_breakdown(torch, lambda: [
+        c.cpu() for c in sq_cwt._run(seg_c)],
+        (K_D, K_B, K_I, K_FFT, K_CPLX, K_D2H, K_H2D))
+    S19["profile ssq_stft step"] = device_breakdown(torch, lambda: [
+        c.cpu() for c in sq_stft._run(seg_q)],
+        (("F", ("stft_dft_kernel",)), K_B, K_I, K_CPLX, K_D2H, K_H2D))
+    results["streaming"] = S19
+    vs_vpu = {kind: max(v["tx_sum_rel_vs_vpu"] for k, v in S19.items()
+                        if k.startswith(kind + " mxu"))
+              for kind in ("ssq_stft", "ssq_cwt")}
+    print("[19] streaming, 160k samples in chunks of 1000-20000: " + "; ".join(
+        f"{k} {v['steps']} steps {v['ms_per_step']:.1f} ms/step = "
+        f"{v['msamples_s']:.2f} MSamples/s" for k, v in S19.items()
+        if k.endswith("chirp")) + f"; launches {launches19} ({card}); "
+        "sine peaks " + ", ".join(f"{k.split()[1]} {v['peak_hz']:.2f} Hz"
+                                  for k, v in S19.items()
+                                  if k.startswith("ssq_cwt") and
+                                  k.endswith("sine100")) +
+        "; Tx under 'mxu' vs 'vpu': sum rel max " + ", ".join(
+            f"{kind} {rel_vpu:.2e}" for kind, rel_vpu in vs_vpu.items()) +
+        "; one step with its fetch: " + "; ".join(
+            f"{k.split()[1]} {breakdown_line(S19[k])}"
+            for k in ("profile ssq_cwt step", "profile ssq_stft step")))
+    lap("19 step profiles")
+
+    # 20. the server and the recording pipeline
+    S20 = {}
+    zero_counts()
+    srv = TransformServer("ssq_cwt", fs=fs)
+    for n in (3000, 10000, 100000, 160000):
+        xs = sig["chirp"][:n]
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = srv(xs)
+        wall = (time.perf_counter() - t0) * 1e3
+        moved = moved_since(before)
+        b = srv.bucket_for(n)
+        xp = np.pad(xs, (0, b - n), mode="reflect")
+        Td = ssq_cwt(torch.as_tensor(xp, device=dev), wavelet,
+                     fs=fs)[0][:, :n]
+        To = torch.as_tensor(out["Tx"], device=dev)
+        d = float((To - Td).abs().max() / Td.abs().max())
+        S20[f"ssq_cwt {n}"] = dict(bucket=b, ms=wall, rows=out["Tx"].shape[0],
+                                   vs_direct=d, launches=moved)
+        check(moved == {"cwt_phase": 1, "reassign": 1},
+              f"server ssq_cwt {n}: launches {moved}")
+        check(To.shape[-1] == n and bool(torch.isfinite(To).all()) and
+              d <= 1e-6, f"server ssq_cwt {n}: {tuple(To.shape)}, vs direct "
+              f"{d:.2e}")
+        del Td, To
+    S20["ssq_cwt 10000 steady_ms"] = host_ms(
+        torch, lambda: srv(sig["chirp"][:10000]), n=5)[0]
+    S20["profile ssq_cwt 160000"] = device_breakdown(
+        torch, lambda: srv(sig["chirp"]),
+        (K_A, K_B, K_FFT, K_CPLX, K_D2H, K_H2D), calls=2, warm=True)
+    xs16 = [rng.standard_normal(10000).astype(np.float32) for _ in range(16)]
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = srv.batch(xs16)
+    wall_b = (time.perf_counter() - t0) * 1e3
+    moved_b = moved_since(before)
+    t0 = time.perf_counter()
+    singles = [srv(xq) for xq in xs16]
+    wall_s = (time.perf_counter() - t0) * 1e3
+    d = max(float(np.abs(o["Tx"] - s1["Tx"]).max() / np.abs(s1["Tx"]).max())
+            for o, s1 in zip(outs, singles))
+    S20["batch 16 x 10000"] = dict(ms=wall_b, singles_ms=wall_s,
+                                   vs_singles=d, launches=moved_b)
+    check(moved_b == {"cwt_phase": 1, "reassign": 1},
+          f"server batch: launches {moved_b}")
+    check(d <= 1e-6, f"server batch against singles: {d:.2e}")
+    del outs, singles
+    srv2 = TransformServer("ssq_stft", n_fft=N_FFT, fs=fs)
+    for n in (3000, 160000):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = srv2(sig["chirp"][:n])
+        wall = (time.perf_counter() - t0) * 1e3
+        moved = moved_since(before)
+        S20[f"ssq_stft {n}"] = dict(ms=wall, launches=moved)
+        check(moved == {"ssq_stft": 1} and out["Tx"].shape == (300, n) and
+              np.isfinite(out["Tx"]).all(), f"server ssq_stft {n}: launches "
+              f"{moved}, {out['Tx'].shape}")
+    lap("20 server")
+
+    # the recording pipeline: 10 minutes of 64 channels at 1 kHz, tones of
+    # 10 + 7c Hz in noise (made on the card from a seed), chunks of
+    # 250 000, energy per (channel, row)
+    C, NR = 64, 600_000
+    tr = torch.arange(NR, dtype=torch.float64, device=dev) / fs
+    f_c = torch.arange(C, dtype=torch.float64, device=dev)[:, None] * 7 + 10
+    noise = torch.randn((C, NR), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(20))
+    rec = (torch.cos(2 * np.pi * f_c * tr) + 0.1 * noise).float().cpu().numpy()
+    del tr, f_c, noise
+    before = counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    en, meta = process_recording(rec, transform="ssq_cwt", fs=fs,
+                                 chunk_len=250_000, out="energy")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = moved_since(before)
+    fr = meta["ssq_freqs"]
+    tones = np.array([fr[int(np.argmax(e))] for e in en])
+    tone_err = float(np.max(np.abs(tones / (10 + 7 * np.arange(C)) - 1)))
+    en0, _ = process_recording(rec[[0, C - 1]], transform="ssq_cwt", fs=fs,
+                               chunk_len=250_000, out="energy")
+    e_sub = float(np.max(np.abs(en0 - en[[0, C - 1]]) / en[[0, C - 1]].max()))
+    S20["pipeline energy 64 x 600000"] = dict(
+        s=wall, msamples_s=C * NR / wall / 1e6, peak_gb=peak, rows=en.shape[1],
+        launches=moved, tone_rel_err=tone_err, vs_two_channel_run=e_sub)
+    check(en.shape == (C, len(fr)) and np.isfinite(en).all(),
+          f"pipeline energy: {en.shape}")
+    check(moved == {"cwt_phase": 3 * C, "reassign": 3 * C},
+          f"pipeline energy: launches {moved}")
+    check(tone_err < 0.03, f"pipeline energy: tone rows off by {tone_err:.3f}")
+    check(e_sub < 1e-5, f"pipeline energy: channel sub-batches {e_sub:.2e}")
+    del en, en0
+    lap("20 pipeline energy")
+
+    # out='numpy': 8 channels x 60 000 in chunks of 20 000, against the
+    # offline ssq_cwt of each channel on the same scales and frequencies
+    rec8 = np.ascontiguousarray(rec[:8, :60_000])
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out8, meta8 = process_recording(rec8, transform="ssq_cwt", fs=fs,
+                                    chunk_len=20_000)
+    wall = time.perf_counter() - t0
+    moved = moved_since(before)
+    fr8 = meta8["ssq_freqs"]
+    cols, peaks = [], []
+    for c in range(8):
+        Tc = ssq_cwt(torch.as_tensor(rec8[c], device=dev), wavelet,
+                     scales=meta8["scales"], ssq_freqs=fr8[::-1].copy(),
+                     fs=fs)[0].cpu().numpy()
+        cs, cr = np.abs(out8[c]).sum(0), np.abs(Tc).sum(0)
+        cols.append(float(np.mean(np.abs(cs - cr) / cr)))
+        peaks.append(float(fr8[int(np.abs(out8[c]).mean(-1).argmax())]))
+    peak_err = float(np.max(np.abs(np.array(peaks) /
+                                   (10 + 7 * np.arange(8)) - 1)))
+    S20["pipeline numpy 8 x 60000"] = dict(
+        s=wall, msamples_s=8 * 60_000 / wall / 1e6, launches=moved,
+        col_rel_vs_offline=cols, tone_rel_err=peak_err)
+    check(out8.shape == (8, len(fr8), 60_000) and np.isfinite(out8).all(),
+          f"pipeline numpy: {out8.shape}")
+    check(max(cols) < 2e-3 and peak_err < 0.03, f"pipeline numpy against "
+          f"offline: column marginals {max(cols):.2e}, tones {peak_err:.3f}")
+    launches20 = counts()
+    lap("20 pipeline numpy")
+    # the pipelines' shapes have just run (warm): one profiled call each
+    S20["profile pipeline numpy 8 x 60000"] = device_breakdown(
+        torch, lambda: process_recording(rec8, transform="ssq_cwt", fs=fs,
+                                         chunk_len=20_000),
+        (K_A, K_B, K_FFT, K_CPLX, K_D2H, K_H2D), calls=1, warm=True)
+    S20["profile pipeline energy 2 x 600000"] = device_breakdown(
+        torch, lambda: process_recording(rec[:2], transform="ssq_cwt", fs=fs,
+                                          chunk_len=250_000, out="energy"),
+        (K_A, K_B, K_FFT, K_CPLX, K_D2H, K_H2D), calls=1, warm=True)
+    lap("20 pipeline profiles")
+    results["serving"] = S20
+    print(f"[20] server ssq_cwt: " + ", ".join(
+        f"{n} samples {S20[f'ssq_cwt {n}']['ms']:.1f} ms"
+        for n in (3000, 10000, 100000, 160000)) +
+        f"; batch 16 x "
+        f"10000 {wall_b:.1f} ms vs {wall_s:.1f} ms as singles (rel "
+        f"{S20['batch 16 x 10000']['vs_singles']:.1e}); ssq_stft 160k "
+        f"{S20['ssq_stft 160000']['ms']:.1f} ms; pipeline energy 64 x 600000 "
+        f"{S20['pipeline energy 64 x 600000']['s']:.2f} s = "
+        f"{S20['pipeline energy 64 x 600000']['msamples_s']:.2f} MSamples/s, "
+        f"peak {peak:.2f} GB; numpy 8 x 60000 col rel vs offline "
+        f"{max(cols):.2e}; launches {launches20} ({card}); steady 10k "
+        f"request {S20['ssq_cwt 10000 steady_ms']:.1f} ms; profiles: " +
+        "; ".join(f"{k[8:]} {breakdown_line(v)}" for k, v in S20.items()
+                  if k.startswith("profile")))
+
+    i0 = I["cwt nf=293"]
+    return [kernel_entry("reassign_mxu", "reassign_mxu.cu",
+                         "reassign_pallas.py:666",
+                         launches19["reassign_mxu"], i0["abs_vs_plain"],
+                         i0["ms"], i0["plain_ms"],
+                         (i0["bound_ms"], i0["bound_by"]), None)]
+
 
 if __name__ == "__main__":
     try:

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.common import as_signal
 from ..utils.fft import xifn
 from ..utils.pad import padsignal, p2up
 
@@ -13,8 +14,10 @@ __all__ = ["trigdiff"]
 
 
 def trigdiff(A, fs=1.0, padtype=None, rpadded=None, N=None, n1=None,
-             transform="cwt"):
-    """Differentiate rows of `A` along time via ifft(fft(A) * i*xi * fs).
+             transform="cwt", device=None):
+    """Differentiate rows of `A` along time via ifft(fft(A) * i*xi * fs),
+    on A's device (`utils.common.as_signal`: array input goes to the CUDA
+    device unless `device` says otherwise).
 
     If `rpadded`, `A` is already padded and will be trimmed to
     `[..., n1:n1+N]`; else `A` is reflect-padded first.
@@ -27,7 +30,7 @@ def trigdiff(A, fs=1.0, padtype=None, rpadded=None, N=None, n1=None,
     rpadded = rpadded or False
     padtype = padtype or ("reflect" if not rpadded else None)
 
-    A = torch.as_tensor(A)
+    A = as_signal(A, device)
     if padtype is not None:
         A, _, n1, _ = padsignal(A, padtype, get_params=True)
 

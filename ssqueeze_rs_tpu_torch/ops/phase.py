@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import EPS32, EPS64
+from ..utils.common import as_signal
 
 __all__ = ["phase_cwt", "phase_stft", "phase_cwt_num", "unwrap"]
 
@@ -45,11 +46,15 @@ def unwrap(p, dim=-1):
                       torch.cumsum(correct, dim=dim)], dim=dim)
 
 
-def phase_cwt(Wx, dWx, difftype="trig", gamma=None):
+def phase_cwt(Wx, dWx, difftype="trig", gamma=None, device=None):
     """CWT phase transform of complex Wx (and dWx for 'trig'): +inf where
     |Wx| < gamma (default sqrt(eps) of Wx's precision). `difftype='phase'`
     (the forward difference of the unwrapped angle) is there for parity;
-    'trig' is the accurate one."""
+    'trig' is the accurate one. Runs on Wx's device (`as_signal`'s rule
+    for arrays and `device`); a dWx array follows Wx."""
+    Wx = as_signal(Wx, device)
+    if dWx is not None:
+        dWx = as_signal(dWx, Wx.device)
     if gamma is None:
         gamma = np.sqrt(_eps(Wx))
     if difftype == "trig":
@@ -64,10 +69,13 @@ def phase_cwt(Wx, dWx, difftype="trig", gamma=None):
     return torch.where(Wx.abs() < gamma, torch.full_like(w, float("inf")), w)
 
 
-def phase_stft(Sx, dSx, Sfs, gamma=None):
+def phase_stft(Sx, dSx, Sfs, gamma=None, device=None):
     """STFT phase transform of complex64 Sx, dSx (..., n_freqs, n);
     Sfs: (n_freqs,) row frequencies. +inf where |Sx| < gamma (default
-    10 * EPS32)."""
+    10 * EPS32). Runs on Sx's device (`as_signal`'s rule for arrays and
+    `device`); a dSx array follows Sx."""
+    Sx = as_signal(Sx, device)
+    dSx = as_signal(dSx, Sx.device)
     if gamma is None:
         gamma = 10 * EPS32
     Sfs = (Sfs.to(Sx.device, torch.float32) if isinstance(Sfs, torch.Tensor)
@@ -77,12 +85,14 @@ def phase_stft(Sx, dSx, Sfs, gamma=None):
     return torch.where(Sx.abs() < gamma, torch.full_like(w, float("inf")), w)
 
 
-def phase_cwt_num(Wx, dt, difforder=4, gamma=None):
+def phase_cwt_num(Wx, dt, difforder=4, gamma=None, device=None):
     """Phase transform from a numerically differentiated Wx (forward
     difference, or 2nd / 4th-order centred differences over Wx extended
     by two columns each side, wrapping): +inf where |Wx| < gamma
     (default 10 * eps of Wx's precision; a gamma of 0 also takes the
-    default, as in the reference)."""
+    default, as in the reference). Runs on Wx's device (`as_signal`'s
+    rule for arrays and `device`)."""
+    Wx = as_signal(Wx, device)
     if difforder not in (1, 2, 4):
         raise ValueError(f"`difforder` must be one of: 1, 2, 4 (got "
                          f"{difforder})")

@@ -13,10 +13,23 @@ tensor they run their plain-torch versions. Both are differentiable with
 the JAX package's gradient semantics (`ReassignFn`, `Reassign4Fn`): the
 backward is the VJP gather C / C' (`reassign_bwd`, `reassign4_bwd`,
 ``csrc/reassign_bwd.cu``; counterpart of `_make_bwd_kernel`), which
-dispatches the same way. `LAUNCHES` (B), `LAUNCHES4` (B'), `LAUNCHES_BWD`
-(C) and `LAUNCHES4_BWD` (C') count kernel launches.
+dispatches the same way.
+
+The 4-plane contract has a second implementation, kernel I
+(``csrc/reassign_mxu.cu``, plain version `reassign_mxu_plain`;
+counterpart of `_make_mxu_kernel`): the same bins, summed as a
+digit-split one-hot matrix product on the tensor cores. It has no entry
+of its own: `reassign4` picks B' or I from
+SSQ_TPU_REASSIGN_IMPL at each call ('vpu', the default, or 'mxu'; any
+other value raises), as the JAX package's `reassign_pallas` does; the
+3-plane `reassign` ignores it. Both share the backward C'.
+`LAUNCHES` (B), `LAUNCHES4` (B'), `LAUNCHES_MXU` (I), `LAUNCHES_BWD` (C)
+and `LAUNCHES4_BWD` (C') count kernel launches.
 """
 from __future__ import annotations
+
+import contextlib
+import os
 
 import numpy as np
 import torch
@@ -27,11 +40,13 @@ from .fft_cuda import _device_of, _f32, _zeros_for
 __all__ = ["reassign", "reassign_plain", "reassign4", "reassign4_plain",
            "reassign_bwd", "reassign_bwd_plain", "reassign4_bwd",
            "reassign4_bwd_plain", "ReassignFn", "Reassign4Fn", "phase_w",
-           "bin_indices", "LAUNCHES", "LAUNCHES4", "LAUNCHES_BWD",
-           "LAUNCHES4_BWD"]
+           "bin_indices", "reassign_mxu_plain",
+           "reassign_impl", "LAUNCHES", "LAUNCHES4", "LAUNCHES_MXU",
+           "LAUNCHES_BWD", "LAUNCHES4_BWD"]
 
 LAUNCHES = 0
 LAUNCHES4 = 0
+LAUNCHES_MXU = 0
 LAUNCHES_BWD = 0
 LAUNCHES4_BWD = 0
 MODES = {"log": 0, "log-piecewise": 1, "lin": 2}
@@ -170,12 +185,14 @@ def reassign4_bwd_plain(wr, wi, dr, di, const, Sfs, gr, gi, gamma,
     return reassign_bwd_plain(w, const, gr, gi, plan_params, mode, flipud, nf)
 
 
-def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None):
-    """Common launch of the four C entry points: planes (..., na, n) and
-    per-row vectors in. The forward ones (B, B'; `grads` None) take the
-    columns per block and write (Txr, Txi), each (..., nf, n); the
-    backward ones (C, C') read the cotangents `grads` = (gr, gi), each
-    (..., nf, n), and write (gWr, gWi), each (..., na, n)."""
+def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
+            per_block=None):
+    """Common launch of the five C entry points: planes (..., na, n) and
+    per-row vectors in. The forward ones (B, B', I; `grads` None) take one
+    launch-shape int (B, B': the columns per block; I: `per_block`, its
+    tiles per pass) and write (Txr, Txi), each (..., nf, n); the backward
+    ones (C, C') read the cotangents `grads` = (gr, gi), each (..., nf,
+    n), and write (gWr, gWi), each (..., na, n)."""
     from .. import _build
     device = planes[0].device
     na, n = planes[0].shape[-2:]
@@ -184,7 +201,8 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None):
     planes = [t.contiguous() for t in planes]
     vecs = [t.contiguous() for t in vecs]
     if grads is None:
-        mid, rows = [_block_cols(nf)], nf
+        mid = [_block_cols(nf) if per_block is None else per_block]
+        rows = nf
     else:
         grads = [_f32(g, device).contiguous() for g in grads]
         if any(g.shape != batch + (nf, n) for g in grads):
@@ -301,9 +319,24 @@ def reassign4_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
     return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
 
 
+def reassign_impl() -> str:
+    """The 4-plane implementation SSQ_TPU_REASSIGN_IMPL selects, read at
+    call time: 'vpu' (the default, kernel B') or 'mxu' (kernel I). Unlike
+    the JAX package, which takes any other value as 'vpu', an unknown
+    value raises, so a typo cannot hide which kernel ran."""
+    impl = os.environ.get("SSQ_TPU_REASSIGN_IMPL", "vpu")
+    if impl not in ("vpu", "mxu"):
+        raise ValueError("SSQ_TPU_REASSIGN_IMPL must be 'vpu' or 'mxu' "
+                         f"(got {impl!r})")
+    return impl
+
+
 def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
                         plan_params, mode, flipud, nf, transform):
     global LAUNCHES4
+    if reassign_impl() == "mxu":
+        return _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
+                             plan_params, mode, flipud, nf, transform)
     if device.type == "cuda":
         plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
         out = _launch(lambda lib: lib.ssq_reassign4, [wr, wi, dr, di],
@@ -343,10 +376,11 @@ def reassign4_bwd(wr, wi, dr, di, const, Sfs, gr, gi, gamma, plan_params,
 
 
 class Reassign4Fn(torch.autograd.Function):
-    """Kernel B' with the JAX package's gradient (`_reassign_with_vjp`, 4
-    planes): the cotangent reaches Wx only, through kernel C'; dWx, const
-    and Sfs get zero. Saves the four planes, const and Sfs (the JAX
-    residuals)."""
+    """Kernel B' or I (`reassign_impl`) with the JAX package's gradient
+    (`_reassign_with_vjp`, 4 planes): the cotangent reaches Wx only,
+    through kernel C' for either implementation (their bins are the
+    same); dWx, const and Sfs get zero. Saves the four planes, const and
+    Sfs (the JAX residuals)."""
 
     @staticmethod
     def forward(ctx, wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
@@ -370,7 +404,8 @@ class Reassign4Fn(torch.autograd.Function):
 
 def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
               nf, transform):
-    """Synchrosqueezing reassignment from Wx and dWx (kernel B').
+    """Synchrosqueezing reassignment from Wx and dWx (kernel B', or I
+    under SSQ_TPU_REASSIGN_IMPL=mxu: `reassign_impl`).
 
     wr/wi, dr/di: (..., na, n) Wx and dWx planes; const, Sfs: (na,) row
     normalization and row frequencies (Sfs is read for 'stft' only);
@@ -382,3 +417,84 @@ def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
     _, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const, Sfs)
     return Reassign4Fn.apply(wr, wi, dr, di, const, Sfs, gamma, plan_params,
                              mode, flipud, nf, transform)
+
+
+# -- kernel I: the digit-split tensor-core scatter ------------------------------
+TILE_BINS = 256          # bins per tile of kernel I: 16 high x 16 low digits
+
+
+def _mxu_tiles_per_pass(nf: int) -> int:
+    """Tiles (of 256 bins) that one pass of kernel I keeps in registers:
+    at most 4, the tiles spread evenly over ceil(tiles / 4) passes."""
+    tiles = -(-nf // TILE_BINS)
+    passes = -(-tiles // 4)
+    return -(-tiles // passes)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 products without TF32 on the card, for the plain version."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
+                       flipud, nf, transform):
+    """Plain-torch kernel I: the bins of `reassign4_plain`, split into
+    digits k = 16*khi + klo, and per column the product of khi's one-hot
+    (F1 x na) with v times klo's one-hot (na x 16), by `einsum` over the
+    rows in column chunks (one-hots under ~1 GB). Returns (Txr, Txi),
+    each (..., nf, n)."""
+    _check_transform(transform)
+    _, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const, Sfs)
+    w = phase_w(wr, wi, dr, di, Sfs, gamma, transform)
+    k = bin_indices(w, mode, plan_params, flipud, nf)
+    mask = k >= 0
+    c = const[:, None]
+    zero = torch.zeros((), dtype=wr.dtype, device=wr.device)
+    vr, vi = torch.where(mask, wr * c, zero), torch.where(mask, wi * c, zero)
+    khi, klo = k >> 4, k & 15          # k = -1: khi = -1 matches no row
+    batch, (na, n) = wr.shape[:-2], wr.shape[-2:]
+    F1 = -(-nf // 16)
+    f1 = torch.arange(F1, device=wr.device)
+    f0 = torch.arange(16, device=wr.device)
+    step = max(1, (1 << 30) // (na * (4 * F1 + 144)))
+    khi, klo, vr, vi = (a.reshape(-1, na, n) for a in (khi, klo, vr, vi))
+    outs = [torch.empty((khi.shape[0], F1 * 16, n), dtype=wr.dtype,
+                        device=wr.device) for _ in range(2)]
+    with _full_f32_matmul():
+        for b in range(khi.shape[0]):
+            for j0 in range(0, n, step):
+                cols = slice(j0, j0 + step)
+                A = (khi[b, :, cols, None] == f1).to(wr.dtype)
+                sel = klo[b, :, cols, None] == f0
+                for out, v in zip(outs, (vr, vi)):
+                    Bm = torch.where(sel, v[b, :, cols, None], zero)
+                    out[b, :, cols] = torch.einsum(
+                        "icf,icg->fgc", A, Bm).reshape(F1 * 16, -1)
+    return tuple(o[:, :nf].reshape(batch + (nf, n)) for o in outs)
+
+
+def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
+                  mode, flipud, nf, transform):
+    """Kernel I (CUDA tensors) or `reassign_mxu_plain` (CPU tensors), on
+    inputs `_prepare4` has checked; `reassign4`'s forward under
+    SSQ_TPU_REASSIGN_IMPL=mxu."""
+    global LAUNCHES_MXU
+    if device.type == "cuda":
+        plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
+        out = _launch(lambda lib: lib.ssq_reassign_mxu, [wr, wi, dr, di],
+                      [const, Sfs], [TRANSFORMS[transform], MODES[mode],
+                                     int(bool(flipud))], plan, nf,
+                      "reassign_mxu kernel",
+                      per_block=_mxu_tiles_per_pass(nf))
+        LAUNCHES_MXU += 1
+        return out
+    if device.type == "cpu":
+        return reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma,
+                                  plan_params, mode, flipud, nf, transform)
+    raise ValueError(f"reassign_mxu: unsupported device {device}")

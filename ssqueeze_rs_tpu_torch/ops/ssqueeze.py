@@ -22,7 +22,7 @@ import torch
 from ..config import EPS64
 from ..scales import (process_scales, process_fs_and_t, infer_scaletype,
                       logscale_transition_idx)
-from ..utils.common import WARN, NOTE, assert_is_one_of, unported
+from ..utils.common import WARN, NOTE, as_signal, assert_is_one_of, unported
 from ..utils.pad import p2up
 from ..wavelets.base import Wavelet
 from ..wavelets.props import center_frequency
@@ -250,12 +250,14 @@ def _planes(Wx):
 def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
              t=None, squeezing="sum", maprange="maximal", wavelet=None,
              gamma=None, was_padded=True, flipud=False, dWx=None,
-             transform="cwt", wx_planes=None, w_plane=None):
+             transform="cwt", wx_planes=None, w_plane=None, device=None):
     """Synchrosqueeze a CWT or STFT. Returns (Tx complex64 (..., nf, n),
     ssq_freqs).
 
     Wx: complex64 (..., na, n) tensor or array; the scatter runs on its
-    device. Routes, by what is given:
+    device (`utils.common.as_signal`: array input goes to the CUDA device
+    unless `device` says otherwise); `w` and `dWx` arrays follow Wx to
+    its device. Routes, by what is given:
       * `w_plane` (phase already computed in kernel A, +inf where masked)
         or `w` (a phase transform, +inf where masked): kernel B, the
         3-plane contract (`reassign_cuda.reassign`);
@@ -273,11 +275,14 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     check_ssqueezing_args(squeezing, maprange, transform=transform,
                           wavelet=wavelet)
 
-    Wx = Wx if isinstance(Wx, torch.Tensor) else torch.as_tensor(
-        np.asarray(Wx))
-    if Wx.dtype in (torch.complex128, torch.float64):
+    if not isinstance(Wx, torch.Tensor):
+        Wx = np.asarray(Wx)
+    if str(Wx.dtype).split(".")[-1] in ("float64", "complex128"):
         unported("float64 / complex128 Wx", "Queue 1 item 3, float64 route")
+    Wx = as_signal(Wx, device)
     device = Wx.device
+    if w is not None and not isinstance(w, torch.Tensor):
+        w = as_signal(w, device)
     ssq_freqs, const_arr, mode, params = plan_ssqueeze(
         Wx.shape[-1], Wx.shape[-2], ssq_freqs, scales, fs, t, maprange,
         wavelet, was_padded, transform)
@@ -300,8 +305,7 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
         txr, txi = reassign(wr, wi, phase, const, params, mode, flipud, nf)
     else:
         dr, di = dWx if isinstance(dWx, tuple) else _planes(
-            dWx if isinstance(dWx, torch.Tensor) else
-            torch.as_tensor(np.asarray(dWx), device=device))
+            dWx if isinstance(dWx, torch.Tensor) else as_signal(dWx, device))
         if Sfs is None:
             Sfs = np.zeros(len(const_arr), np.float32)
         txr, txi = reassign4(wr, wi, dr, di, const, Sfs, gamma, params,

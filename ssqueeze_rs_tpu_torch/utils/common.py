@@ -34,23 +34,29 @@ def unported(what, item):
                               f"yet (ROADMAP {item})")
 
 
+def array_device(device=None) -> torch.device:
+    """The device array input runs on: `device` if given, else the CUDA
+    device; with no CUDA device and no `device`, raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "array input runs on the CUDA device by default and none is "
+            "available: pass device='cpu' (or a CPU tensor) to run on "
+            "the CPU")
+    return torch.device("cuda")
+
+
 def as_signal(x, device=None):
     """x as a tensor on `device`. By default a tensor stays on its own
     device (a CPU tensor is the caller asking for the CPU) and array input
-    goes to the CUDA device; with no CUDA device, array input raises
-    unless `device="cpu"` is given. A tensor stays in its autograd graph."""
+    goes to the CUDA device (`array_device`). A tensor stays in its
+    autograd graph."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(torch.device(device))
     a = np.asarray(x)
     x = torch.as_tensor(a if a.flags.writeable else a.copy())
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "array input runs on the CUDA device by default and none is "
-                "available: pass device='cpu' (or a CPU tensor) to run on "
-                "the CPU")
-        device = "cuda"
-    return x.to(torch.device(device))
+    return x.to(array_device(device))
 
 
 def _host(a):

@@ -33,6 +33,24 @@ PAD_MODES = {
 }
 
 
+def next_power_of_2(n: int) -> int:
+    """Smallest power of 2 >= n."""
+    return 1 if n <= 1 else 2 ** int(np.ceil(np.log2(n)))
+
+
+def _reflect_indices(start: int, stop: int, N: int) -> np.ndarray:
+    """Source sample of each index in [start, stop) of a length-N signal
+    extended by reflection (edge sample not repeated), reflecting as often
+    as a span wider than the signal needs: np.pad(mode='reflect') and
+    `padsignal`'s rule. Host numpy, for reading halo chunks."""
+    idx = np.arange(start, stop)
+    if N == 1:
+        return np.zeros_like(idx)
+    period = 2 * (N - 1)
+    idx = np.abs(idx) % period
+    return np.where(idx >= N, period - idx, idx)
+
+
 def _source_index(padtype, N, n1, n2, device):
     """Index into x[..., :N] of each padded sample (np.pad semantics)."""
     i = torch.arange(-n1, N + n2, device=device)

@@ -110,3 +110,21 @@ class Wavelet:
         if not nohalf and nyq is not None:
             psih[..., nyq] /= 2
         return psih
+
+    def psi_time(self, scale: float, N: int):
+        """Centred time-domain wavelet at one scale, (N,) complex host
+        numpy: the inverse FFT of the filterbank (Nyquist bin halved) with
+        its spectrum reversed by (-1)^n."""
+        psih = self.sample(scale, N)[0]
+        return np.fft.ifft(psih * (-1.0) ** np.arange(N))
+
+    @cached_property
+    def wc_ct(self) -> float:
+        """Continuous-time radian peak frequency (kind='peak-ct')."""
+        from .props import find_maximum
+        return float(find_maximum(self)[0])
+
+    @cached_property
+    def scalec_ct(self) -> float:
+        """The scale that puts the peak at pi/4."""
+        return (4 / np.pi) * self.wc_ct

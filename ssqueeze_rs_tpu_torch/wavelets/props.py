@@ -1,7 +1,7 @@
 """Wavelet center frequency and the 1D searches behind it (host numpy;
 counterpart of ``ssqueeze_rs_tpu/wavelets/props.py``). Results are cached
-per (wavelet, scale, N, kind) since Wavelet is hashable. The time and
-frequency resolutions wait for ROADMAP Queue 1 item 2."""
+per (wavelet, scale, N, kind) since Wavelet is hashable. The frequency
+resolution waits for ROADMAP Queue 1 item 2."""
 from __future__ import annotations
 
 from functools import lru_cache
@@ -117,3 +117,47 @@ def _center_frequency_cached(wavelet, scale=None, N=1024, kind="energy",
     else:  # peak-ct
         wc, _ = find_maximum(wavelet)
         return float(wc)
+
+
+def time_resolution(wavelet, scale=10, N=1024, min_decay=1e3, max_mult=2,
+                    min_mult=2, force_int=True, nondim=True):
+    """Time std of the wavelet at `scale`. Accepts str / (str, dict) /
+    Wavelet specs."""
+    from .base import Wavelet
+    return _time_resolution_cached(Wavelet.build(wavelet), scale, N,
+                                   min_decay, max_mult, min_mult, force_int,
+                                   nondim)
+
+
+@lru_cache(maxsize=1024)
+def _time_resolution_cached(wavelet, scale=10, N=1024, min_decay=1e3,
+                            max_mult=2, min_mult=2, force_int=True,
+                            nondim=True):
+    use_formula = ((scale < 4 or scale > N / 5) and not force_int)
+    if use_formula:
+        scale_orig = scale
+        scale = (4 / pi) * wavelet.wc_ct
+
+    # the integration span: the first multiple of N over which |psi|^2
+    # has decayed by min_decay at its edge (psi with the Nyquist halving)
+    t = apsi2 = None
+    for mult in np.arange(min_mult, max_mult + 1):
+        Nt = int(mult * N)
+        apsi2 = np.abs(wavelet.psi_time(scale, Nt)) ** 2
+        if apsi2.max() / apsi2[:max(10, Nt // 100)].mean() > min_decay:
+            T = N
+            t = np.arange(-mult * T / 2, mult * T / 2, step=T / N)
+            break
+    if t is None:
+        raise Exception(
+            f"Couldn't find decay timespan satisfying (min_decay, max_mult) = "
+            f"({min_decay}, {max_mult}) for scale={scale}")
+
+    var_t = np.trapezoid(t**2 * apsi2, t) / np.trapezoid(apsi2, t)
+    std_t = np.sqrt(var_t)
+    if use_formula:
+        std_t *= (scale_orig / scale)
+        scale = scale_orig
+    if nondim:
+        std_t *= center_frequency(wavelet, scale, N=N, kind="peak")
+    return float(std_t)

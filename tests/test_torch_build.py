@@ -34,7 +34,8 @@ def test_library_name_follows_source_content(src_tree):
 @pytest.mark.parametrize("name", ["bins.cuh", "dft_tile.cuh", "stft_dft.cu",
                                   "ssq_stft.cu", "istft_ola.cu",
                                   "reassign_bwd.cu", "fft4.cuh",
-                                  "cwt_phase.cu", "cwt_planes.cu"])
+                                  "cwt_phase.cu", "cwt_planes.cu",
+                                  "reassign_mxu.cu"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -56,7 +57,8 @@ def test_entry_points_have_signatures():
             assert len(_build._SIGNATURES[name]) == params.count(",") + 1, name
     assert {"ssq_reassign4", "ssq_stft_dft", "ssq_stft_fused",
             "ssq_istft_ola", "ssq_reassign_bwd", "ssq_reassign4_bwd",
-            "ssq_cwt_planes", "ssq_ifft_halfband"} <= set(_build._SIGNATURES)
+            "ssq_cwt_planes", "ssq_ifft_halfband",
+            "ssq_reassign_mxu"} <= set(_build._SIGNATURES)
 
 
 def test_cwt_kernels_share_the_four_step_header():

@@ -468,6 +468,53 @@ def test_array_input_needs_cuda_or_device_cpu(monkeypatch, entry):
     assert first.device.type == "cpu"
 
 
+REPAIRED = ["ssqueeze", "trigdiff", "phase_cwt", "phase_stft",
+            "phase_cwt_num"]
+
+
+@pytest.mark.parametrize("entry", REPAIRED)
+def test_array_input_device_rule_repaired(monkeypatch, wx_pair, entry):
+    """ssqueeze, trigdiff and the phase transforms follow the device rule
+    too (they squeezed or differentiated numpy input on the host before,
+    even with a GPU): array input raises without a CUDA device; with
+    device='cpu' it runs there and equals the JAX function."""
+    Wx, dWx, Wxp = wx_pair
+    Sfs = np.linspace(0, 0.5 * FS, Wx.shape[0]).astype(np.float32)
+    scales = np.asarray(J.process_scales("log-piecewise", Wx.shape[-1], "gmw",
+                                         nv=8))
+    sq = dict(dWx=dWx, gamma=1e-6, scales=scales, fs=FS, maprange="peak",
+              wavelet="gmw")
+    calls = {
+        "ssqueeze": (lambda **k: T.ssqueeze(Wx, **sq, **k)[0],
+                     lambda: J.ssqueeze(Wx, **sq)[0]),
+        "trigdiff": (lambda **k: T.trigdiff(Wx, FS, **k),
+                     lambda: J.trigdiff(Wx, FS)),
+        "phase_cwt": (lambda **k: T.phase_cwt(Wx, dWx, **k),
+                      lambda: J.phase_cwt(jnp.asarray(Wx), jnp.asarray(dWx))),
+        "phase_stft": (lambda **k: T.phase_stft(Wx, dWx, Sfs, **k),
+                       lambda: J.phase_stft(jnp.asarray(Wx), jnp.asarray(dWx),
+                                            jnp.asarray(Sfs))),
+        "phase_cwt_num": (lambda **k: T.phase_cwt_num(Wxp, 1 / FS, **k),
+                          lambda: J.phase_cwt_num(jnp.asarray(Wxp), 1 / FS)),
+    }
+    call, ref = calls[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    assert out.device.type == "cpu"
+    ref = np.asarray(ref())
+    if entry == "ssqueeze":      # bin-flip tolerant, as ssq_cwt's bars
+        c, c_j = np.abs(out.numpy()).sum(-2), np.abs(ref).sum(-2)
+        assert np.abs(c - c_j).max() < 1e-3 * c_j.max()
+    elif entry == "trigdiff":
+        assert _rel(out.numpy(), ref) < 1e-5
+    else:
+        _check_w(out.numpy(), ref, Wxp if entry == "phase_cwt_num" else Wx,
+                 np.sqrt(np.finfo(np.float32).eps) if entry == "phase_cwt"
+                 else 10 * np.finfo(np.float32).eps)
+
+
 def test_tensor_input_stays_on_its_device():
     x = torch.as_tensor(_signal(512))
     Wx, _ = T.cwt(x, nv=4)
