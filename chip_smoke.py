@@ -11,7 +11,8 @@ sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
 (300 frequency rows), hop 1, the default window; then the CWT family
 (`cwt`, `icwt`, the `ssq_cwt` routes through the dWx planes) at the
 ssq_cwt widths; then kernel I and the serving and long-signal entry
-points (the SSQ streamers, `TransformServer`, `process_recording`).
+points (the SSQ streamers, `TransformServer`, `process_recording`); then
+the TPU probes' counterparts (`ssqueeze_rs_tpu_torch.tools`).
 Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
@@ -105,10 +106,20 @@ Phases, one line each:
      at 1 kHz in chunks of 250 000 (out='energy': tone rows, channel
      sub-batches consistent, MSamples/s, peak memory) and over 8 x 60 000
      in chunks of 20 000 (out='numpy', against offline ssq_cwt per channel)
+ 21. the TPU probes' entry points (ssqueeze_rs_tpu_torch.tools: the
+     ablation of kernel D, probes P1-P3; the coarse split of D; the
+     ablation of kernel B', P4; B' over batches of 4 and 8 in three grid
+     modes), each main() run as a user would, K = 5, with the launch
+     counts of P1-P4 read around them; then every variant against its
+     plain twin at the headline: planes within 1e-5 of their largest
+     value, the copy and zero variants exact, P1's full and P3 bitwise
+     kernel D (cwt_fused with the derivative), P4's full at 32, 16 and 8
+     columns a block bitwise B' (reassign4 under 'vpu'), the three grid
+     modes bitwise equal on a batch of 4, every kernel bitwise repeated
 
 A line "[t]" gives the wall seconds of each part of the script. Any
 failed check raises and exits non-zero. The last three lines are a
-JSON object of the eleven kernels' numbers (each with its launches on its
+JSON object of the fifteen kernels' numbers (each with its launches on its
 path, its time, its plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
@@ -233,10 +244,10 @@ BIN4_FLOPS = 16
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
-                 plain_ms, bnd, library_ms):
+                 plain_ms, bnd, library_ms, root="ssqueeze_rs_tpu/ops/"):
     return {"name": name, "route": "cuda",
             "source": "ssqueeze_rs_tpu_torch/csrc/" + source,
-            "replaces": "ssqueeze_rs_tpu/ops/" + replaces,
+            "replaces": root + replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": library_ms}
@@ -577,6 +588,7 @@ def main():
     cwt_kernels = cwt_family_phases(np, torch, dev, card, results, ctx)
     lap("15-17 CWT family")
     serving_kernels = serving_phases(np, torch, dev, card, results, ctx)
+    probe_kernels = probe_phases(np, torch, dev, card, results)
 
     results["phase_s"] = LAPS
     print("[t] wall seconds by part: " + ", ".join(
@@ -593,7 +605,8 @@ def main():
         kernel_entry("reassign", "reassign.cu", "reassign_pallas.py:175",
                      launches["reassign"], absB, msB, msB_plain, boundB,
                      None),
-    ] + stft_kernels + grad_kernels + cwt_kernels + serving_kernels
+    ] + (stft_kernels + grad_kernels + cwt_kernels + serving_kernels +
+         probe_kernels)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1924,6 +1937,199 @@ def serving_phases(np, torch, dev, card, results, ctx):
                          launches19["reassign_mxu"], i0["abs_vs_plain"],
                          i0["ms"], i0["plain_ms"],
                          (i0["bound_ms"], i0["bound_by"]), None)]
+
+
+def probe_phases(np, torch, dev, card, results):
+    """Phase 21: the TPU probes' counterparts (kernels P1-P4 of
+    ssqueeze_rs_tpu_torch.tools) through their entry points, then each
+    kernel against its plain twin. Returns the four kernels' entries of
+    the JSON line."""
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
+    from ssqueeze_rs_tpu_torch.tools import (ablate_cwt_kernel as acw,
+                                             ablate_reassign as ar,
+                                             bench_reassign_batch as brb,
+                                             cwt_kernel_probe as ckp)
+    reps = 5
+
+    # the slice's path: each probe's main() as a user runs it, the
+    # counts of P1 (ablate_cwt), P2 (copy floor), P3 (staged), P4 zeroed
+    # just before and read just after
+    acw.LAUNCHES = acw.LAUNCHES_COPY = acw.LAUNCHES_STAGED = ar.LAUNCHES = 0
+    rows = {}
+    for m in (acw, ckp, ar, brb):
+        rows[m.__name__.rsplit(".", 1)[1]] = {r["name"]: r for r in
+                                              m.main([str(reps)])}
+    launches = dict(ablate_cwt=acw.LAUNCHES, cwt_copy_floor=acw.LAUNCHES_COPY,
+                    cwt_staged=acw.LAUNCHES_STAGED, ablate_reassign=ar.LAUNCHES)
+    calls = reps + 1          # one warm-up and `reps` timed runs a variant
+    expect = dict(
+        ablate_cwt=calls * (len(acw.VARIANTS) + len(ckp.MODES)),
+        cwt_copy_floor=calls * len(acw.COPY_VARIANTS), cwt_staged=calls,
+        ablate_reassign=calls * (len(ar.VARIANTS) + 2 +
+                                 len(brb.BATCHES) * (len(ar.GRIDS) + 1)))
+    check(launches == expect, f"probe launches {launches}, not {expect}")
+    rows_cwt, rows_re = rows["ablate_cwt_kernel"], rows["ablate_reassign"]
+    lap("21 probes' entry points")
+
+    def planes_err(k, p):
+        """max over planes of max|k - p| / max|p| (0 where both are zero),
+        and max|k - p|"""
+        d = [float((a - b).abs().max()) for a, b in zip(k, p)]
+        top = [float(b.abs().max()) for b in p]
+        return (max(x / t if t else (0.0 if x == 0 else float("inf"))
+                    for x, t in zip(d, top)), max(d))
+
+    def equal(x, y):
+        return len(x) == len(y) and all(torch.equal(a, b)
+                                        for a, b in zip(x, y))
+
+    # P1, P3: every variant against its plain twin, full and staged
+    # bitwise D, each bitwise repeated
+    P = {}
+    args, keep = acw.make_inputs(dev, **{k: acw.HEADLINE[k]
+                                         for k in ("na", "M", "L")})
+    D = fft_cuda.cwt_fused(*args, keep=keep, derivative=True)
+    for v in acw.VARIANTS:
+        k1, k2 = acw.ablate_cwt(*args, keep, v), acw.ablate_cwt(*args, keep, v)
+        p = acw.ablate_cwt_plain(*args, keep, v)
+        err, err_abs = planes_err(k1, p)
+        P[v] = dict(rel=err, abs=err_abs, repeat=equal(k1, k2),
+                    bitwise_D=equal(k1, D), ms=rows_cwt[v]["ms"],
+                    bound_ms=rows_cwt[v]["bound_ms"])
+        check(P[v]["repeat"], f"P1 {v} differs between two runs")
+        check(err < 1e-5, f"P1 {v}: rel error {err:.3e} >= 1e-5")
+        del k1, k2, p
+    check(P["full"]["bitwise_D"], "P1 full is not kernel D bit for bit")
+    s1, s2 = acw.cwt_staged(*args, keep), acw.cwt_staged(*args, keep)
+    P["staged"] = dict(bitwise_D=equal(s1, D), repeat=equal(s1, s2),
+                       ms=rows_cwt["staged"]["ms"],
+                       bound_ms=rows_cwt["staged"]["bound_ms"])
+    check(P["staged"]["bitwise_D"] and P["staged"]["repeat"],
+          f"P3 staged: bitwise D {P['staged']['bitwise_D']}, repeat "
+          f"{P['staged']['repeat']}")
+    del s1, s2
+    plain_full_ms = cuda_ms(torch, lambda: acw.ablate_cwt_plain(*args, keep),
+                            warmup=1, iters=reps)
+    Pw, xr, xi, xig, inv_dt, nw, nd = args
+    Zr, Zi = fft_cuda._cwt_spectra(Pw, xr, xi, xig, inv_dt, True)
+    spec = torch.zeros((Zr.shape[0], 2 * Zr.shape[1]), dtype=torch.complex64,
+                       device=dev)
+    spec[:, :Zr.shape[1]] = torch.complex(Zr, Zi)
+    spec[:, Zr.shape[1]] = torch.complex(torch.cat([nw[0], nd[0]]),
+                                         torch.cat([nw[1], nd[1]]))
+    del Zr, Zi
+    ifft_ms = cuda_ms(torch, lambda: torch.fft.ifft(spec, dim=-1), warmup=1,
+                      iters=reps)
+    del spec, D
+
+    # P2: exact against the plain copy, repeated
+    L = keep[1]
+    for v in acw.COPY_VARIANTS:
+        k1, k2 = acw.copy_floor(Pw, L, v), acw.copy_floor(Pw, L, v)
+        exact = equal(k1, acw.copy_floor_plain(Pw, L, v))
+        P[v] = dict(exact=exact, repeat=equal(k1, k2), ms=rows_cwt[v]["ms"],
+                    bound_ms=rows_cwt[v]["bound_ms"])
+        check(exact and P[v]["repeat"], f"P2 {v}: exact {exact}, repeat "
+              f"{P[v]['repeat']}")
+        del k1, k2
+    copy_plain_ms = cuda_ms(torch, lambda: acw.copy_floor_plain(Pw, L),
+                            warmup=1, iters=reps)
+    del args, Pw, xr, xi, xig
+    lap("21 P1-P3 against their plain twins")
+
+    # P4: full bitwise B' at each column count, every variant against its
+    # plain twin, repeated; the grid modes on a batch of 4
+    R = {}
+    na, nf, n = (ar.HEADLINE[k] for k in ("na", "nf", "n"))
+    planes = ar.make_planes(dev, None, na, n)
+    rest = (ar.GAMMA, ar.PARAMS, ar.MODE, True, nf, "cwt")
+    with scatter_impl("vpu"):
+        b4 = reassign_cuda.reassign4(*planes, *rest)
+    for c in (32, 16, 8):
+        k1 = ar.ablate_reassign(*planes, *rest, "full", c)
+        R[f"full/{c}"] = dict(bitwise_b4=equal(k1, b4),
+                              ms=rows_re[f"full/{c}"]["ms"],
+                              bound_ms=rows_re[f"full/{c}"]["bound_ms"])
+        check(R[f"full/{c}"]["bitwise_b4"],
+              f"P4 full at {c} columns a block is not B' bit for bit")
+        del k1
+    for v in ar.VARIANTS:
+        k1, k2 = (ar.ablate_reassign(*planes, *rest, v) for _ in range(2))
+        p = ar.ablate_reassign_plain(*planes, *rest, v)
+        err, err_abs = planes_err(k1, p)
+        R.setdefault(v, {}).update(rel=err, abs=err_abs, exact=equal(k1, p),
+                                   repeat=equal(k1, k2),
+                                   ms=rows_re.get(v, rows_re["full/32"])["ms"])
+        check(R[v]["repeat"], f"P4 {v} differs between two runs")
+        check(err <= 1e-5, f"P4 {v}: rel error {err:.3e} > 1e-5")
+        del k1, k2, p
+    check(R["dmaonly"]["exact"], "P4 dmaonly: Tx planes not zero")
+    reassign_plain_ms = cuda_ms(torch, lambda: ar.ablate_reassign_plain(
+        *planes, *rest), warmup=1, iters=reps)
+    del planes, b4
+    pb = ar.make_planes(dev, 4, na, n, seed=1)
+    with scatter_impl("vpu"):
+        b4 = reassign_cuda.reassign4(*pb, *rest)
+    grids = {g: ar.ablate_reassign(*pb, *rest, grid=g) for g in ar.GRIDS}
+    grids_equal = all(equal(o, grids["batch2d"]) for o in grids.values())
+    grid_err = planes_err(grids["batch2d"], ar.ablate_reassign_plain(
+        *pb, *rest))[0]
+    R["grids B=4"] = dict(equal=grids_equal, bitwise_b4=equal(
+        grids["batch2d"], b4), rel=grid_err, repeat=equal(
+        ar.ablate_reassign(*pb, *rest, grid="grid1d"), grids["grid1d"]))
+    check(grids_equal and R["grids B=4"]["bitwise_b4"] and
+          R["grids B=4"]["repeat"], f"P4 grid modes: {R['grids B=4']}")
+    check(grid_err <= 1e-5, f"P4 grid modes against plain: {grid_err:.3e}")
+    del pb, b4, grids
+    R["batch"] = rows["bench_reassign_batch"]
+    lap("21 P4 against its plain twin")
+
+    results["probes"] = dict(launches=launches, cwt=P, reassign=R,
+                             plain_ms=dict(full=plain_full_ms,
+                                           copy=copy_plain_ms,
+                                           reassign=reassign_plain_ms),
+                             ifft_ms=ifft_ms,
+                             copy_ms=rows_cwt["copy_"]["ms"])
+    print("[21] probes: P1 " + ", ".join(
+        f"{v} {P[v]['ms']:.3f}/{P[v]['bound_ms']:.3f}"
+        for v in acw.VARIANTS) + "; P2 " + ", ".join(
+        f"{v} {P[v]['ms']:.3f}/{P[v]['bound_ms']:.3f}"
+        for v in acw.COPY_VARIANTS) +
+        f" (copy_ {rows_cwt['copy_']['ms']:.3f}); P3 staged "
+        f"{P['staged']['ms']:.3f} (ms/bound ms); P1 worst rel "
+        f"{max(P[v]['rel'] for v in acw.VARIANTS):.2e}, full and staged "
+        f"bitwise D; P4 " + ", ".join(
+            f"{k} {rows_re[k]['ms']:.3f}/{rows_re[k]['bound_ms']:.3f}"
+            for k in rows_re) + f", worst rel "
+        f"{max(R[v]['rel'] for v in ar.VARIANTS):.2e}, full bitwise B'; "
+        "batches (ms a transform): " + ", ".join(
+            f"{k} {r['per_transform_ms']:.3f}"
+            for k, r in R["batch"].items()) +
+        f", grid modes bitwise equal; launches {launches} ({card})")
+
+    full, cp, st, re = (rows_cwt["full"], rows_cwt["dmaonly"],
+                        rows_cwt["staged"], rows_re["full/32"])
+    tools = "tools/"
+    return [
+        kernel_entry("ablate_cwt", "ablate_cwt.cu",
+                     "ablate_cwt_kernel.py:359", launches["ablate_cwt"],
+                     P["full"]["abs"], full["ms"], plain_full_ms,
+                     (full["bound_ms"], full["bound_by"]), ifft_ms,
+                     root=tools),
+        kernel_entry("cwt_copy_floor", "ablate_cwt.cu",
+                     "ablate_cwt_kernel.py:404", launches["cwt_copy_floor"],
+                     0.0, cp["ms"], copy_plain_ms,
+                     (cp["bound_ms"], cp["bound_by"]),
+                     rows_cwt["copy_"]["ms"], root=tools),
+        kernel_entry("cwt_staged", "ablate_cwt.cu",
+                     "ablate_cwt_kernel.py:311", launches["cwt_staged"],
+                     P["full"]["abs"], st["ms"], plain_full_ms,
+                     (st["bound_ms"], st["bound_by"]), ifft_ms, root=tools),
+        kernel_entry("ablate_reassign", "ablate_reassign.cu",
+                     "ablate_reassign.py:225", launches["ablate_reassign"],
+                     R["full"]["abs"], re["ms"], reassign_plain_ms,
+                     (re["bound_ms"], re["bound_by"]), None, root=tools),
+    ]
 
 
 if __name__ == "__main__":

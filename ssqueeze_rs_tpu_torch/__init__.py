@@ -13,14 +13,19 @@ tensor the hand-written Hopper kernels run (``csrc/*.cu``, built with nvcc
 at first use); on a CPU tensor their plain-torch versions run. ROADMAP.md
 lists what is still to be ported.
 """
+from .config import DEFAULTS, EPS32, EPS64
 from .ops import (cwt, icwt, ssq_cwt, issq_cwt, ssq_stft, issq_stft,
                   ssqueeze, stft, istft, phase_cwt, phase_cwt_num, phase_stft)
 from .ops.cwt import cwt_higher_order
 from .ops.diff import trigdiff
-from .scales import process_scales
-from .utils import get_window, mad_rms
+from .scales import (process_scales, make_scales, cwt_scalebounds,
+                     infer_scaletype, logscale_transition_idx)
+from .utils import (get_window, mad_rms, mad, WARN, NOTE, p2up, padsignal,
+                    window_norm, xifn)
+from .utils.fft import aifftshift_idx
 from .wavelets import (Wavelet, center_frequency, time_resolution, adm_ssq,
-                       adm_cwt)
+                       adm_cwt, morsefreq, morseafun, gmw_k_constants,
+                       find_maximum, find_first_occurrence)
 from .serve import TransformServer
 from .streaming import (StreamingSTFT, StreamingSSQSTFT, StreamingCWT,
                         StreamingSSQCWT)
@@ -32,4 +37,9 @@ __all__ = ["cwt", "icwt", "ssq_cwt", "issq_cwt", "ssq_stft", "issq_stft",
            "center_frequency", "time_resolution", "adm_ssq", "adm_cwt",
            "cwt_higher_order", "trigdiff", "TransformServer",
            "StreamingSTFT", "StreamingSSQSTFT", "StreamingCWT",
-           "StreamingSSQCWT", "parallel"]
+           "StreamingSSQCWT", "parallel", "DEFAULTS", "EPS32", "EPS64", "mad",
+           "WARN", "NOTE", "p2up", "padsignal", "window_norm", "xifn",
+           "aifftshift_idx", "make_scales", "cwt_scalebounds",
+           "infer_scaletype", "logscale_transition_idx", "find_maximum",
+           "find_first_occurrence", "morsefreq", "morseafun",
+           "gmw_k_constants"]

@@ -48,6 +48,14 @@ _SIGNATURES = {
     "ssq_reassign_bwd": [_P, _P, _I, _I, _LL, _I, _I, _I] + _PLAN + [_P] * 5,
     "ssq_reassign4_bwd": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                          _PLAN + [_P] * 5,
+    # the probes (ssqueeze_rs_tpu_torch/tools)
+    "ssq_ablate_cwt": [_P] * 4 + [_F] + [_P] * 4 + [_LL] + [_I] * 6 +
+                      [_P, _LL] + [_P] * 5,
+    "ssq_cwt_copy_floor": [_P, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
+    "ssq_cwt_staged": [_P] * 4 + [_F] + [_P] * 4 + [_LL] + [_I] * 5 +
+                      [_P, _LL] + [_P] * 5,
+    "ssq_ablate_reassign": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
+                           _PLAN + [_I, _I, _I, _P, _P, _P],
 }
 
 _LIB = None

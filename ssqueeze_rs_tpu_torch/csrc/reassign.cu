@@ -31,94 +31,16 @@
 // reference (value = Wx * const, then added) so the sum order is the only
 // freedom and it is fixed. The banded variant of the reference
 // (_band_mode) is later work.
+//
+// The kernel lives in reassign.cuh, which csrc/ablate_reassign.cu
+// instantiates with its ablation variants and grid modes.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "bins.cuh"
+#include "reassign.cuh"
 
 namespace {
-
-using ssq::Plan;
-
-constexpr int kUnroll = 8;    // rows whose loads are issued together
-
-// kPlanes = 3: p2 is the w plane; kPlanes = 4: p2, p3 are dWx.
-template <int COLS, int kPlanes>
-__global__ void __launch_bounds__(COLS)
-reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
-                const float* __restrict__ p2, const float* __restrict__ p3,
-                const float* __restrict__ cst, const float* __restrict__ sfs,
-                int na, long long n, Plan P, int transform, float gamma2,
-                float* __restrict__ txr, float* __restrict__ txi) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);     // [2][nf][COLS]
-  const int nf = P.nf;
-  const int tid = threadIdx.x;
-  const long long j = (long long)blockIdx.x * COLS + tid;
-  const long long bat = blockIdx.y;
-
-  float* ar = acc + tid;
-  float* ai = acc + (long long)nf * COLS + tid;
-  for (int k = 0; k < nf; ++k) {
-    ar[k * COLS] = 0.f;
-    ai[k * COLS] = 0.f;
-  }
-  if (j >= n) return;
-
-  const long long base = bat * na * n + j;
-  for (int i0 = 0; i0 < na; i0 += kUnroll) {
-    float vr[kUnroll], vi[kUnroll], va[kUnroll], vb[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i0 + u < na) {
-        const long long o = base + (long long)(i0 + u) * n;
-        vr[u] = wr[o];
-        vi[u] = wi[o];
-        va[u] = p2[o];
-        if (kPlanes == 4) vb[u] = p3[o];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i0 + u < na) {
-        const int i = i0 + u;
-        const float w = (kPlanes == 4)
-            ? ssq::phase_w(vr[u], vi[u], va[u], vb[u], sfs[i], gamma2,
-                           transform)
-            : va[u];
-        const int k = ssq::bin_of(w, P);
-        if (k >= 0) {
-          const float c = cst[i];
-          ar[k * COLS] += __fmul_rn(vr[u], c);
-          ai[k * COLS] += __fmul_rn(vi[u], c);
-        }
-      }
-    }
-  }
-
-  const long long ob = bat * nf * n + j;
-  for (int k = 0; k < nf; ++k) {
-    txr[ob + (long long)k * n] = ar[k * COLS];
-    txi[ob + (long long)k * n] = ai[k * COLS];
-  }
-}
-
-template <int COLS, int kPlanes>
-int launch(const float* wr, const float* wi, const float* p2, const float* p3,
-           const float* cst, const float* sfs, int batch, int na, long long n,
-           const Plan& P, int transform, float gamma2, float* txr, float* txi,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)2 * P.nf * COLS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      reassign_kernel<COLS, kPlanes>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n + COLS - 1) / COLS), (unsigned)batch);
-  reassign_kernel<COLS, kPlanes><<<grid, COLS, smem, stream>>>(
-      wr, wi, p2, p3, cst, sfs, na, n, P, transform, gamma2, txr, txi);
-  return (int)cudaGetLastError();
-}
 
 template <int kPlanes>
 int dispatch(int cols, const float* wr, const float* wi, const float* p2,

@@ -145,7 +145,7 @@ def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
                               device=xp.device).to(cdt)
         Z = Psih * xh[..., None, :]                          # (..., na, M/2+1)
         if derivative:
-            xi = torch.as_tensor(xifn(1, M, rdt)[:M // 2 + 1],
+            xi = torch.as_tensor(xifn(1, M, dtype=rdt)[:M // 2 + 1],
                                  device=xp.device)
             Z = torch.cat([Z, Z * (1j * xi / dt)], dim=-2)
         rows = Z.shape[-2]
@@ -160,7 +160,7 @@ def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
         Z = Psih * xh[..., None, :]
         if derivative:
             # one batched inverse FFT over [spectra; derivative spectra]
-            xi = torch.as_tensor(xifn(1, M, rdt), device=xp.device)
+            xi = torch.as_tensor(xifn(1, M, dtype=rdt), device=xp.device)
             Z = torch.cat([Z, Z * (1j * xi / dt)], dim=-2)
         W = torch.fft.ifft(Z, dim=-1)
         if not rpadded:

@@ -36,7 +36,7 @@ def trigdiff(A, fs=1.0, padtype=None, rpadded=None, N=None, n1=None,
 
     rdtype = np.float64 if A.dtype in (torch.float64, torch.complex128) \
         else np.float32
-    xi = torch.as_tensor(xifn(1, A.shape[-1], rdtype), device=A.device)
+    xi = torch.as_tensor(xifn(1, A.shape[-1], dtype=rdtype), device=A.device)
     A_diff = torch.fft.ifft(torch.fft.fft(A, dim=-1) * 1j * xi * fs, dim=-1)
 
     if rpadded or padtype is not None:

@@ -1,0 +1,124 @@
+"""What the probes share: the command line, the device rule, timing,
+bounds and the card line.
+
+A probe runs on the CUDA device unless `--device cpu` is given, and
+raises without one; on the CPU it runs the kernels' plain versions at a
+small shape, and its times are host times of those, never a device
+time.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+
+# The card's published rates (NVIDIA H100 SXM data sheet, at 700 W): the
+# least time for a piece of work is the larger of its bytes (each input
+# read once, each output written once) over the memory rate and its
+# float32 operations over the CUDA cores' float32 peak.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+
+
+def parse_args(argv, description):
+    """`[K] [--device DEV]`: K timed runs of each variant (median, after
+    one warm-up), the device (default: the CUDA device)."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("K", nargs="?", type=int, default=5,
+                   help="timed runs of each variant (default 5)")
+    p.add_argument("--device", default=None,
+                   help="'cpu' runs the plain versions at a small shape; "
+                        "default: the CUDA device")
+    args = p.parse_args(argv)
+    if args.K < 1:
+        p.error("K must be at least 1")
+    return args
+
+
+def pick_device(name):
+    """The device a probe runs on: CUDA unless `name` says otherwise; no
+    CUDA device and no `name` raises."""
+    if name is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the probe times the kernels "
+                               "on the card; pass --device cpu to run their "
+                               "plain versions at a small shape")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(name)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    return device
+
+
+def card_line(device):
+    """The card's name and power limit as nvidia-smi gives them, or the
+    note that the numbers are host times of the plain versions."""
+    if device.type != "cuda":
+        return "cpu: plain versions, host ms (no device time)"
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader",
+                              f"--id={device.index or 0}"],
+                             capture_output=True, text=True, timeout=60)
+        if res.returncode == 0 and res.stdout.strip():
+            return res.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return f"{torch.cuda.get_device_name(device)}, power limit not read"
+
+
+def time_ms(fn, device, reps):
+    """Median ms of fn() over `reps` runs after one warm-up. On the card:
+    CUDA events around each run, the runs enqueued back to back so that
+    the host's launch work hides behind the device's; on the CPU: the
+    host clock."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        events = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize(device)
+        times = [a.elapsed_time(b) for a, b in events]
+    else:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound(nbytes, flops):
+    """(bound_ms, 'bytes' or 'operations') of work that moves `nbytes`
+    and does `flops` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row(name, ms, nbytes, flops, **extra):
+    """One variant's result: its time, bytes, operations and bound."""
+    b = bound(nbytes, flops)
+    return dict(name=name, ms=ms, bytes=nbytes, flops=flops, bound_ms=b[0],
+                bound_by=b[1], **extra)
+
+
+def print_rows(rows, card, width=12):
+    for r in rows:
+        per = ""
+        if "per_transform_ms" in r:
+            per = f" ({r['per_transform_ms']:.3f} a transform)"
+        print(f"{r['name']:<{width}s} {r['ms']:9.3f} ms{per}  bound "
+              f"{r['bound_ms']:.4g} ms ({r['bound_by']})  | {card}",
+              flush=True)

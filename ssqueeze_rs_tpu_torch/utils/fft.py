@@ -9,11 +9,23 @@ from __future__ import annotations
 import numpy as np
 
 
-def xifn(scale, N, dtype=np.float64):
-    """Radian frequency grid `scale * 2*pi*k/N` with positive Nyquist."""
-    i = np.arange(N)
-    k = np.where(i <= N // 2, i, i - N)
-    return (k * (2 * np.pi / N) * scale).astype(dtype)
+def xifn(scale, N, xp=None, dtype=None):
+    """Radian frequency grid `scale * 2*pi*k/N` with positive Nyquist.
+
+    `xp` selects the array module (numpy, the default, or torch); `dtype`
+    defaults to float64 with numpy. Returns a 1D array of length N."""
+    if xp is None:
+        xp = np
+    if dtype is None and xp is np:
+        dtype = np.float64
+    i = xp.arange(N)
+    k = xp.where(i <= N // 2, i, i - N)
+    if xp is not np:
+        k = k.to(xp.float64)          # torch takes int * float as float32
+    xi = k * (2 * np.pi / N) * scale
+    if dtype is not None:
+        xi = xi.astype(dtype) if xp is np else xi.to(dtype)
+    return xi
 
 
 def aifftshift_idx(N):

@@ -137,7 +137,7 @@ def pad_params(N: int, padlength: int | None = None):
     return n_up, n1, n2
 
 
-def padsignal(x: torch.Tensor, padtype: str = "reflect",
+def padsignal(x, padtype: str = "reflect",
               padlength: int | None = None, get_params: bool = False):
     """Pad `x` (time = last axis) to `padlength` (default: p2up), centered."""
     assert_is_one_of(padtype, "padtype", tuple(PAD_MODES))

@@ -99,7 +99,7 @@ class Wavelet:
         else:
             import torch
             sc = torch.as_tensor(np.asarray(scales), device=device)
-            xi = torch.as_tensor(xifn(1, N, np.float32 if sc.dtype ==
+            xi = torch.as_tensor(xifn(1, N, dtype=np.float32 if sc.dtype ==
                                       torch.float32 else np.float64),
                                  device=device)
             if half:

@@ -7,7 +7,8 @@
 
 Constants are computed on the host (scipy); `fn(w, xp)` evaluates with
 numpy or torch. The morsewave family generator and the factory API wait
-for ROADMAP Queue 1 item 2 (wavelets remainder).
+for ROADMAP Queue 1 item 2 (wavelets remainder); `morsefreq` and
+`morseafun` are whole.
 """
 from __future__ import annotations
 
@@ -19,9 +20,52 @@ from .base import register_family
 pi = np.pi
 
 
-def morsefreq(gamma: float, beta: float):
-    """GMW radian peak frequency."""
-    return (beta / gamma) ** (1 / gamma)
+def morsefreq(gamma: float, beta: float, n_out: int = 1):
+    """GMW frequency measures (radian): peak, energy, instantaneous, and
+    (n_out=4) the curvature of the instantaneous frequency at the wavelet
+    centre, from the 2nd and 3rd frequency cumulants. Returns wm, or the
+    tuple (wm, we), (wm, we, wi) or (wm, we, wi, cwi) for n_out 2-4."""
+    wm = (beta / gamma) ** (1 / gamma)
+    if n_out == 1:
+        return wm
+    we = (1 / 2 ** (1 / gamma)) * (gamma_fn((2 * beta + 2) / gamma) /
+                                   gamma_fn((2 * beta + 1) / gamma))
+    if n_out == 2:
+        return wm, we
+    wi = gamma_fn((beta + 2) / gamma) / gamma_fn((beta + 1) / gamma)
+    if n_out == 3:
+        return wm, we, wi
+    k2 = _cumulant(2, gamma, beta)
+    k3 = _cumulant(3, gamma, beta)
+    return wm, we, wi, -(k3 / k2 ** 1.5)
+
+
+def morseafun(gamma: float, beta: float, k: int = 1, norm: str = "bandpass"):
+    """GMW peak amplitude."""
+    if norm == "energy":
+        r = (2 * beta + 1) / gamma
+        return np.sqrt(2 * pi * gamma * (2**r) *
+                       np.exp(gammaln_fn(k) - gammaln_fn(k + r - 1)))
+    if beta == 0:
+        return 2.0
+    wc = morsefreq(gamma, beta)
+    return 2.0 / np.exp(beta * np.log(wc) - wc**gamma)
+
+
+def _cumulant(p: int, gamma: float, beta: float):
+    """The p-th cumulant of the frequency-domain moments M0..Mp of the
+    order-1 GMW under bandpass normalization, Mq = A(gamma, beta) *
+    Gamma((beta + q + 1) / gamma) / (2 pi gamma), from the recurrence
+    K0 = ln M0, Kn = Mn/M0 - sum_{k=1}^{n-1} C(n-1, k-1) Kk M(n-k)/M0."""
+    from math import comb
+    a = morseafun(gamma, beta, k=1)
+    m = [a * (gamma_fn((beta + q + 1) / gamma) / (2 * pi * gamma))
+         for q in range(p + 1)]
+    kc = [np.log(m[0])]
+    for n in range(1, p + 1):
+        kc.append(m[n] / m[0] - sum(comb(n - 1, k - 1) * kc[k] *
+                                    (m[n - k] / m[0]) for k in range(1, n)))
+    return kc[p]
 
 
 def gmw_k_constants(gamma: float, beta: float, k: int, norm: str = "bandpass"):

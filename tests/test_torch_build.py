@@ -35,7 +35,9 @@ def test_library_name_follows_source_content(src_tree):
                                   "ssq_stft.cu", "istft_ola.cu",
                                   "reassign_bwd.cu", "fft4.cuh",
                                   "cwt_phase.cu", "cwt_planes.cu",
-                                  "reassign_mxu.cu"])
+                                  "reassign_mxu.cu", "cwt_planes.cuh",
+                                  "reassign.cuh", "ablate_cwt.cu",
+                                  "ablate_reassign.cu"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -58,20 +60,31 @@ def test_entry_points_have_signatures():
     assert {"ssq_reassign4", "ssq_stft_dft", "ssq_stft_fused",
             "ssq_istft_ola", "ssq_reassign_bwd", "ssq_reassign4_bwd",
             "ssq_cwt_planes", "ssq_ifft_halfband",
-            "ssq_reassign_mxu"} <= set(_build._SIGNATURES)
+            "ssq_reassign_mxu", "ssq_ablate_cwt", "ssq_cwt_copy_floor",
+            "ssq_cwt_staged", "ssq_ablate_reassign"} <= set(_build._SIGNATURES)
 
 
 def test_cwt_kernels_share_the_four_step_header():
     """Kernels A (cwt_phase.cu), D and E (cwt_planes.cu) include one
-    four-step header, and the build hashes it with them."""
+    four-step header, and the build hashes it with them; D's launches
+    (cwt_planes.cuh) and B''s scatter (reassign.cuh) are shared with the
+    probes, which instantiate them."""
     sources = [os.path.basename(p) for p in _build._sources()]
-    assert "fft4.cuh" in sources
-    for name in ("cwt_phase.cu", "cwt_planes.cu"):
+    assert {"fft4.cuh", "cwt_planes.cuh", "reassign.cuh"} <= set(sources)
+    for name, header in (("cwt_phase.cu", "fft4.cuh"),
+                         ("cwt_planes.cuh", "fft4.cuh"),
+                         ("cwt_planes.cu", "cwt_planes.cuh"),
+                         ("ablate_cwt.cu", "cwt_planes.cuh"),
+                         ("reassign.cu", "reassign.cuh"),
+                         ("ablate_reassign.cu", "reassign.cuh")):
         with open(os.path.join(_build.CSRC, name)) as f:
-            assert '#include "fft4.cuh"' in f.read(), name
-    # 23 and 14 parameters (D: planes, E: given Z planes)
+            assert f'#include "{header}"' in f.read(), name
+    # 23 and 14 parameters (D: planes, E: given Z planes); P1 takes D's
+    # with the variant for the derivative flag, P3 D's without it
     assert len(_build._SIGNATURES["ssq_cwt_planes"]) == 23
     assert len(_build._SIGNATURES["ssq_ifft_halfband"]) == 14
+    assert len(_build._SIGNATURES["ssq_ablate_cwt"]) == 23
+    assert len(_build._SIGNATURES["ssq_cwt_staged"]) == 22
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

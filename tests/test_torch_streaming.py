@@ -181,6 +181,24 @@ def test_streaming_ssq_cwt_peak_and_grids():
     assert abs(f_peak - 100.0) / 100.0 < 0.05
 
 
+@pytest.mark.parametrize("squeezing", ["sum", "lebesgue", "abs"])
+@pytest.mark.parametrize("flipud", [True, False])
+def test_streaming_ssq_cwt_tx_matches_jax(flipud, squeezing):
+    """StreamingSSQCWT's Tx and Wx against the JAX streamer's on the same
+    chunks: Tx within the bin-flip bar (sum |d| / sum |Tx_jax| < 5e-3),
+    Wx within 1e-5 of max|Wx|."""
+    N = 2048
+    x = _chirp(N, seed=5)
+    kw = dict(block=512, fs=FS, nv=16, plan_N=N, halo=256, flipud=flipud,
+              squeezing=squeezing)
+    Tx, Wx = _stream(T.StreamingSSQCWT(**kw, device="cpu"), x, [512, 300])
+    Tx_j, Wx_j = _stream(J.StreamingSSQCWT(**kw), x, [512, 300])
+    assert Tx.shape == Tx_j.shape and Wx.shape == Wx_j.shape
+    assert Tx.shape[-1] == N
+    assert np.abs(Tx - Tx_j).sum() / np.abs(Tx_j).sum() < 5e-3
+    assert _rel(Wx, Wx_j) < 1e-5
+
+
 def test_streaming_multichannel_and_device_rule(monkeypatch):
     """(channels, time) feeds stream exactly; an empty feed keeps the
     channel dims; a changed channel shape raises; with no CUDA device and

@@ -1,0 +1,95 @@
+"""The port's public surface against the JAX package's, on the CPU: the
+names the port exports with the JAX signatures (apart from `device`),
+`morsefreq` with every `n_out`, and a guard that no module of the port,
+nor chip_smoke.py, imports JAX or the JAX package.
+
+Tolerances: `morsefreq` is host float64 scipy in both packages, computed
+in the same order, so equal.
+"""
+import inspect
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import ssqueeze_rs_tpu as J
+import ssqueeze_rs_tpu_torch as T
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+EXPORTED = ["DEFAULTS", "EPS32", "EPS64", "mad", "WARN", "NOTE", "p2up",
+            "padsignal", "window_norm", "xifn", "aifftshift_idx",
+            "make_scales", "cwt_scalebounds", "infer_scaletype",
+            "logscale_transition_idx", "find_maximum",
+            "find_first_occurrence", "morsefreq", "gmw_k_constants",
+            "morseafun"]
+
+
+@pytest.mark.parametrize("name", EXPORTED)
+def test_exported_with_the_jax_signature(name):
+    assert name in T.__all__
+    ours, theirs = getattr(T, name), getattr(J, name)
+    if not callable(theirs):
+        assert type(ours) is type(theirs)
+        assert (sorted(ours) == sorted(theirs) if isinstance(theirs, dict)
+                else ours == theirs)
+        return
+    sig = inspect.signature(ours)
+    params = [p for p in sig.parameters.values() if p.name != "device"]
+    assert sig.replace(parameters=params) == inspect.signature(theirs)
+
+
+@pytest.mark.parametrize("n_out", [1, 2, 3, 4])
+@pytest.mark.parametrize("gamma, beta", [(3, 60), (2, 5), (3.5, 20),
+                                         (1.5, 2)])
+def test_morsefreq_matches_jax(gamma, beta, n_out):
+    ours = T.morsefreq(gamma, beta, n_out=n_out)
+    theirs = J.morsefreq(gamma, beta, n_out=n_out)
+    if n_out == 1:
+        ours, theirs = (ours,), (theirs,)
+    assert len(ours) == len(theirs) == n_out
+    assert all(float(a) == float(b) for a, b in zip(ours, theirs))
+
+
+def test_xifn_takes_an_array_module():
+    import torch
+    for N in (8, 9):
+        ref = J.xifn(0.5, N)
+        assert np.array_equal(T.xifn(0.5, N), ref)
+        t = T.xifn(0.5, N, xp=torch, dtype=torch.float64)
+        assert np.array_equal(t.numpy(), ref)
+
+
+def test_no_module_imports_jax():
+    """Every module of the port and chip_smoke.py import in a process
+    whose import system refuses `jax`, `jaxlib` and `ssqueeze_rs_tpu`."""
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, pkgutil, sys
+        REFUSED = ("jax", "jaxlib", "ssqueeze_rs_tpu")
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in REFUSED:
+                    raise ImportError("refused: " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        sys.path.insert(0, {REPO!r})
+        import ssqueeze_rs_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, "ssqueeze_rs_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
+        assert not bad, bad
+        print(len(names))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert int(res.stdout.strip().splitlines()[-1]) >= 30
