@@ -12,7 +12,8 @@ sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
 (`cwt`, `icwt`, the `ssq_cwt` routes through the dWx planes) at the
 ssq_cwt widths; then kernel I and the serving and long-signal entry
 points (the SSQ streamers, `TransformServer`, `process_recording`); then
-the TPU probes' counterparts (`ssqueeze_rs_tpu_torch.tools`).
+the TPU probes' counterparts (`ssqueeze_rs_tpu_torch.tools`), the last
+of them (J5-J8) apart.
 Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
@@ -116,10 +117,23 @@ Phases, one line each:
      kernel D (cwt_fused with the derivative), P4's full at 32, 16 and 8
      columns a block bitwise B' (reassign4 under 'vpu'), the three grid
      modes bitwise equal on a batch of 4, every kernel bitwise repeated
+ 22. the last TPU probes' entry points (J5 mxu_rate_probe and its
+     --chains, J6 mxu_probe and mxu_probe2, J7 dma_overlap_probe, J8
+     grid_slope_probe), each main() run as a user would, K = 5, the launch
+     counts read around each; then every kernel against its plain version
+     at the probes' shapes: J8, the copy, J7 copies and J6's element
+     questions exact; the dots (every shape and precision), the chains
+     and J6's dots within RATE_BAR of max|out|; J7 dots and both within
+     1e-3 of max|out| at R = 1, 1e-2 at 3, 0.1 at 64 (there finite and
+     of order 1), bitwise with b a scaled permutation at R = 3 and 64
+     (each product exact); every kernel bitwise repeated; the plain versions timed
+     over the kernels' GRID copies (J6: every step's product); the
+     library yardsticks (torch.matmul of the same total product in bf16,
+     TF32 and float32, torch.bmm, .t().contiguous(), torch.add)
 
 A line "[t]" gives the wall seconds of each part of the script. Any
 failed check raises and exits non-zero. The last three lines are a
-JSON object of the fifteen kernels' numbers (each with its launches on its
+JSON object of the twenty-two kernels' numbers (each with its launches on its
 path, its time, its plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
@@ -589,6 +603,7 @@ def main():
     lap("15-17 CWT family")
     serving_kernels = serving_phases(np, torch, dev, card, results, ctx)
     probe_kernels = probe_phases(np, torch, dev, card, results)
+    rate_kernels = rate_probe_phases(np, torch, dev, card, results)
 
     results["phase_s"] = LAPS
     print("[t] wall seconds by part: " + ", ".join(
@@ -606,7 +621,7 @@ def main():
                      launches["reassign"], absB, msB, msB_plain, boundB,
                      None),
     ] + (stft_kernels + grad_kernels + cwt_kernels + serving_kernels +
-         probe_kernels)
+         probe_kernels + rate_kernels)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2129,6 +2144,327 @@ def probe_phases(np, torch, dev, card, results):
                      "ablate_reassign.py:225", launches["ablate_reassign"],
                      R["full"]["abs"], re["ms"], reassign_plain_ms,
                      (re["bound_ms"], re["bound_by"]), None, root=tools),
+    ]
+
+
+# bars of the probes' tensor-core products against their plain versions,
+# as a share of max|out| (the plain versions sum in float32 in another
+# order, and the tensor cores' float32 accumulation truncates)
+RATE_BAR = 1e-5
+
+
+def rate_probe_phases(np, torch, dev, card, results):
+    """Phase 22: the last TPU probes' counterparts (J5 mxu_rate_probe, J6
+    mxu_probe and mxu_probe2, J7 dma_overlap_probe, J8 grid_slope_probe of
+    ssqueeze_rs_tpu_torch.tools) through their entry points, then every
+    kernel against its plain version. Returns the seven pallas_call sites'
+    entries of the JSON line."""
+    from ssqueeze_rs_tpu_torch.tools import (_common,
+                                             dma_overlap_probe as dop,
+                                             grid_slope_probe as gsp,
+                                             mxu_probe as mp,
+                                             mxu_probe2 as mp2,
+                                             mxu_rate_probe as mrp)
+    reps = 5
+    calls = 2 * (reps + 1)     # CUDA events and the wall clock: a warm-up
+    #                            and `reps` calls each, a case
+
+    def counts():
+        return dict(grid_slope=gsp.LAUNCHES, rate_dot=mrp.LAUNCHES_DOT,
+                    rate_copy=mrp.LAUNCHES_COPY,
+                    rate_chains=mrp.LAUNCHES_CHAINS, mxu_probe=mp.LAUNCHES,
+                    dma_overlap=dop.LAUNCHES)
+
+    # the slice's path: each probe's main() as a user runs it, every count
+    # zeroed just before and read just after
+    gsp.LAUNCHES = mrp.LAUNCHES_DOT = mrp.LAUNCHES_COPY = 0
+    mrp.LAUNCHES_CHAINS = mp.LAUNCHES = dop.LAUNCHES = 0
+    mains = (("grid_slope", gsp, []), ("rate", mrp, []),
+             ("rate_chains", mrp, ["--chains"]), ("mxu_probe", mp, []),
+             ("mxu_probe2", mp2, []), ("dma_overlap", dop, []))
+    rows, moved = {}, {}
+    for key, mod, extra in mains:
+        before = counts()
+        rows[key] = {r["name"]: r for r in mod.main([str(reps)] + extra)}
+        after = counts()
+        moved[key] = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+    launches = counts()
+    n_grid = sum(len(c[4]) for c in gsp.CONFIGS)
+    expect = dict(
+        grid_slope={"grid_slope": calls * n_grid},
+        rate={"rate_dot": calls * len(mrp.SHAPES) * len(mrp.PRECISIONS),
+              "rate_copy": calls * len(mrp.COPY_SHAPES)},
+        rate_chains={"rate_chains": calls * len(mrp.CHAIN_SHAPES) *
+                     len(mrp.CHAINS)},
+        mxu_probe={"mxu_probe": calls * len(mp.QUESTIONS)},
+        mxu_probe2={"mxu_probe": calls * (len(mp2.QUESTIONS) - 1),
+                    "grid_slope": calls},
+        dma_overlap={"dma_overlap": calls * len(dop.VARIANTS)})
+    check(moved == expect, f"probe launches {moved}, not {expect}")
+    lap("22 probes' entry points")
+
+    def equal(a, b):
+        return bool(torch.equal(a, b))
+
+    def err(k, p):
+        """(max|k - p| / max|p|, max|k - p|)"""
+        d = float((k - p).abs().max())
+        return d / float(p.abs().max()), d
+
+    # J8: every configuration exact and repeated
+    J8 = {}
+    g = torch.Generator(device=dev).manual_seed(8)
+    for name, r_, L, vary, grids in gsp.CONFIGS:
+        x = torch.randn((r_, L), generator=g, device=dev)
+        for grid in grids:
+            k1, k2 = gsp.grid_slope(x, grid, vary), gsp.grid_slope(x, grid,
+                                                                   vary)
+            J8[f"{name} g={grid}"] = dict(
+                exact=equal(k1, gsp.grid_slope_plain(x, grid, vary)),
+                repeat=equal(k1, k2))
+    check(all(v["exact"] and v["repeat"] for v in J8.values()),
+          f"J8 grid_slope: {J8}")
+    # the plain versions and library calls are timed as the probes time
+    # their kernels: the runs queued ahead of the card (`_common.time_ms`),
+    # so a call shorter than the host's launch work is not timed by it
+    qms = lambda fn: _common.time_ms(fn, dev, reps)
+    x = torch.randn((8, 128), generator=g, device=dev)
+    g_last = gsp.CONFIGS[0][4][-1]
+    grid_plain_ms = qms(lambda: gsp.grid_slope_plain(x, g_last, False))
+    grid_lib_ms = qms(lambda: torch.add(x, 1))
+
+    # J5: every shape and precision, the copies exact, the chains
+    J5 = {}
+    m, k, n = 1024, 512, 512                   # the entries' case
+    for (mm, kk, nn) in mrp.SHAPES:
+        A = torch.randn((2 * mm, kk), generator=g, device=dev)
+        B = torch.randn((kk, nn), generator=g, device=dev)
+        for p in mrp.PRECISIONS:
+            k1 = mrp.dot_probe(A, B, mm, p)
+            pl = mrp.dot_probe_plain(A, B, mm, p)
+            e, d = err(k1, pl)
+            J5[f"dot {p} ({mm},{kk},{nn})"] = dict(
+                rel=e, abs=d, repeat=equal(k1, mrp.dot_probe(A, B, mm, p)))
+            check(e < RATE_BAR and J5[f"dot {p} ({mm},{kk},{nn})"]
+                  ["repeat"], f"J5 dot {p} ({mm},{kk},{nn}): rel {e:.3e}, "
+                  f"repeat {J5[f'dot {p} ({mm},{kk},{nn})']['repeat']}")
+        if (mm, kk, nn) == (m, k, n):
+            # the plain version over the kernel's GRID copies, as its time,
+            # bound and library call count them
+            dot_plain_ms = qms(lambda: [mrp.dot_probe_plain(A, B, m, "bf16")
+                                        for _ in range(mrp.GRID)])
+            lib = {}
+            Acat = torch.cat([A[(i % 2) * m:(i % 2 + 1) * m]
+                              for i in range(mrp.R)], 1)
+            Acat = Acat.repeat(mrp.GRID, 1)          # (GRID m, R k)
+            Brep = B.repeat(mrp.R, 1)                # (R k, n)
+            a16, b16 = Acat.to(torch.bfloat16), Brep.to(torch.bfloat16)
+            lib["bf16"] = qms(lambda: torch.matmul(a16, b16))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                lib["tf32"] = qms(lambda: torch.matmul(Acat, Brep))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            lib["f32"] = qms(lambda: torch.matmul(Acat, Brep))
+            del Acat, Brep, a16, b16
+    for (mm, nn) in mrp.COPY_SHAPES:
+        A = torch.randn((2 * mm, nn), generator=g, device=dev)
+        k1 = mrp.copy_probe(A, mm)
+        J5[f"copy ({mm},{nn})"] = dict(
+            exact=equal(k1, mrp.copy_probe_plain(A, mm)),
+            repeat=equal(k1, mrp.copy_probe(A, mm)))
+        check(J5[f"copy ({mm},{nn})"]["exact"] and
+              J5[f"copy ({mm},{nn})"]["repeat"], f"J5 copy ({mm},{nn})")
+    copy_plain_ms = qms(lambda: [mrp.copy_probe_plain(A, mm)
+                                 for _ in range(mrp.GRID)])
+    w = torch.full((1, 2), mrp.R / 2, device=dev)
+    copy_lib_ms = qms(lambda: torch.matmul(w, A.view(2, -1)))
+    C8 = 8
+    for (mm, kk, nn) in mrp.CHAIN_SHAPES:
+        B = torch.randn((kk, nn), generator=g, device=dev)
+        for C in mrp.CHAINS:
+            A = torch.randn(((C + 1) * mm, kk), generator=g, device=dev)
+            k1 = mrp.dot_probe_chains(A, B, mm, C)
+            e, d = err(k1, mrp.dot_probe_chains_plain(A, B, mm, C))
+            key = f"chains C={C} ({mm},{kk},{nn})"
+            J5[key] = dict(rel=e, abs=d, repeat=equal(
+                k1, mrp.dot_probe_chains(A, B, mm, C)))
+            check(e < RATE_BAR and J5[key]["repeat"],
+                  f"J5 {key}: rel {e:.3e}, repeat {J5[key]['repeat']}")
+            if (mm, kk, nn, C) == (m, k, n, C8):
+                chains_plain_ms = qms(lambda: [mrp.dot_probe_chains_plain(
+                    A, B, m, C8) for _ in range(mrp.GRID)])
+                Acat = torch.stack([torch.cat(
+                    [A[((i + c) % (C8 + 1)) * m:((i + c) % (C8 + 1) + 1) * m]
+                     for i in range(mrp.R)], 1) for c in range(C8)])
+                a16 = Acat.repeat(mrp.GRID, 1, 1).to(torch.bfloat16)
+                b16 = B.repeat(mrp.R, 1).to(torch.bfloat16)
+                chains_lib_ms = qms(lambda: torch.matmul(a16, b16))
+                del Acat, a16, b16
+    del A, B
+    lap("22 J5, J8 against their plain versions")
+
+    # J7 against the plain loop: within 1e-3 of max|out| at R = 1, 1e-2 at
+    # R = 3 and 0.1 at R = 64 (the bf16 re-rounding of each product's input
+    # parts the two chains: 2.9e-3 after 9 products, 1.5e-2 after 192),
+    # there finite, of order 1 and repeated; `copies` exact throughout.
+    # With b = 1000 P (P a random permutation) each product is one exact
+    # term, so kernel and plain round alike: bitwise equal at R = 3 and 64,
+    # which holds the state carried from one iteration to the next
+    J7 = {}
+    H = dop.HEADLINE
+    src, a, b = dop.make_inputs(dev, H["R"], H["CH"], H["M"])
+    run7 = dict(CH=H["CH"], D=H["D"])
+    bp = torch.zeros_like(b)
+    bp[torch.randperm(H["M"], generator=g, device=dev),
+       torch.arange(H["M"], device=dev)] = 1000.0
+    for v in dop.VARIANTS:
+        for R_, bar in ((1, 1e-3), (3, 1e-2)):
+            e_, d_ = err(dop.dma_overlap(src, a, b, v, R_, **run7),
+                         dop.dma_overlap_plain(src, a, b, v, R_, **run7))
+            J7.setdefault(v, {}).update({f"rel_r{R_}": e_, f"abs_r{R_}": d_})
+            check(e_ == 0 if v == "copies" else e_ < bar,
+                  f"J7 {v} at R = {R_}: rel {e_:.3e}")
+        for R_ in (3, H["R"]):
+            k1 = dop.dma_overlap(src, a, bp, v, R_, **run7)
+            J7[v][f"exact_perm_r{R_}"] = equal(
+                k1, dop.dma_overlap_plain(src, a, bp, v, R_, **run7))
+            check(J7[v][f"exact_perm_r{R_}"] and 0.1 < float(
+                k1.abs().max()) < 100, f"J7 {v}, b = 1000 P, at R = {R_}: "
+                f"{J7[v]}")
+        k1, k2 = (dop.dma_overlap(src, a, b, v, H["R"], **run7)
+                  for _ in range(2))
+        p = dop.dma_overlap_plain(src, a, b, v, H["R"], **run7)
+        e, d = err(k1, p)
+        top = float(k1.abs().max())
+        J7[v].update(rel=e, abs=d, max=top, repeat=equal(k1, k2),
+                     finite=bool(torch.isfinite(k1).all()))
+        check(J7[v]["repeat"] and J7[v]["finite"] and 1e-3 < top < 1e3 and
+              (e == 0 if v == "copies" else e < 0.1),
+              f"J7 {v} at R = 64: {J7[v]}")
+    overlap_plain_ms = qms(lambda: dop.dma_overlap_plain(
+        src, a, b, "both", H["R"], **run7))
+    del src, a, b
+    ms = {v: rows["dma_overlap"][v]["ms"] for v in dop.VARIANTS}
+    s_, m_, word = dop.verdict(ms)
+    J7["verdict"] = dict(sum=s_, max=m_, word=word,
+                         hidden=(s_ - ms["both"]) / ms["copies"])
+
+    # J6: every question against its plain version at the headline
+    J6 = {}
+    lib6 = {}
+    for tag, mod in (("a", mp), ("b", mp2)):
+        size = mod.HEADLINE
+        inp = mod.make_inputs(dev, size)
+        for q in mod.QUESTIONS:
+            k1, k2 = mod.question(q, inp, size), mod.question(q, inp, size)
+            p = mod.question(q, inp, size, plain=True)
+            e, d = err(k1, p) if float(p.abs().max()) else (
+                float(k1.abs().max()), float(k1.abs().max()))
+            J6[f"{tag} {q}"] = dict(rel=e, abs=d, exact=equal(k1, p),
+                                    repeat=equal(k1, k2))
+            dots = q in ("q_dots", "q_dots4", "q_bigdot", "q_batch")
+            check(J6[f"{tag} {q}"]["repeat"] and
+                  (e < RATE_BAR if dots else J6[f"{tag} {q}"]
+                   ["exact"]), f"J6{tag} {q}: {J6[f'{tag} {q}']}")
+        steps = size["GRID"] * size["NG"]
+        Af, Bf = (t.to(torch.float32) for t in (inp["A"], inp["B"]))
+
+        def every_step():
+            """plain q_dots doing each step's product, as the kernel, its
+            bound and the library call do"""
+            acc = torch.zeros((Af.shape[0], Bf.shape[1]), device=dev)
+            for _ in range(steps):
+                acc = acc + Af @ Bf
+            return acc
+        e = err(every_step(), mod.question("q_dots", inp, size, plain=True))
+        check(e[0] < RATE_BAR, f"J6{tag} q_dots: the plain loop over every "
+              f"step off by {e[0]:.3e}")
+        J6[f"{tag} plain_ms"] = qms(every_step)
+        Arep = inp["A"].repeat(1, steps)
+        Brep = inp["B"].repeat(steps, 1)
+        lib6[f"{tag} q_dots"] = qms(lambda: torch.matmul(Arep, Brep))
+        del Arep, Brep
+        if tag == "a":
+            grid = size["GRID"]
+            A2 = inp["A2"].repeat(grid, 1)
+            lib6["a q_bigdot"] = qms(lambda: torch.matmul(A2, inp["B2"]))
+            Ab, Bb = inp["Ab"].repeat(grid, 1, 1), inp["Bb"].repeat(grid, 1,
+                                                                    1)
+            lib6["a q_batch"] = qms(lambda: torch.bmm(Ab, Bb))
+            del A2, Ab, Bb
+        lib6[f"{tag} q_trans"] = qms(lambda: inp["K32"].t().contiguous())
+        del inp
+    lap("22 J6, J7 against their plain versions")
+
+    results["rate_probes"] = dict(
+        launches=launches, moved=moved, J5=J5, J6=J6, J7=J7, J8=J8,
+        library=dict(dot=lib, copy=copy_lib_ms, chains=chains_lib_ms,
+                     grid=grid_lib_ms, j6=lib6),
+        rows={k: list(v.values()) for k, v in rows.items()},
+        slopes=gsp.slopes(list(rows["grid_slope"].values())))
+    rr = rows["rate"]
+    worst = {p: max(v["rel"] for key, v in J5.items()
+                    if key.startswith(f"dot {p} ")) for p in mrp.PRECISIONS}
+    chains = rows["rate_chains"]
+    print("[22] rate probes: J5 (1024,512,512) " + ", ".join(
+        f"{p} {rr[f'dot {p} ({m},{k},{n})']['ms']:.3f} ms "
+        f"({rr[f'dot {p} ({m},{k},{n})']['tflop_s']:.1f} TFLOP/s, "
+        f"worst rel {worst[p]:.1e})" for p in mrp.PRECISIONS) +
+        f"; copy (1024,4096) {rr['copy f32 (1024,4096)']['ms']:.3f} ms "
+        f"({rr['copy f32 (1024,4096)']['smem_tb_s']:.1f} TB/s on chip); "
+        "chains (1024,512,512) us a dot " + ", ".join(
+            f"C={C} {chains[f'chains C={C} ({m},{k},{n})']['us_per_dot']:.2f}"
+            for C in mrp.CHAINS) + "; J6 " + ", ".join(
+            f"{q} {rows['mxu_probe'][q]['ms']:.3f}" for q in mp.QUESTIONS) +
+        " / " + ", ".join(f"{q} {rows['mxu_probe2'][q]['ms']:.3f}"
+                          for q in mp2.QUESTIONS) +
+        f" ms; J7 copies {ms['copies']:.3f}, dots {ms['dots']:.3f}, both "
+        f"{ms['both']:.3f} ms -> {word} (copies hidden "
+        f"{J7['verdict']['hidden']:.0%}); J8 per block (events/wall us) " +
+        ", ".join(f"{k} " + "/".join(f"{u:.4f}" for u in v)
+                  for k, v in results["rate_probes"]["slopes"].items()) +
+        f"; element questions, copies and J8 exact; launches {launches} "
+        f"({card})")
+
+    tools = "tools/"
+    rd = rr[f"dot bf16 ({m},{k},{n})"]
+    rc = rr["copy f32 (1024,4096)"]
+    rch = rows["rate_chains"][f"chains C={C8} ({m},{k},{n})"]
+    q1, q2 = rows["mxu_probe"]["q_dots"], rows["mxu_probe2"]["q_dots"]
+    ov = rows["dma_overlap"]["both"]
+    gs = rows["grid_slope"][f"tiny const g={g_last}"]
+    bnd = lambda r: (r["bound_ms"], r["bound_by"])
+    return [
+        kernel_entry("rate_dot", "rate_probe.cu", "mxu_rate_probe.py:47",
+                     launches["rate_dot"],
+                     J5[f"dot bf16 ({m},{k},{n})"]["abs"], rd["ms"],
+                     dot_plain_ms, bnd(rd), lib["bf16"], root=tools),
+        kernel_entry("rate_copy", "rate_probe.cu", "mxu_rate_probe.py:70",
+                     launches["rate_copy"], 0.0, rc["ms"], copy_plain_ms,
+                     bnd(rc), copy_lib_ms, root=tools),
+        kernel_entry("rate_chains", "rate_probe.cu", "mxu_rate_probe.py:153",
+                     launches["rate_chains"],
+                     J5[f"chains C={C8} ({m},{k},{n})"]["abs"], rch["ms"],
+                     chains_plain_ms, bnd(rch), chains_lib_ms, root=tools),
+        kernel_entry("mxu_probe", "mxu_probe.cu", "mxu_probe.py:56",
+                     moved["mxu_probe"]["mxu_probe"], J6["a q_dots"]["abs"],
+                     q1["ms"], J6["a plain_ms"], bnd(q1), lib6["a q_dots"],
+                     root=tools),
+        kernel_entry("mxu_probe2", "mxu_probe.cu", "mxu_probe2.py:44",
+                     moved["mxu_probe2"]["mxu_probe"],
+                     J6["b q_dots"]["abs"], q2["ms"], J6["b plain_ms"],
+                     bnd(q2), lib6["b q_dots"], root=tools),
+        # no one PyTorch call races a copy against a chain of products;
+        # the error is that of the timed case, R = 64
+        kernel_entry("dma_overlap", "dma_overlap.cu",
+                     "dma_overlap_probe.py:88", launches["dma_overlap"],
+                     J7["both"]["abs"], ov["ms"], overlap_plain_ms,
+                     bnd(ov), None, root=tools),
+        kernel_entry("grid_slope", "grid_slope.cu", "grid_slope_probe.py:50",
+                     launches["grid_slope"], 0.0, gs["ms"],
+                     grid_plain_ms, bnd(gs), grid_lib_ms, root=tools),
     ]
 
 

@@ -56,6 +56,12 @@ _SIGNATURES = {
                       [_P, _LL] + [_P] * 5,
     "ssq_ablate_reassign": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                            _PLAN + [_I, _I, _I, _P, _P, _P],
+    "ssq_grid_slope": [_P, _P, _LL, _I, _I, _P],
+    "ssq_rate_dot": [_P, _P, _P] + [_I] * 7 + [_P],
+    "ssq_rate_copy": [_P, _P] + [_I] * 4 + [_P],
+    "ssq_dma_overlap": [_P] * 4 + [_I, _I, _I, _LL, _I, _P],
+    "ssq_mxu_dots": [_P, _P, _P] + [_I] * 6 + [_P],
+    "ssq_mxu_elem": [_I, _P, _P, _P] + [_I] * 5 + [_LL, _P],
 }
 
 _LIB = None

@@ -59,31 +59,18 @@
 #include <stdint.h>
 
 #include "bins.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using ssq::Plan;
+using ssq::mma_tf32;
+using ssq::tf32;
 
 constexpr int kCols = 8;       // columns per block = warps per block
 constexpr int kRows = 32;      // rows per shared-memory stage
 constexpr int kThreads = kCols * 32;
 constexpr int kTileBins = 256; // 16 f1 x 16 f0
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a (16x8, row) * b (8x8, col), TF32 in, float32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int TG>
 __global__ void __launch_bounds__(kThreads)

@@ -37,7 +37,9 @@ def test_library_name_follows_source_content(src_tree):
                                   "cwt_phase.cu", "cwt_planes.cu",
                                   "reassign_mxu.cu", "cwt_planes.cuh",
                                   "reassign.cuh", "ablate_cwt.cu",
-                                  "ablate_reassign.cu"])
+                                  "ablate_reassign.cu", "mma.cuh",
+                                  "grid_slope.cu", "rate_probe.cu",
+                                  "dma_overlap.cu", "mxu_probe.cu"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -61,7 +63,20 @@ def test_entry_points_have_signatures():
             "ssq_istft_ola", "ssq_reassign_bwd", "ssq_reassign4_bwd",
             "ssq_cwt_planes", "ssq_ifft_halfband",
             "ssq_reassign_mxu", "ssq_ablate_cwt", "ssq_cwt_copy_floor",
-            "ssq_cwt_staged", "ssq_ablate_reassign"} <= set(_build._SIGNATURES)
+            "ssq_cwt_staged", "ssq_ablate_reassign", "ssq_grid_slope",
+            "ssq_rate_dot", "ssq_rate_copy", "ssq_dma_overlap",
+            "ssq_mxu_dots", "ssq_mxu_elem"} <= set(_build._SIGNATURES)
+
+
+def test_tensor_core_helpers_are_shared():
+    """Kernel I and the probes' tensor-core kernels take their mma.sync
+    tiles and roundings from one header, which defines them once."""
+    for name in ("reassign_mxu.cu", "rate_probe.cu", "dma_overlap.cu",
+                 "mxu_probe.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text = f.read()
+        assert '#include "mma.cuh"' in text, name
+        assert '"mma.sync' not in text and '"cvt.rna' not in text, name
 
 
 def test_cwt_kernels_share_the_four_step_header():
@@ -108,3 +123,30 @@ def test_existing_library_is_reused_without_nvcc(src_tree, monkeypatch):
     assert _build.build() == path
     assert _build.report_path(path).endswith(".txt")
     assert _build.report_path(path) != path
+
+
+def test_build_with_a_stand_in_compiler(src_tree, monkeypatch, tmp_path):
+    """The build's own logic end to end, with a stand-in for nvcc that
+    writes each output it is asked for: one compile per .cu, one link,
+    the report with each compile's output, the library at its hashed
+    name."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then out=$2; fi; shift\n"
+                    "done\n"
+                    "echo compiled > \"$out\"; echo ptxas info\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    path = _build.build()
+    assert path == _build.library_path() and os.path.exists(path)
+    sources = sorted(os.path.basename(p) for p in _build._sources()
+                     if p.endswith(".cu"))
+    assert _build.BUILD_LOG["path"] == path
+    with open(_build.report_path(path)) as f:
+        report = f.read()
+    assert report.count("ptxas info") == len(sources)
+    assert sorted(line.rsplit("/", 1)[1] for line in report.splitlines()
+                  if line.startswith("$ ")) == sources
+    assert set(os.listdir(_build.BUILD_DIR)) == {
+        os.path.basename(path), os.path.basename(_build.report_path(path))}

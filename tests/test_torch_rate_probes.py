@@ -1,0 +1,493 @@
+"""The last TPU probes' counterparts (`ssqueeze_rs_tpu_torch.tools`: J5
+`mxu_rate_probe`, J6 `mxu_probe` and `mxu_probe2`, J7 `dma_overlap_probe`,
+J8 `grid_slope_probe`) on the CPU: each plain version against the TPU
+probe's own Pallas kernel, run in interpret mode.
+
+The TPU probes are loaded from ``tools/`` by path, their module constants
+patched to a small size (GRID 2, R 3, NG 2, T = 8 NG, CH 8, M 128) and
+their mains or jitted functions run under `jax.disable_jit()` in TPU
+interpret mode with uninitialized memory zeroed (their VMEM accumulators
+are never set; zeroed is the port's definition). Their `pl` is a proxy
+whose `pallas_call` records every kernel's inputs and output, and their
+`timed` runs a function once, so whole output arrays are compared:
+
+  element operations, the copy, J8, J7 `copies`   exact
+  bf16 dots and chains                             1e-5 of max|out|
+  JAX f32 against the port's 3xtf32 / tf32         2e-5 / 5e-3 (TF32 keeps
+                                                   ~3 digits)
+  J7 `dots` / `both` (R = 3, b scaled by 1e3 /     1e-2 of max|out| (bf16
+  sqrt(M) so that x stays of order 1)              re-rounds every product)
+"""
+import contextlib
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from ssqueeze_rs_tpu_torch.tools import (_common, dma_overlap_probe as dop,
+                                         grid_slope_probe as gsp,
+                                         mxu_probe as mp, mxu_probe2 as mp2,
+                                         mxu_rate_probe as mrp)
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools")
+MODULES = [gsp, mrp, mp, mp2, dop]
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    torch.set_num_threads(2)
+
+
+class _Recorder:
+    """Stands in for a probe's `pl`: `pallas_call` records (inputs,
+    output) of every kernel it builds, as numpy arrays."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(pl, name)
+
+    def pallas_call(self, kernel, **kw):
+        f = pl.pallas_call(kernel, **kw)
+
+        def call(*args):
+            out = f(*args)
+            self.calls.append(([np.asarray(a) for a in args],
+                               jax.tree_util.tree_map(np.asarray, out)))
+            return out
+        return call
+
+
+@contextlib.contextmanager
+def _jax_probe(name, **consts):
+    """The TPU probe tools/<name>.py, loaded by path (a private copy), its
+    constants set, its `pl` a recorder and its `timed` one call, inside
+    TPU interpret mode with jit off: yields (module, recorder)."""
+    spec = importlib.util.spec_from_file_location(
+        f"_tpu_probe_{name}", os.path.join(TOOLS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rec = _Recorder()
+    with pytest.MonkeyPatch.context() as mpatch:
+        for k, v in consts.items():
+            assert hasattr(mod, k), k
+            mpatch.setattr(mod, k, v)
+        mpatch.setattr(mod, "pl", rec)
+        if name in ("mxu_probe", "mxu_probe2", "grid_slope_probe"):
+            mpatch.setattr(mod, "timed", lambda fn, args, *a, **kw:
+                           fn(*args, 0))
+        with pltpu.force_tpu_interpret_mode(
+                pltpu.InterpretParams(uninitialized_memory="zero")), \
+                jax.disable_jit():
+            yield mod, rec
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def _t(a):
+    """A recorded JAX array as a torch tensor: int32 stays, the rest (bf16,
+    float32) becomes float32."""
+    a = np.asarray(a)
+    return torch.from_numpy(a.copy() if a.dtype == np.int32 else
+                            a.astype(np.float32))
+
+
+# -- J8 ------------------------------------------------------------------------
+@pytest.mark.parametrize("rows, L, vary, grid", [
+    (8, 128, False, 2), (8, 128, True, 4), (1, 1024, True, 3)])
+def test_grid_slope_matches_jax(rows, L, vary, grid):
+    x = np.random.default_rng(grid).standard_normal((rows, L)).astype(
+        np.float32)
+    with _jax_probe("grid_slope_probe") as (mod, rec):
+        mod.build(grid, rows, L, vary)(jnp.asarray(x), 0)
+    (ins, out), = rec.calls
+    got = gsp.grid_slope(torch.as_tensor(x), grid, vary)
+    assert got.shape == out.shape
+    assert np.array_equal(got.numpy(), out)
+
+
+# -- J5 ------------------------------------------------------------------------
+SMALL_J5 = dict(GRID=2, R=3)
+
+
+@pytest.fixture(scope="module")
+def jax_dots():
+    """The JAX dot_probe at (16, 32, 16) and (32, 64, 48) in bf16 and f32:
+    {(shape, dt): (A, B, out)}."""
+    rng = np.random.default_rng(0)
+    res = {}
+    with _jax_probe("mxu_rate_probe", **SMALL_J5) as (mod, rec):
+        for m, k, n in ((16, 32, 16), (32, 64, 48)):
+            for dt, dtype in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
+                A = jnp.asarray(rng.standard_normal((2 * m, k)), dtype)
+                B = jnp.asarray(rng.standard_normal((k, n)), dtype)
+                mod.dot_probe(A, B, jnp.float32(0), m=m, k=k, n=n, dt=dt)
+                ins, out = rec.calls[-1]
+                res[(m, k, n), dt] = (ins[0].astype(np.float32),
+                                      ins[1].astype(np.float32), out)
+    return res
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 16), (32, 64, 48)])
+@pytest.mark.parametrize("dt, precision, bar", [
+    ("bf16", "bf16", 1e-5), ("f32", "3xtf32", 2e-5), ("f32", "tf32", 5e-3)])
+def test_dot_probe_matches_jax(jax_dots, shape, dt, precision, bar):
+    A, B, out = jax_dots[shape, dt]
+    got = mrp.dot_probe(torch.as_tensor(A), torch.as_tensor(B), shape[0],
+                        precision, R=SMALL_J5["R"])
+    assert got.shape == out.shape == (shape[0], shape[2])
+    assert _rel(got.numpy(), out) < bar
+
+
+def test_tf32_is_coarser_than_3xtf32(jax_dots):
+    """TF32 keeps ~3 digits: its error against the float32 product is far
+    above 3xTF32's."""
+    A, B, out = jax_dots[(32, 64, 48), "f32"]
+    args = (torch.as_tensor(A), torch.as_tensor(B), 32)
+    e_tf = _rel(mrp.dot_probe(*args, "tf32", R=3).numpy(), out)
+    e_3x = _rel(mrp.dot_probe(*args, "3xtf32", R=3).numpy(), out)
+    assert e_tf > 1e-5 and e_3x < e_tf / 20
+
+
+def test_copy_probe_matches_jax():
+    m, n = 16, 256
+    A = np.random.default_rng(1).standard_normal((2 * m, n)).astype(
+        np.float32)
+    with _jax_probe("mxu_rate_probe", **SMALL_J5) as (mod, rec):
+        mod.copy_probe(jnp.asarray(A), jnp.float32(0), m=m, n=n)
+    (ins, out), = rec.calls
+    got = mrp.copy_probe(torch.as_tensor(A), m, R=SMALL_J5["R"])
+    assert np.array_equal(got.numpy(), out)
+
+
+@pytest.mark.parametrize("C", [2, 4])
+def test_chains_match_jax(C):
+    m, k, n = 16, 32, 16
+    rng = np.random.default_rng(C)
+    A = jnp.asarray(rng.standard_normal(((C + 1) * m, k)), jnp.bfloat16)
+    B = jnp.asarray(rng.standard_normal((k, n)), jnp.bfloat16)
+    with _jax_probe("mxu_rate_probe", **SMALL_J5) as (mod, rec):
+        mod.dot_probe_chains(A, B, jnp.float32(0), m=m, k=k, n=n, C=C)
+    (ins, outs), = rec.calls
+    got = mrp.dot_probe_chains(_t(ins[0]), _t(ins[1]), m, C, R=SMALL_J5["R"])
+    assert got.shape == (C, m, n) and len(outs) == C
+    for c in range(C):
+        assert _rel(got[c].numpy(), outs[c]) < 1e-5
+
+
+def test_round_tf32_is_rna():
+    """Ties go away from zero, the low 13 bits are cleared, and the
+    result has at most 11 significant bits."""
+    bits = np.array([0x3F801000, 0xBF801000, 0x3F800FFF, 0x3F803000,
+                     0x40490FDB], np.uint32)
+    want = np.array([0x3F802000, 0xBF802000, 0x3F800000, 0x3F804000,
+                     0x40490000], np.uint32)
+    x = torch.as_tensor(bits.view(np.float32))
+    got = mrp.round_tf32(x).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    r = mrp.round_tf32(y)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    assert ((r - y).abs() <= y.abs() * 2.0 ** -11).all()
+
+
+# -- J7 ------------------------------------------------------------------------
+SMALL_J7 = dict(R=3, CH=8, M=128)
+
+
+@pytest.fixture(scope="module")
+def jax_overlap():
+    R, CH, M = SMALL_J7["R"], SMALL_J7["CH"], SMALL_J7["M"]
+    rng = np.random.default_rng(7)
+    src = rng.standard_normal((R * CH, M)).astype(np.float32)
+    a = rng.standard_normal((M, M)).astype(np.float32)
+    b = (rng.standard_normal((M, M)) * 1e3 / np.sqrt(M)).astype(np.float32)
+    with _jax_probe("dma_overlap_probe", **SMALL_J7) as (mod, rec):
+        for v in dop.VARIANTS:
+            mod.run(jnp.asarray(src), jnp.asarray(a), jnp.asarray(b), v)
+    return (src, a, b), {v: c[1] for v, c in zip(dop.VARIANTS, rec.calls)}
+
+
+@pytest.mark.parametrize("variant", dop.VARIANTS)
+def test_dma_overlap_matches_jax(jax_overlap, variant):
+    (src, a, b), outs = jax_overlap
+    out = outs[variant]
+    got = dop.dma_overlap(*(torch.as_tensor(t) for t in (src, a, b)),
+                          variant, R=3, CH=8, D=3).numpy()
+    assert got.shape == out.shape == (8, 128)
+    if variant == "copies":
+        assert np.array_equal(got, out)
+    else:
+        # the scaled b keeps the chain of order 1 (the probe's own b
+        # underflows it to the 1e-30 copy term)
+        assert 0.1 < np.abs(out).max() < 100
+        assert _rel(got, out) < 1e-2
+
+
+def test_b_operand_is_bf16_b_transposed():
+    """The kernel's operand, made once by the caller: [n, k] = bf16(b[k,
+    n]), contiguous, which the plain version's bf16(b) equals."""
+    b = torch.randn(64, 64, generator=torch.Generator().manual_seed(3))
+    bT = dop.b_operand(b)
+    assert bT.dtype == torch.bfloat16 and bT.is_contiguous()
+    assert torch.equal(bT.t().float(), b.to(torch.bfloat16).float())
+
+
+def test_dma_overlap_plain_is_exact_on_a_scaled_permutation():
+    """With b = 1000 P each product is one exact term, so the chain has one
+    rounding: the plain loop equals the columns permuted by hand, which is
+    what lets the card hold its kernel to plain bitwise at any R."""
+    src, a, _ = dop.make_inputs(torch.device("cpu"), 3, 8, 128)
+    perm = torch.randperm(128, generator=torch.Generator().manual_seed(5))
+    bp = torch.zeros(128, 128)
+    bp[perm, torch.arange(128)] = 1000.0
+    scale, tiny = torch.tensor(1e-3), torch.tensor(1e-30)
+    for v in dop.VARIANTS:
+        x = a.to(torch.bfloat16).float()
+        for r in range(3):
+            for _ in range(3 if v != "copies" else 0):
+                x = x.to(torch.bfloat16).float()[:, perm] * 1000.0 * scale
+            if v != "dots":
+                x = x + src[r * 8, 0] * tiny
+        assert torch.equal(dop.dma_overlap_plain(src, a, bp, v, 3, 8, 3),
+                           x[:8]), v
+
+
+def test_dma_overlap_inputs_keep_the_chain_alive():
+    src, a, b = dop.make_inputs(torch.device("cpu"), 2, 4, 128)
+    out = dop.dma_overlap(src, a, b, "dots", R=2, CH=4)
+    assert 0.05 < float(out.abs().max()) < 50
+
+
+# -- J6 ------------------------------------------------------------------------
+SMALL_J6 = dict(GRID=2, NG=2, T=16)
+
+
+def _j6_calls(name, questions):
+    with _jax_probe(name, **SMALL_J6) as (mod, rec):
+        mod.main()
+        S = dict(GRID=mod.GRID, NG=mod.NG, G=mod.G, F1=mod.F1)
+    assert len(rec.calls) == len(questions), "a question failed in JAX"
+    return S, dict(zip(questions, rec.calls))
+
+
+@pytest.fixture(scope="module")
+def jax_j6a():
+    return _j6_calls("mxu_probe", mp.QUESTIONS)
+
+
+@pytest.fixture(scope="module")
+def jax_j6b():
+    return _j6_calls("mxu_probe2", mp2.QUESTIONS)
+
+
+def _port_question(q, ins, S):
+    """The port's plain version of question q on the JAX kernel's inputs,
+    with the probe's constants S."""
+    grid, NG, G = S["GRID"], S["NG"], S["G"]
+    x = [_t(a) for a in ins]
+    if q in ("q_dots", "q_dots4"):
+        return mp.dots(x[0], x[1], grid * NG)
+    if q in ("q_bigdot", "q_batch"):
+        return mp.dots(x[0], x[1], grid, accumulate=False)
+    if q == "q_trans":
+        return mp.trans(x[0], grid)
+    if q == "q_repeat":
+        return mp.repeat(x[0], x[1], grid)
+    if q == "q_slice128":
+        return mp.slice128(x[0], NG, grid)
+    if q in ("q_slice8s", "q_abuild"):
+        return mp.abuild(x[0], NG, G, S["F1"], grid)
+    if q == "q_strided":
+        return mp.strided(x[0], G, NG, grid)
+    if q == "q_bcast":
+        return mp.bcast(x[0], G, grid)
+    if q == "q_bbuild":
+        return mp.bbuild(x[0], x[1], NG, G, grid)
+    if q == "q_floor":
+        return gsp.grid_slope(x[0], grid, False)
+    raise AssertionError(q)
+
+
+DOTS = ("q_dots", "q_dots4", "q_bigdot", "q_batch")
+
+
+def _check_question(S, calls, q):
+    ins, out = calls[q]
+    got = _port_question(q, ins, S).numpy()
+    assert got.shape == out.shape, q
+    if q in DOTS:
+        assert _rel(got, out) < 1e-5, q
+    else:
+        assert np.array_equal(got, out.astype(np.float32)), q
+
+
+@pytest.mark.parametrize("q", mp.QUESTIONS)
+def test_mxu_probe_matches_jax(jax_j6a, q):
+    _check_question(*jax_j6a, q)
+
+
+@pytest.mark.parametrize("q", mp2.QUESTIONS)
+def test_mxu_probe2_matches_jax(jax_j6b, q):
+    _check_question(*jax_j6b, q)
+
+
+def test_jax_dots_accumulate_over_every_step(jax_j6a):
+    """With the accumulator zeroed, q_dots is GRID * NG products."""
+    S, calls = jax_j6a
+    (A, B), out = calls["q_dots"]
+    P = A.astype(np.float32) @ B.astype(np.float32)
+    assert _rel(out, S["GRID"] * S["NG"] * P) < 1e-6
+
+
+def test_question_helpers_match_the_wrappers():
+    """`question(..., plain=True)` and the wrapper agree on the CPU, and the
+    inputs follow the probe's distributions."""
+    size = mp2.SMALL
+    inp = mp2.make_inputs(torch.device("cpu"), size)
+    assert set(inp["A"].unique().tolist()) <= {0.0, 1.0}
+    assert int(inp["KHT"].max()) < size["F1"] and int(inp["KLR"].max()) < 16
+    for q in mp2.QUESTIONS:
+        assert torch.equal(mp2.question(q, inp, size),
+                           mp2.question(q, inp, size, plain=True)), q
+
+
+# -- the entry points ------------------------------------------------------------
+def _names(mod, argv):
+    if mod is gsp:
+        return [f"{n} g={g}" for n, _, _, _, gs in gsp.SMALL for g in gs]
+    if mod is mrp and "--chains" in argv:
+        return [f"chains C={C} ({m},{k},{n})"
+                for m, k, n in mrp.SMALL["chains"] for C in mrp.SMALL["C"]]
+    if mod is mrp:
+        return ([f"dot {p} ({m},{k},{n})" for m, k, n in mrp.SMALL["shapes"]
+                 for p in mrp.PRECISIONS] +
+                [f"copy f32 ({m},{n})" for m, n in mrp.SMALL["copy"]])
+    if mod in (mp, mp2):
+        return list(mod.QUESTIONS)
+    return list(dop.VARIANTS)
+
+
+@pytest.mark.parametrize("mod, extra", [
+    (gsp, []), (mrp, []), (mrp, ["--chains"]), (mp, []), (mp2, []),
+    (dop, [])], ids=["grid_slope", "rate", "rate_chains", "mxu_probe",
+                     "mxu_probe2", "dma_overlap"])
+def test_main_on_cpu(mod, extra, capsys):
+    counts = (gsp.LAUNCHES, mrp.LAUNCHES_DOT, mrp.LAUNCHES_COPY,
+              mrp.LAUNCHES_CHAINS, mp.LAUNCHES, dop.LAUNCHES)
+    rows = mod.main(["2", "--device", "cpu"] + extra)
+    names = _names(mod, extra)
+    assert [r["name"] for r in rows] == names
+    assert all(r["ms"] > 0 and r["wall_ms"] > 0 and r["bound_ms"] > 0 and
+               r["bound_by"] in ("bytes", "operations") for r in rows)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert all("host ms" in line for line in lines)
+    assert sum("bound" in line for line in lines) == len(names)
+    assert "TFLOP/s" not in "".join(lines) and "TB/s" not in "".join(lines)
+    if mod is gsp:
+        assert sum("per-block cost" in line for line in lines) == 3
+    if mod is dop:
+        assert sum("sum(floors)" in line for line in lines) == 2
+    # CPU runs launch nothing
+    assert counts == (gsp.LAUNCHES, mrp.LAUNCHES_DOT, mrp.LAUNCHES_COPY,
+                      mrp.LAUNCHES_CHAINS, mp.LAUNCHES, dop.LAUNCHES)
+
+
+@pytest.mark.parametrize("mod", MODULES,
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_main_needs_cuda_or_device_cpu(mod, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mod.main(["1"])
+
+
+def test_wrappers_refuse_bad_arguments():
+    A, B = torch.zeros(8, 4), torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="precision"):
+        mrp.dot_probe(A, B, 4, "f32")
+    with pytest.raises(ValueError, match="rows"):
+        mrp.dot_probe(A, B, 3)
+    with pytest.raises(ValueError, match="columns"):
+        mrp.dot_probe(A, torch.zeros(5, 3), 4)
+    with pytest.raises(ValueError, match="C must"):
+        mrp.dot_probe_chains(torch.zeros(16, 4), B, 4, 3)
+    with pytest.raises(ValueError, match="rows"):
+        mrp.copy_probe(torch.zeros(7, 4), 4)
+    src, a, b = torch.zeros(16, 64), torch.zeros(64, 64), torch.zeros(64, 64)
+    with pytest.raises(ValueError, match="variant"):
+        dop.dma_overlap(src, a, b, "dma", R=2, CH=8)
+    with pytest.raises(ValueError, match="src"):
+        dop.dma_overlap(src, a, b, "both", R=3, CH=8)
+    with pytest.raises(ValueError, match="grid"):
+        gsp.grid_slope(torch.zeros(8, 128), 0, True)
+    with pytest.raises(ValueError, match="int32"):
+        mp.trans(torch.zeros(4, 8), 1)
+    with pytest.raises(ValueError, match="multiple"):
+        mp.bcast(torch.zeros(4, 12), 8, 1)
+    with pytest.raises(ValueError, match="columns"):
+        mp.slice128(torch.zeros(4, 200), 2, 1)
+    with pytest.raises(ValueError, match="steps"):
+        mp.dots(torch.zeros(4, 8), torch.zeros(8, 2), 0)
+    with pytest.raises(ValueError, match="question"):
+        mp.question("q_nothing", {}, mp.SMALL)
+
+
+def test_bounds_take_the_unit_rate():
+    """A dot's operations go at the tensor cores' rate of its precision,
+    and 3xtf32 counts three TF32 products."""
+    nb, fl, rate = mrp.dot_cost(1024, 512, 512, "bf16")
+    assert rate == _common.BF16_FLOP_S
+    assert _common.bound(nb, fl, rate) == (fl / rate * 1e3, "operations")
+    assert mrp.dot_cost(1024, 512, 512, "3xtf32")[1] == 3 * mrp.dot_cost(
+        1024, 512, 512, "tf32")[1]
+    assert _common.bound(1e9, 1e9) == (1e9 / _common.HBM_BYTES_S * 1e3,
+                                       "bytes")
+    nb, fl, _ = dop.variant_cost("copies", 64, 4096, 3, 512)
+    assert nb >= 64 * 4096 * 512 * 4 and fl == 0
+
+
+def test_time_ms_queues_the_runs_behind_a_spin(monkeypatch):
+    """On the card the timed runs, after one warm-up, are queued behind one
+    fixed spin of the card, each between its own pair of events, and the
+    median of their times stands."""
+    log, times = [], iter([0.5, 0.25, 0.75])
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            log.append("event")
+
+        def elapsed_time(self, other):
+            return next(times)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: log.append("sync"))
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: log.append(("spin", cycles)))
+    dev = torch.device("cuda", 0)
+    assert _common.time_ms(lambda: log.append("run"), dev, 3) == 0.5
+    assert log == (["run", "sync", ("spin", _common.SPIN_CYCLES)] +
+                   ["event", "run", "event"] * 3 + ["sync"])
+
+
+def test_slopes_and_verdict():
+    rows = [dict(name="tiny g=64", grid=64, ms=1.0, wall_ms=2.0),
+            dict(name="tiny g=1024", grid=1024, ms=1.96, wall_ms=2.96)]
+    assert gsp.slopes(rows) == {"tiny": pytest.approx((1.0, 1.0))}
+    assert dop.verdict(dict(copies=1.0, dots=1.0, both=1.1))[2] == \
+        "OVERLAPPABLE"
+    assert dop.verdict(dict(copies=1.0, dots=1.0, both=1.9)) == (2.0, 1.0,
+                                                                 "ADDITIVE")
