@@ -33,8 +33,12 @@ Phases, one line each:
   6. kernels B and B' at nf = 1025 (STFT planes at n_fft = 2048,
      N = 20 000; 16 columns per block) against their plain versions:
      every entry within 1e-5 max|Tx|, bitwise repeat
-  7. kernel F (stft_dft) against plain F at the STFT width, derivative off
-     (600 rows) and on (1200 rows): max|dS| / max|S| < 2e-6; timed
+  7. kernel F (stft_dft, the Bluestein transform on the register-radix
+     core) against plain F at the STFT width, derivative off (600 rows)
+     and on (1200 rows): max|dS| / max|S| < 2e-6, bitwise repeat, both
+     against the dense product in float64; timed beside torch.stft and its
+     bound (the function's real FFTs and bytes); the same checks untimed at
+     n_fft = 599 (a prime)
   8. kernel B' (reassign4, lin bins, nf = 300) on F's planes against plain
      B': every entry within 1e-5 max|Tx|, column sums within 1e-5,
      bitwise repeat; timed
@@ -70,7 +74,9 @@ Phases, one line each:
      repeat, timed beside their bound and torch.fft.ifft of the same
      (rows, M) spectrum: D at the cwt headline with the derivative off
      and on, D at M = 2^21 (N = 1 000 000, the first 64 scales, with the
-     derivative), E on the complex-psih headline (bump, om = 0.5, 318 rows)
+     derivative), E on the complex-psih headline (bump, om = 0.5, 318 rows);
+     D's rows a chunk (its intermediate kept in L2) and its time at budgets
+     of 10, 20 MB, the constant and one chunk of every row
  16. three requests through cwt (D once), cwt(derivative) (D once), the
      bump cwt (E once), ssq_cwt(get_dWx) and ssq_cwt(squeezing='lebesgue')
      (D and B' once each): outputs finite on the GPU, the sine's cwt ridge
@@ -113,8 +119,9 @@ Phases, one line each:
      modes), each main() run as a user would, K = 5, with the launch
      counts of P1-P4 read around them; then every variant against its
      plain twin at the headline: planes within 1e-5 of their largest
-     value, the copy and zero variants exact, P1's full and P3 bitwise
-     kernel D (cwt_fused with the derivative), P4's full at 32, 16 and 8
+     value, the copy and zero variants exact, P1's full and P3 (D's earlier
+     radix-2 design) bitwise equal and within 1e-5 of D's plain version per
+     plane, P4's full at 32, 16 and 8
      columns a block bitwise B' (reassign4 under 'vpu'), the three grid
      modes bitwise equal on a batch of 4, every kernel bitwise repeated
  22. the last TPU probes' entry points (J5 mxu_rate_probe and its
@@ -141,6 +148,7 @@ one), the card's name and power limit, and `{"ok": true, "device": ...}`.
 Full results also go to chiprun_out/chip_smoke.json.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -250,6 +258,12 @@ def fft_flops(rows, M):
     return 5.0 * rows * M * (M.bit_length() - 1)
 
 
+def rfft_flops(count, n):
+    """Operations of `count` real FFTs of length n (any n), by the count
+    2.5 n log2 n: the work of the function, not of a dense product."""
+    return 2.5 * count * n * math.log2(n)
+
+
 # float32 operations per entry of the binning and scatter / gather kernels
 # (bin from w: a log2 or a product and a rounding; w from four planes; the
 # product and the two adds of the accumulation): far below their bytes
@@ -343,7 +357,7 @@ def device_breakdown(torch, fn, groups, calls=3, warm=False):
 
 # kernel-name substrings of the profiled groups (first match wins)
 K_A = ("A", ("cwt_stage1", "cwt_stage2"))
-K_D = ("D", ("cwt_planes_stage1", "planes_stage2"))
+K_D = ("D", ("cwt_d_stage1", "cwt_d_stage2"))
 K_B = ("B", ("reassign_kernel",))
 K_C = ("C", ("reassign_bwd_kernel",))
 K_FFT = ("cuFFT", ("fft",))
@@ -635,7 +649,7 @@ def stft_phases(np, torch, dev, card, results):
     from ssqueeze_rs_tpu_torch import (stft, istft, ssq_stft, issq_stft,
                                        mad_rms)
     from ssqueeze_rs_tpu_torch.ops import reassign_cuda, stft_cuda
-    from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes,
+    from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes, _dft_spec,
                                                 _irfft_mats_weighted)
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
     from ssqueeze_rs_tpu_torch.utils.pad import padsignal
@@ -685,47 +699,70 @@ def stft_phases(np, torch, dev, card, results):
     check(nf6 == 1025 and cols == 16, f"nf={nf6}, {cols} columns")
     del sr, si, dr, di, w6, a3, a4
 
-    # 7. kernel F against plain F at the STFT width
+    # 7. kernel F against plain F at the STFT width, both against the
+    # dense product in float64; n_fft = 599 (599 is prime) checked too
     x = torch.as_tensor(rng.standard_normal(N), dtype=torch.float32,
                         device=dev)
     win, dwin = get_window(None, N_FFT, N_FFT, derivative=True,
                            dtype="float32")
-    K2 = _k_t(_win_bytes(win), None, N_FFT, True, dev)
-    K4 = _k_t(_win_bytes(win), _win_bytes(dwin), N_FFT, True, dev)
     xp = padsignal(x, "reflect", padlength=N + N_FFT - 1)
     F = {}
-    for K, fs in ((K2, None), (K4, 1.0)):
+    for n_fft, dw, fs in ((N_FFT, None, None), (N_FFT, dwin, 1.0),
+                          (599, None, None), (599, dwin, 1.0)):
+        w_n, dw_n = get_window(None, n_fft, n_fft, derivative=True,
+                               dtype="float32")
+        wins = (_win_bytes(w_n), _win_bytes(dw_n) if dw is not None else None,
+                n_fft, True)
+        K, spec = _k_t(*wins, dev), _dft_spec(*wins)
         rows = K.shape[0]
-        kF = stft_cuda.stft_dft(xp, K, N_FFT, N, fs=fs)
-        pF = stft_cuda.stft_dft_plain(xp, K, N_FFT, N, fs=fs)
+        xf = xp if n_fft == N_FFT else padsignal(x, "reflect",
+                                                  padlength=N + n_fft - 1)
+        run = lambda: stft_cuda.stft_dft(xf, K, n_fft, N, fs=fs, spec=spec)
+        plain = lambda: stft_cuda.stft_dft_plain(xf, K, n_fft, N, fs=fs)
+        kF, kF2, pF = run(), run(), plain()
+        K64 = torch.as_tensor(spec.dense(np.float64), device=dev)
+        rF = stft_cuda.stft_dft_plain(xf.double(), K64, n_fft, N, fs=fs)
         torch.cuda.synchronize()
-        d = (kF - pF).abs()
-        F[rows] = dict(rel=float(d.max() / pF.abs().max()),
-                       abs=float(d.max()),
-                       ms=cuda_ms(torch, lambda: stft_cuda.stft_dft(
-                           xp, K, N_FFT, N, fs=fs)),
-                       plain_ms=cuda_ms(torch, lambda: stft_cuda.stft_dft_plain(
-                           xp, K, N_FFT, N, fs=fs)),
-                       bound=bound(tensor_bytes(xp, K, kF),
-                                   2.0 * rows * N_FFT * N))
-        del pF
-        if rows == K4.shape[0]:
-            planes = kF
+        top = float(rF.abs().max())
+        key = f"{rows} rows" + ("" if n_fft == N_FFT else f" n_fft={n_fft}")
+        F[key] = dict(
+            rel=float((kF - pF).abs().max() / pF.abs().max()),
+            abs=float((kF - pF).abs().max()),
+            rel64=float((kF.double() - rF).abs().max()) / top,
+            plain_rel64=float((pF.double() - rF).abs().max()) / top,
+            bitwise=bool(torch.equal(kF, kF2)), n_fft=n_fft, rows=rows,
+            Q=stft_cuda.bluestein_tables(spec)[0])
+        del kF2, pF, rF, K64
+        if n_fft == N_FFT:
+            # the function's work: W real FFTs a frame; its bytes: the
+            # signal, the kernel's tables, the planes
+            W = len(spec.windows)
+            F[key].update(
+                ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain),
+                bound=bound(tensor_bytes(xf, stft_cuda._tables_on(spec, dev),
+                                         kF), rfft_flops(W * N, n_fft)))
+            if dw is not None:
+                planes = kF
+        del kF
     # the yardstick: torch.stft over the same padded signal and window
     # (hop 1, no centring; it does not fftshift the frames, the port's
     # modulated STFT does)
     win_t = torch.as_tensor(win, device=dev)
-    F[600]["library_ms"] = cuda_ms(torch, lambda: torch.stft(
+    F["600 rows"]["library_ms"] = cuda_ms(torch, lambda: torch.stft(
         xp, N_FFT, hop_length=1, win_length=N_FFT, window=win_t,
         center=False, return_complex=True))
     results["F"] = F
-    print("[7] kernel F: " + "; ".join(
-        f"{r} rows rel={v['rel']:.3e} | {v['ms']:.3f} ms vs plain "
-        f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms "
-        f"({v['bound'][1]})" for r, v in F.items()) +
-        f"; torch.stft (600 rows) {F[600]['library_ms']:.3f} ms ({card})")
-    for r, v in F.items():
-        check(v["rel"] < 2e-6, f"kernel F ({r} rows) rel {v['rel']:.3e}")
+    print("[7] kernel F (Bluestein): " + "; ".join(
+        f"{k}: rel={v['rel']:.3e}, vs float64 {v['rel64']:.3e} (plain "
+        f"{v['plain_rel64']:.3e}), bitwise-repeat={v['bitwise']}" +
+        (f" | {v['ms']:.3f} ms vs plain {v['plain_ms']:.3f} ms, bound "
+         f"{v['bound'][0]:.3f} ms ({v['bound'][1]})" if "ms" in v else "")
+        for k, v in F.items()) +
+        f"; torch.stft (600 rows) {F['600 rows']['library_ms']:.3f} ms "
+        f"({card})")
+    for k, v in F.items():
+        check(v["bitwise"], f"kernel F ({k}) differs between two runs")
+        check(v["rel"] < 2e-6, f"kernel F ({k}) rel {v['rel']:.3e}")
 
     # 8. kernel B' on F's planes (lin bins, nf = 300)
     nf = N_FFT // 2 + 1
@@ -752,7 +789,8 @@ def stft_phases(np, torch, dev, card, results):
           f"kernel B' Tx rel {rel4:.3e}, column sums {col4:.3e}")
     del p4, k2
 
-    # 9. kernel G
+    # 9. kernel G (its own dense DFT, held to F's Bluestein planes)
+    K4 = _k_t(_win_bytes(win), _win_bytes(dwin), N_FFT, True, dev)
     ga = (xp, K4, N_FFT, N, 1.0, Sfs, const, gamma, params, mode, False)
     Tg, Sg = stft_cuda.ssq_stft_fused(*ga)
     Tg2, Sg2 = stft_cuda.ssq_stft_fused(*ga)
@@ -771,7 +809,7 @@ def stft_phases(np, torch, dev, card, results):
     msG = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused(*ga))
     msG_plain = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused_plain(*ga))
     boundG = bound(tensor_bytes(ga, Tg, Sg),
-                   2.0 * K4.shape[0] * N_FFT * N + BIN4_FLOPS * sr.numel())
+                   rfft_flops(2 * N, N_FFT) + BIN4_FLOPS * sr.numel())
     results["G"] = dict(sx_rel_F=sx_rel, sx_equal_F=sx_equal,
                         tx_within_vs_B4=withinG, tx_rel_vs_B4=relG,
                         colsum_vs_B4=colG, sx_rel_plain=sx_plain,
@@ -804,8 +842,9 @@ def stft_phases(np, torch, dev, card, results):
     madH = mad_rms(x, xr)
     msH = cuda_ms(torch, lambda: stft_cuda.istft_ola(*ha))
     msH_plain = cuda_ms(torch, lambda: stft_cuda.istft_ola_plain(*ha))
+    # an inverse real FFT a column, then N_FFT adds a column (overlap-add)
     boundH = bound(tensor_bytes(ha, kH),
-                   4.0 * N_FFT * S.shape[-2] * S.shape[-1])
+                   rfft_flops(S.shape[-1], N_FFT) + N_FFT * S.shape[-1])
     # the yardstick: torch.istft of the same spectrum at hop 1 (centred,
     # so the window envelope it checks has no near-zero edge)
     msH_lib = cuda_ms(torch, lambda: torch.istft(
@@ -888,7 +927,7 @@ def stft_phases(np, torch, dev, card, results):
     ssq_ms, ssq_all = host_ms(torch, lambda: ssq_stft(x, n_fft=N_FFT))
     prof11 = {
         "stft": device_breakdown(torch, lambda: stft(x, n_fft=N_FFT), (
-            ("F", ("stft_dft_kernel",)), K_PAD)),
+            ("F", ("stft_bluestein",)), K_PAD)),
         "ssq_stft": device_breakdown(torch, lambda: ssq_stft(
             x, n_fft=N_FFT), (("G", ("ssq_stft_kernel",)), K_PAD))}
 
@@ -926,7 +965,7 @@ def stft_phases(np, torch, dev, card, results):
     check(col_small < 1e-4 and tot_small < 1e-5,
           f"GPU vs CPU Tx: col {col_small:.2e}, total {tot_small:.2e}")
 
-    F6 = F[600]
+    F6 = F["600 rows"]
     return [
         # B' and G: no one PyTorch call bins and scatters
         kernel_entry("reassign4", "reassign.cu", "reassign_pallas.py:175",
@@ -962,8 +1001,9 @@ def grad_phases(np, torch, dev, card, results, cwt):
     from ssqueeze_rs_tpu_torch import ssq_cwt, stft, istft, ssq_stft
     from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda, stft_cuda
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
-    from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes,
-                                                _irfft_mats_weighted)
+    from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes, _dft_spec,
+                                                _irfft_mats_weighted,
+                                                _irfft_spec)
     from ssqueeze_rs_tpu_torch.utils.pad import padsignal
     from ssqueeze_rs_tpu_torch.utils.windows import get_window
     from ssqueeze_rs_tpu_torch.config import EPS32
@@ -1098,14 +1138,13 @@ def grad_phases(np, torch, dev, card, results, cwt):
                            dtype="float32")
     xp = padsignal(x, "reflect", padlength=N + N_FFT - 1)
     adj = {}
-    for rows, K, fs in ((600, _k_t(_win_bytes(win), None, N_FFT, True, dev),
-                         None),
-                        (1200, _k_t(_win_bytes(win), _win_bytes(dwin), N_FFT,
-                                    True, dev), 1.0)):
+    for rows, dw, fs in ((600, None, None), (1200, _win_bytes(dwin), 1.0)):
+        wins = (_win_bytes(win), dw, N_FFT, True)
+        K = _k_t(*wins, dev)
         g = seeded((rows, N))
         xk, xq = (xp.detach().clone().requires_grad_() for _ in range(2))
-        gk, = torch.autograd.grad(stft_cuda.stft_dft(xk, K, N_FFT, N, fs=fs),
-                                  xk, g)
+        gk, = torch.autograd.grad(stft_cuda.stft_dft(
+            xk, K, N_FFT, N, fs=fs, spec=_dft_spec(*wins)), xk, g)
         gq, = torch.autograd.grad(stft_cuda.stft_dft_plain(
             xq, K, N_FFT, N, fs=fs), xq, g)
         adj[f"F {rows} rows"] = rel(torch, gk, gq)
@@ -1115,7 +1154,9 @@ def grad_phases(np, torch, dev, card, results, cwt):
     hk = [S.real.contiguous().requires_grad_(),
           S.imag.contiguous().requires_grad_()]
     hq = [t.detach().clone().requires_grad_() for t in hk]
-    gk = torch.autograd.grad(stft_cuda.istft_ola(*hk, Fr, Fs, N_FFT), hk, g)
+    gk = torch.autograd.grad(stft_cuda.istft_ola(
+        *hk, Fr, Fs, N_FFT, adjoint=_irfft_spec(N_FFT, True, _win_bytes(win),
+                                                1)), hk, g)
     gq = torch.autograd.grad(stft_cuda.istft_ola_plain(*hq, Fr, Fs, N_FFT),
                              hq, g)
     adj["H"] = max(rel(torch, a, b) for a, b in zip(gk, gq))
@@ -1270,12 +1311,23 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
                         torch.cat([nw[1], nd[1]]) if d else nw[1])
         del Zr, Zi
         Mk = 2 * Pw.shape[1] * Pw.shape[2]
+        run = lambda: fft_cuda.cwt_fused(*a, keep=keep, derivative=d)
         DE[key] = hold(
-            key, lambda: fft_cuda.cwt_fused(*a, keep=keep, derivative=d),
+            key, run,
             lambda: fft_cuda.cwt_fused_plain(*a, keep=keep, derivative=d),
             spec, tensor_bytes(a[:4], nw, nd if d else ()),
             fft_flops(spec.shape[0], Mk))
-        DE[key].update(M=Mk, keep=list(keep))
+        pipes, rows = (2 if d else 1), spec.shape[0] // (2 if d else 1)
+        # the budget of D's row chunks (its intermediate kept in L2): the
+        # constant against 10 and 20 MB and one chunk of every row
+        sweep, budget = {}, fft_cuda._D_Y_BYTES
+        for mb in (10, 20, budget >> 20, 1 << 20):
+            fft_cuda._D_Y_BYTES = mb << 20
+            sweep[f"{mb} MB, {fft_cuda.d_chunk_rows(Mk, pipes, rows)} "
+                  f"rows"] = cuda_ms(torch, run)
+        fft_cuda._D_Y_BYTES = budget
+        DE[key].update(M=Mk, keep=list(keep), budget_sweep_ms=sweep,
+                       chunk_rows=fft_cuda.d_chunk_rows(Mk, pipes, rows))
         del spec
     del x1m, xp1m, args1m
     # E on the complex-psih headline: bump (om = 0.5), 318 rows
@@ -1301,7 +1353,11 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
         f"{k}: rows={v['rows']} rel={v['rel']:.3e} bitwise-repeat="
         f"{v['bitwise']} | {v['ms']:.3f} ms vs plain {v['plain_ms']:.3f}, "
         f"bound {v['bound_ms']:.3f} ({v['bound_by']}), torch.fft.ifft "
-        f"{v['library_ms']:.3f}" for k, v in DE.items()) + f" ({card})")
+        f"{v['library_ms']:.3f}" + (
+            f", {v['chunk_rows']} rows a chunk; budgets " + ", ".join(
+                f"{b}: {t:.3f} ms" for b, t in v["budget_sweep_ms"].items())
+            if "chunk_rows" in v else "")
+        for k, v in DE.items()) + f" ({card})")
 
     # 16. cwt / icwt / ssq_cwt end to end: three requests
     def counts():
@@ -1770,7 +1826,7 @@ def serving_phases(np, torch, dev, card, results, ctx):
         (K_D, K_B, K_I, K_FFT, K_CPLX, K_D2H, K_H2D))
     S19["profile ssq_stft step"] = device_breakdown(torch, lambda: [
         c.cpu() for c in sq_stft._run(seg_q)],
-        (("F", ("stft_dft_kernel",)), K_B, K_I, K_CPLX, K_D2H, K_H2D))
+        (("F", ("stft_bluestein",)), K_B, K_I, K_CPLX, K_D2H, K_H2D))
     results["streaming"] = S19
     vs_vpu = {kind: max(v["tx_sum_rel_vs_vpu"] for k, v in S19.items()
                         if k.startswith(kind + " mxu"))
@@ -1998,31 +2054,39 @@ def probe_phases(np, torch, dev, card, results):
         return len(x) == len(y) and all(torch.equal(a, b)
                                         for a, b in zip(x, y))
 
-    # P1, P3: every variant against its plain twin, full and staged
-    # bitwise D, each bitwise repeated
+    # P1, P3: every variant against its plain twin, each bitwise
+    # repeated; P1 full and P3 staged (both D's earlier radix-2 design,
+    # which E keeps) bitwise to each other and within 1e-5 of D's plain
     P = {}
     args, keep = acw.make_inputs(dev, **{k: acw.HEADLINE[k]
                                          for k in ("na", "M", "L")})
-    D = fft_cuda.cwt_fused(*args, keep=keep, derivative=True)
+    full = None
     for v in acw.VARIANTS:
         k1, k2 = acw.ablate_cwt(*args, keep, v), acw.ablate_cwt(*args, keep, v)
         p = acw.ablate_cwt_plain(*args, keep, v)
         err, err_abs = planes_err(k1, p)
         P[v] = dict(rel=err, abs=err_abs, repeat=equal(k1, k2),
-                    bitwise_D=equal(k1, D), ms=rows_cwt[v]["ms"],
-                    bound_ms=rows_cwt[v]["bound_ms"])
+                    ms=rows_cwt[v]["ms"], bound_ms=rows_cwt[v]["bound_ms"])
         check(P[v]["repeat"], f"P1 {v} differs between two runs")
         check(err < 1e-5, f"P1 {v}: rel error {err:.3e} >= 1e-5")
+        if v == "full":
+            full = k1
         del k1, k2, p
-    check(P["full"]["bitwise_D"], "P1 full is not kernel D bit for bit")
     s1, s2 = acw.cwt_staged(*args, keep), acw.cwt_staged(*args, keep)
-    P["staged"] = dict(bitwise_D=equal(s1, D), repeat=equal(s1, s2),
+    D_plain = fft_cuda.cwt_fused_plain(*args, keep=keep, derivative=True)
+    full_rel = planes_err(full, D_plain)[0]
+    P["staged"] = dict(bitwise_full=equal(s1, full), repeat=equal(s1, s2),
+                       rel_D_plain=planes_err(s1, D_plain)[0],
                        ms=rows_cwt["staged"]["ms"],
                        bound_ms=rows_cwt["staged"]["bound_ms"])
-    check(P["staged"]["bitwise_D"] and P["staged"]["repeat"],
-          f"P3 staged: bitwise D {P['staged']['bitwise_D']}, repeat "
-          f"{P['staged']['repeat']}")
-    del s1, s2
+    P["full"]["rel_D_plain"] = full_rel
+    check(P["staged"]["bitwise_full"] and P["staged"]["repeat"],
+          f"P3 staged: bitwise P1 full {P['staged']['bitwise_full']}, "
+          f"repeat {P['staged']['repeat']}")
+    check(full_rel < 1e-5 and P["staged"]["rel_D_plain"] < 1e-5,
+          f"P1 full / P3 staged vs D's plain: {full_rel:.3e} / "
+          f"{P['staged']['rel_D_plain']:.3e}")
+    del s1, s2, full, D_plain
     plain_full_ms = cuda_ms(torch, lambda: acw.ablate_cwt_plain(*args, keep),
                             warmup=1, iters=reps)
     Pw, xr, xi, xig, inv_dt, nw, nd = args
@@ -2035,7 +2099,7 @@ def probe_phases(np, torch, dev, card, results):
     del Zr, Zi
     ifft_ms = cuda_ms(torch, lambda: torch.fft.ifft(spec, dim=-1), warmup=1,
                       iters=reps)
-    del spec, D
+    del spec
 
     # P2: exact against the plain copy, repeated
     L = keep[1]
@@ -2113,7 +2177,8 @@ def probe_phases(np, torch, dev, card, results):
         f" (copy_ {rows_cwt['copy_']['ms']:.3f}); P3 staged "
         f"{P['staged']['ms']:.3f} (ms/bound ms); P1 worst rel "
         f"{max(P[v]['rel'] for v in acw.VARIANTS):.2e}, full and staged "
-        f"bitwise D; P4 " + ", ".join(
+        f"bitwise equal, vs D's plain {P['full']['rel_D_plain']:.2e} / "
+        f"{P['staged']['rel_D_plain']:.2e}; P4 " + ", ".join(
             f"{k} {rows_re[k]['ms']:.3f}/{rows_re[k]['bound_ms']:.3f}"
             for k in rows_re) + f", worst rel "
         f"{max(R[v]['rel'] for v in ar.VARIANTS):.2e}, full bitwise B'; "

@@ -41,7 +41,8 @@ _SIGNATURES = {
                      [_I, _P, _P, _P],
     "ssq_reassign_mxu": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                         _PLAN + [_I, _P, _P, _P],
-    "ssq_stft_dft": [_P, _P, _I, _LL, _I, _I, _I, _LL, _F, _I, _P, _P],
+    "ssq_stft_dft": [_P] * 4 + [_I, _LL, _I, _I, _I, _I, _LL, _F, _I, _P,
+                                 _P],
     "ssq_stft_fused": [_P, _P, _I, _LL, _I, _I, _I, _LL, _F, _P, _P, _F, _I,
                        _I] + _PLAN + [_I, _P, _P, _P, _P, _P],
     "ssq_istft_ola": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _P, _P, _P],

@@ -1,5 +1,8 @@
-// Probes P1-P3: where kernel D's time goes (the CWT planes with the
-// derivative, csrc/cwt_planes.cu), for sm_90a.
+// Probes P1-P3: where kernel D's time went in its earlier radix-2 design
+// (the CWT planes with the derivative as two radix-2 launches through an
+// intermediate in device memory, cwt_planes.cuh), for sm_90a. D itself
+// runs on the register-radix core (cwt_planes.cu, fft_radix.cuh); these
+// probes still ablate the radix-2 design, which kernel E keeps.
 //
 // They replace the TPU probes of tools/ablate_cwt_kernel.py and
 // tools/cwt_kernel_probe.py, which timed stripped variants of the fused
@@ -7,10 +10,9 @@
 // columns, with the derivative):
 //
 // P1 (ssq_ablate_cwt; _make_kernel :62, pallas_call :359, and
-//   cwt_kernel_probe.make_kernel :52, :119): D's own two launches
-//   (cwt_planes.cuh) instantiated with ablation flags, so `full` is D bit
-//   for bit:
-//     full      D
+//   cwt_kernel_probe.make_kernel :52, :119): the radix-2 design's two launches
+//   (cwt_planes.cuh) instantiated with ablation flags:
+//     full      the radix-2 design, whole (within 1e-5 of D's plain)
 //     nostage1  no length-M1 butterflies (load, bit-reversed scatter,
 //               twiddle and Y store stay)
 //     nostage2  no length-M2 butterflies
@@ -33,12 +35,13 @@
 //   persistent kernel (the SMs times the blocks that fit on one) over
 //   (row, k2-tile) items, each block bringing the next item's Pw, x, xig
 //   tiles into a second shared-memory slot with 16-byte cp.async.cg while
-//   the current item's butterflies run; launch 2 is D's. Same arithmetic,
-//   so the planes are D's bit for bit.
+//   the current item's butterflies run; launch 2 is P1's. Same arithmetic,
+//   so the planes are P1 full's bit for bit.
 //
 // What bounds them: D's work moves ~0.91 GB at the headline (Pw 0.15 GB
 // in, four 0.19 GB planes out), ~0.27 ms at 3.35 TB/s; P2 is that floor
-// as a kernel, P1 splits D's ~5.9 ms between its parts, P3 asks whether
+// as a kernel, P1 splits the radix-2 design's ~5.9 ms between its parts,
+// P3 asks whether
 // explicit asynchronous staging buys anything on this card.
 
 #include <cuda_runtime.h>

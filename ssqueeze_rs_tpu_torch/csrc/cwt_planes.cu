@@ -13,9 +13,7 @@
 //   dWx(n) likewise with dZ and nyq_d
 //
 // for n in the keep window [start, start+L), and emits (Wxr, Wxi) or
-// (Wxr, Wxi, dWxr, dWxi). It is kernel A (cwt_phase.cu) with plane stores
-// in place of the phase epilogue, and one pipeline instead of two when the
-// derivative is off.
+// (Wxr, Wxi, dWxr, dWxi).
 //
 // E replaces ssqueeze_rs_tpu/ops/fft_pallas.py::_make_kernel and
 // _make_kernel_tiled (the pallas_call in _fused_call, public
@@ -23,36 +21,262 @@
 // given in device memory, with Nyquist values (B,), emitting (xr, xi)
 // (B, L). The port uses it for analytic wavelets whose psih is complex.
 //
-// Both run the two-launch four-step split of fft4.cuh: launch 1 loads (D:
-// builds) Z, runs the length-M1 FFTs and stores the twiddled intermediate
-// Y; launch 2 runs the length-M2 FFTs and stores the kept planes with the
-// Nyquist term. Rows go through in chunks of at most `ychunk`, so Y has a
-// fixed size whatever the batch; every M that best_split accepts
-// (up to 2^22) fits shared memory, so no tiling by k2 is needed.
+// Both split M = M1*M2 (k = M2*k1 + k2, n = n1 + M1*n2) into two launches:
+// launch 1 runs the length-M1 inverse FFTs over k1 and stores the twiddled
+// intermediate Y[pipe][row][n1][k2]; launch 2 runs the length-M2 inverse
+// FFTs over k2 and stores the kept planes with the Nyquist term.
 //
-// What bounds them on Hopper: device-memory traffic. Counted as the work
+// What bounds D on Hopper: device-memory traffic. Counted as the work
 // requires, D at the cwt headline (293 rows, M = 2^18, 160 000 kept
 // columns) reads Pw (0.15 GB) and writes two 0.19 GB planes, ~0.53 GB or
 // ~0.16 ms at 3.35 TB/s; with the derivative four planes, ~0.91 GB or
-// ~0.27 ms. E reads its Z planes (2 x rows x M/2 x 4 B) and writes two
-// planes. What this simple design pays above that is Y: rows x M complex
-// floats per pipeline (0.61 GB at the headline), written once and read
-// once. What the design does about it: D never materialises Z (built from
-// Pw and xhat while loading), Y is written and read exactly once in full
-// 32-byte sectors, only the n2 rows that cover the keep window are
-// transformed and stored, and the derivative pipeline runs only when it is
-// asked for. Keeping Y on chip (one block cluster per row, distributed
-// shared memory) is later work.
-//
-// D's two kernels live in cwt_planes.cuh, which csrc/ablate_cwt.cu
-// instantiates with its ablation flags.
+// ~0.27 ms. Above that it pays Y (rows x M complex floats a pipeline,
+// 0.61 GB at the headline, written once and read once) and the
+// butterflies' shared-memory passes. What D's design does about them:
+//   * Y stays in L2. The caller gives row chunks whose Y (pipes x ychunk x
+//     M x 8 bytes) fits well inside the 50 MB L2, and both launches of a
+//     chunk are issued here back to back, so launch 2 reads what launch 1
+//     has just written without a round trip through device memory.
+//   * The column FFTs run on the register-radix core (fft_radix.cuh):
+//     radix-8 or radix-16 passes with one shared-memory exchange each, 3
+//     for 512 or 2048 points where radix 2 took 9 or 11. Launch 1 tells
+//     the core that only the first M1/2 inputs are nonzero (the half
+//     band), launch 2 that only the n2 rows covering the keep window are
+//     wanted.
+//   * Z is never materialised (built from Pw and xhat while loading); all
+//     device-memory runs cover whole 32-byte sectors but launch 1's reads
+//     of Pw and xhat (16 bytes a run, the rest in the next block's run).
+// E keeps D's earlier design, cwt_planes.cuh / fft4.cuh (radix-2 columns,
+// Y through device memory), which the probes of csrc/ablate_cwt.cu ablate.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "cwt_planes.cuh"
+#include "fft_radix.cuh"
 
 namespace {
+
+// Calls f(std::integral_constant<int, LOG>) for LOG = log in [LO, HI].
+template <int LO, int HI, class F>
+cudaError_t dispatch_log(int log, F&& f) {
+  if constexpr (LO > HI) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log == LO) return f(std::integral_constant<int, LO>{});
+    return dispatch_log<LO + 1, HI>(log, f);
+  }
+}
+
+template <int LOGP, bool PAIR = false>
+constexpr size_t core_smem() {
+  using S = fftr::Shape<LOGP, PAIR>;
+  return (size_t)(S::kTwFloat2 + S::kBufFloat2) * sizeof(float2);
+}
+
+// D, launch 1. Block (row `local` of the chunk, k2 group blockIdx.y): the
+// core's NCOL columns are (pipe, k2) pairs, pipe-major, NK = NCOL / P k2
+// columns a block. Column (p, k2) is Z (p = 0) or dZ (p = 1) at
+// k1*M2 + k2, k1 < M1/2. With the derivative a thread's two slots hold
+// the two pipelines of one column (slot-major), which load Pw, xhat and
+// the grid once.
+template <int LOGM1, int P>
+__global__ void __launch_bounds__(fftr::kThreads)
+cwt_d_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
+             const float* __restrict__ xi, const float* __restrict__ xig,
+             float inv_dt, int na, int logM2, float2* __restrict__ Y,
+             long long row0, long long nrows) {
+  // the derivative's two pipelines of a column in one thread's two slots
+  constexpr bool PAIR = P == 2;
+  using S = fftr::Shape<LOGM1, PAIR>;
+  constexpr int NK = S::NCOL / P;
+  extern __shared__ float2 sm[];
+  float2* tw = sm;
+  float2* const bufs[2] = {sm + S::kTwFloat2,
+                          sm + S::kTwFloat2 + S::NCOL * S::LD};
+  const int M2 = 1 << logM2;
+  constexpr int K1 = S::P / 2;
+  const long long local = blockIdx.x;
+  const long long row = row0 + local;
+  const long long ia = row % na, ib = row / na;
+  const long long half = (long long)K1 * M2;
+  const float* pw = Pw + ia * half;
+  const float* sr = xr + ib * half;
+  const float* si = xi + ib * half;
+  fftr::fill_twiddles<LOGM1>(tw);
+
+  int col[S::U], lane[S::U];
+  fftr::units<LOGM1, PAIR>(col, lane);
+  float2 v[S::U][S::E];
+  if constexpr (PAIR) {
+    // slot p holds pipeline p of the thread's (k2, lane): one load of Pw,
+    // xhat and the grid feeds both
+    const int k2 = blockIdx.y * NK + col[0];
+#pragma unroll
+    for (int q = 0; q < S::E; ++q) {
+      const int k1 = lane[0] + q * S::TPC;
+      float2 z = make_float2(0.f, 0.f), dz = z;
+      if (k2 < M2 && k1 < K1) {
+        const long long g = (long long)k1 * M2 + k2;
+        const float p = pw[g];
+        const float zr = p * sr[g];
+        const float zi = p * si[g];
+        const float s = xig[g] * inv_dt;
+        z = make_float2(zr, zi);
+        dz = make_float2(-zi * s, zr * s);
+      }
+      v[0][q] = z;
+      v[1][q] = dz;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < S::U; ++u) {
+      const int k2 = blockIdx.y * NK + col[u];
+#pragma unroll
+      for (int q = 0; q < S::E; ++q) {
+        const int k1 = lane[u] + q * S::TPC;
+        float2 z = make_float2(0.f, 0.f);
+        if (k2 < M2 && k1 < K1) {
+          const long long g = (long long)k1 * M2 + k2;
+          const float p = pw[g];
+          z = make_float2(p * sr[g], p * si[g]);
+        }
+        v[u][q] = z;
+      }
+    }
+  }
+  __syncthreads();                        // the twiddle table
+  fftr::fft<LOGM1, 1, 0, PAIR>(v, col, lane, bufs, tw, true, 0, S::P);
+
+  const long long M = (long long)S::P * M2;
+  const float inv2 = 2.0f / (float)M;     // exact: M is a power of two
+#pragma unroll
+  for (int u = 0; u < S::U; ++u) {
+    const int pipe = col[u] / NK;
+    const int k2 = blockIdx.y * NK + col[u] % NK;
+    if (k2 >= M2) continue;
+    float2* y = Y + (pipe * nrows + local) * M + k2;
+    // e^{2 pi i n1 k2 / M} at n1 = lane + q TPC: the lane's value times the
+    // step e^{2 pi i TPC k2 / M} q times (lane*k2 and TPC*k2 < M <= 2^22, so
+    // both arguments are exact; the products add < 8 ulp)
+    float s0, c0, s1, c1;
+    sincospif((float)(lane[u] * k2) * inv2, &s0, &c0);
+    sincospif((float)(S::TPC * k2) * inv2, &s1, &c1);
+    float2 w = make_float2(c0, s0);
+    const float2 step = make_float2(c1, s1);
+#pragma unroll
+    for (int q = 0; q < S::E; ++q) {
+      const int n1 = lane[u] + q * S::TPC;
+      y[(long long)n1 * M2] = fftr::cmul(v[u][q], w);
+      w = fftr::cmul(w, step);
+    }
+  }
+}
+
+// D, launch 2. Block (row `local`, n1 group blockIdx.y, pipe blockIdx.z):
+// the core's NCOL columns are n1 rows of Y; outputs n2 in the rows that
+// cover the keep window go to planes (o[2p], o[2p+1]) with the Nyquist term.
+template <int LOGM2>
+__global__ void __launch_bounds__(fftr::kThreads)
+cwt_d_stage2(const float2* __restrict__ Y, Planes pl, int logM1, int start,
+             int L, long long row0, long long nrows) {
+  using S = fftr::Shape<LOGM2>;
+  extern __shared__ float2 sm[];
+  float2* tw = sm;
+  float2* const bufs[2] = {sm + S::kTwFloat2,
+                          sm + S::kTwFloat2 + S::NCOL * S::LD};
+  const int M1 = 1 << logM1;
+  const int pipe = blockIdx.z;
+  const long long local = blockIdx.x;
+  const long long row = row0 + local;
+  const long long M = (long long)S::P << logM1;
+  const float2* y = Y + (pipe * nrows + local) * M;
+  fftr::fill_twiddles<LOGM2>(tw);
+
+  int col[S::U], lane[S::U];
+  fftr::units<LOGM2>(col, lane);
+  float2 v[S::U][S::E];
+#pragma unroll
+  for (int u = 0; u < S::U; ++u) {
+    const int n1 = blockIdx.y * S::NCOL + col[u];
+#pragma unroll
+    for (int q = 0; q < S::E; ++q)
+      v[u][q] = n1 < M1 ? y[(long long)n1 * S::P + lane[u] + q * S::TPC]
+                        : make_float2(0.f, 0.f);
+  }
+  __syncthreads();                        // the twiddle table
+  const int r0 = start >> logM1;
+  const int r1 = ((start + L - 1) >> logM1) + 1;
+  fftr::fft<LOGM2, 1>(v, col, lane, bufs, tw, false, r0, r1);
+
+  const float invM = 1.0f / (float)M;
+  // (constant indices: a struct parameter indexed at run time would be
+  // copied to local memory)
+  const float nr = (pipe ? pl.nyq[2] : pl.nyq[0])[row];
+  const float ni = (pipe ? pl.nyq[3] : pl.nyq[1])[row];
+  float* or_ = (pipe ? pl.o[2] : pl.o[0]) + row * L;
+  float* oi = (pipe ? pl.o[3] : pl.o[1]) + row * L;
+#pragma unroll
+  for (int u = 0; u < S::U; ++u) {
+    const int n1 = blockIdx.y * S::NCOL + col[u];
+    if (n1 >= M1) continue;
+#pragma unroll
+    for (int q = 0; q < S::E; ++q) {
+      const int n2 = lane[u] + q * S::TPC;
+      const int j = n1 + (n2 << logM1) - start;
+      if (n2 < r0 || n2 >= r1 || j < 0 || j >= L) continue;
+      const float alt = (n1 & 1) ? -invM : invM;   // (-1)^n / M, M1 even
+      or_[j] = v[u][q].x * invM + nr * alt;
+      oi[j] = v[u][q].y * invM + ni * alt;
+    }
+  }
+}
+
+template <int P>
+int cwt_planes_d(const float* Pw, const float* xr, const float* xi,
+                 const float* xig, float inv_dt, Planes pl, long long rows,
+                 int na, int logM1, int logM2, int start, int L, float2* Y,
+                 long long ychunk, cudaStream_t st) {
+  const int M1 = 1 << logM1, M2 = 1 << logM2;
+  // both launches' instances, shared memory and columns a block, resolved
+  // once for every chunk
+  decltype(&cwt_d_stage1<1, P>) k1 = nullptr;
+  decltype(&cwt_d_stage2<1>) k2 = nullptr;
+  size_t s1 = 0, s2 = 0;
+  int nk = 1, nc = 1;
+  cudaError_t err = dispatch_log<1, 11>(logM1, [&](auto c) {
+    constexpr int LOG = decltype(c)::value;
+    k1 = cwt_d_stage1<LOG, P>;
+    s1 = core_smem<LOG, P == 2>();
+    nk = fftr::Shape<LOG, P == 2>::NCOL / P;
+    return cudaFuncSetAttribute(
+        k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  });
+  if (err != cudaSuccess) return (int)err;
+  err = dispatch_log<1, 11>(logM2, [&](auto c) {
+    constexpr int LOG = decltype(c)::value;
+    k2 = cwt_d_stage2<LOG>;
+    s2 = core_smem<LOG>();
+    nc = fftr::Shape<LOG>::NCOL;
+    return cudaFuncSetAttribute(
+        k2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
+  });
+  if (err != cudaSuccess) return (int)err;
+  for (long long row0 = 0; row0 < rows; row0 += ychunk) {
+    const long long nr = rows - row0 < ychunk ? rows - row0 : ychunk;
+    k1<<<dim3((unsigned)nr, (M2 + nk - 1) / nk), fftr::kThreads, s1, st>>>(
+        Pw, xr, xi, xig, inv_dt, na, logM2, Y, row0, nr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    k2<<<dim3((unsigned)nr, (M1 + nc - 1) / nc, P), fftr::kThreads, s2,
+         st>>>(Y, pl, logM1, start, L, row0, nr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
 
 // E, launch 1: Z planes (rows, K1, M2) from device memory.
 __global__ void __launch_bounds__(kThreads)
@@ -74,9 +298,10 @@ ifft_planes_stage1(const float* __restrict__ Zr, const float* __restrict__ Zi,
 }  // namespace
 
 // Kernel D. Y: scratch of P*ychunk*M float2 (P = 2 with the derivative,
-// else 1); rows go through both launches ychunk at a time. Without the
-// derivative, ndr/ndi/odr/odi are not read or written (may be null).
-// Returns cudaGetLastError() after the launches (0 on success).
+// else 1); rows go through both launches ychunk at a time (the caller sizes
+// the chunk so that Y stays in L2). Without the derivative, ndr/ndi/odr/odi
+// are not read or written (may be null). Returns cudaGetLastError() after
+// the launches (0 on success).
 extern "C" int ssq_cwt_planes(const float* Pw, const float* xr,
                               const float* xi, const float* xig, float inv_dt,
                               const float* nwr, const float* nwi,
@@ -85,16 +310,15 @@ extern "C" int ssq_cwt_planes(const float* Pw, const float* xr,
                               int start, int L, int derivative, void* Y,
                               long long ychunk, float* owr, float* owi,
                               float* odr, float* odi, void* stream) {
-  if (ychunk < 1) return (int)cudaErrorInvalidValue;
+  if (ychunk < 1 || logM1 < 1 || logM2 < 1 || logM1 > 11 || logM2 > 11)
+    return (int)cudaErrorInvalidValue;
   Planes pl = {{nwr, nwi, ndr, ndi}, {owr, owi, odr, odi}};
   cudaStream_t st = (cudaStream_t)stream;
   if (derivative)
-    return cwt_planes_run<2, fft4::kFull>(Pw, xr, xi, xig, inv_dt, pl, rows,
-                                          na, logM1, logM2, start, L, Y,
-                                          ychunk, st);
-  return cwt_planes_run<1, fft4::kFull>(Pw, xr, xi, xig, inv_dt, pl, rows, na,
-                                        logM1, logM2, start, L, Y, ychunk,
-                                        st);
+    return cwt_planes_d<2>(Pw, xr, xi, xig, inv_dt, pl, rows, na, logM1,
+                           logM2, start, L, (float2*)Y, ychunk, st);
+  return cwt_planes_d<1>(Pw, xr, xi, xig, inv_dt, pl, rows, na, logM1, logM2,
+                         start, L, (float2*)Y, ychunk, st);
 }
 
 // Kernel E. Zr, Zi: (rows, K1, M2); nr, ni: (rows,); Y: scratch of

@@ -1,4 +1,5 @@
-// Shared device code of kernels F (stft_dft.cu) and G (ssq_stft.cu): one
+// Device code of kernel G (ssq_stft.cu; kernel F, stft_dft.cu, computes
+// its DFTs as Bluestein transforms instead): one
 // block tile of the hop-1 windowed DFT, the product of a stacked DFT
 // matrix K with the Hankel frame matrix of the signal,
 //
@@ -8,8 +9,7 @@
 // column c is xw[c + t], so the frame matrix never exists anywhere) and K
 // is (NP, ldk) row-major in device memory, zero-padded to NP taps, a
 // multiple of kBK. Every output is a sum over t in increasing order with
-// fused multiply-adds from 0, whatever the tile shape, so F and G produce
-// the same bits for the same output.
+// fused multiply-adds from 0, whatever the tile shape.
 //
 // K streams through a double-buffered (kBK, BM) shared-memory tile: each
 // thread loads its share of the next tile into registers while the block

@@ -1,100 +1,176 @@
-// Kernel F: hop-1 STFT as one fused framing + windowed-DFT product, for
-// sm_90a.
+// Kernel F: the hop-1 STFT, every frame's windowed DFT as a chirp-z
+// (Bluestein) transform on the register-radix FFT core, for sm_90a.
 //
 // Replaces ssqueeze_rs_tpu/ops/stft_pallas.py::_make_kernel (with
-// _frames_dft_into). out[b, r, j] = sum_t K_T[r, t] * xp[b, j + t] for the
-// stacked [Sr; Si(; dSr; dSi)] DFT matrix K_T (window, modulation and
-// derivative window folded in on the host); rows r >= scale_from (the
-// derivative planes) are then multiplied by fs, as ops/stft.py does after
-// the product.
+// _frames_dft_into). For frame j of signal b and tap window v_w (W = 1 or 2
+// windows), with N = n_fft and nf = N/2 + 1 bins,
 //
-// Design: a block owns a (128 rows, 128 columns) output tile of one
-// signal. It stages the signal window xp[j0 : j0 + 128 + NP] in shared
-// memory once (about 3 KB at n_fft = 598): frame t of column j is
-// xw[j - j0 + t], so no frame matrix exists in device memory (the TPU
-// kernel builds it in VMEM; the XLA route writes 383 MB of it). The K
-// tiles stream through shared memory (dft_tile.cuh); the whole K_T (2.9 MB
-// at 1200 x 598) stays in the 50 MB L2. Each thread sums an 8 x 8 register
-// tile over the taps in increasing order, in full float32 on the CUDA
-// cores (no bf16 splits, no tensor cores: later work).
+//   X_w[k, j] = c_k sum_{t < N} v_w[t] xp[b, j + t] e^{-2 pi i k t / N}
 //
-// What bounds it: float32 arithmetic. At the bench shape (N = 160 000,
-// n_fft = 598) F is 1.15e11 FLOP with 600 rows and 2.3e11 with 1200,
-// against 0.4-0.8 GB of output; the 8 x 8 tile does 64 FMAs per two
-// shared-memory reads of K and a sliding signal window read once per 16
-// taps, so the CUDA cores, not memory, set its pace.
+// and out[b, w*2nf + k, j] = Re X_w[k, j], out[b, w*2nf + nf + k, j] =
+// Im X_w[k, j]; with scale_w1 the rows of window 1 (the derivative planes)
+// are multiplied by fs. c_k carries the caller's per-bin factors (the
+// modulation phase, the irfft weights). That is the dense product with the
+// stacked K_T of the plain version, which the three callers carry beside
+// this structure (ops/stft_cuda.py DftSpec).
+//
+// Bluestein: kt = (k^2 + t^2 - (k-t)^2) / 2 turns the DFT into a
+// convolution with the chirp e^{i pi m^2 / N}: X_w[k] = D[k] (a * b)[k]
+// with a[t] = v_w[t] e^{-i pi t^2 / N} x[j + t]. The convolution runs
+// circularly over Q = 2^n >= N + nf - 1 points (Q = 1024 at N = 598):
+// forward FFT of a, a product with B = FFT(b) / Q, inverse FFT, and D[k] =
+// c_k e^{-i pi k^2 / N} on the first nf outputs. The tables A_w[t] = v_w[t]
+// e^{-i pi t^2 / N}, B and D are built on the host in float64 (chirp
+// angles from t^2 mod 2N in integers, so they stay exact at any N) and
+// cached per window; any N up to 2048 takes the same kernel (Q <= 4096).
+//
+// Design: a block owns kFrames frames of one signal and stages their
+// signal window (kFrames + N - 1 floats) in shared memory once, so no frame
+// matrix exists anywhere. The core holds NCOL columns at a time, one frame
+// each, so neighbouring threads hold neighbouring frames: the window reads
+// are conflict-free and the plane stores are runs over frames. A round
+// takes its frames through each window in turn. Each column's forward FFT
+// ends in registers in the order the inverse one starts from, so the
+// product with B costs no shared-memory exchange; the first pass skips
+// the zero tail of a when N <= Q/2, and the last pass of the inverse skips
+// the butterflies whose outputs are all >= nf.
+//
+// What bounds it: at the bench shape (N = 598, 160 000 frames) the
+// function's work is W real DFTs of 598 points a frame, ~2.2e9 flops a
+// window, against 0.38 GB of planes a window: memory-bound, ~0.12 ms at
+// 3.35 TB/s with one window. Bluestein does ~7x that arithmetic (two
+// complex transforms of 1024 points a real 598-point DFT, ~1.6e10 flops a
+// window), its 4 exchanges a column move ~65 KB a frame through shared
+// memory, and at ~165 registers a thread one block fits a SM: issue and
+// latency, not memory, set its pace on this card.
 
 #include <cuda_runtime.h>
 
-#include "dft_tile.cuh"
+#include <type_traits>
+
+#include "fft_radix.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kTM = 8, kTN = 8;
-using Tile = ssq::DftTile<kBM, kBN, kTM, kTN>;
+constexpr int kFrames = 64;               // frames a block
 
-__global__ void __launch_bounds__(Tile::kThreads)
-stft_dft_kernel(const float* __restrict__ xp, const float* __restrict__ K,
-                long long mp, int NP, int rows, int rows_pad, long long n_out,
-                float fs, int scale_from, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);
-  float* xw = As + Tile::kAsFloats;
-  const long long b = blockIdx.z;
-  const long long j0 = (long long)blockIdx.x * kBN;
-  const int r0 = blockIdx.y * kBM;
+template <int LOGQ>
+constexpr size_t core_smem() {
+  using S = fftr::Shape<LOGQ>;
+  return (size_t)(S::kTwFloat2 + S::kBufFloat2) * sizeof(float2);
+}
 
-  ssq::stage_signal(xp + b * mp, mp, j0, Tile::window(NP), xw);
+template <int LOGQ>
+__global__ void __launch_bounds__(fftr::kThreads)
+stft_bluestein(const float* __restrict__ xp, const float2* __restrict__ A,
+               const float2* __restrict__ B, const float2* __restrict__ D,
+               long long mp, int n_fft, int nf, int W, long long n_out,
+               float fs, int scale_w1, float* __restrict__ out) {
+  using S = fftr::Shape<LOGQ>;
+  extern __shared__ float2 sm[];
+  float2* tw = sm;
+  float2* const bufs[2] = {sm + S::kTwFloat2,
+                          sm + S::kTwFloat2 + S::NCOL * S::LD};
+  float* xw = reinterpret_cast<float*>(sm + S::kTwFloat2 + S::kBufFloat2);
+  const long long b = blockIdx.y;
+  const long long j0 = (long long)blockIdx.x * kFrames;
+  const long long rows = 2LL * W * nf;
+  fftr::fill_twiddles<LOGQ>(tw);
+  const int nw = kFrames + n_fft - 1;
+  for (int q = threadIdx.x; q < nw; q += blockDim.x) {
+    const long long p = j0 + q;
+    xw[q] = p < mp ? xp[b * mp + p] : 0.f;
+  }
   __syncthreads();
-  float acc[kTM][kTN];
-  ssq::dft_tile<kBM, kBN, kTM, kTN>(K, rows_pad, r0, NP, xw, As, acc);
 
-  const int tx = threadIdx.x % (kBN / kTN);
-  const int ty = threadIdx.x / (kBN / kTN);
-  const long long j = j0 + tx * kTN;
-  const bool vec = ((n_out & 3) == 0) && (j + kTN <= n_out);
+  int col[S::U], lane[S::U];
+  fftr::units<LOGQ>(col, lane);
+  const bool half_in = 2 * n_fft <= S::P;
+  // a round: NCOL frames, one a column, through each window in turn
+  for (int f0 = 0; f0 < kFrames; f0 += S::NCOL) {
+    for (int w = 0; w < W; ++w) {
+      float2 v[S::U][S::E];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = r0 + ty * kTM + i;
-    if (r >= rows) continue;
-    float v[kTN];
+      for (int u = 0; u < S::U; ++u) {
+        const int jl = f0 + col[u];
+        const bool ok = jl < kFrames && j0 + jl < n_out;
 #pragma unroll
-    for (int m = 0; m < kTN; ++m)
-      v[m] = (r >= scale_from) ? __fmul_rn(acc[i][m], fs) : acc[i][m];
-    float* o = out + (b * rows + r) * n_out + j;
-    if (vec) {
+        for (int q = 0; q < S::E; ++q) {
+          const int k = lane[u] + q * S::TPC;
+          float2 a = make_float2(0.f, 0.f);
+          if (ok && k < n_fft) {
+            const float x = xw[jl + k];
+            const float2 c = A[w * n_fft + k];
+            a = make_float2(x * c.x, x * c.y);
+          }
+          v[u][q] = a;
+        }
+      }
+      fftr::fft<LOGQ, -1>(v, col, lane, bufs, tw, half_in, 0, S::P);
 #pragma unroll
-      for (int m = 0; m < kTN; m += 4)
-        *reinterpret_cast<float4*>(o + m) =
-            make_float4(v[m], v[m + 1], v[m + 2], v[m + 3]);
-    } else {
+      for (int u = 0; u < S::U; ++u)
 #pragma unroll
-      for (int m = 0; m < kTN; ++m)
-        if (j + m < n_out) o[m] = v[m];
+        for (int q = 0; q < S::E; ++q)
+          v[u][q] = fftr::cmul(v[u][q], B[lane[u] + q * S::TPC]);
+      fftr::fft<LOGQ, 1, S::kNextFlip>(v, col, lane, bufs, tw, false, 0, nf);
+      const bool scale = scale_w1 && w == 1;
+#pragma unroll
+      for (int u = 0; u < S::U; ++u) {
+        const int jl = f0 + col[u];
+        const long long j = j0 + jl;
+        if (jl >= kFrames || j >= n_out) continue;
+        float* o = out + (b * rows + 2LL * w * nf) * n_out + j;
+#pragma unroll
+        for (int q = 0; q < S::E; ++q) {
+          const int k = lane[u] + q * S::TPC;
+          if (k >= nf) continue;
+          float2 X = fftr::cmul(D[k], v[u][q]);
+          if (scale) X = make_float2(__fmul_rn(X.x, fs), __fmul_rn(X.y, fs));
+          o[(long long)k * n_out] = X.x;
+          o[(long long)(nf + k) * n_out] = X.y;
+        }
+      }
     }
+  }
+}
+
+template <int LO, int HI, class F>
+cudaError_t dispatch_log(int log, F&& f) {
+  if constexpr (LO > HI) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log == LO) return f(std::integral_constant<int, LO>{});
+    return dispatch_log<LO + 1, HI>(log, f);
   }
 }
 
 }  // namespace
 
-// xp: (batch, mp) float32 padded signals; K: (NP, rows_pad) float32, the
-// transposed K_T zero-padded to NP (a multiple of 16) taps and rows_pad (a
-// multiple of 128) rows; out: (batch, rows, n_out). Returns
+// xp: (batch, mp) float32 padded signals; A: (W, n_fft) complex64 chirped
+// windows; B: (2^logQ,) complex64, the chirp filter's FFT / Q; D: (nf,)
+// complex64 bin factors; out: (batch, 2*W*nf, n_out). Returns
 // cudaGetLastError() after the launch (0 on success).
-extern "C" int ssq_stft_dft(const float* xp, const float* K, int batch,
-                            long long mp, int NP, int rows, int rows_pad,
-                            long long n_out, float fs, int scale_from,
+extern "C" int ssq_stft_dft(const float* xp, const void* A, const void* B,
+                            const void* D, int batch, long long mp,
+                            int n_fft, int nf, int W, int logQ,
+                            long long n_out, float fs, int scale_w1,
                             float* out, void* stream) {
-  if (NP % ssq::kBK || rows_pad % kBM || rows > rows_pad)
+  if (W < 1 || W > 2 || logQ < 2 || logQ > 12 ||
+      (1LL << logQ) < n_fft + nf - 1 || n_out + n_fft - 1 > mp)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (Tile::kAsFloats + Tile::window(NP)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n_out + kBN - 1) / kBN),
-                  (unsigned)(rows_pad / kBM), (unsigned)batch);
-  stft_dft_kernel<<<grid, Tile::kThreads, smem, (cudaStream_t)stream>>>(
-      xp, K, mp, NP, rows, rows_pad, n_out, fs, scale_from, out);
-  return (int)cudaGetLastError();
+  return (int)dispatch_log<2, 12>(logQ, [&](auto c) {
+    constexpr int LOG = decltype(c)::value;
+    auto k = stft_bluestein<LOG>;
+    const size_t smem =
+        core_smem<LOG>() + (size_t)(kFrames + n_fft) * sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((unsigned)((n_out + kFrames - 1) / kFrames),
+                    (unsigned)batch);
+    k<<<grid, fftr::kThreads, smem, (cudaStream_t)stream>>>(
+        xp, (const float2*)A, (const float2*)B, (const float2*)D, mp, n_fft,
+        nf, W, n_out, fs, scale_w1, out);
+    return cudaGetLastError();
+  });
 }

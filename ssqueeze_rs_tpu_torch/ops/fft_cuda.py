@@ -6,8 +6,9 @@ its variants) and `ifft_halfband_planar_fused` (`_make_kernel`).
 
 Each wrapper (`cwt_phase`, `cwt_fused`, `ifft_halfband_planar`)
 dispatches on the device of its inputs: on a CUDA tensor it launches the
-hand-written kernel (``csrc/cwt_phase.cu``, ``csrc/cwt_planes.cu``, which
-share ``csrc/fft4.cuh``) or raises; on a CPU tensor it runs its plain
+hand-written kernel (``csrc/cwt_phase.cu``, ``csrc/cwt_planes.cu``; A and
+E share ``csrc/fft4.cuh``, D runs on the register-radix core
+``csrc/fft_radix.cuh``) or raises; on a CPU tensor it runs its plain
 version (`*_plain`), the same function in plain torch. `LAUNCHES` (A),
 `LAUNCHES_D` and `LAUNCHES_E` count kernel launches, so a run can show
 that it went through each kernel. All three are differentiable
@@ -25,8 +26,8 @@ from torch.autograd.function import once_differentiable
 __all__ = ["cwt_phase", "cwt_phase_plain", "CwtPhaseFn", "cwt_fused",
            "cwt_fused_plain", "CwtFusedFn", "ifft_halfband_planar",
            "ifft_halfband_planar_plain", "IfftHalfbandFn", "cwt_fused_vjp",
-           "ifft_halfband_vjp", "best_split", "LAUNCHES", "LAUNCHES_D",
-           "LAUNCHES_E"]
+           "ifft_halfband_vjp", "best_split", "d_chunk_rows", "LAUNCHES",
+           "LAUNCHES_D", "LAUNCHES_E"]
 
 LAUNCHES = 0            # kernel A
 LAUNCHES_D = 0
@@ -35,6 +36,10 @@ _TWO_PI = 6.283185307179586
 _MAX_FACTOR = 2048      # largest M1 or M2 the kernels' shared memory holds
 _Y_BYTES = 2 << 30      # cap on the kernels' intermediate: rows go through
                         # it in chunks, so a batch does not grow it
+_D_Y_BYTES = 40 << 20   # kernel D's intermediate a chunk of rows: inside the
+                        # H100's 50 MB L2, so its second launch reads Y from
+                        # L2 (the fastest of 10, 20, 40 MB and one chunk in
+                        # chip_smoke phase 15's sweep)
 
 
 def best_split(M: int):
@@ -47,6 +52,13 @@ def best_split(M: int):
     if M2 > _MAX_FACTOR:
         return None
     return M1, M2
+
+
+def d_chunk_rows(M: int, pipes: int, rows: int) -> int:
+    """Rows a chunk of kernel D: as many as keep its intermediate Y (pipes
+    x rows x M complex floats) within `_D_Y_BYTES`, at least one (one row's
+    Y alone exceeds the budget only at M = 2^22 with the derivative)."""
+    return max(1, min(rows, _D_Y_BYTES // (pipes * M * 8)))
 
 
 def _device_of(a):
@@ -255,7 +267,7 @@ def _cwt_fused_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, derivative):
     pipes = 2 if derivative else 1
     Pw, xr, xi, xig = (t.contiguous() for t in (Pw, xr, xi, xig))
     nyq = [v.contiguous() for v in nyq]
-    ychunk = max(1, min(rows, _Y_BYTES // (pipes * M * 8)))
+    ychunk = d_chunk_rows(M, pipes, rows)
     Y = torch.empty((pipes, ychunk, M, 2), dtype=torch.float32, device=device)
     out = [torch.empty((rows, L), dtype=torch.float32, device=device)
            for _ in range(2 * pipes)]

@@ -23,7 +23,8 @@ from ..utils.windows import get_window, check_nola
 from .phase import phase_stft
 from .ssq_cwt import _process_component_inversion_args, _invert_components
 from .ssqueeze import ssqueeze, check_ssqueezing_args, plan_reassignment
-from .stft import stft, _check_f32, _k_t, _win_bytes, MATMUL_NFFT_MAX
+from .stft import (stft, _check_f32, _dft_spec, _k_t, _win_bytes,
+                   MATMUL_NFFT_MAX)
 from .stft_cuda import ssq_stft_fused, ssq_stft_fused_ok
 
 __all__ = ["ssq_stft", "issq_stft", "make_Sfs"]
@@ -114,8 +115,9 @@ def _ssq_stft_fused(x, window, n_fft, win_len, fs, modulated, padtype,
     window, diff_window = get_window(window, int(win_len), n_fft,
                                      derivative=True, dtype="float32")
     check_nola(window, 1)
-    K_T = _k_t(_win_bytes(window), _win_bytes(diff_window), int(n_fft),
-               bool(modulated), x.device)
+    wins = (_win_bytes(window), _win_bytes(diff_window), int(n_fft),
+            bool(modulated))
+    K_T = _k_t(*wins, x.device)
     nf = n_fft // 2 + 1
     Sfs = np.linspace(0, 0.5 * fs, nf, dtype=np.float32)
     const_arr, mode, params = plan_reassignment(Sfs, nf, False,
@@ -124,7 +126,7 @@ def _ssq_stft_fused(x, window, n_fft, win_len, fs, modulated, padtype,
         gamma = 10 * EPS32
     xp = padsignal(x.to(torch.float32), padtype, padlength=N + n_fft - 1)
     Tx, Sx = ssq_stft_fused(xp, K_T, n_fft, N, fs, Sfs, const_arr, gamma,
-                            params, mode, bool(flipud))
+                            params, mode, bool(flipud), spec=_dft_spec(*wins))
     return Tx, Sx, (Sfs[::-1] if flipud else Sfs), Sfs
 
 

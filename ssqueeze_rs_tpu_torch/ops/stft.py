@@ -3,10 +3,11 @@
 
   * float32 with n_fft <= 2048: the windowed DFT is one product with a
     host-built stacked matrix K_T ([Sr; Si(; dSr; dSi)] rows; window,
-    modulation twiddle and derivative window folded in). At hop 1 that
-    product and the framing are kernel F (`stft_cuda.stft_dft`); at
-    hop > 1 the frames are an `unfold` view and the product a
-    `torch.matmul`, as the JAX package leaves it to XLA.
+    modulation twiddle and derivative window folded in). At hop 1 the
+    framing and the DFT are kernel F (`stft_cuda.stft_dft`), which computes
+    them from K_T's structure (`_dft_spec`); at hop > 1 the frames are an
+    `unfold` view and the product a `torch.matmul`, as the JAX package
+    leaves it to XLA.
   * n_fft > 2048: `torch.fft.rfft` of the windowed frames.
   * The inverse is the Griffin-Lim least-squares overlap-add with
     window^win_exp and the sum of shifted window^(win_exp+1) as its norm.
@@ -31,7 +32,8 @@ from ..scales import process_fs_and_t
 from ..utils.common import as_signal, unported
 from ..utils.pad import padsignal
 from ..utils.windows import get_window, window_norm, check_nola
-from .stft_cuda import stft_dft, istft_ola, istft_ola_ok, ola_plain
+from .stft_cuda import (DftSpec, stft_dft, istft_ola, istft_ola_ok,
+                        ola_plain)
 
 __all__ = ["stft", "istft", "stft_core", "overlap_add", "MATMUL_NFFT_MAX"]
 
@@ -82,6 +84,12 @@ def _win_bytes(window):
     return np.asarray(window, np.float64).tobytes()
 
 
+def _dft_spec(win_bytes, dwin_bytes, n_fft, modulated):
+    """The structure of `_k_t`'s matrix, which kernel F computes from."""
+    wins = (win_bytes,) if dwin_bytes is None else (win_bytes, dwin_bytes)
+    return DftSpec(int(n_fft), wins, bool(modulated))
+
+
 def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
               derivative, planar_out=False):
     """STFT of an already padded float32 signal (time = last axis).
@@ -96,12 +104,14 @@ def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
                          "route (n_fft <= 2048)")
     n_segs = (xp.shape[-1] - n_fft) // hop_len + 1
     if use_matmul:
-        K_T = _k_t(_win_bytes(window),
-                   _win_bytes(diff_window) if derivative else None,
-                   int(n_fft), bool(modulated), xp.device)
+        wins = (_win_bytes(window),
+                _win_bytes(diff_window) if derivative else None,
+                int(n_fft), bool(modulated))
+        K_T = _k_t(*wins, xp.device)
         if hop_len == 1:
             out = stft_dft(xp, K_T, n_fft, n_segs,
-                           fs=fs if derivative else None)
+                           fs=fs if derivative else None,
+                           spec=_dft_spec(*wins))
         else:
             frames = xp.unfold(-1, n_fft, hop_len)      # (..., n_segs, n_fft)
             out = torch.matmul(K_T, frames.transpose(-1, -2))
@@ -203,6 +213,24 @@ def _win_pow(window_np, win_exp):
 
 
 @lru_cache(maxsize=64)
+def _irfft_spec(n_fft, modulated, win_bytes, win_exp):
+    """The structure of [Fr^T; -Fs^T] for `_irfft_mats_weighted`'s Fr, Fs,
+    which H's adjoint (kernel F) computes from: the window^win_exp taps
+    (rounded to float32 as there), weights 1/n at bin 0 (and at bin n/2
+    for even n) and 2/n elsewhere, and the fftshift as the modulation
+    phase."""
+    n_freqs = n_fft // 2 + 1
+    we = _win_pow(np.frombuffer(win_bytes, np.float64), win_exp)
+    wgt = np.full(n_freqs, 2.0)
+    wgt[0] = 1.0
+    if n_fft % 2 == 0:
+        wgt[-1] = 1.0
+    return DftSpec(int(n_fft), (we.astype(np.float32).astype(np.float64)
+                                .tobytes(),), bool(modulated),
+                   (wgt / n_fft).tobytes())
+
+
+@lru_cache(maxsize=64)
 def _irfft_mats_weighted(n_fft, modulated, win_bytes, win_exp, device):
     """Kernel H's matrices on `device`: Fr, Fs with window^win_exp folded
     into their rows (float64 power, then float32, as the JAX package)."""
@@ -234,10 +262,9 @@ def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
 
     Sr, Si = Sx.real, Sx.imag
     if hop_len == 1 and N == Sx.shape[-1] and istft_ola_ok(n_fft):
-        Fr, Fs = _irfft_mats_weighted(n_fft, bool(modulated),
-                                      _win_bytes(window), int(win_exp),
-                                      Sx.device)
-        x = istft_ola(Sr, Si, Fr, Fs, n_fft)
+        mats = (n_fft, bool(modulated), _win_bytes(window), int(win_exp))
+        Fr, Fs = _irfft_mats_weighted(*mats, Sx.device)
+        x = istft_ola(Sr, Si, Fr, Fs, n_fft, adjoint=_irfft_spec(*mats))
     else:
         if n_fft <= MATMUL_NFFT_MAX:
             Fr, Fs = (torch.as_tensor(F, device=Sx.device)

@@ -1,8 +1,12 @@
 """Kernels F, G and H: the hop-1 STFT family (counterpart of
 ``ssqueeze_rs_tpu/ops/stft_pallas.py``).
 
-  * `stft_dft` (F, ``csrc/stft_dft.cu``): framing + the stacked
-    windowed-DFT product; replaces `_make_kernel` + `_frames_dft_into`.
+  * `stft_dft` (F, ``csrc/stft_dft.cu``): framing + the windowed DFT of
+    every frame; replaces `_make_kernel` + `_frames_dft_into`. The plain
+    version is the product with the stacked dense matrix K_T; the kernel
+    computes the same function from its structure (`DftSpec`: tap windows,
+    per-bin factors) as a chirp-z transform on the register-radix FFT
+    core, from host tables built once per window (`bluestein_tables`).
   * `ssq_stft_fused` (G, ``csrc/ssq_stft.cu``): F's four planes, phase,
     linear bins and the deterministic reassignment in one kernel; replaces
     `_make_ssq_stft_kernel`.
@@ -10,10 +14,11 @@
     replaces `_make_istft_kernel`.
 
 Each wrapper dispatches on the device of its inputs: on a CUDA tensor it
-launches its kernel or raises; on a CPU tensor it runs its plain-torch
-version (beside it, `*_plain`). `LAUNCHES` counts kernel launches per
-kernel. The gates `ssq_stft_fused_ok` and `istft_ola_ok` decide from shapes
-alone whether a kernel's shared-memory plan fits.
+launches its kernel or raises (F also when the caller gives no `DftSpec`);
+on a CPU tensor it runs its plain-torch version (beside it, `*_plain`).
+`LAUNCHES` counts kernel launches per kernel. The gates
+`ssq_stft_fused_ok` and `istft_ola_ok` decide from shapes alone whether a
+kernel's shared-memory plan fits.
 
 Gradients follow the JAX package's custom VJPs, with no kernel of their
 own: F and H are linear and each one's adjoint is the other's math, so
@@ -22,6 +27,9 @@ G's (`SsqStftFusedFn`) recomputes F's planes, runs the 4-plane VJP gather
 C' on them and H on the summed Sx cotangents.
 """
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +40,14 @@ from .fft_cuda import _device_of, _f32, _zeros_for
 from .reassign_cuda import (MAX_SMEM, MODES, _gamma2, _plan_floats,
                             reassign4_plain, reassign4_bwd)
 
-__all__ = ["stft_dft", "stft_dft_plain", "stft_dft_vjp", "ssq_stft_fused",
+__all__ = ["DftSpec", "bluestein_tables", "stft_dft", "stft_dft_plain",
+           "stft_dft_vjp", "ssq_stft_fused",
            "ssq_stft_fused_plain", "ssq_stft_fused_ok", "istft_ola",
            "istft_ola_plain", "istft_ola_vjp", "istft_ola_ok", "ola_plain",
            "StftDftFn", "IstftOlaFn", "SsqStftFusedFn", "LAUNCHES"]
 
 LAUNCHES = {"stft_dft": 0, "ssq_stft": 0, "istft_ola": 0}
 _BK = 16            # taps per K tile (csrc/dft_tile.cuh kBK)
-_F_BM = 128         # rows per block of kernel F
 _G_R = 64           # frequency rows per plane per chunk of kernel G
 _H_T = 1536         # samples per block of kernel H
 _H_KC = 4           # frequency rows per stage of kernel H
@@ -72,6 +80,89 @@ def _stream(device):
 
 
 # -- F: framing + windowed DFT -------------------------------------------------
+class DftSpec(NamedTuple):
+    """The structure of a stacked DFT matrix K_T, which kernel F computes
+    from: for each tap window v_w (float64 bytes, one or two), rows
+    [Re; Im] of X_w[k] = c_k sum_t v_w[t] x[t] e^{-2 pi i k t / n_fft},
+    k < nf = n_fft // 2 + 1, with c_k = weight_k (`weights`, float64
+    bytes; ones if None) times e^{2 pi i k (n_fft // 2) / n_fft} if
+    `modulated`. The STFT (window and derivative window), G's recomputed
+    planes and H's adjoint ([Fr^T; -Fs^T], weights 2/n or 1/n, the
+    window^win_exp taps) all have it (`ops/stft.py` `_dft_spec`,
+    `_irfft_spec`)."""
+    n_fft: int
+    windows: Tuple[bytes, ...]
+    modulated: bool
+    weights: Optional[bytes] = None
+
+    @property
+    def nf(self) -> int:
+        return self.n_fft // 2 + 1
+
+    @property
+    def rows(self) -> int:
+        return 2 * len(self.windows) * self.nf
+
+    def bin_factors(self) -> np.ndarray:
+        """c_k (complex128, nf); the phase's angle from k (n//2) mod n in
+        integers."""
+        n, k = self.n_fft, np.arange(self.nf)
+        c = np.ones(self.nf, np.complex128)
+        if self.modulated:
+            c = np.exp(2j * np.pi * ((k * (n // 2)) % n) / n)
+        if self.weights is not None:
+            c = c * np.frombuffer(self.weights, np.float64)
+        return c
+
+    def dense(self, dtype=np.float32) -> np.ndarray:
+        """The stacked K_T (rows, n_fft) this structure stands for, from
+        float64 (the plain version's float32 by default)."""
+        n = self.n_fft
+        t, k = np.arange(n), np.arange(self.nf)
+        F = np.exp(-2j * np.pi * (np.outer(t, k) % n) / n) * self.bin_factors()
+        mats = []
+        for w in self.windows:
+            Fw = F * np.frombuffer(w, np.float64)[:, None]
+            mats += [Fw.real, Fw.imag]
+        return np.ascontiguousarray(
+            np.concatenate(mats, axis=1).T.astype(dtype))
+
+
+def _chirp(m, n):
+    """e^{-i pi m^2 / n}, the angle from m^2 mod 2n in integers (exact at
+    any m)."""
+    m = np.asarray(m, np.int64)
+    return np.exp(-1j * np.pi * ((m * m) % (2 * n)) / n)
+
+
+@lru_cache(maxsize=64)
+def bluestein_tables(spec: DftSpec):
+    """Kernel F's host tables for `spec`, float64 then complex64: Q (the
+    power of two >= n_fft + nf - 1, at least 4), A (W, n_fft) = v_w[t]
+    chirp(t), B (Q,) = FFT(b) / Q of the circular filter b[m] =
+    conj chirp(m) at m in (-n_fft, nf), and D (nf,) = c_k chirp(k). Then
+    X_w[k] = D[k] IFFT_Q(FFT_Q(A_w x) B)[k] Q (unnormalised inverse)."""
+    n, nf = spec.n_fft, spec.nf
+    Q = 1 << max(2, (n + nf - 2).bit_length())
+    A = np.stack([np.frombuffer(w, np.float64) * _chirp(np.arange(n), n)
+                  for w in spec.windows])
+    b = np.zeros(Q, np.complex128)
+    b[:nf] = np.conj(_chirp(np.arange(nf), n))
+    m = np.arange(1, n)
+    b[Q - m] = np.conj(_chirp(m, n))
+    B = np.fft.fft(b) / Q
+    D = spec.bin_factors() * _chirp(np.arange(nf), n)
+    return Q, A.astype(np.complex64), B.astype(np.complex64), \
+        D.astype(np.complex64)
+
+
+@lru_cache(maxsize=64)
+def _tables_on(spec: DftSpec, device):
+    """`bluestein_tables` on `device` (uploaded once per window)."""
+    Q, A, B, D = bluestein_tables(spec)
+    return (Q,) + tuple(torch.as_tensor(t, device=device) for t in (A, B, D))
+
+
 def stft_dft_plain(xp, K_T, n_fft, n_out, fs=None):
     """Plain-torch kernel F: the frames as an `unfold` view, one
     `torch.matmul` with K_T, then the second half of the rows times fs."""
@@ -82,21 +173,33 @@ def stft_dft_plain(xp, K_T, n_fft, n_out, fs=None):
     return out
 
 
-def _stft_dft_cuda(device, xp, K_T, n_fft, n_out, fs):
+def _check_spec(spec, K_T, n_fft, fs):
+    if spec is None:
+        raise ValueError("stft_dft on CUDA computes from the DFT's structure: "
+                         "pass the DftSpec that K_T stands for (spec=)")
+    if spec.n_fft != n_fft or spec.rows != K_T.shape[0] or \
+            len(spec.windows) not in (1, 2):
+        raise ValueError(f"stft_dft: spec (n_fft={spec.n_fft}, {spec.rows} "
+                         f"rows) does not match K_T {tuple(K_T.shape)}")
+    if fs is not None and len(spec.windows) != 2:
+        raise ValueError("stft_dft: fs scales the second window's planes; "
+                         "a one-window spec takes none")
+
+
+def _stft_dft_cuda(device, xp, K_T, n_fft, n_out, fs, spec):
     from .. import _build
-    rows = K_T.shape[0]
-    NP = _taps(n_fft)
-    rows_pad = -(-rows // _F_BM) * _F_BM
-    K = nnf.pad(K_T.t(), (0, rows_pad - rows, 0, NP - n_fft)).contiguous()
+    _check_spec(spec, K_T, n_fft, fs)
+    Q, A, Bt, D = _tables_on(spec, device)
+    W, rows = len(spec.windows), K_T.shape[0]
     x2, batch = _rows2(xp)
     B, mp = x2.shape
     out = torch.empty((B, rows, n_out), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = _build.lib().ssq_stft_dft(
-            x2.data_ptr(), K.data_ptr(), B, mp, NP, rows, rows_pad, n_out,
+            x2.data_ptr(), A.data_ptr(), Bt.data_ptr(), D.data_ptr(), B, mp,
+            n_fft, spec.nf, W, Q.bit_length() - 1, n_out,
             float(fs if fs is not None else 1.0),
-            rows // 2 if fs is not None else rows, out.data_ptr(),
-            _stream(device))
+            int(fs is not None and W == 2), out.data_ptr(), _stream(device))
     _build.check(err, "stft_dft kernel")
     LAUNCHES["stft_dft"] += 1
     return out.reshape(batch + (rows, n_out))
@@ -121,11 +224,11 @@ class StftDftFn(torch.autograd.Function):
     `stft_dft_vjp` (kernel H); K_T gets zero."""
 
     @staticmethod
-    def forward(ctx, xp, K_T, n_fft, n_out, fs):
+    def forward(ctx, xp, K_T, n_fft, n_out, fs, spec):
         ctx.save_for_backward(K_T)
         ctx.meta = (n_fft, fs)
         if xp.device.type == "cuda":
-            return _stft_dft_cuda(xp.device, xp, K_T, n_fft, n_out, fs)
+            return _stft_dft_cuda(xp.device, xp, K_T, n_fft, n_out, fs, spec)
         return stft_dft_plain(xp, K_T, n_fft, n_out, fs)
 
     @staticmethod
@@ -133,22 +236,24 @@ class StftDftFn(torch.autograd.Function):
     def backward(ctx, g):
         K_T, = ctx.saved_tensors
         return (stft_dft_vjp(g, K_T, *ctx.meta), *_zeros_for(ctx, [(1, K_T)]),
-                None, None, None)
+                None, None, None, None)
 
 
-def stft_dft(xp, K_T, n_fft: int, n_out: int, fs=None):
-    """Hop-1 framing + stacked windowed-DFT product.
+def stft_dft(xp, K_T, n_fft: int, n_out: int, fs=None, spec=None):
+    """Hop-1 framing + windowed DFT of every frame.
 
     xp: (..., n_out + n_fft - 1) float32 padded signal; K_T: (rows, n_fft)
-    stacked [Sr; Si(; dSr; dSi)] DFT matrices. Returns (..., rows, n_out)
-    float32; with `fs`, the second half of the rows (the derivative
-    planes) is multiplied by fs. Differentiable in xp (`StftDftFn`)."""
+    stacked [Sr; Si(; dSr; dSi)] DFT matrices; `spec`: the `DftSpec` K_T
+    stands for, which kernel F computes from (needed on CUDA; the plain
+    version takes K_T). Returns (..., rows, n_out) float32; with `fs`, the
+    second half of the rows (the derivative planes) is multiplied by fs.
+    Differentiable in xp (`StftDftFn`)."""
     device = _device_of(xp)
     xp, K_T = _f32(xp, device), _f32(K_T, device)
     _check_signal(xp, K_T, n_fft, n_out, "stft_dft")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"stft_dft: unsupported device {device}")
-    return StftDftFn.apply(xp, K_T, n_fft, n_out, fs)
+    return StftDftFn.apply(xp, K_T, n_fft, n_out, fs, spec)
 
 
 # -- G: the fused ssq_stft ---------------------------------------------------
@@ -232,9 +337,10 @@ class SsqStftFusedFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
-                plan_params, mode, flipud):
+                plan_params, mode, flipud, spec):
         ctx.save_for_backward(xp, K_T, Sfs, const)
         ctx.meta = (n_fft, n_out, fs, gamma, plan_params, mode, flipud)
+        ctx.spec = spec
         args = (xp, K_T, n_fft, n_out, fs, Sfs, const, gamma, plan_params,
                 mode, flipud)
         if xp.device.type == "cuda":
@@ -247,8 +353,8 @@ class SsqStftFusedFn(torch.autograd.Function):
         xp, K_T, Sfs, const = ctx.saved_tensors
         n_fft, n_out, fs, gamma, plan_params, mode, flipud = ctx.meta
         nf = K_T.shape[0] // 4
-        sxr, sxi, dsr, dsi = stft_dft(xp, K_T, n_fft, n_out, fs).split(
-            nf, dim=-2)
+        sxr, sxi, dsr, dsi = stft_dft(xp, K_T, n_fft, n_out, fs,
+                                      spec=ctx.spec).split(nf, dim=-2)
         gwr, gwi = reassign4_bwd(sxr, sxi, dsr, dsi, const, Sfs, gtxr, gtxi,
                                  gamma, plan_params, mode, flipud, nf, "stft")
         del sxr, sxi, dsr, dsi
@@ -256,17 +362,18 @@ class SsqStftFusedFn(torch.autograd.Function):
                         -K_T[nf:2 * nf].t(), n_fft)
         return (gxp, *_zeros_for(ctx, [(1, K_T)]), None, None, None,
                 *_zeros_for(ctx, [(5, Sfs), (6, const)]), None, None, None,
-                None)
+                None, None)
 
 
 def ssq_stft_fused(xp, K_T, n_fft: int, n_out: int, fs, Sfs, const, gamma,
-                   plan_params, mode: str, flipud: bool):
+                   plan_params, mode: str, flipud: bool, spec=None):
     """Whole hop-1 ssq_stft: framing, the four DFT planes (dS times fs),
     w = |Sfs - Im(dS/S)/2pi|, the bins of `mode` and the reassignment.
 
     xp: (..., n_out + n_fft - 1) float32; K_T: (4 nf, n_fft) stacked
     [Sr; Si; dSr; dSi] DFT matrices (fs not folded in); Sfs, const: (nf,);
-    entries with |Sx|^2 <= gamma^2 are masked. Returns complex64
+    entries with |Sx|^2 <= gamma^2 are masked; `spec`: the `DftSpec` of
+    K_T, which the backward's kernel F needs on CUDA. Returns complex64
     (Tx, Sx), each (..., nf, n_out). Differentiable in xp
     (`SsqStftFusedFn`)."""
     device = _device_of(xp)
@@ -280,7 +387,7 @@ def ssq_stft_fused(xp, K_T, n_fft: int, n_out: int, fs, Sfs, const, gamma,
         raise ValueError(f"ssq_stft_fused: unsupported device {device}")
     txr, txi, sxr, sxi = SsqStftFusedFn.apply(
         xp, K_T, n_fft, n_out, fs, Sfs, const, gamma, plan_params, mode,
-        flipud)
+        flipud, spec)
     return torch.complex(txr, txi), torch.complex(sxr, sxi)
 
 
@@ -338,17 +445,18 @@ def _istft_ola_cuda(device, Sr, Si, Fr, Fs, n_fft):
     return out.reshape(batch + (L,))
 
 
-def istft_ola_vjp(g, Fr, Fs, n_fft: int):
+def istft_ola_vjp(g, Fr, Fs, n_fft: int, adjoint=None):
     """Adjoint of `istft_ola` in (Sr, Si) (the JAX package's
     `_istft_fused_bwd`): framing, then the transposed irfft products,
     gSr[k, n] = sum_t Fr[t, k] g[n + t], gSi[k, n] = -sum_t Fs[t, k]
-    g[n + t]. That is kernel F's math with K_T = [Fr^T; -Fs^T], so it
-    runs `stft_dft` (F on CUDA, the plain version on the CPU).
-    g: (..., n_segs + n_fft - 1); returns (gSr, gSi), each
-    (..., nf, n_segs)."""
+    g[n + t]. That is kernel F's math with K_T = [Fr^T; -Fs^T] (whose
+    `DftSpec` is `adjoint`), so it runs `stft_dft` (F on CUDA, the plain
+    version on the CPU). g: (..., n_segs + n_fft - 1); returns (gSr, gSi),
+    each (..., nf, n_segs)."""
     nf = Fr.shape[1]
     n_segs = g.shape[-1] - n_fft + 1
-    out = stft_dft(g, torch.cat([Fr.t(), -Fs.t()]), n_fft, n_segs)
+    out = stft_dft(g, torch.cat([Fr.t(), -Fs.t()]), n_fft, n_segs,
+                   spec=adjoint)
     return out[..., :nf, :], out[..., nf:, :]
 
 
@@ -357,9 +465,9 @@ class IstftOlaFn(torch.autograd.Function):
     backward `istft_ola_vjp` (kernel F); Fr and Fs get zero."""
 
     @staticmethod
-    def forward(ctx, Sr, Si, Fr, Fs, n_fft):
+    def forward(ctx, Sr, Si, Fr, Fs, n_fft, adjoint):
         ctx.save_for_backward(Fr, Fs)
-        ctx.n_fft = n_fft
+        ctx.n_fft, ctx.adjoint = n_fft, adjoint
         if Sr.device.type == "cuda":
             return _istft_ola_cuda(Sr.device, Sr, Si, Fr, Fs, n_fft)
         return istft_ola_plain(Sr, Si, Fr, Fs, n_fft)
@@ -368,18 +476,19 @@ class IstftOlaFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         Fr, Fs = ctx.saved_tensors
-        return (*istft_ola_vjp(g, Fr, Fs, ctx.n_fft),
-                *_zeros_for(ctx, [(2, Fr), (3, Fs)]), None)
+        return (*istft_ola_vjp(g, Fr, Fs, ctx.n_fft, ctx.adjoint),
+                *_zeros_for(ctx, [(2, Fr), (3, Fs)]), None, None)
 
 
-def istft_ola(Sr, Si, Fr, Fs, n_fft: int):
+def istft_ola(Sr, Si, Fr, Fs, n_fft: int, adjoint=None):
     """Hop-1 irfft product + overlap-add.
 
     Sr/Si: (..., nf, n_segs) float32 Sx planes; Fr/Fs: (n_fft, nf) irfft
     matrices with the window^win_exp factor folded into their rows.
     Returns (..., n_segs + n_fft - 1) float32, before the window-norm
-    division: out[c] = sum_t (Fr @ Sr - Fs @ Si)[t, c - t].
-    Differentiable in (Sr, Si) (`IstftOlaFn`)."""
+    division: out[c] = sum_t (Fr @ Sr - Fs @ Si)[t, c - t]. `adjoint`: the
+    `DftSpec` of [Fr^T; -Fs^T], which the backward's kernel F needs on
+    CUDA. Differentiable in (Sr, Si) (`IstftOlaFn`)."""
     device = _device_of(Sr)
     Sr, Si, Fr, Fs = (_f32(a, device) for a in (Sr, Si, Fr, Fs))
     nf = Sr.shape[-2]
@@ -389,4 +498,4 @@ def istft_ola(Sr, Si, Fr, Fs, n_fft: int):
                          f"{tuple(Fs.shape)} do not match (n_fft={n_fft})")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"istft_ola: unsupported device {device}")
-    return IstftOlaFn.apply(Sr, Si, Fr, Fs, n_fft)
+    return IstftOlaFn.apply(Sr, Si, Fr, Fs, n_fft, adjoint)

@@ -1,9 +1,10 @@
 """The TPU probes of ``tools/`` on the H100: hand-written kernels that ask
 this card what the Pallas probes asked the TPU.
 
-  ablate_cwt_kernel     probes P1-P3 (``csrc/ablate_cwt.cu``): kernel D
-                        with parts taken out, its copy floor, and its
-                        first launch with explicit asynchronous staging
+  ablate_cwt_kernel     probes P1-P3 (``csrc/ablate_cwt.cu``): kernel D's
+                        radix-2 design with parts taken out, its copy floor,
+                        and its first launch with explicit asynchronous
+                        staging
   cwt_kernel_probe      the coarse split of D (dma / glue / full) as
                         modes of P1
   ablate_reassign       probe P4 (``csrc/ablate_reassign.cu``): kernel B'

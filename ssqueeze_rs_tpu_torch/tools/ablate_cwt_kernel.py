@@ -3,15 +3,17 @@ counterparts of the TPU probe ``tools/ablate_cwt_kernel.py``.
 
     python -m ssqueeze_rs_tpu_torch.tools.ablate_cwt_kernel [K] [--device cpu]
 
-Kernel D (the CWT planes with the derivative, ``csrc/cwt_planes.cu``) at
-the cwt headline: 293 rows, M = 2^18 = 512 x 512, 160 000 kept columns,
-random Pw, x, xig and Nyquist values from a seed. Every variant below
+Kernel D's earlier radix-2 design (the CWT planes with the derivative as
+two radix-2 launches through an intermediate in device memory,
+``csrc/cwt_planes.cuh`` on ``fft4.cuh``, which kernel E keeps; D itself
+runs on the register-radix core ``fft_radix.cuh``) at the cwt headline: 293 rows, M = 2^18 = 512 x 512,
+160 000 kept columns, random Pw, x, xig and Nyquist values from a seed. Every variant below
 computes wrong math by design and keeps the memory traffic of what it
 does not remove, so (full - variant) is the cost of what it removed:
 
-  P1 `ablate_cwt` (the TPU `_make_kernel(R, off, ablate)`): D's own
-  launches with parts taken out; `full` is D bit for bit.
-    full       D
+  P1 `ablate_cwt` (the TPU `_make_kernel(R, off, ablate)`): the radix-2
+  design's launches with parts taken out.
+    full       the radix-2 design, whole (D's function: within 1e-5 of D)
     nostage1   no length-M1 butterflies
     nostage2   no length-M2 butterflies
     nofft      neither (the TPU `nodots`)
@@ -27,10 +29,10 @@ does not remove, so (full - variant) is the cost of what it removed:
   rest zero; `dmanoin` writes zero planes and reads nothing; `dmarb8`
   gives each block 8 rows. Beside it `copy_`, one `torch.Tensor.copy_`
   moving the same bytes (half read, half written).
-  P3 `cwt_staged` (the TPU `_make_manual_kernel`): D's launch 1 as a
+  P3 `cwt_staged` (the TPU `_make_manual_kernel`): P1's launch 1 as a
   persistent kernel that stages the next work item's tiles with
-  cp.async while the current one's butterflies run; D's planes bit for
-  bit.
+  cp.async while the current one's butterflies run; P1 full's planes bit
+  for bit.
 
 The TPU's `nosplit` and `ksplitC` time its bf16x3 dot splits, which the
 port does not have (ROADMAP, North star): no counterpart.

@@ -1,4 +1,6 @@
-"""The coarse split of kernel D's time: the counterpart of the TPU probe
+"""The coarse split of kernel D's time in its earlier radix-2 design (the
+launches of ``csrc/cwt_planes.cuh``; D runs on the register-radix core
+``fft_radix.cuh``): the counterpart of the TPU probe
 ``tools/cwt_kernel_probe.py`` (its `make_kernel(mode, R, off)`), as modes
 of probe P1 (`ablate_cwt_kernel.ablate_cwt`, ``csrc/ablate_cwt.cu``).
 
@@ -10,7 +12,7 @@ kept columns):
   dma    P1 `yonly`: the two launches' loads and stores with no compute
   glue   P1 `nofft`: everything but the butterflies (the Z build, the
          scatters, the twiddle, the epilogue)
-  full   P1 `full`: kernel D
+  full   P1 `full`: the radix-2 design of kernel D
 
 glue - dma is the arithmetic around the butterflies, full - glue the
 butterflies. The TPU's `dots4` times its single-bf16 dots, which the

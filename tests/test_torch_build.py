@@ -39,7 +39,8 @@ def test_library_name_follows_source_content(src_tree):
                                   "reassign.cuh", "ablate_cwt.cu",
                                   "ablate_reassign.cu", "mma.cuh",
                                   "grid_slope.cu", "rate_probe.cu",
-                                  "dma_overlap.cu", "mxu_probe.cu"])
+                                  "dma_overlap.cu", "mxu_probe.cu",
+                                  "fft_radix.cuh"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -80,26 +81,38 @@ def test_tensor_core_helpers_are_shared():
 
 
 def test_cwt_kernels_share_the_four_step_header():
-    """Kernels A (cwt_phase.cu), D and E (cwt_planes.cu) include one
-    four-step header, and the build hashes it with them; D's launches
-    (cwt_planes.cuh) and B''s scatter (reassign.cuh) are shared with the
-    probes, which instantiate them."""
+    """Kernels D (cwt_planes.cu) and F (stft_dft.cu) run on the
+    register-radix core (fft_radix.cuh); A (cwt_phase.cu), E (through
+    cwt_planes.cuh, in cwt_planes.cu) and the probes P1-P3 (ablate_cwt.cu,
+    through cwt_planes.cuh) keep the radix-2 four-step header fft4.cuh. The
+    build hashes every header with the sources; B''s scatter
+    (reassign.cuh) is shared with its probe."""
     sources = [os.path.basename(p) for p in _build._sources()]
-    assert {"fft4.cuh", "cwt_planes.cuh", "reassign.cuh"} <= set(sources)
+    assert {"fft4.cuh", "fft_radix.cuh", "cwt_planes.cuh",
+            "reassign.cuh"} <= set(sources)
     for name, header in (("cwt_phase.cu", "fft4.cuh"),
                          ("cwt_planes.cuh", "fft4.cuh"),
                          ("cwt_planes.cu", "cwt_planes.cuh"),
+                         ("cwt_planes.cu", "fft_radix.cuh"),
+                         ("stft_dft.cu", "fft_radix.cuh"),
                          ("ablate_cwt.cu", "cwt_planes.cuh"),
                          ("reassign.cu", "reassign.cuh"),
                          ("ablate_reassign.cu", "reassign.cuh")):
         with open(os.path.join(_build.CSRC, name)) as f:
             assert f'#include "{header}"' in f.read(), name
+    for name in ("cwt_phase.cu", "ablate_cwt.cu", "cwt_planes.cuh"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            assert '#include "fft_radix.cuh"' not in f.read(), name
+    with open(os.path.join(_build.CSRC, "stft_dft.cu")) as f:
+        assert '#include "dft_tile.cuh"' not in f.read()
     # 23 and 14 parameters (D: planes, E: given Z planes); P1 takes D's
-    # with the variant for the derivative flag, P3 D's without it
+    # with the variant for the derivative flag, P3 D's without it; F 15
+    # (the signal, its three Bluestein tables, shapes, fs, the planes)
     assert len(_build._SIGNATURES["ssq_cwt_planes"]) == 23
     assert len(_build._SIGNATURES["ssq_ifft_halfband"]) == 14
     assert len(_build._SIGNATURES["ssq_ablate_cwt"]) == 23
     assert len(_build._SIGNATURES["ssq_cwt_staged"]) == 22
+    assert len(_build._SIGNATURES["ssq_stft_dft"]) == 15
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

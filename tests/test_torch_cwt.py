@@ -521,3 +521,244 @@ def test_tensor_input_stays_on_its_device():
     assert Wx.device.type == "cpu"
     Wx2, _ = T.cwt(x.numpy(), nv=4, device="cpu")
     assert torch.equal(Wx, Wx2)
+
+
+# -- kernel D's register-radix core and its row chunks -------------------------
+# A numpy mirror of csrc/fft_radix.cuh, the register-radix FFT core of
+# kernels D and F: its pass schedule, its shared-memory layout, and a model
+# that runs the schedule with the kernel's own index maps and twiddle
+# exponents.
+#
+# A column of P = 2^n points (2 <= P <= 4096) is transformed by Stockham
+# passes. Each thread holds E points of a column in registers (16 where
+# radix-16 passes need fewer passes than radix 8, else min(8, P)); a pass
+# of radix R (E, then one smaller pass for what is left) does E/R radix-R
+# DFTs in registers and exchanges the points through shared memory, so a
+# column of 512 points takes 3 passes (8 8 8) and 1024 or 2048 take 3
+# (16 16 4, 16 16 8) where radix 2 took 9, 10 and 11. Pass
+# p of stride Ns reads butterfly b's inputs at b + r * P/R and writes its
+# outputs at (b // Ns) * Ns * R + b % Ns + r * Ns after the twiddle
+# w^((b % Ns) * r * P / (Ns * R)), w = e^(sign 2 pi i / P). The first pass
+# reads only the first `n_in` inputs (the rest are zero) and the last one
+# writes only outputs in [lo, hi).
+#
+# Columns go through `ncol(P)` at a time, `units(P)` slots a thread of a
+# block of T = 256: slot u of thread t is unit t + u T, column unit % ncol
+# and lane unit // ncol, so neighbouring threads work on neighbouring
+# columns (the kernels' device-memory runs); slot-major (`pair`, kernel
+# D's first launch with the derivative, two slots a thread) slot u of
+# thread t is column u * ncu + t % ncu and lane t // ncu (ncu = ncol / 2),
+# so a thread's slots hold one lane of ncu-apart columns (two pipelines of
+# one column).
+# A column lives at `col_stride(P, pair)` float2 in shared memory with one
+# float2 of padding after every E points (`pad`), which `bank_ways` shows
+# keeps the exchanges free of bank conflicts in both layouts. The tests
+# below hold the model to torch.fft and count those conflicts.
+THREADS = 256
+MIN_P, MAX_P = 2, 4096
+
+
+def _log(P: int) -> int:
+    return P.bit_length() - 1
+
+
+def points_per_thread(P: int) -> int:
+    """E (Shape::E): 16 where radix-16 passes take fewer passes than
+    radix 8 (P = 16, 128, 256, 1024, 2048, 4096), else min(8, P)."""
+    log = _log(P)
+    return 16 if -(-log // 4) < -(-log // 3) else min(8, P)
+
+
+def units(P: int, pair: bool = False) -> int:
+    """Slots (columns' lanes) a thread holds (Shape::U): 16 points a
+    thread, 32 at P = 4096 (two columns in flight); two slots in the
+    slot-major layout."""
+    if P < 8 or pair:
+        return 2
+    return (2 if P == 4096 else 1) * 16 // points_per_thread(P)
+
+
+def ncol(P: int, pair: bool = False) -> int:
+    """Columns in flight in a block (Shape::NCOL)."""
+    return units(P, pair) * THREADS // (P // points_per_thread(P))
+
+
+def passes(P: int):
+    """[(R, Ns), ...]: passes of radix E, then one of a smaller radix for
+    the rest."""
+    if P < MIN_P or P > MAX_P or P & (P - 1):
+        raise ValueError(f"P={P}: the core takes powers of two in "
+                         f"[{MIN_P}, {MAX_P}]")
+    log, le = _log(P), _log(points_per_thread(P))
+    radices = [1 << le] * (log // le) + ([1 << (log % le)] if log % le
+                                        else [])
+    out, ns = [], 1
+    for R in radices:
+        out.append((R, ns))
+        ns *= R
+    return out
+
+
+def pad(i, P: int):
+    """Padded shared-memory index of point i of a column of P: one float2
+    of padding after every E points."""
+    return i + (i >> _log(points_per_thread(P)))
+
+
+def _ncu(P: int, pair: bool) -> int:
+    """Columns side by side in a warp's slot (Shape::NCU)."""
+    return ncol(P, pair) // 2 if pair else ncol(P)
+
+
+def slot(t: int, u: int, P: int, pair: bool = False):
+    """(column, lane) of slot u of thread t (fftr::units)."""
+    if pair:
+        ncu = _ncu(P, pair)
+        return u * ncu + t % ncu, t // ncu
+    unit = t + u * THREADS
+    return unit % ncol(P), unit // ncol(P)
+
+
+def col_stride(P: int, pair: bool = False) -> int:
+    """float2 between neighbouring columns in shared memory (Shape::LD):
+    the padded length plus 16 / ncu (at least 1), which spreads the
+    columns a half-warp touches over the banks."""
+    return pad(P, P) + max(1, 16 // _ncu(P, pair))
+
+
+def _dft(v, sign):
+    """Radix-R DFT of the last axis, as the kernel's butterflies."""
+    R = v.shape[-1]
+    k = np.arange(R)
+    return v @ np.exp(sign * 2j * np.pi * np.outer(k, k) / R)
+
+
+def model_fft(x, sign=1, n_in=None, lo=0, hi=None):
+    """The core's schedule on columns x (..., P), complex128: unnormalised
+    DFT with e^(sign 2 pi i k n / P), only the first `n_in` inputs read,
+    outputs outside [lo, hi) left zero."""
+    x = np.asarray(x, np.complex128)
+    P = x.shape[-1]
+    n_in = P if n_in is None else n_in
+    hi = P if hi is None else hi
+    E = points_per_thread(P)
+    tpc = P // E
+    plan = passes(P)
+    cur = x.copy()
+    cur[..., n_in:] = 0
+    for p, (R, ns) in enumerate(plan):
+        nxt = np.zeros_like(cur)
+        for j in range(tpc):
+            for s in range(E // R):
+                b = j + s * tpc
+                r = np.arange(R)
+                v = cur[..., b + r * (P // R)]
+                if ns > 1:
+                    m = (b % ns) * r * (P // (ns * R))
+                    v = v * np.exp(sign * 2j * np.pi * m / P)
+                v = _dft(v, sign)
+                nxt[..., (b // ns) * ns * R + b % ns + r * ns] = v
+        cur = nxt
+    out = np.zeros_like(cur)
+    out[..., lo:hi] = cur[..., lo:hi]
+    return out
+
+
+def bank_ways(P: int, pair: bool = False):
+    """The worst n-way bank conflict of the core's shared-memory exchanges
+    (every pass's writes and the next pass's reads) in the kernels' block
+    layout: float2 accesses go in half-warps of 16 threads over 32 banks
+    of 4 bytes; 1 is conflict-free."""
+    E = points_per_thread(P)
+    tpc = P // E
+    ld = col_stride(P, pair)
+    plan = passes(P)
+    worst = 1
+    for u0 in range(units(P, pair)):
+        for t0 in range(0, THREADS, 16):
+            half = [slot(t, u0, P, pair) for t in range(t0, t0 + 16)]
+            for p, (R, ns) in enumerate(plan):
+                for s in range(E // R):
+                    for r in range(R):
+                        for kind in ("write", "read"):
+                            if kind == "write" and p == len(plan) - 1:
+                                continue
+                            if kind == "read" and p == 0:
+                                continue
+                            words = {}
+                            for c, j in half:
+                                b = j + s * tpc
+                                if kind == "write":
+                                    i = (b // ns) * ns * R + b % ns + r * ns
+                                else:
+                                    i = b + r * (P // R)
+                                a = 2 * (c * ld + pad(i, P))
+                                for w in (a, a + 1):
+                                    words.setdefault(w % 32, set()).add(w)
+                            worst = max(worst, max(len(v) for v in
+                                                   words.values()))
+    return worst
+
+
+@pytest.mark.parametrize("P", [1 << k for k in range(1, 13)])
+def test_radix_core_schedule_matches_torch_fft(P):
+    """The pass schedule of csrc/fft_radix.cuh (index maps and twiddle
+    exponents, `model_fft`) is the unnormalised DFT: equal to
+    torch.fft.ifft * P (sign +, D's) and torch.fft.fft (sign -, F's
+    forward) within 1e-12 of the largest output, in full and pruned as D
+    and F prune it (only the first P/2 inputs nonzero; only outputs in a
+    window wanted)."""
+    rng = np.random.default_rng(P)
+    x = rng.standard_normal((3, P)) + 1j * rng.standard_normal((3, P))
+    lo, hi = P // 5, P - P // 3
+    for sign, ref_fn in ((1, lambda a: torch.fft.ifft(a) * P),
+                         (-1, torch.fft.fft)):
+        ref = ref_fn(torch.as_tensor(x)).numpy()
+        assert _rel(model_fft(x, sign), ref) < 1e-12
+        half = x.copy()
+        half[:, P // 2:] = 0
+        ref = ref_fn(torch.as_tensor(half)).numpy()
+        out = model_fft(x, sign, n_in=P // 2, lo=lo, hi=hi)
+        assert _rel(out[:, lo:hi], ref[:, lo:hi]) < 1e-12
+        assert not out[:, :lo].any() and not out[:, hi:].any()
+    # radix-8 or radix-16 passes, then one smaller: the fewer passes of
+    # the two, 512 points in 3 (8 8 8), 1024 and 2048 in 3 (16 16 4, 8)
+    plan = passes(P)
+    log = P.bit_length() - 1
+    assert np.prod([R for R, _ in plan]) == P
+    assert len(plan) == min(-(-log // 3), -(-log // 4))
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["cols", "slots"])
+@pytest.mark.parametrize("P", [1 << k for k in range(1, 13)])
+def test_radix_core_layout_is_free_of_bank_conflicts(P, pair):
+    """The core's shared-memory layout (a float2 of padding after every E
+    points, the column stride of Shape::LD) keeps every exchange of every
+    pass free of bank conflicts in both of the kernels' block layouts
+    (256 threads; neighbouring threads on neighbouring columns, or
+    slot-major)."""
+    assert ncol(P, pair) >= 2
+    assert bank_ways(P, pair) == 1
+
+
+@pytest.mark.parametrize("pipes", [1, 2])
+@pytest.mark.parametrize("logM", range(4, 23))
+def test_d_chunk_planner_covers_every_row_once(logM, pipes):
+    """Kernel D's row chunks: at least one row a chunk, an intermediate
+    within the L2 budget whenever one row fits it, and chunks that cover
+    every row once, in order, for one row, a few and the headline's 293
+    and 2 x 293."""
+    M = 1 << logM
+    assert fft_cuda.best_split(M) is not None
+    for rows in (1, 7, 293, 586):
+        step = fft_cuda.d_chunk_rows(M, pipes, rows)
+        assert 1 <= step <= rows
+        if pipes * M * 8 <= fft_cuda._D_Y_BYTES:
+            assert pipes * step * M * 8 <= fft_cuda._D_Y_BYTES
+        else:
+            assert step == 1
+        # the chunk loop of ssq_cwt_planes (csrc/cwt_planes.cu)
+        chunks = [(r0, min(step, rows - r0)) for r0 in range(0, rows, step)]
+        assert all(n >= 1 for _, n in chunks)
+        covered = [r for r0, n in chunks for r in range(r0, r0 + n)]
+        assert covered == list(range(rows))

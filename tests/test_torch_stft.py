@@ -248,3 +248,90 @@ def test_float64_raises():
         stft(x, device="cpu", n_fft=64, dtype="float64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         istft(np.zeros((33, 100), np.complex128), device="cpu", n_fft=64)
+
+
+# -- kernel F's structure (DftSpec) and its Bluestein tables ----------------
+# K_T as each of F's three callers builds it, beside the structure it
+# carries to the kernel: the STFT (window; window and derivative window) and
+# H's adjoint [Fr^T; -Fs^T] at win_exp 0, 1, 2.
+F_CALLERS = ["stft", "stft_dwin", "irfft0", "irfft1", "irfft2"]
+
+
+def _caller_k_t(kind, n_fft, modulated):
+    """(K_T float32 as the caller builds it, its DftSpec)."""
+    win, dwin = get_window(None, n_fft, n_fft, derivative=True,
+                           dtype="float32")
+    if kind.startswith("stft"):
+        wins = (t_stft_mod._win_bytes(win),
+                t_stft_mod._win_bytes(dwin) if kind == "stft_dwin" else None,
+                n_fft, modulated)
+        return (t_stft_mod._k_t_host(*wins), t_stft_mod._dft_spec(*wins))
+    mats = (n_fft, modulated, t_stft_mod._win_bytes(win), int(kind[-1]))
+    Fr, Fs = t_stft_mod._irfft_mats_weighted(*mats, "cpu")
+    return (torch.cat([Fr.t(), -Fs.t()]).numpy(),
+            t_stft_mod._irfft_spec(*mats))
+
+
+@pytest.mark.parametrize("kind", F_CALLERS)
+@pytest.mark.parametrize("modulated", [True, False], ids=["mod", "nomod"])
+@pytest.mark.parametrize("n_fft", [9, 16, 127, 598])
+def test_dft_spec_rebuilds_callers_k_t(n_fft, modulated, kind):
+    """The structure each caller hands kernel F stands for the dense K_T
+    the plain version takes: rebuilt from float64, within float32
+    rounding of K_T's largest entry (H's matrices round twice: cos * w / n,
+    then the window power)."""
+    K, spec = _caller_k_t(kind, n_fft, modulated)
+    assert spec.rows == K.shape[0] and spec.n_fft == K.shape[1] == n_fft
+    assert np.abs(spec.dense() - K).max() <= 2.5e-7 * np.abs(K).max()
+
+
+def _bluestein_model(xp, spec, n_out, fs=None):
+    """Kernel F's steps in plain torch on the CPU, from the same host
+    tables: each frame times the chirped window A_w, an FFT of Q points,
+    the product with B, an unnormalised inverse FFT, D on the first nf
+    outputs; the second window's planes times fs."""
+    Q, A, B, D = stft_cuda.bluestein_tables(spec)
+    frames = xp.unfold(-1, spec.n_fft, 1).to(torch.complex64)
+    planes = []
+    for w in range(len(spec.windows)):
+        a = frames * torch.as_tensor(A[w])
+        c = torch.fft.ifft(torch.fft.fft(a, n=Q) * torch.as_tensor(B)) * Q
+        X = (c[..., :spec.nf] * torch.as_tensor(D)).transpose(-1, -2)
+        if fs is not None and w == 1:
+            X = X * fs
+        planes += [X.real, X.imag]
+    return torch.cat(planes, dim=-2)
+
+
+@pytest.mark.parametrize("kind", F_CALLERS)
+@pytest.mark.parametrize("modulated", [True, False], ids=["mod", "nomod"])
+@pytest.mark.parametrize("n_fft", [9, 16, 127, 598])
+def test_bluestein_model_matches_plain_f(n_fft, modulated, kind):
+    """The chirp-z steps kernel F runs, on the tables it reads, equal
+    `stft_dft_plain` within F's bar (2e-6 of the largest plane value):
+    the tables are right before any chip time is spent. Q is the power of
+    two >= n_fft + nf - 1."""
+    K, spec = _caller_k_t(kind, n_fft, modulated)
+    n_out = 150
+    xp = torch.as_tensor(_signal((2, n_out + n_fft - 1), seed=n_fft))
+    fs = 3.0 if kind == "stft_dwin" else None
+    ref = stft_cuda.stft_dft_plain(xp, torch.as_tensor(K), n_fft, n_out, fs)
+    out = _bluestein_model(xp, spec, n_out, fs)
+    Q = stft_cuda.bluestein_tables(spec)[0]
+    assert Q >= n_fft + spec.nf - 1 and Q // 2 < max(4, n_fft + spec.nf - 1)
+    assert _rel(out, ref) < 2e-6
+
+
+def test_stft_dft_cuda_route_needs_the_structure():
+    """Kernel F computes from the structure: its route raises without one
+    (before any launch), on a structure that does not match K_T, and on fs
+    with one window; the entry points pass it."""
+    K, spec = _caller_k_t("stft", 16, True)
+    xp, K = torch.zeros(115), torch.as_tensor(K)
+    run = stft_cuda._stft_dft_cuda
+    with pytest.raises(ValueError, match="DftSpec"):
+        run(torch.device("cpu"), xp, K, 16, 100, None, None)
+    with pytest.raises(ValueError, match="does not match"):
+        run(torch.device("cpu"), xp, K[:4], 16, 100, None, spec)
+    with pytest.raises(ValueError, match="one-window"):
+        run(torch.device("cpu"), xp, K, 16, 100, 2.0, spec)
