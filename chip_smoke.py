@@ -46,13 +46,19 @@ Phases, one line each:
      kernel B' on F's planes (>= 99.9 % of entries within 1e-5 max|Tx|,
      column sums within 1e-5) and against plain G (the same bars);
      bitwise repeat; timed against plain G
- 10. kernel H (istft_ola) against plain H within 2e-6 of the largest
-     sample; istft(stft(x)) with mad_rms < 1e-5; timed
+ 10. kernel H (istft_ola: F's chirp-z transform run backwards on F's
+     tables, then an overlap-add in a fixed order) against plain H at the
+     STFT width (160 000 frames) and at n_fft = 599, 256 and 2048: within
+     2e-6 of the largest sample, bitwise repeat, both against the same
+     function in float64; timed at 598 beside plain, its bound and
+     torch.istft, and at 2048 beside torch.istft; a call without its
+     DftSpec raises; istft(stft(x)) with mad_rms < 1e-5
  11. three requests (noise, a 100 Hz sine at fs = 1000, a chirp) through
      stft (kernel F once), ssq_stft (G once), ssq_stft with given
      ssq_freqs (F and B' once each) and istft (H once); outputs finite on
      the GPU; the sine's ssq_stft peak within 1 % of 100 Hz; issq_stft of
-     the sine at fs = 1; steady stft and ssq_stft times; the device
+     the sine at fs = 1; steady stft and ssq_stft times; the device time
+     of stft, ssq_stft and istft by kernel (torch.profiler); the device
      results against the CPU results for two signals at N = 20 000
  12. kernels C and C' (the reassignment's VJP gather): C on the headline
      w plane (nf = 293), C' on F's STFT planes (lin, nf = 300) and at
@@ -63,8 +69,10 @@ Phases, one line each:
      per call, finite, bitwise repeat; forward+backward time and peak
      device memory; the device gradient against the CPU gradient for two
      signals at N = 20 000 (< 5e-3; the Wx-only loss < 1e-4)
- 14. the STFT family's gradients at N = 160 000, n_fft = 598: F's and H's
-     adjoints (kernels H and F) against autograd of their plain versions
+ 14. the STFT family's gradients at N = 160 000, n_fft = 598: F's
+     adjoint (kernel H, with one window and with two) and H's (kernel F),
+     and ssq_stft's backward on an Sx cotangent (F, C', H on the first
+     window's structure) against autograd of their plain versions
      (< 2e-6); stft (F forward, H backward), istft (H, then F), ssq_stft
      (G, then F, C', H) and ssq_stft with given ssq_freqs (F and B', then
      C' and H), each with its launch counts, finite and bitwise repeated,
@@ -74,15 +82,17 @@ Phases, one line each:
      repeat, timed beside their bound and torch.fft.ifft of the same
      (rows, M) spectrum: D at the cwt headline with the derivative off
      and on, D at M = 2^21 (N = 1 000 000, the first 64 scales, with the
-     derivative), E on the complex-psih headline (bump, om = 0.5, 318 rows);
-     D's rows a chunk (its intermediate kept in L2) and its time at budgets
-     of 10, 20 MB, the constant and one chunk of every row
+     derivative), E on the complex-psih headline (bump, om = 0.5, 318 rows)
+     at the kept window and at keep (0, M); D's and E's rows a chunk (their
+     intermediate kept in L2) and their times at budgets of 10, 20 MB, the
+     constant and one chunk of every row
  16. three requests through cwt (D once), cwt(derivative) (D once), the
      bump cwt (E once), ssq_cwt(get_dWx) and ssq_cwt(squeezing='lebesgue')
      (D and B' once each): outputs finite on the GPU, the sine's cwt ridge
      (Im(dWx/Wx)/2pi on the strongest row) and ssq_cwt peak within 1 % of
      100 Hz, icwt(cwt(x)) of the sine with mad_rms < 0.02; steady times;
-     cwt's device time by kernel (torch.profiler) and idle share; device
+     cwt's and the bump cwt's device time by kernel (torch.profiler) and
+     idle share; device
      against CPU for two signals at N = 20 000
  17. the gradient of cwt at the headline, loss sum|Wx|^2 + sum|dWx|^2: D
      once per call, finite, bitwise repeat, forward+backward time and peak
@@ -650,7 +660,8 @@ def stft_phases(np, torch, dev, card, results):
                                        mad_rms)
     from ssqueeze_rs_tpu_torch.ops import reassign_cuda, stft_cuda
     from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes, _dft_spec,
-                                                _irfft_mats_weighted)
+                                                _irfft_mats_weighted,
+                                                _irfft_spec)
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
     from ssqueeze_rs_tpu_torch.utils.pad import padsignal
     from ssqueeze_rs_tpu_torch.utils.windows import get_window
@@ -830,35 +841,86 @@ def stft_phases(np, torch, dev, card, results):
           f"kernel G Tx vs plain: {withinP:.6f} within, col {colP:.3e}")
     del Tg, Sg, Tb, k1, planes, sr, si, dr, di, Sf
 
-    # 10. kernel H
-    S = stft(x, n_fft=N_FFT)
-    Fr, Fs = _irfft_mats_weighted(N_FFT, True, _win_bytes(win), 1, dev)
-    ha = (S.real, S.imag, Fr, Fs, N_FFT)
-    kH, pH = stft_cuda.istft_ola(*ha), stft_cuda.istft_ola_plain(*ha)
-    torch.cuda.synchronize()
-    relH = float((kH - pH).abs().max() / pH.abs().max())
-    absH = float((kH - pH).abs().max())
-    xr = istft(S, n_fft=N_FFT, N=N)
-    madH = mad_rms(x, xr)
-    msH = cuda_ms(torch, lambda: stft_cuda.istft_ola(*ha))
-    msH_plain = cuda_ms(torch, lambda: stft_cuda.istft_ola_plain(*ha))
-    # an inverse real FFT a column, then N_FFT adds a column (overlap-add)
-    boundH = bound(tensor_bytes(ha, kH),
-                   rfft_flops(S.shape[-1], N_FFT) + N_FFT * S.shape[-1])
-    # the yardstick: torch.istft of the same spectrum at hop 1 (centred,
-    # so the window envelope it checks has no near-zero edge)
-    msH_lib = cuda_ms(torch, lambda: torch.istft(
-        S, N_FFT, hop_length=1, win_length=N_FFT, window=win_t, center=True,
-        length=N))
-    results["H"] = dict(rel=relH, abs=absH, roundtrip_mad_rms=madH, ms=msH,
-                        plain_ms=msH_plain, bound=boundH, library_ms=msH_lib)
-    print(f"[10] kernel H: rel={relH:.3e}; istft(stft(x)) mad_rms "
-          f"{madH:.3e} | {msH:.3f} ms vs plain {msH_plain:.3f} ms, bound "
-          f"{boundH[0]:.3f} ms ({boundH[1]}), torch.istft {msH_lib:.3f} ms "
-          f"({card})")
-    check(relH < 2e-6, f"kernel H rel {relH:.3e}")
+    # 10. kernel H (F's chirp-z transform run backwards on istft's
+    # structure) against plain H at the STFT width, both against the same
+    # function in float64; n_fft = 599 (a prime), 256 and 2048 checked the
+    # same way; timed at the STFT width and at 2048 beside torch.istft
+    H = {}
+    for n_fft in (N_FFT, 599, 256, 2048):
+        w_n = get_window(None, n_fft, n_fft, dtype="float32")
+        S = stft(x, n_fft=n_fft)
+        mats = (n_fft, True, _win_bytes(w_n), 1)
+        Fr, Fs = _irfft_mats_weighted(*mats, dev)
+        hspec = _irfft_spec(*mats)
+        ha = (S.real, S.imag, Fr, Fs, n_fft)
+        run = lambda: stft_cuda.istft_ola(*ha, adjoint=hspec)
+        plain = lambda: stft_cuda.istft_ola_plain(*ha)
+        kH, kH2, pH = run(), run(), plain()
+        K64 = hspec.dense(np.float64)
+        nfn = hspec.nf
+        rH = stft_cuda.istft_ola_plain(
+            S.real.double(), S.imag.double(),
+            torch.as_tensor(K64[:nfn].T, device=dev),
+            -torch.as_tensor(K64[nfn:].T, device=dev), n_fft)
+        torch.cuda.synchronize()
+        top = float(rH.abs().max())
+        H[n_fft] = dict(
+            rel=float((kH - pH).abs().max() / pH.abs().max()),
+            abs=float((kH - pH).abs().max()),
+            rel64=float((kH.double() - rH).abs().max()) / top,
+            plain_rel64=float((pH.double() - rH).abs().max()) / top,
+            bitwise=bool(torch.equal(kH, kH2)),
+            Q=stft_cuda.bluestein_tables(hspec)[0])
+        del kH2, pH, rH, K64
+        if n_fft in (N_FFT, 2048):
+            wt = torch.as_tensor(w_n, device=dev)
+            # the yardstick: torch.istft of the same spectrum at hop 1
+            # (centred, so the window envelope it checks has no near-zero
+            # edge)
+            H[n_fft].update(ms=cuda_ms(torch, run), library_ms=cuda_ms(
+                torch, lambda: torch.istft(
+                    S, n_fft, hop_length=1, win_length=n_fft, window=wt,
+                    center=True, length=N)))
+        if n_fft == N_FFT:
+            # an inverse real FFT a frame, then N_FFT adds a frame
+            # (overlap-add); the bytes: the planes, H's tables, the output
+            H[n_fft].update(
+                plain_ms=cuda_ms(torch, plain),
+                bound=bound(tensor_bytes(ha[:2], stft_cuda._tables_on(
+                    hspec, dev), kH), rfft_flops(S.shape[-1], N_FFT) +
+                    N_FFT * S.shape[-1]))
+            try:
+                stft_cuda.istft_ola(*ha)
+                H["raises_without_spec"] = False
+            except ValueError:
+                H["raises_without_spec"] = True
+            xr = istft(S, n_fft=N_FFT, N=N)
+            H["roundtrip_mad_rms"] = madH = mad_rms(x, xr)
+            del xr
+            absH = H[n_fft]["abs"]
+        del kH, S, ha
+    results["H"] = H
+    H6 = H[N_FFT]
+    print("[10] kernel H (chirp-z adjoint): " + "; ".join(
+        f"n_fft={k}: rel={v['rel']:.3e}, vs float64 {v['rel64']:.3e} "
+        f"(plain {v['plain_rel64']:.3e}), bitwise-repeat={v['bitwise']}" +
+        (f" | {v['ms']:.3f} ms" if "ms" in v else "") +
+        (f" vs plain {v['plain_ms']:.3f} ms, bound {v['bound'][0]:.3f} ms "
+         f"({v['bound'][1]})" if "plain_ms" in v else "") +
+        (f", torch.istft {v['library_ms']:.3f} ms" if "library_ms" in v
+         else "")
+        for k, v in H.items() if isinstance(k, int)) +
+        f"; without a spec raises: {H['raises_without_spec']}; "
+        f"istft(stft(x)) mad_rms {madH:.3e} ({card})")
+    for k, v in H.items():
+        if isinstance(k, int):
+            check(v["bitwise"], f"kernel H (n_fft={k}) differs between two "
+                  "runs")
+            check(v["rel"] < 2e-6, f"kernel H (n_fft={k}) rel {v['rel']:.3e}")
+    check(H["raises_without_spec"], "kernel H ran without its DftSpec")
     check(madH < 1e-5, f"istft(stft(x)) mad_rms {madH:.3e}")
-    del kH, pH, S, xr
+    msH, msH_plain, boundH, msH_lib = (H6["ms"], H6["plain_ms"], H6["bound"],
+                                       H6["library_ms"])
 
     # 11. the STFT family end to end: three requests
     t = np.arange(N) / 1000.0
@@ -929,7 +991,10 @@ def stft_phases(np, torch, dev, card, results):
         "stft": device_breakdown(torch, lambda: stft(x, n_fft=N_FFT), (
             ("F", ("stft_bluestein",)), K_PAD)),
         "ssq_stft": device_breakdown(torch, lambda: ssq_stft(
-            x, n_fft=N_FFT), (("G", ("ssq_stft_kernel",)), K_PAD))}
+            x, n_fft=N_FFT), (("G", ("ssq_stft_kernel",)), K_PAD)),
+        "istft": device_breakdown(torch, lambda: istft(
+            Sq, n_fft=N_FFT, N=N), (("H", ("istft_bluestein",
+                                           "ola_partials")), K_PAD))}
 
     # the device results against the CPU (plain-torch) results
     xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
@@ -1147,7 +1212,8 @@ def grad_phases(np, torch, dev, card, results, cwt):
             xk, K, N_FFT, N, fs=fs, spec=_dft_spec(*wins)), xk, g)
         gq, = torch.autograd.grad(stft_cuda.stft_dft_plain(
             xq, K, N_FFT, N, fs=fs), xq, g)
-        adj[f"F {rows} rows"] = rel(torch, gk, gq)
+        adj[f"F {rows} rows" + (" (two windows)" if dw else "")] = rel(
+            torch, gk, gq)
     S = stft(x, n_fft=N_FFT)
     Fr, Fs = _irfft_mats_weighted(N_FFT, True, _win_bytes(win), 1, dev)
     g = seeded((N + N_FFT - 1,))
@@ -1160,7 +1226,27 @@ def grad_phases(np, torch, dev, card, results, cwt):
     gq = torch.autograd.grad(stft_cuda.istft_ola_plain(*hq, Fr, Fs, N_FFT),
                              hq, g)
     adj["H"] = max(rel(torch, a, b) for a, b in zip(gk, gq))
-    del g, hk, hq, gk, gq, xk, xq
+    # ssq_stft's backward on an Sx cotangent (F recomputes the planes, C'
+    # takes a zero Tx cotangent, H the one-window structure of K_T's first
+    # 2 nf rows) against autograd of the plain planes
+    wins4 = (_win_bytes(win), _win_bytes(dwin), N_FFT, True)
+    K4 = _k_t(*wins4, dev)
+    nf4 = N_FFT // 2 + 1
+    Sfs4 = np.linspace(0, 0.5, nf4, dtype=np.float32)
+    const4, mode4, params4 = plan_reassignment(Sfs4, nf4, False,
+                                               transform="stft")
+    ssq_args = (N_FFT, N, 1.0, torch.as_tensor(Sfs4, device=dev),
+                torch.as_tensor(const4, dtype=f32, device=dev), gamma,
+                params4, mode4, False)
+    g = seeded((nf4, N, 2))
+    xk, xq = (xp.detach().clone().requires_grad_() for _ in range(2))
+    Sk = stft_cuda.ssq_stft_fused(xk, K4, *ssq_args,
+                                  spec=_dft_spec(*wins4))[1]
+    gk, = torch.autograd.grad((torch.view_as_real(Sk) * g).sum(), xk)
+    _, _, sqr, sqi = stft_cuda._ssq_stft_planes_plain(xq, K4, *ssq_args)
+    gq, = torch.autograd.grad((sqr * g[..., 0] + sqi * g[..., 1]).sum(), xq)
+    adj["ssq_stft (Sx)"] = rel(torch, gk, gq)
+    del g, hk, hq, gk, gq, xk, xq, Sk, sqr, sqi, K4
     for key, r in adj.items():
         check(r < 2e-6, f"{key} adjoint vs plain: rel {r:.3e}")
 
@@ -1342,11 +1428,24 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
     nr, ni = Z[:, -1].real.contiguous(), Z[:, -1].imag.contiguous()
     del Z
     spec = spectrum(Zr, Zi, nr, ni)
+    rowsE = Zr.shape[0]
+    for key, keep in (("E 160k bump", (n1, N)), ("E 160k bump all", (0, M))):
+        ea = (Zr, Zi, keep, nr, ni)
+        run = lambda: fft_cuda.ifft_halfband_planar(*ea)
+        DE[key] = hold(
+            key, run, lambda: fft_cuda.ifft_halfband_planar_plain(*ea), spec,
+            tensor_bytes(Zr, Zi, nr, ni), fft_flops(rowsE, M))
+        DE[key].update(M=M, keep=list(keep),
+                       chunk_rows=fft_cuda.d_chunk_rows(M, 1, rowsE))
+    # E's row chunks as D's with one pipeline: the same budget sweep
+    sweep, budget = {}, fft_cuda._D_Y_BYTES
     ea = (Zr, Zi, (n1, N), nr, ni)
-    DE["E 160k bump"] = hold(
-        "E", lambda: fft_cuda.ifft_halfband_planar(*ea),
-        lambda: fft_cuda.ifft_halfband_planar_plain(*ea), spec,
-        tensor_bytes(Zr, Zi, nr, ni), fft_flops(Zr.shape[0], M))
+    for mb in (10, 20, budget >> 20, 1 << 20):
+        fft_cuda._D_Y_BYTES = mb << 20
+        sweep[f"{mb} MB, {fft_cuda.d_chunk_rows(M, 1, rowsE)} rows"] = \
+            cuda_ms(torch, lambda: fft_cuda.ifft_halfband_planar(*ea))
+    fft_cuda._D_Y_BYTES = budget
+    DE["E 160k bump"]["budget_sweep_ms"] = sweep
     del spec, ea, Zr, Zi
     results["DE"] = DE
     print("[15] " + "; ".join(
@@ -1354,8 +1453,9 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
         f"{v['bitwise']} | {v['ms']:.3f} ms vs plain {v['plain_ms']:.3f}, "
         f"bound {v['bound_ms']:.3f} ({v['bound_by']}), torch.fft.ifft "
         f"{v['library_ms']:.3f}" + (
-            f", {v['chunk_rows']} rows a chunk; budgets " + ", ".join(
+            f", {v['chunk_rows']} rows a chunk" + ("; budgets " + ", ".join(
                 f"{b}: {t:.3f} ms" for b, t in v["budget_sweep_ms"].items())
+                if "budget_sweep_ms" in v else "")
             if "chunk_rows" in v else "")
         for k, v in DE.items()) + f" ({card})")
 
@@ -1435,6 +1535,10 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
     # and the psih evaluation's elementwise kernels; torch.complex)
     prof = device_breakdown(torch, lambda: calls["cwt"][0](x, 1.0),
                             (K_D, K_FFT, K_CPLX, K_PAD))
+    # the bump cwt: E runs D's two launches (same kernel names)
+    prof_bump = device_breakdown(
+        torch, lambda: calls["bump cwt"][0](x, 1.0),
+        (("E", K_D[1]), K_FFT, K_CPLX, K_PAD))
 
     # the device results against the CPU (plain-torch) results
     xs = np.random.default_rng(1).standard_normal((2, N_SMALL))
@@ -1458,7 +1562,7 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
     prof_line = breakdown_line(prof)
     results["cwt_e2e"] = dict(
         request_ms=req_ms, launches=launches, ridge_hz=f_ridge,
-        cwt_profile=prof,
+        cwt_profile=prof, bump_cwt_profile=prof_bump,
         ssq_peak_hz=f_ssq, icwt_mad_rms=icwt_mad,
         steady_ms={k: v[0] for k, v in steady.items()},
         steady_all={k: v[1] for k, v in steady.items()},
@@ -1467,7 +1571,8 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
           f"{f_ridge:.3f} Hz, ssq peak {f_ssq:.3f} Hz; icwt(cwt(x)) mad_rms "
           f"{icwt_mad:.3e}; steady " + ", ".join(
               f"{k} {v[0]:.2f} ms" for k, v in steady.items()) +
-          f" ({card}); cwt profile: {prof_line}; GPU vs CPU at "
+          f" ({card}); cwt profile: {prof_line}; bump cwt profile: "
+          f"{breakdown_line(prof_bump)}; GPU vs CPU at "
           f"N={N_SMALL}: " + ", ".join(
               f"{k} {v:.2e}" for k, v in small.items()) +
           f", Tx col {col_small:.2e}, total {tot_small:.2e}")
@@ -2055,8 +2160,8 @@ def probe_phases(np, torch, dev, card, results):
                                         for a, b in zip(x, y))
 
     # P1, P3: every variant against its plain twin, each bitwise
-    # repeated; P1 full and P3 staged (both D's earlier radix-2 design,
-    # which E keeps) bitwise to each other and within 1e-5 of D's plain
+    # repeated; P1 full and P3 staged (both D's earlier radix-2 design)
+    # bitwise to each other and within 1e-5 of D's plain
     P = {}
     args, keep = acw.make_inputs(dev, **{k: acw.HEADLINE[k]
                                          for k in ("na", "M", "L")})

@@ -1,8 +1,9 @@
 // Probes P1-P3: where kernel D's time went in its earlier radix-2 design
 // (the CWT planes with the derivative as two radix-2 launches through an
 // intermediate in device memory, cwt_planes.cuh), for sm_90a. D itself
-// runs on the register-radix core (cwt_planes.cu, fft_radix.cuh); these
-// probes still ablate the radix-2 design, which kernel E keeps.
+// and E run on the register-radix core (cwt_planes.cu, fft_radix.cuh);
+// these probes still ablate the radix-2 design, which no kernel on the
+// port's paths runs any more.
 //
 // They replace the TPU probes of tools/ablate_cwt_kernel.py and
 // tools/cwt_kernel_probe.py, which timed stripped variants of the fused

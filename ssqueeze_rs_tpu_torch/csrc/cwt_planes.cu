@@ -45,17 +45,25 @@
 //     wanted.
 //   * Z is never materialised (built from Pw and xhat while loading); all
 //     device-memory runs cover whole 32-byte sectors but launch 1's reads
-//     of Pw and xhat (16 bytes a run, the rest in the next block's run).
-// E keeps D's earlier design, cwt_planes.cuh / fft4.cuh (radix-2 columns,
-// Y through device memory), which the probes of csrc/ablate_cwt.cu ablate.
+//     of Pw and xhat with the derivative (16 bytes a run, the rest in the
+//     next block's run).
+// E runs the same two launches with one pipeline: only launch 1's loader
+// differs (a template parameter: D's builds Pw * xhat and dZ, E's reads
+// its row of the Z planes), and launch 2 takes E's Nyquist values as
+// pipeline 0's. E reads 8 bytes a point from device memory (two planes)
+// where D reads Pw and shares xhat between rows; a block of launch 1 holds
+// NCOL neighbouring k2 columns (8 at M1 = 512), so each plane's run is 32
+// bytes, one whole sector. The radix-2 four-step design both kernels ran
+// before (cwt_planes.cuh on fft4.cuh, Y through device memory) is kept
+// only for the probes of csrc/ablate_cwt.cu.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
 
-#include "cwt_planes.cuh"
 #include "fft_radix.cuh"
+#include "planes.cuh"
 
 namespace {
 
@@ -76,18 +84,70 @@ constexpr size_t core_smem() {
   return (size_t)(S::kTwFloat2 + S::kBufFloat2) * sizeof(float2);
 }
 
-// D, launch 1. Block (row `local` of the chunk, k2 group blockIdx.y): the
+// Launch 1's spectrum loaders: row(r, half) gives row r's view, whose z(g)
+// is Z at bin g = k1*M2 + k2 (and z2(g, z, dz) Z and dZ, for the
+// derivative). Reads go through the read-only path (__ldg).
+//
+// Kernel D: Z = Pw[ia] * xhat[ib] (row = ib*na + ia), dZ = (-Im Z, Re Z) *
+// xig / dt, built while loading.
+struct DLoad {
+  const float* Pw;
+  const float* xr;
+  const float* xi;
+  const float* xig;
+  float inv_dt;
+  int na;
+  struct Row {
+    const float* pw;
+    const float* sr;
+    const float* si;
+    const float* xig;
+    float inv_dt;
+    __device__ float2 z(long long g) const {
+      const float p = __ldg(pw + g);
+      return make_float2(p * __ldg(sr + g), p * __ldg(si + g));
+    }
+    __device__ void z2(long long g, float2& z, float2& dz) const {
+      const float p = __ldg(pw + g);
+      const float zr = p * __ldg(sr + g);
+      const float zi = p * __ldg(si + g);
+      const float s = __ldg(xig + g) * inv_dt;
+      z = make_float2(zr, zi);
+      dz = make_float2(-zi * s, zr * s);
+    }
+  };
+  __device__ Row row(long long r, long long half) const {
+    const long long ia = r % na, ib = r / na;
+    return {Pw + ia * half, xr + ib * half, xi + ib * half, xig, inv_dt};
+  }
+};
+
+// Kernel E: Z read from the row's planes (rows, K1, M2).
+struct ELoad {
+  const float* Zr;
+  const float* Zi;
+  struct Row {
+    const float* zr;
+    const float* zi;
+    __device__ float2 z(long long g) const {
+      return make_float2(__ldg(zr + g), __ldg(zi + g));
+    }
+  };
+  __device__ Row row(long long r, long long half) const {
+    return {Zr + r * half, Zi + r * half};
+  }
+};
+
+// Launch 1. Block (row `local` of the chunk, k2 group blockIdx.y): the
 // core's NCOL columns are (pipe, k2) pairs, pipe-major, NK = NCOL / P k2
 // columns a block. Column (p, k2) is Z (p = 0) or dZ (p = 1) at
 // k1*M2 + k2, k1 < M1/2. With the derivative a thread's two slots hold
 // the two pipelines of one column (slot-major), which load Pw, xhat and
 // the grid once.
-template <int LOGM1, int P>
+template <int LOGM1, int P, class Load>
 __global__ void __launch_bounds__(fftr::kThreads)
-cwt_d_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
-             const float* __restrict__ xi, const float* __restrict__ xig,
-             float inv_dt, int na, int logM2, float2* __restrict__ Y,
-             long long row0, long long nrows) {
+cwt_d_stage1(Load load, int logM2, float2* __restrict__ Y, long long row0,
+             long long nrows) {
   // the derivative's two pipelines of a column in one thread's two slots
   constexpr bool PAIR = P == 2;
   using S = fftr::Shape<LOGM1, PAIR>;
@@ -99,12 +159,7 @@ cwt_d_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
   const int M2 = 1 << logM2;
   constexpr int K1 = S::P / 2;
   const long long local = blockIdx.x;
-  const long long row = row0 + local;
-  const long long ia = row % na, ib = row / na;
-  const long long half = (long long)K1 * M2;
-  const float* pw = Pw + ia * half;
-  const float* sr = xr + ib * half;
-  const float* si = xi + ib * half;
+  const auto src = load.row(row0 + local, (long long)K1 * M2);
   fftr::fill_twiddles<LOGM1>(tw);
 
   int col[S::U], lane[S::U];
@@ -118,15 +173,7 @@ cwt_d_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
     for (int q = 0; q < S::E; ++q) {
       const int k1 = lane[0] + q * S::TPC;
       float2 z = make_float2(0.f, 0.f), dz = z;
-      if (k2 < M2 && k1 < K1) {
-        const long long g = (long long)k1 * M2 + k2;
-        const float p = pw[g];
-        const float zr = p * sr[g];
-        const float zi = p * si[g];
-        const float s = xig[g] * inv_dt;
-        z = make_float2(zr, zi);
-        dz = make_float2(-zi * s, zr * s);
-      }
+      if (k2 < M2 && k1 < K1) src.z2((long long)k1 * M2 + k2, z, dz);
       v[0][q] = z;
       v[1][q] = dz;
     }
@@ -137,13 +184,8 @@ cwt_d_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
 #pragma unroll
       for (int q = 0; q < S::E; ++q) {
         const int k1 = lane[u] + q * S::TPC;
-        float2 z = make_float2(0.f, 0.f);
-        if (k2 < M2 && k1 < K1) {
-          const long long g = (long long)k1 * M2 + k2;
-          const float p = pw[g];
-          z = make_float2(p * sr[g], p * si[g]);
-        }
-        v[u][q] = z;
+        v[u][q] = k2 < M2 && k1 < K1 ? src.z((long long)k1 * M2 + k2)
+                                     : make_float2(0.f, 0.f);
       }
     }
   }
@@ -175,7 +217,7 @@ cwt_d_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
   }
 }
 
-// D, launch 2. Block (row `local`, n1 group blockIdx.y, pipe blockIdx.z):
+// Launch 2. Block (row `local`, n1 group blockIdx.y, pipe blockIdx.z):
 // the core's NCOL columns are n1 rows of Y; outputs n2 in the rows that
 // cover the keep window go to planes (o[2p], o[2p+1]) with the Nyquist term.
 template <int LOGM2>
@@ -234,21 +276,24 @@ cwt_d_stage2(const float2* __restrict__ Y, Planes pl, int logM1, int start,
   }
 }
 
-template <int P>
-int cwt_planes_d(const float* Pw, const float* xr, const float* xi,
-                 const float* xig, float inv_dt, Planes pl, long long rows,
-                 int na, int logM1, int logM2, int start, int L, float2* Y,
-                 long long ychunk, cudaStream_t st) {
+// Both launches over the rows, ychunk rows at a time (Y: scratch of
+// P*ychunk*M float2), pipeline 0 (and 1) from `load`.
+template <int P, class Load>
+int run_planes(Load load, Planes pl, long long rows, int logM1, int logM2,
+               int start, int L, float2* Y, long long ychunk,
+               cudaStream_t st) {
+  if (ychunk < 1 || logM1 < 1 || logM2 < 1 || logM1 > 11 || logM2 > 11)
+    return (int)cudaErrorInvalidValue;
   const int M1 = 1 << logM1, M2 = 1 << logM2;
   // both launches' instances, shared memory and columns a block, resolved
   // once for every chunk
-  decltype(&cwt_d_stage1<1, P>) k1 = nullptr;
+  decltype(&cwt_d_stage1<1, P, Load>) k1 = nullptr;
   decltype(&cwt_d_stage2<1>) k2 = nullptr;
   size_t s1 = 0, s2 = 0;
   int nk = 1, nc = 1;
   cudaError_t err = dispatch_log<1, 11>(logM1, [&](auto c) {
     constexpr int LOG = decltype(c)::value;
-    k1 = cwt_d_stage1<LOG, P>;
+    k1 = cwt_d_stage1<LOG, P, Load>;
     s1 = core_smem<LOG, P == 2>();
     nk = fftr::Shape<LOG, P == 2>::NCOL / P;
     return cudaFuncSetAttribute(
@@ -267,7 +312,7 @@ int cwt_planes_d(const float* Pw, const float* xr, const float* xi,
   for (long long row0 = 0; row0 < rows; row0 += ychunk) {
     const long long nr = rows - row0 < ychunk ? rows - row0 : ychunk;
     k1<<<dim3((unsigned)nr, (M2 + nk - 1) / nk), fftr::kThreads, s1, st>>>(
-        Pw, xr, xi, xig, inv_dt, na, logM2, Y, row0, nr);
+        load, logM2, Y, row0, nr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     k2<<<dim3((unsigned)nr, (M1 + nc - 1) / nc, P), fftr::kThreads, s2,
@@ -276,23 +321,6 @@ int cwt_planes_d(const float* Pw, const float* xr, const float* xi,
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
-}
-
-// E, launch 1: Z planes (rows, K1, M2) from device memory.
-__global__ void __launch_bounds__(kThreads)
-ifft_planes_stage1(const float* __restrict__ Zr, const float* __restrict__ Zi,
-                   int logM1, int M2, int tk2, float2* __restrict__ Y,
-                   long long row0, long long nrows) {
-  extern __shared__ float2 sm[];
-  const long long half = (long long)((1 << logM1) >> 1) * M2;
-  const long long local = blockIdx.x;
-  const float* zr = Zr + (row0 + local) * half;
-  const float* zi = Zi + (row0 + local) * half;
-  auto load = [&](long long g, float2* z) {
-    z[0] = make_float2(zr[g], zi[g]);
-  };
-  fft4::stage1<1>(sm, load, logM1, M2, tk2, blockIdx.y * tk2, Y, local,
-                  nrows);
 }
 
 }  // namespace
@@ -310,45 +338,25 @@ extern "C" int ssq_cwt_planes(const float* Pw, const float* xr,
                               int start, int L, int derivative, void* Y,
                               long long ychunk, float* owr, float* owi,
                               float* odr, float* odi, void* stream) {
-  if (ychunk < 1 || logM1 < 1 || logM2 < 1 || logM1 > 11 || logM2 > 11)
-    return (int)cudaErrorInvalidValue;
+  const DLoad load = {Pw, xr, xi, xig, inv_dt, na};
   Planes pl = {{nwr, nwi, ndr, ndi}, {owr, owi, odr, odi}};
   cudaStream_t st = (cudaStream_t)stream;
   if (derivative)
-    return cwt_planes_d<2>(Pw, xr, xi, xig, inv_dt, pl, rows, na, logM1,
-                           logM2, start, L, (float2*)Y, ychunk, st);
-  return cwt_planes_d<1>(Pw, xr, xi, xig, inv_dt, pl, rows, na, logM1, logM2,
-                         start, L, (float2*)Y, ychunk, st);
+    return run_planes<2>(load, pl, rows, logM1, logM2, start, L, (float2*)Y,
+                         ychunk, st);
+  return run_planes<1>(load, pl, rows, logM1, logM2, start, L, (float2*)Y,
+                       ychunk, st);
 }
 
 // Kernel E. Zr, Zi: (rows, K1, M2); nr, ni: (rows,); Y: scratch of
-// ychunk*M float2. Returns cudaGetLastError() after the launches.
+// ychunk*M float2 (the caller sizes the chunk as D's, so that Y stays in
+// L2). Returns cudaGetLastError() after the launches.
 extern "C" int ssq_ifft_halfband(const float* Zr, const float* Zi,
                                  const float* nr, const float* ni,
                                  long long rows, int logM1, int logM2,
                                  int start, int L, void* Y, long long ychunk,
                                  float* outr, float* outi, void* stream) {
-  if (ychunk < 1) return (int)cudaErrorInvalidValue;
   Planes pl = {{nr, ni, nullptr, nullptr}, {outr, outi, nullptr, nullptr}};
-  cudaStream_t st = (cudaStream_t)stream;
-  Plan plan;
-  cudaError_t err = plan_launches(ifft_planes_stage1,
-                                  planes_stage2<1, fft4::kFull>, logM1, logM2,
-                                  1, &plan);
-  if (err != cudaSuccess) return (int)err;
-  const int M1 = 1 << logM1, M2 = 1 << logM2;
-  for (long long row0 = 0; row0 < rows; row0 += ychunk) {
-    const long long nrw = rows - row0 < ychunk ? rows - row0 : ychunk;
-    ifft_planes_stage1<<<dim3((unsigned)nrw, M2 / plan.tk2), kThreads,
-                         plan.smem1, st>>>(Zr, Zi, logM1, M2, plan.tk2,
-                                           (float2*)Y, row0, nrw);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    planes_stage2<1, fft4::kFull><<<dim3((unsigned)nrw, M1 / plan.tn1),
-                                    kThreads, plan.smem2, st>>>(
-        (const float2*)Y, pl, logM1, logM2, plan.tn1, start, L, row0, nrw);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return run_planes<1>(ELoad{Zr, Zi}, pl, rows, logM1, logM2, start, L,
+                       (float2*)Y, ychunk, (cudaStream_t)stream);
 }

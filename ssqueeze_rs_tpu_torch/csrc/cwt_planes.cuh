@@ -1,7 +1,9 @@
-// Kernel D's two launches (the CWT planes of csrc/cwt_planes.cu), shared
-// with the probes of csrc/ablate_cwt.cu. Every kernel and host helper takes
-// a set of flags V: fft4::Ablate's (the pipeline's parts) and the two
-// below (the kernel's loader and epilogue). D itself is V = fft4::kFull.
+// Kernel D's two launches as they were before D and E moved onto the
+// register-radix core (radix-2 four-step on fft4.cuh, Y through device
+// memory), kept for the probes of csrc/ablate_cwt.cu, which ablate them.
+// Every kernel and host helper takes a set of flags V: fft4::Ablate's (the
+// pipeline's parts) and the two below (the kernel's loader and epilogue).
+// The design in full is V = fft4::kFull.
 // The code lives in an anonymous namespace so that each source that
 // includes it compiles its own instances.
 #pragma once
@@ -10,6 +12,7 @@
 #include <math.h>
 
 #include "fft4.cuh"
+#include "planes.cuh"
 
 namespace {
 
@@ -53,14 +56,7 @@ cwt_planes_stage1(const float* __restrict__ Pw, const float* __restrict__ xr,
                      nrows);
 }
 
-// Launch 2: pipeline p's kept outputs plus its Nyquist term go to planes
-// (o[2p], o[2p+1]); nyq[2p], nyq[2p+1] are its (rows,) Nyquist real and
-// imaginary values.
-struct Planes {
-  const float* nyq[4];
-  float* o[4];
-};
-
+// Launch 2: pipeline p's kept outputs plus its Nyquist term (planes.cuh).
 template <int P, unsigned V>
 __global__ void __launch_bounds__(kThreads)
 planes_stage2(const float2* __restrict__ Y, Planes pl, int logM1, int logM2,

@@ -11,14 +11,19 @@
     linear bins and the deterministic reassignment in one kernel; replaces
     `_make_ssq_stft_kernel`.
   * `istft_ola` (H, ``csrc/istft_ola.cu``): irfft product + overlap-add;
-    replaces `_make_istft_kernel`.
+    replaces `_make_istft_kernel`. The plain version is the two products
+    with Fr, Fs and a slice-add overlap-add; the kernel computes F's
+    adjoint from the same structure (the `DftSpec` of [Fr^T; -Fs^T]): a
+    chirp-z transform a frame on F's tables, run backwards, and an
+    overlap-add in a fixed order.
 
 Each wrapper dispatches on the device of its inputs: on a CUDA tensor it
-launches its kernel or raises (F also when the caller gives no `DftSpec`);
-on a CPU tensor it runs its plain-torch version (beside it, `*_plain`).
+launches its kernel or raises (F and H also when the caller gives no
+`DftSpec`); on a CPU tensor it runs its plain-torch version (beside it,
+`*_plain`).
 `LAUNCHES` counts kernel launches per kernel. The gates
 `ssq_stft_fused_ok` and `istft_ola_ok` decide from shapes alone whether a
-kernel's shared-memory plan fits.
+kernel takes an n_fft (G's shared-memory plan, H's transform length).
 
 Gradients follow the JAX package's custom VJPs, with no kernel of their
 own: F and H are linear and each one's adjoint is the other's math, so
@@ -49,9 +54,8 @@ __all__ = ["DftSpec", "bluestein_tables", "stft_dft", "stft_dft_plain",
 LAUNCHES = {"stft_dft": 0, "ssq_stft": 0, "istft_ola": 0}
 _BK = 16            # taps per K tile (csrc/dft_tile.cuh kBK)
 _G_R = 64           # frequency rows per plane per chunk of kernel G
-_H_T = 1536         # samples per block of kernel H
-_H_KC = 4           # frequency rows per stage of kernel H
-_H_SLICES = 8       # frequency slices of kernel H
+_H_FRAMES = 64      # frames a block of kernel H (csrc/istft_ola.cu kFrames)
+_MAX_Q = 4096       # the register-radix core's largest transform
 
 
 def _taps(n_fft: int) -> int:
@@ -135,6 +139,12 @@ def _chirp(m, n):
     return np.exp(-1j * np.pi * ((m * m) % (2 * n)) / n)
 
 
+def _bluestein_q(n_fft: int) -> int:
+    """Q of the chirp-z transform at n_fft: the power of two >= n_fft +
+    nf - 1, at least 4."""
+    return 1 << max(2, (n_fft + n_fft // 2 - 1).bit_length())
+
+
 @lru_cache(maxsize=64)
 def bluestein_tables(spec: DftSpec):
     """Kernel F's host tables for `spec`, float64 then complex64: Q (the
@@ -143,7 +153,7 @@ def bluestein_tables(spec: DftSpec):
     conj chirp(m) at m in (-n_fft, nf), and D (nf,) = c_k chirp(k). Then
     X_w[k] = D[k] IFFT_Q(FFT_Q(A_w x) B)[k] Q (unnormalised inverse)."""
     n, nf = spec.n_fft, spec.nf
-    Q = 1 << max(2, (n + nf - 2).bit_length())
+    Q = _bluestein_q(n)
     A = np.stack([np.frombuffer(w, np.float64) * _chirp(np.arange(n), n)
                   for w in spec.windows])
     b = np.zeros(Q, np.complex128)
@@ -205,28 +215,30 @@ def _stft_dft_cuda(device, xp, K_T, n_fft, n_out, fs, spec):
     return out.reshape(batch + (rows, n_out))
 
 
-def stft_dft_vjp(g, K_T, n_fft: int, fs=None):
+def stft_dft_vjp(g, K_T, n_fft: int, fs=None, spec=None):
     """Adjoint of `stft_dft` in xp (the JAX package's `_stft_fused_bwd`):
     the transposed DFT, then overlap-add, gx[c] = sum_t (K_T^T g')[t, c-t]
     with g' = g, its derivative rows times fs. That is kernel H's math
-    with Fr = K_T[:R/2]^T, Sr = g'[:R/2], Fs = -K_T[R/2:]^T, Si = g'[R/2:],
-    so it runs `istft_ola` (H on CUDA, the plain version on the CPU).
+    with Fr = K_T[:R/2]^T, Sr = g'[:R/2], Fs = -K_T[R/2:]^T, Si = g'[R/2:]
+    ([Fr^T; -Fs^T] is K_T itself, so its structure is F's `spec`), so it
+    runs `istft_ola` (H on CUDA, the plain version on the CPU).
     g: (..., R, n_out); returns (..., n_out + n_fft - 1)."""
     h = K_T.shape[0] // 2
     gs, gd = g[..., :h, :], g[..., h:, :]
     if fs is not None:
         gd = gd * fs
-    return istft_ola(gs, gd, K_T[:h].t(), -K_T[h:].t(), n_fft)
+    return istft_ola(gs, gd, K_T[:h].t(), -K_T[h:].t(), n_fft, adjoint=spec)
 
 
 class StftDftFn(torch.autograd.Function):
     """Kernel F with the JAX package's gradient: linear in xp, backward
-    `stft_dft_vjp` (kernel H); K_T gets zero."""
+    `stft_dft_vjp` (kernel H, on the forward's structure); K_T gets
+    zero."""
 
     @staticmethod
     def forward(ctx, xp, K_T, n_fft, n_out, fs, spec):
         ctx.save_for_backward(K_T)
-        ctx.meta = (n_fft, fs)
+        ctx.meta = (n_fft, fs, spec)
         if xp.device.type == "cuda":
             return _stft_dft_cuda(xp.device, xp, K_T, n_fft, n_out, fs, spec)
         return stft_dft_plain(xp, K_T, n_fft, n_out, fs)
@@ -331,7 +343,8 @@ class SsqStftFusedFn(torch.autograd.Function):
     """Kernel G with the JAX package's gradient (`_ssq_mega_bwd`, the
     two-kernel route's VJP): the backward recomputes F's four planes
     (kernel F), runs the 4-plane VJP gather C' on the Tx cotangents, adds
-    the Sx cotangents and takes F's adjoint over the Sx rows (kernel H).
+    the Sx cotangents and takes F's adjoint over the Sx rows (kernel H, on
+    the structure of the first window).
     The dS rows, fs, const and Sfs get zero. Saves xp, K_T, Sfs and const
     (the JAX residuals). Returns the planes (Txr, Txi, Sxr, Sxi)."""
 
@@ -358,8 +371,12 @@ class SsqStftFusedFn(torch.autograd.Function):
         gwr, gwi = reassign4_bwd(sxr, sxi, dsr, dsi, const, Sfs, gtxr, gtxi,
                                  gamma, plan_params, mode, flipud, nf, "stft")
         del sxr, sxi, dsr, dsi
+        # [Fr^T; -Fs^T] = K_T's first 2 nf rows: the spec's first window
+        spec = ctx.spec
+        adjoint = None if spec is None else DftSpec(
+            spec.n_fft, spec.windows[:1], spec.modulated, spec.weights)
         gxp = istft_ola(gsxr + gwr, gsxi + gwi, K_T[:nf].t(),
-                        -K_T[nf:2 * nf].t(), n_fft)
+                        -K_T[nf:2 * nf].t(), n_fft, adjoint=adjoint)
         return (gxp, *_zeros_for(ctx, [(1, K_T)]), None, None, None,
                 *_zeros_for(ctx, [(5, Sfs), (6, const)]), None, None, None,
                 None, None)
@@ -373,7 +390,7 @@ def ssq_stft_fused(xp, K_T, n_fft: int, n_out: int, fs, Sfs, const, gamma,
     xp: (..., n_out + n_fft - 1) float32; K_T: (4 nf, n_fft) stacked
     [Sr; Si; dSr; dSi] DFT matrices (fs not folded in); Sfs, const: (nf,);
     entries with |Sx|^2 <= gamma^2 are masked; `spec`: the `DftSpec` of
-    K_T, which the backward's kernel F needs on CUDA. Returns complex64
+    K_T, which the backward's kernels F and H need on CUDA. Returns complex64
     (Tx, Sx), each (..., nf, n_out). Differentiable in xp
     (`SsqStftFusedFn`)."""
     device = _device_of(xp)
@@ -391,7 +408,7 @@ def ssq_stft_fused(xp, K_T, n_fft: int, n_out: int, fs, Sfs, const, gamma,
     return torch.complex(txr, txi), torch.complex(sxr, sxi)
 
 
-# -- H: irfft product + overlap-add --------------------------------------------
+# -- H: irfft product + overlap-add -------------------------------------------
 def ola_plain(v, hop: int, out_len: int):
     """Overlap-add of the columns of v (..., n_fft, n_segs):
     out[..., t + i*hop] += v[..., t, i], one strided slice-add per t in
@@ -406,11 +423,11 @@ def ola_plain(v, hop: int, out_len: int):
 
 
 def istft_ola_ok(n_fft: int) -> bool:
-    """Whether kernel H's shared-memory plan (csrc/istft_ola.cu: 4 rows of
-    both Sx planes over 1536 + NP columns and of both F' over NP taps)
-    fits at this n_fft (decided by shape alone)."""
-    NP = _taps(n_fft)
-    return 4 * 2 * _H_KC * (_H_T + 2 * NP) <= MAX_SMEM
+    """Whether kernel H takes this n_fft (decided by shape alone): its
+    chirp-z transform of Q >= n_fft + nf - 1 points fits the
+    register-radix core (Q <= 4096, so n_fft <= 2731; the shared memory
+    then holds the core's buffers, the frame buffer and the span)."""
+    return _bluestein_q(n_fft) <= _MAX_Q
 
 
 def istft_ola_plain(Sr, Si, Fr, Fs, n_fft):
@@ -419,27 +436,42 @@ def istft_ola_plain(Sr, Si, Fr, Fs, n_fft):
     return ola_plain(v, 1, v.shape[-1] + n_fft - 1)
 
 
-def _istft_ola_cuda(device, Sr, Si, Fr, Fs, n_fft):
-    from .. import _build
+def _check_adjoint(spec, Sr, n_fft):
+    """Kernel H computes from the structure of [Fr^T; -Fs^T]: raise
+    without one, or on one whose shape does not match the planes."""
+    if spec is None:
+        raise ValueError("istft_ola on CUDA computes from the DFT's "
+                         "structure: pass the DftSpec of [Fr^T; -Fs^T] "
+                         "(adjoint=)")
+    if spec.n_fft != n_fft or spec.rows != 2 * Sr.shape[-2] or \
+            len(spec.windows) not in (1, 2):
+        raise ValueError(f"istft_ola: adjoint (n_fft={spec.n_fft}, "
+                         f"{spec.rows} rows) does not match the planes "
+                         f"{tuple(Sr.shape)} (n_fft={n_fft})")
     if not istft_ola_ok(n_fft):
         raise ValueError(f"istft_ola: n_fft={n_fft} does not fit the "
-                         "kernel's shared memory (see istft_ola_ok)")
-    nf, n_segs = Sr.shape[-2:]
+                         "kernel (see istft_ola_ok)")
+
+
+def _istft_ola_cuda(device, Sr, Si, n_fft, spec):
+    from .. import _build
+    _check_adjoint(spec, Sr, n_fft)
+    Q, A, Bt, D = _tables_on(spec, device)
+    h, n_segs = Sr.shape[-2:]
     batch = tuple(Sr.shape[:-2])
     B = int(np.prod(batch)) if batch else 1
-    NP = _taps(n_fft)
-    frT, fsT = (nnf.pad(F.t(), (0, NP - n_fft)).contiguous() for F in (Fr, Fs))
-    k_slice = _H_KC * -(-nf // (_H_KC * _H_SLICES))
-    nslices = -(-nf // k_slice)
     L = n_segs + n_fft - 1
-    sr, si = (a.reshape(B, nf, n_segs).contiguous() for a in (Sr, Si))
-    part = torch.empty((nslices, B, L), dtype=torch.float32, device=device)
+    sr, si = (a.reshape(B, h, n_segs).contiguous() for a in (Sr, Si))
+    nblk = -(-n_segs // _H_FRAMES)
+    part = torch.empty((B, nblk, _H_FRAMES + n_fft - 1), dtype=torch.float32,
+                       device=device)
     out = torch.empty((B, L), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = _build.lib().ssq_istft_ola(
-            sr.data_ptr(), si.data_ptr(), frT.data_ptr(), fsT.data_ptr(), B,
-            nf, n_segs, NP, L, k_slice, nslices, part.data_ptr(),
-            out.data_ptr(), _stream(device))
+            sr.data_ptr(), si.data_ptr(), A.data_ptr(), Bt.data_ptr(),
+            D.data_ptr(), B, h, n_segs, n_fft, spec.nf, len(spec.windows),
+            Q.bit_length() - 1, part.data_ptr(), out.data_ptr(),
+            _stream(device))
     _build.check(err, "istft_ola kernel")
     LAUNCHES["istft_ola"] += 1
     return out.reshape(batch + (L,))
@@ -462,14 +494,15 @@ def istft_ola_vjp(g, Fr, Fs, n_fft: int, adjoint=None):
 
 class IstftOlaFn(torch.autograd.Function):
     """Kernel H with the JAX package's gradient: linear in (Sr, Si),
-    backward `istft_ola_vjp` (kernel F); Fr and Fs get zero."""
+    backward `istft_ola_vjp` (kernel F; both on the structure `adjoint`);
+    Fr and Fs get zero."""
 
     @staticmethod
     def forward(ctx, Sr, Si, Fr, Fs, n_fft, adjoint):
         ctx.save_for_backward(Fr, Fs)
         ctx.n_fft, ctx.adjoint = n_fft, adjoint
         if Sr.device.type == "cuda":
-            return _istft_ola_cuda(Sr.device, Sr, Si, Fr, Fs, n_fft)
+            return _istft_ola_cuda(Sr.device, Sr, Si, n_fft, adjoint)
         return istft_ola_plain(Sr, Si, Fr, Fs, n_fft)
 
     @staticmethod
@@ -487,8 +520,9 @@ def istft_ola(Sr, Si, Fr, Fs, n_fft: int, adjoint=None):
     matrices with the window^win_exp factor folded into their rows.
     Returns (..., n_segs + n_fft - 1) float32, before the window-norm
     division: out[c] = sum_t (Fr @ Sr - Fs @ Si)[t, c - t]. `adjoint`: the
-    `DftSpec` of [Fr^T; -Fs^T], which the backward's kernel F needs on
-    CUDA. Differentiable in (Sr, Si) (`IstftOlaFn`)."""
+    `DftSpec` of [Fr^T; -Fs^T], which kernel H and the backward's kernel F
+    compute from (needed on CUDA; the plain version takes Fr, Fs).
+    Differentiable in (Sr, Si) (`IstftOlaFn`)."""
     device = _device_of(Sr)
     Sr, Si, Fr, Fs = (_f32(a, device) for a in (Sr, Si, Fr, Fs))
     nf = Sr.shape[-2]

@@ -5,11 +5,12 @@ counterparts of the TPU probe ``tools/ablate_cwt_kernel.py``.
 
 Kernel D's earlier radix-2 design (the CWT planes with the derivative as
 two radix-2 launches through an intermediate in device memory,
-``csrc/cwt_planes.cuh`` on ``fft4.cuh``, which kernel E keeps; D itself
-runs on the register-radix core ``fft_radix.cuh``) at the cwt headline: 293 rows, M = 2^18 = 512 x 512,
-160 000 kept columns, random Pw, x, xig and Nyquist values from a seed. Every variant below
-computes wrong math by design and keeps the memory traffic of what it
-does not remove, so (full - variant) is the cost of what it removed:
+``csrc/cwt_planes.cuh`` on ``fft4.cuh``; D and E themselves run on the
+register-radix core ``fft_radix.cuh``) at the cwt headline: 293 rows, M =
+2^18 = 512 x 512, 160 000 kept columns, random Pw, x, xig and Nyquist
+values from a seed. Every variant below computes wrong math by design
+and keeps the memory traffic of what it does not remove, so (full -
+variant) is the cost of what it removed:
 
   P1 `ablate_cwt` (the TPU `_make_kernel(R, off, ablate)`): the radix-2
   design's launches with parts taken out.

@@ -40,7 +40,7 @@ def test_library_name_follows_source_content(src_tree):
                                   "ablate_reassign.cu", "mma.cuh",
                                   "grid_slope.cu", "rate_probe.cu",
                                   "dma_overlap.cu", "mxu_probe.cu",
-                                  "fft_radix.cuh"])
+                                  "fft_radix.cuh", "planes.cuh"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -81,20 +81,25 @@ def test_tensor_core_helpers_are_shared():
 
 
 def test_cwt_kernels_share_the_four_step_header():
-    """Kernels D (cwt_planes.cu) and F (stft_dft.cu) run on the
-    register-radix core (fft_radix.cuh); A (cwt_phase.cu), E (through
-    cwt_planes.cuh, in cwt_planes.cu) and the probes P1-P3 (ablate_cwt.cu,
-    through cwt_planes.cuh) keep the radix-2 four-step header fft4.cuh. The
-    build hashes every header with the sources; B''s scatter
-    (reassign.cuh) is shared with its probe."""
+    """Kernels D and E (cwt_planes.cu, one pair of launches whose first
+    takes a loader), F (stft_dft.cu) and H (istft_ola.cu) run on the
+    register-radix core (fft_radix.cuh); only A (cwt_phase.cu) and the
+    probes P1-P3 (ablate_cwt.cu, through cwt_planes.cuh) keep the radix-2
+    four-step header fft4.cuh. The second launches' output planes
+    (planes.cuh) are shared by cwt_planes.cu and cwt_planes.cuh. The build
+    hashes every header with the sources; B''s scatter (reassign.cuh) is
+    shared with its probe."""
+    import re
     sources = [os.path.basename(p) for p in _build._sources()]
-    assert {"fft4.cuh", "fft_radix.cuh", "cwt_planes.cuh",
+    assert {"fft4.cuh", "fft_radix.cuh", "cwt_planes.cuh", "planes.cuh",
             "reassign.cuh"} <= set(sources)
     for name, header in (("cwt_phase.cu", "fft4.cuh"),
                          ("cwt_planes.cuh", "fft4.cuh"),
-                         ("cwt_planes.cu", "cwt_planes.cuh"),
+                         ("cwt_planes.cuh", "planes.cuh"),
+                         ("cwt_planes.cu", "planes.cuh"),
                          ("cwt_planes.cu", "fft_radix.cuh"),
                          ("stft_dft.cu", "fft_radix.cuh"),
+                         ("istft_ola.cu", "fft_radix.cuh"),
                          ("ablate_cwt.cu", "cwt_planes.cuh"),
                          ("reassign.cu", "reassign.cuh"),
                          ("ablate_reassign.cu", "reassign.cuh")):
@@ -103,16 +108,28 @@ def test_cwt_kernels_share_the_four_step_header():
     for name in ("cwt_phase.cu", "ablate_cwt.cu", "cwt_planes.cuh"):
         with open(os.path.join(_build.CSRC, name)) as f:
             assert '#include "fft_radix.cuh"' not in f.read(), name
-    with open(os.path.join(_build.CSRC, "stft_dft.cu")) as f:
-        assert '#include "dft_tile.cuh"' not in f.read()
+    with open(os.path.join(_build.CSRC, "cwt_planes.cu")) as f:
+        text = f.read()
+    for header in ("cwt_planes.cuh", "fft4.cuh"):
+        assert f'#include "{header}"' not in text
+    # E has no stage kernel of its own: the file's kernels are D's pair
+    kernel = r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\("
+    assert re.findall(kernel, text) == ["cwt_d_stage1", "cwt_d_stage2"]
+    for name in ("stft_dft.cu", "istft_ola.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text = f.read()
+        assert '#include "dft_tile.cuh"' not in text, name
+        assert "atomicAdd" not in text, name
     # 23 and 14 parameters (D: planes, E: given Z planes); P1 takes D's
     # with the variant for the derivative flag, P3 D's without it; F 15
-    # (the signal, its three Bluestein tables, shapes, fs, the planes)
+    # (the signal, its three Bluestein tables, shapes, fs, the planes); H
+    # 15 (the two planes, F's three tables, shapes, the partials, out)
     assert len(_build._SIGNATURES["ssq_cwt_planes"]) == 23
     assert len(_build._SIGNATURES["ssq_ifft_halfband"]) == 14
     assert len(_build._SIGNATURES["ssq_ablate_cwt"]) == 23
     assert len(_build._SIGNATURES["ssq_cwt_staged"]) == 22
     assert len(_build._SIGNATURES["ssq_stft_dft"]) == 15
+    assert len(_build._SIGNATURES["ssq_istft_ola"]) == 15
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

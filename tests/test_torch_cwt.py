@@ -741,13 +741,97 @@ def test_radix_core_layout_is_free_of_bank_conflicts(P, pair):
     assert bank_ways(P, pair) == 1
 
 
+def model_e_route(Zr, Zi, nr, ni, keep):
+    """Kernel E's route in numpy (complex128): D's launch 1 over each row's
+    k2 columns with E's loader (Z[k1, k2] from the row's planes, k1 <
+    M1/2, the rest zero), the core's schedule `model_fft` (sign +, only
+    the first M1/2 inputs read), the twiddle e^(2 pi i n1 k2 / M) into
+    Y[n1, k2]; D's launch 2 over the n1 rows of Y, `model_fft` wanting
+    only the n2 in [r0, r1) that cover the keep window, and the store
+    j = n1 + M1 n2 - start of (v + nyq (-1)^n1) / M (csrc/cwt_planes.cu
+    cwt_d_stage1 / cwt_d_stage2). Returns (rows, L) complex."""
+    B, K1, M2 = Zr.shape
+    M1 = 2 * K1
+    M, log1 = M1 * M2, _log(M1)
+    start, L = keep
+    cols = np.zeros((B, M2, M1), complex)
+    cols[..., :K1] = (Zr + 1j * Zi.astype(np.float64)).transpose(0, 2, 1)
+    n1, k2 = np.arange(M1), np.arange(M2)
+    Y = (model_fft(cols, 1, n_in=K1) *
+         np.exp(2j * np.pi * np.outer(k2, n1) / M)).transpose(0, 2, 1)
+    r0, r1 = start >> log1, ((start + L - 1) >> log1) + 1
+    V = model_fft(Y, 1, lo=r0, hi=r1)                  # (B, n1, n2)
+    nyq = (nr + 1j * ni.astype(np.float64))[:, None]
+    out = np.zeros((B, L), complex)
+    for n2 in range(r0, r1):
+        j = n1 + M1 * n2 - start
+        ok = (j >= 0) & (j < L)
+        out[:, j[ok]] = (V[:, n1[ok], n2] +
+                         nyq * np.where(n1[ok] % 2, -1, 1)) / M
+    return out
+
+
+@pytest.mark.parametrize("keep", [(0, 1 << 14), (3000, 9000)],
+                         ids=["all", "window"])
+def test_e_route_model_matches_plain_and_jax(keep):
+    """Kernel E's route (D's launch pair with E's loader and Nyquist
+    term, `model_e_route`) at N = 9000 (M = 2^14 = 128 x 128), keep
+    (0, M) and a window from a nonzero start: within 1e-5 of max|out| of
+    `ifft_halfband_planar_plain` and of the JAX package's
+    `ifft_halfband_planar_fused` (interpret mode; the existing bar between
+    the two), and 1e-12 of the float64 transform (the model is the
+    kernel's schedule in complex128)."""
+    Zr, Zi, nr, ni = _zcase()
+    out = model_e_route(Zr, Zi, nr, ni, keep)
+    plain = fft_cuda.ifft_halfband_planar_plain(Zr, Zi, keep, nr, ni)
+    ref = ifft_halfband_planar_fused(
+        jnp.asarray(Zr), jnp.asarray(Zi), keep=keep, nyq_r=jnp.asarray(nr),
+        nyq_i=jnp.asarray(ni), interpret=True)
+    M = 1 << 14
+    spec = np.zeros((len(nr), M), complex)
+    spec[:, :M // 2] = (Zr + 1j * Zi.astype(np.float64)).reshape(len(nr), -1)
+    spec[:, M // 2] = nr + 1j * ni.astype(np.float64)
+    exact = np.fft.ifft(spec)[:, keep[0]:keep[0] + keep[1]]
+    assert out.shape == (len(nr), keep[1])
+    assert _rel(out, exact) < 1e-12
+    for r in (plain, ref):
+        got = np.asarray(r[0]) + 1j * np.asarray(r[1])
+        assert _rel(out, got) < 1e-5
+
+
+def test_e_chunks_rows_as_d(monkeypatch):
+    """Kernel E's wrapper sizes its row chunks as D's with one pipeline
+    (`d_chunk_rows(M, 1, rows)`, Y within the L2 budget), not by the 2 GB
+    cap the A path and the adjoints keep: read off the entry point's
+    arguments with the library stubbed, at the budget and at one of two
+    rows' Y."""
+    from ssqueeze_rs_tpu_torch import _build
+    calls = []
+
+    class Lib:
+        def ssq_ifft_halfband(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "_LIB", Lib())
+    monkeypatch.setattr(fft_cuda, "_stream", lambda device: None)
+    Zr, Zi, nr, ni = (torch.as_tensor(a) for a in _zcase(7))
+    M = 1 << 14
+    for budget in (fft_cuda._D_Y_BYTES, 2 * M * 8):
+        monkeypatch.setattr(fft_cuda, "_D_Y_BYTES", budget)
+        fft_cuda._ifft_halfband_cuda(torch.device("cpu"), Zr, Zi, nr, ni,
+                                     (0, M))
+        assert calls[-1][10] == fft_cuda.d_chunk_rows(M, 1, 7)
+    assert [c[10] for c in calls] == [7, 2]
+
+
 @pytest.mark.parametrize("pipes", [1, 2])
 @pytest.mark.parametrize("logM", range(4, 23))
 def test_d_chunk_planner_covers_every_row_once(logM, pipes):
-    """Kernel D's row chunks: at least one row a chunk, an intermediate
-    within the L2 budget whenever one row fits it, and chunks that cover
-    every row once, in order, for one row, a few and the headline's 293
-    and 2 x 293."""
+    """Kernel D's row chunks (E's with one pipeline): at least one row a
+    chunk, an intermediate within the L2 budget whenever one row fits it,
+    and chunks that cover every row once, in order, for one row, a few and
+    the headline's 293 and 2 x 293."""
     M = 1 << logM
     assert fft_cuda.best_split(M) is not None
     for rows in (1, 7, 293, 586):

@@ -23,7 +23,9 @@ Tolerances, and why:
   cwt     end to end (loss sum|Wx|^2 + sum|dWx|^2) < 1e-4 against
           jax.grad of the JAX cwt (a linear pipeline)
   F, H    < 1e-5 against JAX (sums of <= 598 float32 products in other
-          orders; JAX's backward runs in HIGHEST precision)
+          orders; JAX's backward runs in HIGHEST precision); F's backward
+          through H's chirp-z route (a float32 model of the kernel's
+          steps) the same
   G       < 5e-3 (a bin that flips between the two packages moves an
           isolated gradient contribution: the JAX package's own bar)
   end to end: ssq_cwt and ssq_stft < 5e-3 (bin flips, as G); the Wx-only
@@ -375,6 +377,42 @@ def test_stft_dft_grad_matches_jax(fs):
         x, K_j, n_fft, n_out, interpret=True) * R))(jnp.asarray(xp))
     x = _leaf(xp)
     out = stft_cuda.stft_dft(x, torch.as_tensor(K_T), n_fft, n_out, fs=fs)
+    (gt,) = _grads((out * torch.as_tensor(R)).sum(), [x])
+    assert _rel(gt.numpy(), gj) < 1e-5
+
+
+@pytest.mark.parametrize("fs", [None, 500.0], ids=["plain", "derivative"])
+def test_stft_dft_grad_through_h_route_matches_jax(monkeypatch, fs):
+    """F's backward with kernel H's CUDA route in place of the plain
+    product: the chirp-z adjoint model (tests/test_torch_stft.py) on the
+    structure F's backward hands H (one window, or two with the derivative
+    window's planes times fs), against jax.grad of the JAX kernel F within
+    F's and H's bar."""
+    from test_torch_stft import _bluestein_adjoint_model
+    from ssqueeze_rs_tpu_torch.ops.stft import _dft_spec
+    n_fft, n_out = 128, 1000
+    win, dwin = get_window(None, n_fft, n_fft, derivative=True,
+                           dtype="float32")
+    wins = (_win_bytes(win), _win_bytes(dwin) if fs else None, n_fft, True)
+    K_T = _k_t_host(*wins)
+    K_j = K_T.copy()
+    if fs:
+        K_j[K_T.shape[0] // 2:] *= np.float32(fs)
+    rng = np.random.default_rng(4)
+    xp = rng.standard_normal(n_out + n_fft - 1).astype(np.float32)
+    R = rng.standard_normal((K_T.shape[0], n_out)).astype(np.float32)
+
+    def h_route(Sr, Si, Fr, Fs, n, adjoint=None):
+        assert adjoint is not None
+        return _bluestein_adjoint_model(torch.cat([Sr, Si], dim=-2),
+                                        adjoint, Sr.shape[-1])
+
+    monkeypatch.setattr(stft_cuda, "istft_ola", h_route)
+    gj = jax.grad(lambda x: jnp.sum(stft_dft_fused(
+        x, K_j, n_fft, n_out, interpret=True) * R))(jnp.asarray(xp))
+    x = _leaf(xp)
+    out = stft_cuda.stft_dft(x, torch.as_tensor(K_T), n_fft, n_out, fs=fs,
+                             spec=_dft_spec(*wins))
     (gt,) = _grads((out * torch.as_tensor(R)).sum(), [x])
     assert _rel(gt.numpy(), gj) < 1e-5
 

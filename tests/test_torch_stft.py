@@ -335,3 +335,241 @@ def test_stft_dft_cuda_route_needs_the_structure():
         run(torch.device("cpu"), xp, K[:4], 16, 100, None, spec)
     with pytest.raises(ValueError, match="one-window"):
         run(torch.device("cpu"), xp, K, 16, 100, 2.0, spec)
+
+
+# -- kernel H as F's adjoint: its route on F's tables ------------------------
+# The matrices H's callers hand it, beside the structure of [Fr^T; -Fs^T]:
+# istft (`_irfft_spec`), F's VJP with one window and with two (the stft and
+# its derivative window; Si is then the second window's planes times fs)
+# and ssq_stft's backward (the first window of its four-plane K_T).
+H_CALLERS = ["stft", "stft_dwin", "ssq_stft"]
+
+
+def _h_caller(kind, n_fft, modulated, win_exp=1):
+    """(Fr, Fs, the DftSpec of [Fr^T; -Fs^T]) as the caller builds them."""
+    win, dwin = get_window(None, n_fft, n_fft, derivative=True,
+                           dtype="float32")
+    if kind == "istft":
+        mats = (n_fft, modulated, t_stft_mod._win_bytes(win), win_exp)
+        Fr, Fs = t_stft_mod._irfft_mats_weighted(*mats, "cpu")
+        return Fr, Fs, t_stft_mod._irfft_spec(*mats)
+    wins = (t_stft_mod._win_bytes(win),
+            t_stft_mod._win_bytes(dwin) if kind != "stft" else None, n_fft,
+            modulated)
+    K = torch.as_tensor(t_stft_mod._k_t_host(*wins))
+    spec = t_stft_mod._dft_spec(*wins)
+    if kind == "ssq_stft":
+        nf = spec.nf
+        return (K[:nf].t(), -K[nf:2 * nf].t(),
+                stft_cuda.DftSpec(n_fft, spec.windows[:1], modulated))
+    h = K.shape[0] // 2
+    return K[:h].t(), -K[h:].t(), spec
+
+
+def _bluestein_adjoint_model(planes, spec, n_segs):
+    """Kernel H's steps in plain torch on the CPU, from F's host tables
+    conjugated: for each window w, G_w = rows [w 2nf, w 2nf + nf) + i rows
+    [w 2nf + nf, (w + 1) 2nf) of the stacked planes (..., rows, n_segs), a
+    = conj(D) G_w, an FFT of Q points, the product with conj(B), an
+    unnormalised inverse FFT c, and y = sum_w Re(conj(A_w) c) on the first
+    n_fft outputs; then the overlap-add in the kernel's order: a block of
+    64 frames adds its frames into a span of 64 + n_fft - 1 samples in
+    frame order, and the spans go into the output in block order.
+    Returns (..., n_segs + n_fft - 1) float32."""
+    Q, A, B, D = (torch.as_tensor(t) for t in
+                  stft_cuda.bluestein_tables(spec))
+    n, nf = spec.n_fft, spec.nf
+    g = planes.to(torch.float32)
+    y = 0
+    for w in range(len(spec.windows)):
+        r = 2 * w * nf
+        G = torch.complex(g[..., r:r + nf, :], g[..., r + nf:r + 2 * nf, :])
+        a = G.transpose(-1, -2) * D.conj()
+        c = torch.fft.ifft(torch.fft.fft(a, n=int(Q)) * B.conj()) * Q
+        y = y + (c[..., :n] * A[w].conj()).real
+    F = stft_cuda._H_FRAMES
+    nblk = -(-n_segs // F)
+    lead = tuple(y.shape[:-2])
+    frames = torch.zeros(lead + (nblk * F, n))
+    frames[..., :n_segs, :] = y
+    frames = frames.reshape(lead + (nblk, F, n))
+    span = torch.zeros(lead + (nblk, F + n - 1))
+    for jl in range(F):
+        span[..., jl:jl + n] += frames[..., jl, :]
+    out = torch.zeros(lead + (nblk * F + n - 1,))
+    for i in range(nblk):
+        out[..., i * F:i * F + F + n - 1] += span[..., i, :]
+    return out[..., :n_segs + n - 1]
+
+
+def _planes(Fr, n_segs, seed, batch=()):
+    """Random stacked planes [Sr; Si] (..., 2 h, n_segs) for Fr (n_fft, h)."""
+    return torch.as_tensor(_signal(batch + (2 * Fr.shape[1], n_segs),
+                                   seed=seed))
+
+
+@pytest.mark.parametrize("win_exp", [1, 2])
+@pytest.mark.parametrize("modulated", [True, False], ids=["mod", "nomod"])
+@pytest.mark.parametrize("n_fft", [598, 599, 256])
+def test_bluestein_adjoint_model_matches_plain_h_istft(n_fft, modulated,
+                                                       win_exp):
+    """Kernel H's route (F's chirp-z steps backwards on the conjugated
+    tables, the overlap-add in the kernel's order) with istft's structure
+    equals `istft_ola_plain` within H's bar (2e-6 of the largest output
+    sample), with two signals and a partial last block of frames."""
+    Fr, Fs, spec = _h_caller("istft", n_fft, modulated, win_exp)
+    n_segs = 150
+    g = _planes(Fr, n_segs, seed=n_fft + win_exp, batch=(2,))
+    h = Fr.shape[1]
+    ref = stft_cuda.istft_ola_plain(g[..., :h, :], g[..., h:, :], Fr, Fs,
+                                    n_fft)
+    out = _bluestein_adjoint_model(g, spec, n_segs)
+    assert spec.rows == 2 * h and out.shape == ref.shape == (2, 747 if
+                                                             n_fft == 598
+                                                             else n_segs +
+                                                             n_fft - 1)
+    assert _rel(out, ref) < 2e-6
+
+
+@pytest.mark.parametrize("kind", H_CALLERS)
+@pytest.mark.parametrize("modulated", [True, False], ids=["mod", "nomod"])
+@pytest.mark.parametrize("n_fft", [598, 599, 16])
+def test_bluestein_adjoint_model_matches_plain_h_callers(n_fft, modulated,
+                                                         kind):
+    """The same for F's VJP (one and two windows: W = 2 puts window 0's
+    [Re; Im] rows in Sr and window 1's in Si) and ssq_stft's backward
+    (the first window of the four-plane structure)."""
+    Fr, Fs, spec = _h_caller(kind, n_fft, modulated)
+    n_segs = 130
+    g = _planes(Fr, n_segs, seed=n_fft)
+    h = Fr.shape[1]
+    ref = stft_cuda.istft_ola_plain(g[:h], g[h:], Fr, Fs, n_fft)
+    assert spec.rows == 2 * h
+    assert _rel(_bluestein_adjoint_model(g, spec, n_segs), ref) < 2e-6
+
+
+@pytest.mark.parametrize("n_fft", [121, 256])
+def test_bluestein_adjoint_model_matches_jax_kernel(n_fft):
+    """H's route against the JAX package's kernel H (`istft_ola_fused`,
+    interpret mode) on the same planes and matrices, within 2e-6."""
+    from ssqueeze_rs_tpu.ops.stft_pallas import istft_ola_fused
+    Fr, Fs, spec = _h_caller("istft", n_fft, True)
+    n_segs = 700
+    g = _planes(Fr, n_segs, seed=3)
+    h = Fr.shape[1]
+    ref = np.asarray(istft_ola_fused(
+        jax.lax.complex(g[:h].numpy(), g[h:].numpy()), Fr.numpy(),
+        Fs.numpy(), n_fft, interpret=True))
+    assert _rel(_bluestein_adjoint_model(g, spec, n_segs), ref) < 2e-6
+
+
+@pytest.mark.parametrize("n_fft", [598, 599])
+def test_bluestein_adjoint_route_istft_matches_jax(monkeypatch, n_fft):
+    """istft (hop 1) with H's route in place of the plain product against
+    the JAX package's istft on its XLA route, within istft's bar."""
+    _jax_kernels(monkeypatch, False)
+    x = _signal(3000, seed=9)
+    Sj = j_stft(x, n_fft=n_fft, dtype="float32")
+    xj = np.asarray(j_istft(Sj, n_fft=n_fft, N=3000))
+
+    def route(Sr, Si, Fr, Fs, n, adjoint=None):
+        return _bluestein_adjoint_model(torch.cat([Sr, Si], dim=-2), adjoint,
+                                        Sr.shape[-1])
+
+    monkeypatch.setattr(t_stft_mod, "istft_ola", route)
+    xr = istft(np.asarray(Sj), device="cpu", n_fft=n_fft, N=3000)
+    assert _rel(xr.numpy(), xj) < 2e-6
+
+
+@pytest.mark.parametrize("kind", ["stft", "stft_dwin"])
+def test_bluestein_models_are_adjoint(kind):
+    """<F x, g> = <x, H g> between the models of F's and H's routes on one
+    structure (F's forward and its adjoint), to 1e-5 relative."""
+    Fr, Fs, spec = _h_caller(kind, 598, True)
+    n_segs = 200
+    g = _planes(Fr, n_segs, seed=11)
+    x = torch.as_tensor(_signal(n_segs + 597, seed=12))
+    Fx = _bluestein_model(x, spec, n_segs)
+    Hg = _bluestein_adjoint_model(g, spec, n_segs)
+    lhs = float((Fx.double() * g.double()).sum())
+    rhs = float((x.double() * Hg.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), abs(rhs))
+
+
+def test_istft_ola_cuda_route_needs_the_structure():
+    """Kernel H computes from the structure of [Fr^T; -Fs^T]: its route
+    raises without one (before any launch), on one whose rows or n_fft do
+    not match the planes, and past the core's largest transform; the
+    callers pass it (test_h_callers_hand_their_structure)."""
+    Fr, Fs, spec = _h_caller("istft", 16, True)
+    g = _planes(Fr, 100, seed=1)
+    Sr, Si = g[:9], g[9:]
+    check = stft_cuda._check_adjoint
+    run = stft_cuda._istft_ola_cuda
+    with pytest.raises(ValueError, match="DftSpec"):
+        run(torch.device("cpu"), Sr, Si, 16, None)
+    with pytest.raises(ValueError, match="does not match"):
+        run(torch.device("cpu"), Sr[:5], Si[:5], 16, spec)
+    with pytest.raises(ValueError, match="does not match"):
+        check(spec, Sr, 17)
+    two = _h_caller("stft_dwin", 16, True)[2]
+    with pytest.raises(ValueError, match="does not match"):
+        check(two, Sr, 16)
+    check(two, g, 16)                   # 2 W nf rows: Sr holds 2 nf
+    big = _h_caller("istft", 2732, True)[2]
+    with pytest.raises(ValueError, match="does not fit"):
+        check(big, torch.zeros((1367, 5)), 2732)
+    assert stft_cuda.istft_ola_ok(2731) and not stft_cuda.istft_ola_ok(2732)
+
+
+@pytest.mark.parametrize("kind", ["istft", "stft", "stft_dwin", "ssq_stft"])
+@pytest.mark.parametrize("n_fft", [598, 599])
+def test_h_callers_hand_their_structure(monkeypatch, n_fft, kind):
+    """Each caller of kernel H hands it the structure whose dense()
+    rebuilds the [Fr^T; -Fs^T] it passes (within float32 rounding of the
+    largest entry, as test_dft_spec_rebuilds_callers_k_t): istft, F's
+    backward with one and two windows, ssq_stft's backward."""
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
+    seen = []
+    real = stft_cuda.istft_ola
+
+    def record(Sr, Si, Fr, Fs, n, adjoint=None):
+        seen.append((Fr, Fs, n, adjoint))
+        return real(Sr, Si, Fr, Fs, n, adjoint=adjoint)
+
+    monkeypatch.setattr(stft_cuda, "istft_ola", record)
+    monkeypatch.setattr(t_stft_mod, "istft_ola", record)
+    n_out = 40
+    xp = torch.as_tensor(_signal(n_out + n_fft - 1, seed=2),
+                         dtype=torch.float32).requires_grad_()
+    win, dwin = get_window(None, n_fft, n_fft, derivative=True,
+                           dtype="float32")
+    if kind == "istft":
+        S = stft(_signal(300, seed=2), device="cpu", n_fft=n_fft)
+        istft(S, device="cpu", n_fft=n_fft, N=300, win_exp=2)
+    elif kind.startswith("stft"):
+        wins = (t_stft_mod._win_bytes(win),
+                t_stft_mod._win_bytes(dwin) if kind == "stft_dwin" else None,
+                n_fft, True)
+        K = torch.as_tensor(t_stft_mod._k_t_host(*wins))
+        stft_cuda.stft_dft(xp, K, n_fft, n_out,
+                           fs=2.0 if kind == "stft_dwin" else None,
+                           spec=t_stft_mod._dft_spec(*wins)).sum().backward()
+    else:
+        wins = (t_stft_mod._win_bytes(win), t_stft_mod._win_bytes(dwin),
+                n_fft, True)
+        K = torch.as_tensor(t_stft_mod._k_t_host(*wins))
+        nf = n_fft // 2 + 1
+        Sfs = np.linspace(0, 0.5, nf, dtype=np.float32)
+        const, mode, params = plan_reassignment(Sfs, nf, False,
+                                                transform="stft")
+        Tx, Sx = stft_cuda.ssq_stft_fused(
+            xp, K, n_fft, n_out, 1.0, Sfs, const, 1e-6, params, mode, False,
+            spec=t_stft_mod._dft_spec(*wins))
+        (Tx.abs().sum() + Sx.abs().sum()).backward()
+    assert len(seen) == 1
+    Fr, Fs, n, adjoint = seen[0]
+    Kp = torch.cat([Fr.t(), -Fs.t()]).numpy()
+    assert n == n_fft and adjoint is not None and adjoint.n_fft == n_fft
+    assert len(adjoint.windows) == (2 if kind == "stft_dwin" else 1)
+    assert np.abs(adjoint.dense() - Kp).max() <= 2.5e-7 * np.abs(Kp).max()
