@@ -20,8 +20,13 @@ Phases, one line each:
   2. build every kernel from csrc/ with nvcc, or load the library the
      sources' hash names (ptxas report copied to
      chiprun_out/chip_smoke_build.txt)
-  3. kernel A (cwt_phase) against its plain-torch version at the headline
-     shape, and bitwise against itself with its rows in chunks; timed with CUDA events (median of 10 after 2 warm-ups)
+  3. kernel A (cwt_phase: kernel D's launch pair with the derivative and
+     a phase store) against its plain-torch version at the headline shape;
+     its Wx bitwise kernel D's with the derivative; bitwise repeat and
+     bitwise against itself with its rows in chunks of 100; its scratch
+     (rows a chunk within the 40 MB L2 budget); timed with CUDA events
+     (median of 10 after 2 warm-ups), and at chunk budgets of 10, 20 MB,
+     the constant and one chunk of every row
   4. kernel B (reassign) against its plain version on the same w plane:
      every Tx entry (so every bin) and the column sums, plus bitwise
      equality of two kernel runs; timed the same way
@@ -42,10 +47,13 @@ Phases, one line each:
   8. kernel B' (reassign4, lin bins, nf = 300) on F's planes against plain
      B': every entry within 1e-5 max|Tx|, column sums within 1e-5,
      bitwise repeat; timed
-  9. kernel G (ssq_stft): Sx against F's within 2e-6 relative; Tx against
-     kernel B' on F's planes (>= 99.9 % of entries within 1e-5 max|Tx|,
-     column sums within 1e-5) and against plain G (the same bars);
-     bitwise repeat; timed against plain G
+  9. kernel G (ssq_stft: F's chirp-z frame routine, the phase, the bins
+     and an ordered squeeze in one kernel): a call without its DftSpec
+     raises; Sx bitwise F's with two windows; Tx bitwise kernel B' on F's
+     planes, and against plain G (>= 99.9 % of entries within 1e-5
+     max|Tx|, column sums within 1e-5; Sx within 2e-6); bitwise repeat;
+     timed against plain G and its bound; the same checks untimed at
+     n_fft = 599 (prime), 256 and the largest n_fft G's plan admits
  10. kernel H (istft_ola: F's chirp-z transform run backwards on F's
      tables, then an overlap-add in a fixed order) against plain H at the
      STFT width (160 000 frames) and at n_fft = 599, 256 and 2048: within
@@ -366,7 +374,9 @@ def device_breakdown(torch, fn, groups, calls=3, warm=False):
 
 
 # kernel-name substrings of the profiled groups (first match wins)
-K_A = ("A", ("cwt_stage1", "cwt_stage2"))
+# A runs D's launch pair under its own loader and store (cwt_planes.cu
+# ALoad, PhaseStore): K_A goes before K_D where both are listed
+K_A = ("A", ("ALoad", "PhaseStore"))
 K_D = ("D", ("cwt_d_stage1", "cwt_d_stage2"))
 K_B = ("B", ("reassign_kernel",))
 K_C = ("C", ("reassign_bwd_kernel",))
@@ -464,35 +474,76 @@ def main():
     w_ok = float((w_rel < 1e-4).float().mean())
     mask_agree = float((torch.isinf(kA[2]) == torch.isinf(pA[2]))
                        .float().mean())
+    # A is D's launch pair with the derivative and a phase store: its Wx is
+    # D's bit for bit
+    kD = fft_cuda.cwt_fused(*args, keep=keep, derivative=True)
+    kA2 = fft_cuda.cwt_phase(*args, keep=keep, gamma=gamma)
+    torch.cuda.synchronize()
+    wx_equal_D = bool(torch.equal(kA[0], kD[0]) and torch.equal(kA[1], kD[1]))
+    bitwise = all(torch.equal(a, b) for a, b in zip(kA, kA2))
+    del kD, kA2
     # rows through the intermediate in chunks (here 100, 100, 93) give
-    # the same bits as one chunk: each row's work does not depend on them
-    y_bytes, M = fft_cuda._Y_BYTES, xp.shape[-1]
-    fft_cuda._Y_BYTES = 100 * 2 * M * 8
+    # the same bits as the L2 budget's chunks: each row's work does not
+    # depend on them
+    budget, M = fft_cuda._D_Y_BYTES, xp.shape[-1]
+    rowsA = int(args[0].shape[0])
+    chunk_rows = fft_cuda.d_chunk_rows(M, 2, rowsA)
+    scratch_mb = 2 * chunk_rows * M * 8 / 2 ** 20
+    fft_cuda._D_Y_BYTES = 100 * 2 * M * 8
     try:
         kA_chunked = fft_cuda.cwt_phase(*args, keep=keep, gamma=gamma)
     finally:
-        fft_cuda._Y_BYTES = y_bytes
+        fft_cuda._D_Y_BYTES = budget
     chunks_equal = all(torch.equal(a, b) for a, b in zip(kA, kA_chunked))
     msA = cuda_ms(torch, lambda: fft_cuda.cwt_phase(*args, keep=keep,
                                                     gamma=gamma))
     msA_plain = cuda_ms(torch, lambda: fft_cuda.cwt_phase_plain(
         *args, keep=keep, gamma=gamma))
+    # the budget of A's row chunks (its intermediate kept in L2), as D's in
+    # phase 15: the constant against 10 and 20 MB and one chunk of every row
+    sweepA = {}
+    try:
+        for mb in (10, 20, budget >> 20, 1 << 20):
+            fft_cuda._D_Y_BYTES = mb << 20
+            sweepA[f"{mb} MB, {fft_cuda.d_chunk_rows(M, 2, rowsA)} rows"] = \
+                cuda_ms(torch, lambda: fft_cuda.cwt_phase(
+                    *args, keep=keep, gamma=gamma))
+    finally:
+        fft_cuda._D_Y_BYTES = budget
     boundA = bound(tensor_bytes(args, kA), 2 * fft_flops(len(sc), M))
+    # A's and D's device time by launch (one loader, one store each)
+    launchesA = device_breakdown(torch, lambda: fft_cuda.cwt_phase(
+        *args, keep=keep, gamma=gamma), (("A launch 1", ("ALoad",)),
+                                         ("A launch 2", ("PhaseStore",))))
+    launchesD = device_breakdown(torch, lambda: fft_cuda.cwt_fused(
+        *args, keep=keep, derivative=True), (("D launch 1", ("DLoad",)),
+                                             ("D launch 2", ("PlanesStore",))))
     results["A"] = dict(wx_rel=errA, wx_abs=absA, w_rel_max=w_err,
                         w_within_1e4=w_ok, mask_agree=mask_agree,
-                        chunks_equal=chunks_equal, ms=msA,
-                        plain_ms=msA_plain, rows=int(args[0].shape[0]),
-                        bound_ms=boundA[0], bound_by=boundA[1])
-    print(f"[3] kernel A: rows={args[0].shape[0]} M={xp.shape[-1]} "
+                        wx_equal_D=wx_equal_D, bitwise=bitwise,
+                        chunks_equal=chunks_equal, chunk_rows=chunk_rows,
+                        scratch_mb=scratch_mb, budget_sweep_ms=sweepA,
+                        by_launch=launchesA, d_by_launch=launchesD, ms=msA,
+                        plain_ms=msA_plain, rows=rowsA, bound_ms=boundA[0],
+                        bound_by=boundA[1])
+    print(f"[3] kernel A: rows={rowsA} M={M} "
           f"Wx rel={errA:.3e} w within 1e-4: {w_ok:.6f} (max rel "
-          f"{w_err:.3e}) mask agree={mask_agree:.6f} chunked-equal="
+          f"{w_err:.3e}) mask agree={mask_agree:.6f} Wx == D's="
+          f"{wx_equal_D} bitwise-repeat={bitwise} chunked-equal="
           f"{chunks_equal} | {msA:.3f} ms vs "
           f"plain {msA_plain:.3f} ms, bound {boundA[0]:.3f} ms "
-          f"({boundA[1]}) ({card})")
+          f"({boundA[1]}); {chunk_rows} rows a chunk, scratch "
+          f"{scratch_mb:.1f} MB; budgets " + ", ".join(
+              f"{b}: {t:.3f} ms" for b, t in sweepA.items()) + "; by launch: A "
+          f"{breakdown_line(launchesA)}, D (derivative) "
+          f"{breakdown_line(launchesD)} ({card})")
     check(errA < 1e-5, f"kernel A Wx rel error {errA:.3e} >= 1e-5")
     check(w_ok >= 0.999, f"kernel A w: only {w_ok:.6f} within 1e-4")
     check(mask_agree >= 0.999, f"kernel A mask agreement {mask_agree}")
+    check(wx_equal_D, "kernel A's Wx differs from kernel D's")
+    check(bitwise, "kernel A differs between two runs")
     check(chunks_equal, "kernel A differs when its rows go in chunks")
+    check(scratch_mb <= 40, f"kernel A scratch {scratch_mb:.1f} MB > 40")
 
     # 4. kernel B against plain B on the same w plane
     nf_freqs, const_arr, mode, params = plan_ssqueeze(
@@ -638,7 +689,7 @@ def main():
     kernels = [
         # A's and B's yardstick: no one PyTorch call forms Wx and the
         # phase from the filterbank, or bins and scatters
-        kernel_entry("cwt_phase", "cwt_phase.cu", "fft_pallas.py:646",
+        kernel_entry("cwt_phase", "cwt_planes.cu", "fft_pallas.py:646",
                      launches["cwt_phase"], absA, msA, msA_plain, boundA,
                      None),
         kernel_entry("reassign", "reassign.cu", "reassign_pallas.py:175",
@@ -800,46 +851,112 @@ def stft_phases(np, torch, dev, card, results):
           f"kernel B' Tx rel {rel4:.3e}, column sums {col4:.3e}")
     del p4, k2
 
-    # 9. kernel G (its own dense DFT, held to F's Bluestein planes)
-    K4 = _k_t(_win_bytes(win), _win_bytes(dwin), N_FFT, True, dev)
+    # 9. kernel G (F's chirp-z frame routine, then the phase, the bins and
+    # an ordered squeeze in the same block): Sx bitwise F's with two
+    # windows, Tx bitwise B' on F's planes, both against plain G
+    wins4 = (_win_bytes(win), _win_bytes(dwin), N_FFT, True)
+    K4, spec4 = _k_t(*wins4, dev), _dft_spec(*wins4)
     ga = (xp, K4, N_FFT, N, 1.0, Sfs, const, gamma, params, mode, False)
-    Tg, Sg = stft_cuda.ssq_stft_fused(*ga)
-    Tg2, Sg2 = stft_cuda.ssq_stft_fused(*ga)
+    try:
+        stft_cuda.ssq_stft_fused(*ga)
+        raised = False
+    except ValueError as e:
+        raised = "DftSpec" in str(e)
+    check(raised, "kernel G ran on CUDA without its DftSpec")
+    run = lambda: stft_cuda.ssq_stft_fused(*ga, spec=spec4)
+    Tg, Sg = run()
+    Tg2, Sg2 = run()
     torch.cuda.synchronize()
     bitwise = torch.equal(Tg, Tg2) and torch.equal(Sg, Sg2)
     del Tg2, Sg2
     Sf = torch.complex(sr, si)
     sx_rel = float((Sg - Sf).abs().max() / Sf.abs().max())
     sx_equal = bool(torch.equal(Sg, Sf))
+    tx_equal = bool(torch.equal(Tg, Tb))
     relG, withinG, colG, _ = entry_metrics(torch, Tg, Tb)
     Tp, Sp = stft_cuda.ssq_stft_fused_plain(*ga)
     torch.cuda.synchronize()
     relP, withinP, colP, absG = entry_metrics(torch, Tg, Tp)
     sx_plain = float((Sg - Sp).abs().max() / Sp.abs().max())
     del Tp, Sp
-    msG = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused(*ga))
+    msG = cuda_ms(torch, run)
     msG_plain = cuda_ms(torch, lambda: stft_cuda.ssq_stft_fused_plain(*ga))
-    boundG = bound(tensor_bytes(ga, Tg, Sg),
+    # G's bytes: the signal, F's tables, Sfs and const in; Tx, Sx out
+    boundG = bound(tensor_bytes(xp, stft_cuda._tables_on(spec4, dev), Sfs,
+                                const, Tg, Sg),
                    rfft_flops(2 * N, N_FFT) + BIN4_FLOPS * sr.numel())
+    plan = stft_cuda._ssq_plan(N_FFT)
     results["G"] = dict(sx_rel_F=sx_rel, sx_equal_F=sx_equal,
-                        tx_within_vs_B4=withinG, tx_rel_vs_B4=relG,
-                        colsum_vs_B4=colG, sx_rel_plain=sx_plain,
-                        tx_within_vs_plain=withinP, colsum_vs_plain=colP,
-                        tx_abs_vs_plain=absG, bitwise=bitwise, ms=msG,
-                        plain_ms=msG_plain, bound=boundG)
-    print(f"[9] kernel G: Sx vs F rel={sx_rel:.3e} (bitwise {sx_equal}); Tx "
-          f"vs B'(F) within 1e-5: {withinG:.6f} (rel {relG:.3e}, col "
-          f"{colG:.3e}); vs plain G: Sx rel {sx_plain:.3e}, Tx within "
-          f"{withinP:.6f}, col {colP:.3e}; bitwise-repeat={bitwise} | "
-          f"{msG:.3f} ms vs plain {msG_plain:.3f} ms ({card})")
+                        tx_equal_B4=tx_equal, tx_within_vs_B4=withinG,
+                        tx_rel_vs_B4=relG, colsum_vs_B4=colG,
+                        sx_rel_plain=sx_plain, tx_within_vs_plain=withinP,
+                        colsum_vs_plain=colP, tx_abs_vs_plain=absG,
+                        bitwise=bitwise, ms=msG, plain_ms=msG_plain,
+                        bound=boundG, plan=list(plan), no_spec_raises=raised)
+    print(f"[9] kernel G (n_fft={N_FFT}, {plan[0]} frames a block): Sx == "
+          f"F's {sx_equal} (rel {sx_rel:.3e}); Tx == B'(F) {tx_equal} "
+          f"(within 1e-5: {withinG:.6f}, col {colG:.3e}); vs plain G: Sx rel "
+          f"{sx_plain:.3e}, Tx within {withinP:.6f}, col {colP:.3e}; "
+          f"bitwise-repeat={bitwise}; no spec raises | {msG:.3f} ms vs plain "
+          f"{msG_plain:.3f} ms, bound {boundG[0]:.3f} ms ({boundG[1]}) "
+          f"({card})")
     check(bitwise, "kernel G differs between two runs")
-    check(sx_rel < 2e-6 and sx_plain < 2e-6,
-          f"kernel G Sx rel {sx_rel:.3e} / {sx_plain:.3e}")
-    check(withinG >= 0.999 and colG < 1e-5,
-          f"kernel G Tx vs B'(F): {withinG:.6f} within, col {colG:.3e}")
+    check(sx_equal, f"kernel G Sx differs from F's (rel {sx_rel:.3e})")
+    check(tx_equal, f"kernel G Tx differs from B' on F's planes (within "
+          f"{withinG:.6f}, col {colG:.3e})")
+    check(sx_plain < 2e-6, f"kernel G Sx rel {sx_plain:.3e} to plain")
     check(withinP >= 0.999 and colP < 1e-5,
           f"kernel G Tx vs plain: {withinP:.6f} within, col {colP:.3e}")
     del Tg, Sg, Tb, k1, planes, sr, si, dr, di, Sf
+    # the same checks untimed at a prime n_fft, at 256 (Q = 512) and at
+    # the largest n_fft G's plan admits
+    n_top = max(n for n in range(2048, 4097)
+                if stft_cuda.ssq_stft_fused_ok(n))
+    G_more = {}
+    for n_fft in (599, 256, n_top):
+        w_n, dw_n = get_window(None, n_fft, n_fft, derivative=True,
+                               dtype="float32")
+        wins = (_win_bytes(w_n), _win_bytes(dw_n), n_fft, True)
+        Kn, specn = _k_t(*wins, dev), _dft_spec(*wins)
+        xn = padsignal(x, "reflect", padlength=N + n_fft - 1)
+        nfn = n_fft // 2 + 1
+        Sfn, cn, mn, pn = lin_plan(nfn, 1.0)
+        gan = (xn, Kn, n_fft, N, 1.0, Sfn, cn, gamma, pn, mn, False)
+        Fn = stft_cuda.stft_dft(xn, Kn, n_fft, N, fs=1.0, spec=specn)
+        Bn = torch.complex(*reassign_cuda.reassign4(
+            *Fn.split(nfn, dim=-2), cn, Sfn, gamma, pn, mn, False, nfn,
+            "stft"))
+        Tn, Sn = stft_cuda.ssq_stft_fused(*gan, spec=specn)
+        Tn2, Sn2 = stft_cuda.ssq_stft_fused(*gan, spec=specn)
+        torch.cuda.synchronize()
+        rep = torch.equal(Tn, Tn2) and torch.equal(Sn, Sn2)
+        del Tn2, Sn2
+        sx_eq = bool(torch.equal(Sn, torch.complex(*Fn[:2 * nfn].split(
+            nfn, dim=-2))))
+        tx_eq = bool(torch.equal(Tn, Bn))
+        del Fn, Bn
+        Tq, Sq_ = stft_cuda.ssq_stft_fused_plain(*gan)
+        torch.cuda.synchronize()
+        _, within_n, col_n, _ = entry_metrics(torch, Tn, Tq)
+        sx_n = float((Sn - Sq_).abs().max() / Sq_.abs().max())
+        del Tq, Sq_, Tn, Sn, Kn, xn
+        G_more[n_fft] = dict(plan=list(stft_cuda._ssq_plan(n_fft)),
+                             sx_equal_F=sx_eq, tx_equal_B4=tx_eq,
+                             bitwise=rep, sx_rel_plain=sx_n,
+                             tx_within_vs_plain=within_n,
+                             colsum_vs_plain=col_n)
+    results["G"]["more"] = G_more
+    print("[9] kernel G untimed: " + "; ".join(
+        f"n_fft={n} ({v['plan'][0]} frames a block): Sx == F's "
+        f"{v['sx_equal_F']}, Tx == B'(F) {v['tx_equal_B4']}, bitwise-repeat="
+        f"{v['bitwise']}, vs plain Sx rel {v['sx_rel_plain']:.3e}, Tx within "
+        f"{v['tx_within_vs_plain']:.6f}, col {v['colsum_vs_plain']:.3e}"
+        for n, v in G_more.items()))
+    for n, v in G_more.items():
+        check(v["bitwise"] and v["sx_equal_F"] and v["tx_equal_B4"],
+              f"kernel G at n_fft={n}: {v}")
+        check(v["sx_rel_plain"] < 2e-6 and v["tx_within_vs_plain"] >= 0.999
+              and v["colsum_vs_plain"] < 1e-5, f"kernel G at n_fft={n}: {v}")
 
     # 10. kernel H (F's chirp-z transform run backwards on istft's
     # structure) against plain H at the STFT width, both against the same
@@ -991,7 +1108,7 @@ def stft_phases(np, torch, dev, card, results):
         "stft": device_breakdown(torch, lambda: stft(x, n_fft=N_FFT), (
             ("F", ("stft_bluestein",)), K_PAD)),
         "ssq_stft": device_breakdown(torch, lambda: ssq_stft(
-            x, n_fft=N_FFT), (("G", ("ssq_stft_kernel",)), K_PAD)),
+            x, n_fft=N_FFT), (("G", ("ssq_stft_bluestein",)), K_PAD)),
         "istft": device_breakdown(torch, lambda: istft(
             Sq, n_fft=N_FFT, N=N), (("H", ("istft_bluestein",
                                            "ola_partials")), K_PAD))}

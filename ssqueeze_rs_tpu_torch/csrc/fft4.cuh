@@ -1,5 +1,7 @@
-// The half-band four-step inverse DFT shared by kernels A (cwt_phase.cu),
-// D and E (cwt_planes.cu).
+// The radix-2 half-band four-step inverse DFT: the design kernels A, D and
+// E ran before they moved to the register-radix core (cwt_planes.cu on
+// fft_radix.cuh). Its only users are the probes P1-P3 (ablate_cwt.cu,
+// through cwt_planes.cuh).
 //
 // Each output row is the length-M inverse DFT of a spectrum that is zero
 // above the Nyquist bin:
@@ -31,7 +33,7 @@
 // Both stages take a set of ablation flags (`Ablate`, default kFull) for
 // the probes of csrc/ablate_cwt.cu: each flag removes one part of the
 // pipeline and keeps the memory traffic of the rest. kFull compiles to the
-// pipeline above; kernels A, D and E use nothing else.
+// pipeline above.
 
 #pragma once
 

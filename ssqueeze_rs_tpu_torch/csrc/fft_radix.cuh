@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace fftr {
 
 constexpr int kThreads = 256;
@@ -108,6 +110,25 @@ struct Shape {
   static constexpr int kBufFloat2 = 2 * NCOL * LD;
   static_assert(NCOL >= 2, "the layout needs two columns in flight");
 };
+
+// Bytes of a block's twiddle tables and both exchange buffers.
+template <int LOGP, bool PAIR = false>
+__host__ __device__ constexpr size_t core_smem() {
+  using S = Shape<LOGP, PAIR>;
+  return (size_t)(S::kTwFloat2 + S::kBufFloat2) * sizeof(float2);
+}
+
+// Calls f(std::integral_constant<int, LOG>) for LOG = log in [LO, HI]: a
+// host's choice of a kernel instance by its transform length.
+template <int LO, int HI, class F>
+cudaError_t dispatch_log(int log, F&& f) {
+  if constexpr (LO > HI) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log == LO) return f(std::integral_constant<int, LO>{});
+    return dispatch_log<LO + 1, HI>(log, f);
+  }
+}
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);

@@ -63,19 +63,11 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "fft_radix.cuh"
 
 namespace {
 
 constexpr int kFrames = 64;               // frames a block
-
-template <int LOGQ>
-constexpr size_t core_smem() {
-  using S = fftr::Shape<LOGQ>;
-  return (size_t)(S::kTwFloat2 + S::kBufFloat2) * sizeof(float2);
-}
 
 // The frame buffer's column stride: >= n_fft and 32 / NCOL modulo 32
 // (1 when NCOL >= 32), so the NCOL columns of a warp fall on distinct banks.
@@ -216,16 +208,6 @@ __global__ void ola_partials(const float* __restrict__ part, long long nblk,
   }
 }
 
-template <int LO, int HI, class F>
-cudaError_t dispatch_log(int log, F&& f) {
-  if constexpr (LO > HI) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (log == LO) return f(std::integral_constant<int, LO>{});
-    return dispatch_log<LO + 1, HI>(log, f);
-  }
-}
-
 }  // namespace
 
 // sr, si: (batch, h, n_segs) float32, the rows [0, h) and [h, 2h) of the
@@ -245,12 +227,12 @@ extern "C" int ssq_istft_ola(const float* sr, const float* si, const void* A,
   cudaStream_t st = (cudaStream_t)stream;
   const long long nblk = (n_segs + kFrames - 1) / kFrames;
   const int ns = kFrames + n_fft - 1;
-  cudaError_t err = dispatch_log<2, 12>(logQ, [&](auto c) {
+  cudaError_t err = fftr::dispatch_log<2, 12>(logQ, [&](auto c) {
     constexpr int LOG = decltype(c)::value;
     auto k = istft_bluestein<LOG>;
     const int ldy = frame_stride<LOG>(n_fft);
     const size_t smem =
-        core_smem<LOG>() +
+        fftr::core_smem<LOG>() +
         (size_t)(fftr::Shape<LOG>::NCOL * ldy + ns) * sizeof(float);
     cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -14,15 +14,13 @@
 // stacked K_T of the plain version, which the three callers carry beside
 // this structure (ops/stft_cuda.py DftSpec).
 //
-// Bluestein: kt = (k^2 + t^2 - (k-t)^2) / 2 turns the DFT into a
-// convolution with the chirp e^{i pi m^2 / N}: X_w[k] = D[k] (a * b)[k]
-// with a[t] = v_w[t] e^{-i pi t^2 / N} x[j + t]. The convolution runs
-// circularly over Q = 2^n >= N + nf - 1 points (Q = 1024 at N = 598):
-// forward FFT of a, a product with B = FFT(b) / Q, inverse FFT, and D[k] =
-// c_k e^{-i pi k^2 / N} on the first nf outputs. The tables A_w[t] = v_w[t]
-// e^{-i pi t^2 / N}, B and D are built on the host in float64 (chirp
-// angles from t^2 mod 2N in integers, so they stay exact at any N) and
-// cached per window; any N up to 2048 takes the same kernel (Q <= 4096).
+// Bluestein (bluestein.cuh, the frame routine G runs too): the DFT as a
+// convolution with a chirp, circular over Q = 2^n >= N + nf - 1 points
+// (Q = 1024 at N = 598). The tables A_w[t] = v_w[t] e^{-i pi t^2 / N},
+// B = FFT(b) / Q of the chirp filter and D[k] = c_k e^{-i pi k^2 / N} are
+// built on the host in float64 (chirp angles from t^2 mod 2N in integers,
+// so they stay exact at any N) and cached per window; any N up to 2048
+// takes the same kernel (Q <= 4096).
 //
 // Design: a block owns kFrames frames of one signal and stages their
 // signal window (kFrames + N - 1 floats) in shared memory once, so no frame
@@ -46,19 +44,11 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
-#include "fft_radix.cuh"
+#include "bluestein.cuh"
 
 namespace {
 
 constexpr int kFrames = 64;               // frames a block
-
-template <int LOGQ>
-constexpr size_t core_smem() {
-  using S = fftr::Shape<LOGQ>;
-  return (size_t)(S::kTwFloat2 + S::kBufFloat2) * sizeof(float2);
-}
 
 template <int LOGQ>
 __global__ void __launch_bounds__(fftr::kThreads)
@@ -75,6 +65,7 @@ stft_bluestein(const float* __restrict__ xp, const float2* __restrict__ A,
   const long long b = blockIdx.y;
   const long long j0 = (long long)blockIdx.x * kFrames;
   const long long rows = 2LL * W * nf;
+  const int nframes = n_out - j0 < kFrames ? (int)(n_out - j0) : kFrames;
   fftr::fill_twiddles<LOGQ>(tw);
   const int nw = kFrames + n_fft - 1;
   for (int q = threadIdx.x; q < nw; q += blockDim.x) {
@@ -85,62 +76,27 @@ stft_bluestein(const float* __restrict__ xp, const float2* __restrict__ A,
 
   int col[S::U], lane[S::U];
   fftr::units<LOGQ>(col, lane);
-  const bool half_in = 2 * n_fft <= S::P;
   // a round: NCOL frames, one a column, through each window in turn
   for (int f0 = 0; f0 < kFrames; f0 += S::NCOL) {
     for (int w = 0; w < W; ++w) {
       float2 v[S::U][S::E];
+      bluestein::frame_dft<LOGQ>(v, col, lane, bufs, tw, xw, f0, nframes,
+                                 A + w * n_fft, B, D, n_fft, nf,
+                                 scale_w1 && w == 1, fs);
 #pragma unroll
       for (int u = 0; u < S::U; ++u) {
         const int jl = f0 + col[u];
-        const bool ok = jl < kFrames && j0 + jl < n_out;
-#pragma unroll
-        for (int q = 0; q < S::E; ++q) {
-          const int k = lane[u] + q * S::TPC;
-          float2 a = make_float2(0.f, 0.f);
-          if (ok && k < n_fft) {
-            const float x = xw[jl + k];
-            const float2 c = A[w * n_fft + k];
-            a = make_float2(x * c.x, x * c.y);
-          }
-          v[u][q] = a;
-        }
-      }
-      fftr::fft<LOGQ, -1>(v, col, lane, bufs, tw, half_in, 0, S::P);
-#pragma unroll
-      for (int u = 0; u < S::U; ++u)
-#pragma unroll
-        for (int q = 0; q < S::E; ++q)
-          v[u][q] = fftr::cmul(v[u][q], B[lane[u] + q * S::TPC]);
-      fftr::fft<LOGQ, 1, S::kNextFlip>(v, col, lane, bufs, tw, false, 0, nf);
-      const bool scale = scale_w1 && w == 1;
-#pragma unroll
-      for (int u = 0; u < S::U; ++u) {
-        const int jl = f0 + col[u];
-        const long long j = j0 + jl;
-        if (jl >= kFrames || j >= n_out) continue;
-        float* o = out + (b * rows + 2LL * w * nf) * n_out + j;
+        if (jl >= nframes) continue;
+        float* o = out + (b * rows + 2LL * w * nf) * n_out + j0 + jl;
 #pragma unroll
         for (int q = 0; q < S::E; ++q) {
           const int k = lane[u] + q * S::TPC;
           if (k >= nf) continue;
-          float2 X = fftr::cmul(D[k], v[u][q]);
-          if (scale) X = make_float2(__fmul_rn(X.x, fs), __fmul_rn(X.y, fs));
-          o[(long long)k * n_out] = X.x;
-          o[(long long)(nf + k) * n_out] = X.y;
+          o[(long long)k * n_out] = v[u][q].x;
+          o[(long long)(nf + k) * n_out] = v[u][q].y;
         }
       }
     }
-  }
-}
-
-template <int LO, int HI, class F>
-cudaError_t dispatch_log(int log, F&& f) {
-  if constexpr (LO > HI) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (log == LO) return f(std::integral_constant<int, LO>{});
-    return dispatch_log<LO + 1, HI>(log, f);
   }
 }
 
@@ -158,11 +114,11 @@ extern "C" int ssq_stft_dft(const float* xp, const void* A, const void* B,
   if (W < 1 || W > 2 || logQ < 2 || logQ > 12 ||
       (1LL << logQ) < n_fft + nf - 1 || n_out + n_fft - 1 > mp)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_log<2, 12>(logQ, [&](auto c) {
+  return (int)fftr::dispatch_log<2, 12>(logQ, [&](auto c) {
     constexpr int LOG = decltype(c)::value;
     auto k = stft_bluestein<LOG>;
-    const size_t smem =
-        core_smem<LOG>() + (size_t)(kFrames + n_fft) * sizeof(float);
+    const size_t smem = fftr::core_smem<LOG>() +
+                        (size_t)(kFrames + n_fft) * sizeof(float);
     cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;

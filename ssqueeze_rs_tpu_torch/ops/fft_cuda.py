@@ -6,10 +6,11 @@ its variants) and `ifft_halfband_planar_fused` (`_make_kernel`).
 
 Each wrapper (`cwt_phase`, `cwt_fused`, `ifft_halfband_planar`)
 dispatches on the device of its inputs: on a CUDA tensor it launches the
-hand-written kernel (``csrc/cwt_phase.cu`` on ``csrc/fft4.cuh``;
-``csrc/cwt_planes.cu``, where D and E run the same two launches on the
-register-radix core ``csrc/fft_radix.cuh``) or raises; on a CPU tensor it
-runs its plain version (`*_plain`), the same function in plain torch.
+hand-written kernel (``csrc/cwt_planes.cu``, where A, D and E run the same
+two launches on the register-radix core ``csrc/fft_radix.cuh``: A is D
+with the derivative and a phase epilogue, E D with its own loader) or
+raises; on a CPU tensor it runs its plain version (`*_plain`), the same
+function in plain torch.
 `LAUNCHES` (A), `LAUNCHES_D` and `LAUNCHES_E` count kernel launches, so a
 run can show that it went through each kernel. All three are differentiable
 (`CwtPhaseFn`, `CwtFusedFn`, `IfftHalfbandFn`) with the JAX package's
@@ -34,13 +35,14 @@ LAUNCHES_D = 0
 LAUNCHES_E = 0
 _TWO_PI = 6.283185307179586
 _MAX_FACTOR = 2048      # largest M1 or M2 the kernels' shared memory holds
-_Y_BYTES = 2 << 30      # cap on kernel A's intermediate and the adjoints'
-                        # spectra: rows go through them in chunks, so a
-                        # batch does not grow them
-_D_Y_BYTES = 40 << 20   # kernels D's and E's intermediate a chunk of rows:
-                        # inside the H100's 50 MB L2, so their second launch
-                        # reads Y from L2 (the fastest of 10, 20, 40 MB and
-                        # one chunk in chip_smoke phase 15's sweeps)
+_Y_BYTES = 2 << 30      # cap on the adjoints' cotangent spectra (plain
+                        # torch + cuFFT): rows go through them in chunks,
+                        # so a batch does not grow them
+_D_Y_BYTES = 40 << 20   # kernels A's, D's and E's intermediate a chunk of
+                        # rows: inside the H100's 50 MB L2, so their second
+                        # launch reads Y from L2 (the fastest of 10, 20,
+                        # 40 MB and one chunk in chip_smoke phase 15's
+                        # sweeps)
 
 
 def best_split(M: int):
@@ -56,10 +58,10 @@ def best_split(M: int):
 
 
 def d_chunk_rows(M: int, pipes: int, rows: int) -> int:
-    """Rows a chunk of kernel D (E: pipes = 1): as many as keep its
-    intermediate Y (pipes x rows x M complex floats) within `_D_Y_BYTES`, at
-    least one (one row's Y alone exceeds the budget only at M = 2^22 with
-    the derivative)."""
+    """Rows a chunk of kernel D (A: pipes = 2; E: pipes = 1): as many as
+    keep its intermediate Y (pipes x rows x M complex floats) within
+    `_D_Y_BYTES`, at least one (one row's Y alone exceeds the budget only
+    at M = 2^22 with two pipelines)."""
     return max(1, min(rows, _D_Y_BYTES // (pipes * M * 8)))
 
 
@@ -244,7 +246,7 @@ def _cwt_phase_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, gamma):
     start, L = keep
     Pw, xr, xi, xig = (t.contiguous() for t in (Pw, xr, xi, xig))
     nyq = [v.contiguous() for v in nyq]
-    ychunk = max(1, min(rows, _Y_BYTES // (2 * M * 8)))
+    ychunk = d_chunk_rows(M, 2, rows)
     Y = torch.empty((2, ychunk, M, 2), dtype=torch.float32, device=device)
     owr, owi, ow = (torch.empty((rows, L), dtype=torch.float32, device=device)
                     for _ in range(3))

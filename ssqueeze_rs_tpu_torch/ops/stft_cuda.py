@@ -7,9 +7,10 @@
     computes the same function from its structure (`DftSpec`: tap windows,
     per-bin factors) as a chirp-z transform on the register-radix FFT
     core, from host tables built once per window (`bluestein_tables`).
-  * `ssq_stft_fused` (G, ``csrc/ssq_stft.cu``): F's four planes, phase,
+  * `ssq_stft_fused` (G, ``csrc/ssq_stft.cu``): F's four planes (F's
+    chirp-z frame routine on F's tables, so Sx is F's bit for bit), phase,
     linear bins and the deterministic reassignment in one kernel; replaces
-    `_make_ssq_stft_kernel`.
+    `_make_ssq_stft_kernel`. Its frames a block come from `_ssq_plan`.
   * `istft_ola` (H, ``csrc/istft_ola.cu``): irfft product + overlap-add;
     replaces `_make_istft_kernel`. The plain version is the two products
     with Fr, Fs and a slice-add overlap-add; the kernel computes F's
@@ -18,8 +19,8 @@
     overlap-add in a fixed order.
 
 Each wrapper dispatches on the device of its inputs: on a CUDA tensor it
-launches its kernel or raises (F and H also when the caller gives no
-`DftSpec`); on a CPU tensor it runs its plain-torch version (beside it,
+launches its kernel or raises (also when the caller gives no `DftSpec`);
+on a CPU tensor it runs its plain-torch version (beside it,
 `*_plain`).
 `LAUNCHES` counts kernel launches per kernel. The gates
 `ssq_stft_fused_ok` and `istft_ola_ok` decide from shapes alone whether a
@@ -38,7 +39,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as nnf
 from torch.autograd.function import once_differentiable
 
 from .fft_cuda import _device_of, _f32, _zeros_for
@@ -52,15 +52,8 @@ __all__ = ["DftSpec", "bluestein_tables", "stft_dft", "stft_dft_plain",
            "StftDftFn", "IstftOlaFn", "SsqStftFusedFn", "LAUNCHES"]
 
 LAUNCHES = {"stft_dft": 0, "ssq_stft": 0, "istft_ola": 0}
-_BK = 16            # taps per K tile (csrc/dft_tile.cuh kBK)
-_G_R = 64           # frequency rows per plane per chunk of kernel G
 _H_FRAMES = 64      # frames a block of kernel H (csrc/istft_ola.cu kFrames)
 _MAX_Q = 4096       # the register-radix core's largest transform
-
-
-def _taps(n_fft: int) -> int:
-    """n_fft rounded up to whole K tiles."""
-    return -(-n_fft // _BK) * _BK
 
 
 def _rows2(a):
@@ -183,16 +176,16 @@ def stft_dft_plain(xp, K_T, n_fft, n_out, fs=None):
     return out
 
 
-def _check_spec(spec, K_T, n_fft, fs):
+def _check_spec(spec, K_T, n_fft, fs, what="stft_dft"):
     if spec is None:
-        raise ValueError("stft_dft on CUDA computes from the DFT's structure: "
+        raise ValueError(f"{what} on CUDA computes from the DFT's structure: "
                          "pass the DftSpec that K_T stands for (spec=)")
     if spec.n_fft != n_fft or spec.rows != K_T.shape[0] or \
             len(spec.windows) not in (1, 2):
-        raise ValueError(f"stft_dft: spec (n_fft={spec.n_fft}, {spec.rows} "
+        raise ValueError(f"{what}: spec (n_fft={spec.n_fft}, {spec.rows} "
                          f"rows) does not match K_T {tuple(K_T.shape)}")
     if fs is not None and len(spec.windows) != 2:
-        raise ValueError("stft_dft: fs scales the second window's planes; "
+        raise ValueError(f"{what}: fs scales the second window's planes; "
                          "a one-window spec takes none")
 
 
@@ -269,23 +262,59 @@ def stft_dft(xp, K_T, n_fft: int, n_out: int, fs=None, spec=None):
 
 
 # -- G: the fused ssq_stft ---------------------------------------------------
-def _ssq_cols(nf: int, n_fft: int):
-    """Columns per block of kernel G: the largest of 32, 16, 8 whose
-    shared memory (csrc/ssq_stft.cu Shape::smem: the (2, nf, T)
-    accumulator, the chunk's planes and bins, the K tiles and the signal
-    window) fits; None if none does."""
-    for T in (32, 16, 8):
-        floats = (2 * nf * T + 5 * _G_R * T + 2 * _BK * 4 * _G_R +
-                  T + _taps(n_fft))
-        if 4 * floats <= MAX_SMEM:
-            return T
+def _core_shape(Q: int):
+    """(NCOL, float2 of the twiddle tables and both exchange buffers) of
+    the register-radix core at Q points (csrc/fft_radix.cuh Shape<log2 Q>:
+    16 points a lane where radix-16 passes need fewer passes than radix 8,
+    else min(8, Q); U slots a thread of 256; a column's stride LD)."""
+    log = Q.bit_length() - 1
+    le = 4 if -(-log // 4) < -(-log // 3) else min(3, log)
+    tpc = Q >> le
+    units = 2 if Q < 8 else (2 if Q == 4096 else 1) * 16 >> le
+    ncol = units * 256 // tpc
+    ld = Q + (Q >> le) + (1 if ncol >= 16 else 16 // ncol)
+    npass = -(-log // le)
+    tw = Q + sum(1 << (le * (p + 1)) for p in range(1, npass - 1))
+    return ncol, tw + 2 * ncol * ld
+
+
+def _ssq_smem(n_fft: int, T: int, SS: int) -> int:
+    """Bytes of kernel G's shared memory (csrc/ssq_stft.cu smem_bytes): the
+    core, or the (2, nf, T) accumulator that takes its place after the last
+    round; the staged entries' values (2, nf, SS) and bins (nf, SS) int16;
+    the signal window."""
+    nf = n_fft // 2 + 1
+    core = 8 * _core_shape(_bluestein_q(n_fft))[1]
+    front = max(core, 8 * nf * T)
+    return front + 10 * nf * SS + 4 * (T + n_fft)
+
+
+@lru_cache(maxsize=None)
+def _ssq_plan(n_fft: int):
+    """(T, SS) of kernel G at this n_fft: T frames a block, the largest of
+    256 .. 1 whose shared memory fits, and SS the frame stride of the staged
+    entries. Where the core has NCOL < 32 columns, a warp's round stores
+    (i = lane + const, frame = col) are free of bank conflicts when
+    SS = NCOL mod 32; that stride is taken where it fits, else SS = T.
+    None where nothing fits or the transform is too long for the core."""
+    Q = _bluestein_q(n_fft)
+    if Q > _MAX_Q:
+        return None
+    ncol = _core_shape(Q)[0]
+    for T in (256, 128, 64, 32, 16, 8, 4, 2, 1):
+        strides = [T]
+        if ncol < 32:
+            strides.insert(0, T + (ncol - T) % 32)
+        for SS in strides:
+            if _ssq_smem(n_fft, T, SS) <= MAX_SMEM:
+                return T, SS
     return None
 
 
 def ssq_stft_fused_ok(n_fft: int) -> bool:
     """Whether kernel G's shared-memory plan fits at this n_fft (decided
     by shape alone)."""
-    return _ssq_cols(n_fft // 2 + 1, n_fft) is not None
+    return _ssq_plan(n_fft) is not None
 
 
 def _ssq_stft_planes_plain(xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
@@ -309,31 +338,28 @@ def ssq_stft_fused_plain(xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
 
 
 def _ssq_stft_cuda(device, xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
-                   plan_params, mode, flipud):
+                   plan_params, mode, flipud, spec):
     from .. import _build
-    nf = K_T.shape[0] // 4
-    cols = _ssq_cols(nf, n_fft)
-    if cols is None:
+    _check_spec(spec, K_T, n_fft, fs, "ssq_stft_fused")
+    plan = _ssq_plan(n_fft)
+    if plan is None:
         raise ValueError(f"ssq_stft_fused: n_fft={n_fft} does not fit the "
                          "kernel's shared memory (see ssq_stft_fused_ok)")
-    plan = _plan_floats(mode, plan_params)
-    NP = _taps(n_fft)
-    nc = -(-nf // _G_R)
-    # Kg[t, 256c + 64p + r] = plane p's row 64c + r at tap t
-    K4 = nnf.pad(K_T.reshape(4, nf, n_fft), (0, NP - n_fft, 0, nc * _G_R - nf))
-    Kg = K4.reshape(4, nc, _G_R, NP).permute(3, 1, 0, 2).reshape(
-        NP, nc * 4 * _G_R).contiguous()
+    T, SS = plan
+    nf = spec.nf
+    Q, A, Bt, D = _tables_on(spec, device)
     x2, batch = _rows2(xp)
     B, mp = x2.shape
     outs = [torch.empty((B, nf, n_out), dtype=torch.float32, device=device)
             for _ in range(4)]
     with torch.cuda.device(device):
         err = _build.lib().ssq_stft_fused(
-            x2.data_ptr(), Kg.data_ptr(), B, mp, NP, nf, nc, n_out,
-            float(fs), const.contiguous().data_ptr(),
-            Sfs.contiguous().data_ptr(), _gamma2(gamma), MODES[mode],
-            int(bool(flipud)), *plan, cols, *(o.data_ptr() for o in outs),
-            _stream(device))
+            x2.data_ptr(), A.data_ptr(), Bt.data_ptr(), D.data_ptr(), B, mp,
+            n_fft, nf, Q.bit_length() - 1, n_out, float(fs),
+            const.contiguous().data_ptr(), Sfs.contiguous().data_ptr(),
+            _gamma2(gamma), MODES[mode], int(bool(flipud)),
+            *_plan_floats(mode, plan_params), T, SS,
+            *(o.data_ptr() for o in outs), _stream(device))
     _build.check(err, "ssq_stft kernel")
     LAUNCHES["ssq_stft"] += 1
     return tuple(o.reshape(batch + (nf, n_out)) for o in outs)
@@ -357,7 +383,7 @@ class SsqStftFusedFn(torch.autograd.Function):
         args = (xp, K_T, n_fft, n_out, fs, Sfs, const, gamma, plan_params,
                 mode, flipud)
         if xp.device.type == "cuda":
-            return _ssq_stft_cuda(xp.device, *args)
+            return _ssq_stft_cuda(xp.device, *args, spec)
         return _ssq_stft_planes_plain(*args)
 
     @staticmethod
@@ -390,7 +416,8 @@ def ssq_stft_fused(xp, K_T, n_fft: int, n_out: int, fs, Sfs, const, gamma,
     xp: (..., n_out + n_fft - 1) float32; K_T: (4 nf, n_fft) stacked
     [Sr; Si; dSr; dSi] DFT matrices (fs not folded in); Sfs, const: (nf,);
     entries with |Sx|^2 <= gamma^2 are masked; `spec`: the `DftSpec` of
-    K_T, which the backward's kernels F and H need on CUDA. Returns complex64
+    K_T, which kernel G and the backward's kernels F and H compute from
+    (needed on CUDA; the plain version takes K_T). Returns complex64
     (Tx, Sx), each (..., nf, n_out). Differentiable in xp
     (`SsqStftFusedFn`)."""
     device = _device_of(xp)

@@ -31,10 +31,10 @@ def test_library_name_follows_source_content(src_tree):
     assert _build.library_path() != first
 
 
-@pytest.mark.parametrize("name", ["bins.cuh", "dft_tile.cuh", "stft_dft.cu",
+@pytest.mark.parametrize("name", ["bins.cuh", "bluestein.cuh", "stft_dft.cu",
                                   "ssq_stft.cu", "istft_ola.cu",
                                   "reassign_bwd.cu", "fft4.cuh",
-                                  "cwt_phase.cu", "cwt_planes.cu",
+                                  "reassign.cu", "cwt_planes.cu",
                                   "reassign_mxu.cu", "cwt_planes.cuh",
                                   "reassign.cuh", "ablate_cwt.cu",
                                   "ablate_reassign.cu", "mma.cuh",
@@ -81,9 +81,11 @@ def test_tensor_core_helpers_are_shared():
 
 
 def test_cwt_kernels_share_the_four_step_header():
-    """Kernels D and E (cwt_planes.cu, one pair of launches whose first
-    takes a loader), F (stft_dft.cu) and H (istft_ola.cu) run on the
-    register-radix core (fft_radix.cuh); only A (cwt_phase.cu) and the
+    """Kernels A, D and E (cwt_planes.cu, one pair of launches whose first
+    takes a loader and whose second takes a store), F (stft_dft.cu), G
+    (ssq_stft.cu) and H (istft_ola.cu) run on the register-radix core
+    (fft_radix.cuh); F and G share its chirp-z frame routine
+    (bluestein.cuh), and G has no dense DFT tile and no atomics; only the
     probes P1-P3 (ablate_cwt.cu, through cwt_planes.cuh) keep the radix-2
     four-step header fft4.cuh. The second launches' output planes
     (planes.cuh) are shared by cwt_planes.cu and cwt_planes.cuh. The build
@@ -92,43 +94,59 @@ def test_cwt_kernels_share_the_four_step_header():
     import re
     sources = [os.path.basename(p) for p in _build._sources()]
     assert {"fft4.cuh", "fft_radix.cuh", "cwt_planes.cuh", "planes.cuh",
-            "reassign.cuh"} <= set(sources)
-    for name, header in (("cwt_phase.cu", "fft4.cuh"),
-                         ("cwt_planes.cuh", "fft4.cuh"),
+            "reassign.cuh", "bluestein.cuh"} <= set(sources)
+    assert not {"cwt_phase.cu", "dft_tile.cuh"} & set(sources)
+    for name, header in (("cwt_planes.cuh", "fft4.cuh"),
                          ("cwt_planes.cuh", "planes.cuh"),
                          ("cwt_planes.cu", "planes.cuh"),
                          ("cwt_planes.cu", "fft_radix.cuh"),
-                         ("stft_dft.cu", "fft_radix.cuh"),
+                         ("stft_dft.cu", "bluestein.cuh"),
+                         ("ssq_stft.cu", "bluestein.cuh"),
+                         ("ssq_stft.cu", "bins.cuh"),
+                         ("bluestein.cuh", "fft_radix.cuh"),
                          ("istft_ola.cu", "fft_radix.cuh"),
                          ("ablate_cwt.cu", "cwt_planes.cuh"),
                          ("reassign.cu", "reassign.cuh"),
                          ("ablate_reassign.cu", "reassign.cuh")):
         with open(os.path.join(_build.CSRC, name)) as f:
             assert f'#include "{header}"' in f.read(), name
-    for name in ("cwt_phase.cu", "ablate_cwt.cu", "cwt_planes.cuh"):
+    for name in ("ablate_cwt.cu", "cwt_planes.cuh"):
         with open(os.path.join(_build.CSRC, name)) as f:
             assert '#include "fft_radix.cuh"' not in f.read(), name
+    for name in sources:
+        if name in ("fft4.cuh", "cwt_planes.cuh", "ablate_cwt.cu"):
+            continue
+        with open(os.path.join(_build.CSRC, name)) as f:
+            assert '#include "fft4.cuh"' not in f.read(), name
     with open(os.path.join(_build.CSRC, "cwt_planes.cu")) as f:
         text = f.read()
     for header in ("cwt_planes.cuh", "fft4.cuh"):
         assert f'#include "{header}"' not in text
-    # E has no stage kernel of its own: the file's kernels are D's pair
+    # A and E have no stage kernel of their own: the file's kernels are D's
+    # pair, and A's entry point runs them with its loader and store
     kernel = r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\("
     assert re.findall(kernel, text) == ["cwt_d_stage1", "cwt_d_stage2"]
-    for name in ("stft_dft.cu", "istft_ola.cu"):
+    assert 'extern "C" int ssq_cwt_phase(' in text
+    assert "run_planes<2>(load, ps," in text
+    for name in ("stft_dft.cu", "ssq_stft.cu", "istft_ola.cu"):
         with open(os.path.join(_build.CSRC, name)) as f:
             text = f.read()
-        assert '#include "dft_tile.cuh"' not in text, name
+        assert "dft_tile" not in text, name
         assert "atomicAdd" not in text, name
-    # 23 and 14 parameters (D: planes, E: given Z planes); P1 takes D's
+    # 23 and 14 parameters (D: planes, E: given Z planes); A 22 (D's
+    # inputs but the derivative flag, gamma^2, three planes); P1 takes D's
     # with the variant for the derivative flag, P3 D's without it; F 15
-    # (the signal, its three Bluestein tables, shapes, fs, the planes); H
-    # 15 (the two planes, F's three tables, shapes, the partials, out)
+    # (the signal, its three Bluestein tables, shapes, fs, the planes); G
+    # 28 (F's inputs with two windows, const, Sfs, gamma^2, the binning
+    # plan, frames a block and the entries' stride, four planes); H 15
+    # (the two planes, F's three tables, shapes, the partials, out)
     assert len(_build._SIGNATURES["ssq_cwt_planes"]) == 23
     assert len(_build._SIGNATURES["ssq_ifft_halfband"]) == 14
+    assert len(_build._SIGNATURES["ssq_cwt_phase"]) == 22
     assert len(_build._SIGNATURES["ssq_ablate_cwt"]) == 23
     assert len(_build._SIGNATURES["ssq_cwt_staged"]) == 22
     assert len(_build._SIGNATURES["ssq_stft_dft"]) == 15
+    assert len(_build._SIGNATURES["ssq_stft_fused"]) == 28
     assert len(_build._SIGNATURES["ssq_istft_ola"]) == 15
 
 

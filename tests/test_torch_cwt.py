@@ -741,24 +741,36 @@ def test_radix_core_layout_is_free_of_bank_conflicts(P, pair):
     assert bank_ways(P, pair) == 1
 
 
+def model_launch1(Z):
+    """Launch 1 of kernels D, E and A in numpy (complex128): the row's k2
+    columns of the half spectrum Z (..., K1, M2), k1 < M1/2 and the rest
+    zero, through the core's schedule `model_fft` (sign +, only the first
+    M1/2 inputs read), times the twiddle e^(2 pi i n1 k2 / M): the
+    intermediate Y (..., n1, k2) (csrc/cwt_planes.cu cwt_d_stage1)."""
+    K1, M2 = Z.shape[-2:]
+    M1 = 2 * K1
+    cols = np.zeros(Z.shape[:-2] + (M2, M1), complex)
+    cols[..., :K1] = np.swapaxes(Z, -1, -2)
+    n1, k2 = np.arange(M1), np.arange(M2)
+    return np.swapaxes(model_fft(cols, 1, n_in=K1) *
+                       np.exp(2j * np.pi * np.outer(k2, n1) / (M1 * M2)),
+                       -1, -2)
+
+
 def model_e_route(Zr, Zi, nr, ni, keep):
     """Kernel E's route in numpy (complex128): D's launch 1 over each row's
-    k2 columns with E's loader (Z[k1, k2] from the row's planes, k1 <
-    M1/2, the rest zero), the core's schedule `model_fft` (sign +, only
-    the first M1/2 inputs read), the twiddle e^(2 pi i n1 k2 / M) into
-    Y[n1, k2]; D's launch 2 over the n1 rows of Y, `model_fft` wanting
-    only the n2 in [r0, r1) that cover the keep window, and the store
-    j = n1 + M1 n2 - start of (v + nyq (-1)^n1) / M (csrc/cwt_planes.cu
-    cwt_d_stage1 / cwt_d_stage2). Returns (rows, L) complex."""
+    k2 columns with E's loader (Z[k1, k2] from the row's planes,
+    `model_launch1`); D's launch 2 over the n1 rows of Y, `model_fft`
+    wanting only the n2 in [r0, r1) that cover the keep window, and the
+    store j = n1 + M1 n2 - start of (v + nyq (-1)^n1) / M
+    (csrc/cwt_planes.cu cwt_d_stage2 with PlanesStore). Returns (rows, L)
+    complex."""
     B, K1, M2 = Zr.shape
     M1 = 2 * K1
     M, log1 = M1 * M2, _log(M1)
     start, L = keep
-    cols = np.zeros((B, M2, M1), complex)
-    cols[..., :K1] = (Zr + 1j * Zi.astype(np.float64)).transpose(0, 2, 1)
-    n1, k2 = np.arange(M1), np.arange(M2)
-    Y = (model_fft(cols, 1, n_in=K1) *
-         np.exp(2j * np.pi * np.outer(k2, n1) / M)).transpose(0, 2, 1)
+    n1 = np.arange(M1)
+    Y = model_launch1(Zr + 1j * Zi.astype(np.float64))
     r0, r1 = start >> log1, ((start + L - 1) >> log1) + 1
     V = model_fft(Y, 1, lo=r0, hi=r1)                  # (B, n1, n2)
     nyq = (nr + 1j * ni.astype(np.float64))[:, None]
@@ -768,6 +780,56 @@ def model_e_route(Zr, Zi, nr, ni, keep):
         ok = (j >= 0) & (j < L)
         out[:, j[ok]] = (V[:, n1[ok], n2] +
                          nyq * np.where(n1[ok] % 2, -1, 1)) / M
+    return out
+
+
+def model_a_route(Pw, xr, xi, xig, inv_dt, nyq_w, nyq_d, keep, gamma2):
+    """Kernel A's route in numpy (complex128): D's launch 1 with D's loader
+    (Z = Pw x^ and dZ = i Z xig / dt, rows b-major; `model_launch1`), then
+    launch 2 in the core's slot-major layout (PhaseStore): block y, thread
+    t, slot u holds column `slot(t, u, M2, pair=True)`, that is pipeline
+    u of n1 = y ncu + column % ncu, so one thread holds Wx and dWx of each
+    of its outputs and forms w = |B C - A D| / (|Wx|^2 2 pi), +inf where
+    |Wx|^2 <= gamma2. Every kept output is written once. Returns (Wxr,
+    Wxi, w), each (rows, L)."""
+    na, K1, M2 = Pw.shape
+    M1 = 2 * K1
+    M, log1 = M1 * M2, _log(M1)
+    start, L = keep
+    Z = (Pw[None].astype(np.float64) *
+         (xr[:, None] + 1j * xi[:, None].astype(np.float64))
+         ).reshape(-1, K1, M2)
+    s = xig.astype(np.float64) * np.float64(inv_dt)
+    Y = model_launch1(np.stack([Z, 1j * Z * s]))       # (2, rows, n1, k2)
+    r0, r1 = start >> log1, ((start + L - 1) >> log1) + 1
+    V = model_fft(Y, 1, lo=r0, hi=r1)                  # (2, rows, n1, n2)
+    nyq = [np.asarray(a, np.float64) + 1j * np.asarray(b, np.float64)
+           for a, b in (nyq_w, nyq_d)]
+    ncu, E = _ncu(M2, True), points_per_thread(M2)
+    tpc = M2 // E
+    out = np.zeros((3, Z.shape[0], L))
+    hits = np.zeros(L, int)
+    for y in range(-(-M1 // ncu)):
+        for t in range(THREADS):
+            (c0, lane), (c1, lane1) = (slot(t, u, M2, pair=True)
+                                       for u in (0, 1))
+            assert (c0 // ncu, c1 // ncu) == (0, 1) and lane1 == lane
+            assert c0 % ncu == c1 % ncu
+            n1 = y * ncu + c0 % ncu
+            if n1 >= M1:
+                continue
+            n2 = lane + tpc * np.arange(E)
+            j = n1 + M1 * n2 - start
+            ok = (n2 >= r0) & (n2 < r1) & (j >= 0) & (j < L)
+            alt = (-1) ** n1 / M
+            W, dW = (V[p][:, n1, n2[ok]] / M + nyq[p][:, None] * alt
+                     for p in (0, 1))
+            mag2 = np.abs(W) ** 2
+            ratio = (dW.imag * W.real - dW.real * W.imag) / (mag2 * 2 * np.pi)
+            out[0][:, j[ok]], out[1][:, j[ok]] = W.real, W.imag
+            out[2][:, j[ok]] = np.where(mag2 > gamma2, np.abs(ratio), np.inf)
+            hits[j[ok]] += 1
+    assert (hits == 1).all()
     return out
 
 
@@ -802,9 +864,8 @@ def test_e_route_model_matches_plain_and_jax(keep):
 def test_e_chunks_rows_as_d(monkeypatch):
     """Kernel E's wrapper sizes its row chunks as D's with one pipeline
     (`d_chunk_rows(M, 1, rows)`, Y within the L2 budget), not by the 2 GB
-    cap the A path and the adjoints keep: read off the entry point's
-    arguments with the library stubbed, at the budget and at one of two
-    rows' Y."""
+    cap the adjoints keep: read off the entry point's arguments with the
+    library stubbed, at the budget and at one of two rows' Y."""
     from ssqueeze_rs_tpu_torch import _build
     calls = []
 
@@ -823,6 +884,57 @@ def test_e_chunks_rows_as_d(monkeypatch):
                                      (0, M))
         assert calls[-1][10] == fft_cuda.d_chunk_rows(M, 1, 7)
     assert [c[10] for c in calls] == [7, 2]
+
+
+@pytest.mark.parametrize("keep", ["signal", "all"])
+def test_a_route_model_matches_plain_a(kcase, keep):
+    """Kernel A's route (D's launch 1 with D's loader, launch 2 in the
+    slot-major layout with the phase store, `model_a_route`) at N = 9000
+    (M = 2^14 = 128 x 128), keep (n1, N) and (0, M), gives plain A's
+    (`cwt_phase_plain`) Wx within 1e-5 of max|Wx| and its w by the bars of
+    test_torch_cwt_phase.py: where |Wx|^2 > 1e4 gamma^2, relative error
+    < 1e-4 on >= 99.9 % of entries, and the +inf mask on >= 99.9 %; the
+    model writes every kept output once."""
+    a = _args(kcase, 1)
+    M = kcase["M"]
+    keep = (kcase["n1"], N) if keep == "signal" else (0, M)
+    gamma = 1e-5
+    gamma2 = float(np.float32(gamma ** 2))
+    wr, wi, w = model_a_route(*a, keep=keep, gamma2=gamma2)
+    pr, pi_, pw = (t.numpy() for t in fft_cuda.cwt_phase_plain(
+        *a, keep=keep, gamma=gamma))
+    assert wr.shape == pr.shape == (kcase["na"], keep[1])
+    assert _rel(wr, pr) < 1e-5 and _rel(wi, pi_) < 1e-5
+    strong = pr ** 2 + pi_ ** 2 > 1e4 * gamma2
+    w_rel = np.abs(w - pw)[strong] / np.abs(pw)[strong]
+    assert (w_rel < 1e-4).mean() >= 0.999
+    assert (np.isinf(w) == np.isinf(pw)).mean() >= 0.999
+
+
+def test_a_chunks_rows_as_d(monkeypatch, kcase):
+    """Kernel A's wrapper sizes its row chunks as D's with the derivative
+    (`d_chunk_rows(M, 2, rows)`, Y within the L2 budget), no longer by
+    the 2 GB cap the adjoints keep: read off the entry point's arguments
+    with the library stubbed, at the budget and at two rows' Y."""
+    from ssqueeze_rs_tpu_torch import _build
+    calls = []
+
+    class Lib:
+        def ssq_cwt_phase(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "_LIB", Lib())
+    monkeypatch.setattr(fft_cuda, "_stream", lambda device: None)
+    _, Pw, xr, xi, xig, nyq = fft_cuda._prepare(*_args(kcase, 2)[:4],
+                                                *_args(kcase, 2)[5:])
+    M, rows = kcase["M"], 2 * kcase["na"]
+    for budget in (fft_cuda._D_Y_BYTES, 2 * 2 * M * 8):
+        monkeypatch.setattr(fft_cuda, "_D_Y_BYTES", budget)
+        fft_cuda._cwt_phase_cuda(torch.device("cpu"), Pw, xr, xi, xig, 1.0,
+                                 nyq, (0, M), 1e-5)
+        assert calls[-1][17] == fft_cuda.d_chunk_rows(M, 2, rows)
+    assert [c[17] for c in calls] == [rows, 2]
 
 
 @pytest.mark.parametrize("pipes", [1, 2])

@@ -15,6 +15,11 @@ Tolerances:
           sides sum the same float32 products (598 at most) in other orders
   x       istft: max|d| / max|x_jax| < 2e-6, the same bar
   round trip mad_rms(x, istft(stft(x))) < 1e-5 (the JAX package's bar)
+  G's steps (F's chirp-z model, the phase, the bins, the ordered walk):
+          Tx against plain G on >= 99.9 % of entries within 1e-5 max|Tx|,
+          column sums within 1e-5 (chip_smoke's bars for kernel G); against
+          the JAX kernel G the column marginals within 1e-3 (an ulp of the
+          phase can move an entry to the neighbouring bin)
 """
 import sys
 
@@ -23,17 +28,21 @@ import pytest
 import torch
 import jax
 
-from ssqueeze_rs_tpu import stft as j_stft, istft as j_istft
+from ssqueeze_rs_tpu import (stft as j_stft, istft as j_istft,
+                             ssq_stft as j_ssq_stft)
 from ssqueeze_rs_tpu.utils import windows as j_windows
 from ssqueeze_rs_tpu_torch import stft, istft, get_window, mad_rms
-from ssqueeze_rs_tpu_torch.ops import stft_cuda
-from ssqueeze_rs_tpu_torch.utils import windows as t_windows
+from ssqueeze_rs_tpu_torch.config import EPS32
+from ssqueeze_rs_tpu_torch.ops import reassign_cuda, stft_cuda
+from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
+from ssqueeze_rs_tpu_torch.utils import pad as t_pad, windows as t_windows
 
 # the modules (the packages export functions of the same names)
 j_stft_mod = sys.modules["ssqueeze_rs_tpu.ops.stft"]
 t_stft_mod = sys.modules["ssqueeze_rs_tpu_torch.ops.stft"]
 
 N, FS = 4000, 10.0
+G_FS = 1000.0       # kernel G's cases: a sampling rate in Hz, as ssq_stft's
 
 
 @pytest.fixture(autouse=True)
@@ -236,8 +245,8 @@ def test_shape_contracts_and_gates():
     with pytest.raises(ValueError, match="do not match"):
         stft_cuda.istft_ola(torch.zeros((5, 30)), torch.zeros((5, 30)),
                             torch.zeros((9, 4)), torch.zeros((9, 4)), 9)
-    assert stft_cuda._ssq_cols(300, 598) == 32
-    assert stft_cuda._ssq_cols(1025, 2048) == 16
+    assert stft_cuda._ssq_plan(598) == (32, 36)
+    assert stft_cuda._ssq_plan(2048) == (4, 4)
     assert stft_cuda.ssq_stft_fused_ok(2048)
     assert stft_cuda.istft_ola_ok(2048) and not stft_cuda.istft_ola_ok(4096)
 
@@ -335,6 +344,157 @@ def test_stft_dft_cuda_route_needs_the_structure():
         run(torch.device("cpu"), xp, K[:4], 16, 100, None, spec)
     with pytest.raises(ValueError, match="one-window"):
         run(torch.device("cpu"), xp, K, 16, 100, 2.0, spec)
+
+
+# -- kernel G on F's frame routine: its steps, its structure, its plan ------
+def _g_inputs(n_fft, n_out, seed):
+    """A padded signal and G's four-plane K_T, structure and linear plan,
+    as `ssq_stft`'s fused route builds them (fs = 1000)."""
+    x = torch.as_tensor(_signal(n_out, seed=seed))
+    xp = t_pad.padsignal(x, "reflect", padlength=n_out + n_fft - 1)
+    win, dwin = get_window(None, n_fft, n_fft, derivative=True,
+                           dtype="float32")
+    wins = (t_stft_mod._win_bytes(win), t_stft_mod._win_bytes(dwin), n_fft,
+            True)
+    nf = n_fft // 2 + 1
+    Sfs = np.linspace(0, 0.5 * G_FS, nf, dtype=np.float32)
+    const, mode, params = plan_reassignment(Sfs, nf, False, transform="stft")
+    return (x, xp, torch.as_tensor(t_stft_mod._k_t_host(*wins)),
+            t_stft_mod._dft_spec(*wins), torch.as_tensor(Sfs),
+            torch.as_tensor(const, dtype=torch.float32), mode, params)
+
+
+def _ssq_stft_model(xp, spec, n_out, fs, Sfs, const, gamma, mode, params):
+    """Kernel G's steps in plain torch, from F's host tables: F's
+    chirp-z model (`_bluestein_model`) for the window and the derivative
+    window (times fs); w and the bin of every entry as kernel B' forms
+    them (`phase_w`, `bin_indices`); the value Sx * const[i], each product
+    rounded once; then each frame's walk over its entries in increasing i,
+    one add into its bin apiece (the kernel's ordered squeeze). Returns
+    (Tx, Sx) complex64, each (nf, n_out)."""
+    nf = spec.nf
+    sr, si, dr, di = _bluestein_model(xp, spec, n_out, fs).split(nf, dim=-2)
+    w = reassign_cuda.phase_w(sr, si, dr, di, Sfs, gamma, "stft")
+    k = reassign_cuda.bin_indices(w, mode, params, False, nf)
+    vr, vi = sr * const[:, None], si * const[:, None]
+    txr, txi = torch.zeros_like(sr), torch.zeros_like(si)
+    frames = torch.arange(n_out)
+    for i in range(nf):
+        m = k[i] >= 0
+        at = (k[i][m], frames[m])
+        txr.index_put_(at, vr[i][m], accumulate=True)
+        txi.index_put_(at, vi[i][m], accumulate=True)
+    return torch.complex(txr, txi), torch.complex(sr, si)
+
+
+def _tx_within(Tk, Tp):
+    """(share of entries within 1e-5 max|Tp|, max column-sum difference /
+    max|column sum|): chip_smoke's bars between G and its references."""
+    d = (Tk - Tp).abs()
+    within = float((d <= 1e-5 * Tp.abs().max()).float().mean())
+    cs_k, cs_p = Tk.sum(-2), Tp.sum(-2)
+    return within, float((cs_k - cs_p).abs().max() / cs_p.abs().max())
+
+
+@pytest.mark.parametrize("n_fft", [9, 16, 127, 256, 598])
+def test_ssq_stft_model_matches_plain_g(n_fft):
+    """G's steps on F's tables (`_ssq_stft_model`): Sx is F's chirp-z
+    model bit for bit (G runs F's frame routine), and Tx agrees with plain
+    G (`ssq_stft_fused_plain`: the dense F product, then B') on >= 99.9 %
+    of entries within 1e-5 of max|Tx| with column sums within 1e-5, the
+    bars chip_smoke holds kernel G to (the two Sx differ by float32
+    rounding, which can move an entry to the neighbouring bin)."""
+    n_out = 400
+    x, xp, K4, spec, Sfs, const, mode, params = _g_inputs(n_fft, n_out,
+                                                          n_fft)
+    gamma = 10 * EPS32
+    Tm, Sm = _ssq_stft_model(xp, spec, n_out, G_FS, Sfs, const, gamma, mode,
+                             params)
+    F = _bluestein_model(xp, spec, n_out, G_FS)
+    assert torch.equal(Sm, torch.complex(F[:spec.nf], F[spec.nf:2 * spec.nf]))
+    Tp, Sp = stft_cuda.ssq_stft_fused_plain(xp, K4, n_fft, n_out, G_FS, Sfs,
+                                            const, gamma, params, mode, False)
+    assert _rel(Sm, Sp) < 2e-6
+    within, col = _tx_within(Tm, Tp)
+    assert within >= 0.999 and col < 1e-5
+    assert float((Tm != 0).float().mean()) > 0.3
+
+
+def test_ssq_stft_model_matches_jax_kernel(monkeypatch):
+    """G's steps on F's tables against the JAX kernel G (interpret mode)
+    through the JAX package's ssq_stft at N = 2000, n_fft = 256: Sx within
+    2e-6 and Tx column marginals within 1e-3 (the bars of
+    tests/test_torch_ssq_stft.py between plain G and the same kernel)."""
+    n_fft, n_out = 256, 2000
+    x, xp, _, spec, Sfs, const, mode, params = _g_inputs(n_fft, n_out, 3)
+    monkeypatch.setenv("SSQ_TPU_KERNELS", "1")
+    jax.clear_caches()
+    Tj, Sj, *_ = (np.asarray(a) for a in j_ssq_stft(
+        x.numpy(), n_fft=n_fft, fs=G_FS, dtype="float32"))
+    monkeypatch.delenv("SSQ_TPU_KERNELS")
+    jax.clear_caches()
+    Tm, Sm = _ssq_stft_model(xp, spec, n_out, G_FS, Sfs, const, 10 * EPS32,
+                             mode, params)
+    assert _rel(Sm.numpy(), Sj) < 2e-6
+    c, c_j = np.abs(Tm.numpy()).sum(-2), np.abs(Tj).sum(-2)
+    assert np.abs(c - c_j).max() / c_j.max() < 1e-3
+
+
+def test_ssq_stft_fused_cuda_route_needs_the_structure(monkeypatch):
+    """Kernel G computes from the structure: its route raises without one
+    and on a one-window structure, before any launch."""
+    from ssqueeze_rs_tpu_torch import _build
+
+    class NoLaunch:
+        def ssq_stft_fused(self, *args):
+            raise AssertionError("launched")
+
+    monkeypatch.setattr(_build, "_LIB", NoLaunch())
+    x, xp, K4, spec, Sfs, const, mode, params = _g_inputs(16, 100, 0)
+    run = lambda s: stft_cuda._ssq_stft_cuda(
+        torch.device("cpu"), xp, K4, 16, 100, G_FS, Sfs, const, 1e-6, params,
+        mode, False, s)
+    with pytest.raises(ValueError, match="DftSpec"):
+        run(None)
+    with pytest.raises(ValueError, match="does not match"):
+        run(_caller_k_t("stft", 16, True)[1])
+
+
+def test_ssq_stft_plan_fits_every_admitted_n_fft():
+    """G's plan (frames a block T, the staged entries' frame stride SS)
+    fits 227 KB at every n_fft the gate admits, takes the largest T that
+    fits, and the gate refuses every n_fft whose chirp-z transform is past
+    the core's 4096 points (n_fft > 2731). The planner's mirror of the
+    core's Shape agrees with the bank-conflict mirror of
+    tests/test_torch_cwt.py; where SS is padded, a warp's round stores
+    (bin = lane + const, frame = column) hit 32 distinct banks."""
+    from test_torch_cwt import ncol, col_stride, passes
+    for log in range(2, 13):
+        Q = 1 << log
+        nc, floats = stft_cuda._core_shape(Q)
+        tw = Q + sum(R * ns for R, ns in passes(Q)[1:-1])
+        assert nc == ncol(Q) and floats == tw + 2 * nc * col_stride(Q)
+    admitted = []
+    for n_fft in range(2, 4200):
+        plan = stft_cuda._ssq_plan(n_fft)
+        assert (plan is not None) == stft_cuda.ssq_stft_fused_ok(n_fft)
+        if plan is None:
+            assert stft_cuda._bluestein_q(n_fft) > 4096
+            continue
+        admitted.append(n_fft)
+        T, SS = plan
+        nc = stft_cuda._core_shape(stft_cuda._bluestein_q(n_fft))[0]
+        assert 1 <= T <= 256 and SS >= T
+        assert stft_cuda._ssq_smem(n_fft, T, SS) <= stft_cuda.MAX_SMEM
+        if T < 256:
+            assert stft_cuda._ssq_smem(n_fft, 2 * T, 2 * T) > \
+                stft_cuda.MAX_SMEM
+        if SS != T:
+            lanes = 32 // nc
+            banks = {(lane * SS + c) % 32 for lane in range(lanes)
+                     for c in range(nc)}
+            assert len(banks) == 32
+    assert admitted == list(range(2, 2732))
 
 
 # -- kernel H as F's adjoint: its route on F's tables ------------------------
