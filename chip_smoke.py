@@ -29,15 +29,18 @@ Phases, one line each:
      the constant and one chunk of every row
   4. kernel B (reassign) against its plain version on the same w plane:
      every Tx entry (so every bin) and the column sums, plus bitwise
-     equality of two kernel runs; timed the same way
+     equality of two kernel runs and with the row walk B ran before (probe
+     P4's full at 3 planes); timed the same way beside the row walk, the
+     median and spread of five such medians, with its columns a block
   5. three requests through ssq_cwt (white noise, a 100 Hz sine at
      fs = 1000, a linear chirp): each kernel launched once per request,
      finite Tx, the sine's peak within 1 % of 100 Hz, issq_cwt of the
      sine, end-to-end time; then the device result against the CPU
      (plain-torch) result for a batch of two signals at N = 20 000
   6. kernels B and B' at nf = 1025 (STFT planes at n_fft = 2048,
-     N = 20 000; 16 columns per block) against their plain versions:
-     every entry within 1e-5 max|Tx|, bitwise repeat
+     N = 20 000; 8 columns x 16 lanes a block) against their plain
+     versions: every entry within 1e-5 max|Tx|, bitwise repeat, bitwise
+     the row walk (P4's full at 3 and 4 planes), timed beside it
   7. kernel F (stft_dft, the Bluestein transform on the register-radix
      core) against plain F at the STFT width, derivative off (600 rows)
      and on (1200 rows): max|dS| / max|S| < 2e-6, bitwise repeat, both
@@ -46,7 +49,7 @@ Phases, one line each:
      n_fft = 599 (a prime)
   8. kernel B' (reassign4, lin bins, nf = 300) on F's planes against plain
      B': every entry within 1e-5 max|Tx|, column sums within 1e-5,
-     bitwise repeat; timed
+     bitwise repeat and bitwise the row walk (P4's full); timed beside it
   9. kernel G (ssq_stft: F's chirp-z frame routine, the phase, the bins
      and an ordered squeeze in one kernel): a call without its DftSpec
      raises; Sx bitwise F's with two windows; Tx bitwise kernel B' on F's
@@ -139,9 +142,10 @@ Phases, one line each:
      plain twin at the headline: planes within 1e-5 of their largest
      value, the copy and zero variants exact, P1's full and P3 (D's earlier
      radix-2 design) bitwise equal and within 1e-5 of D's plain version per
-     plane, P4's full at 32, 16 and 8
+     plane, P4's full (the row walk B' ran before) at 32, 16 and 8
      columns a block bitwise B' (reassign4 under 'vpu'), the three grid
-     modes bitwise equal on a batch of 4, every kernel bitwise repeated
+     modes bitwise equal on a batch of 4, every kernel bitwise repeated;
+     B' timed beside the row walk at the headline
  22. the last TPU probes' entry points (J5 mxu_rate_probe and its
      --chains, J6 mxu_probe and mxu_probe2, J7 dma_overlap_probe, J8
      grid_slope_probe), each main() run as a user would, K = 5, the launch
@@ -403,6 +407,13 @@ def tx_metrics(np, Tx, Tx_ref):
     return col, tot
 
 
+def spread_ms(torch, fn, runs=5):
+    """(median, least, most) of `runs` cuda_ms medians of fn(): single
+    timings of B and B' at the headline move by ~20 % within one run."""
+    ms = sorted(cuda_ms(torch, fn) for _ in range(runs))
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
 def main():
     import numpy as np
     import torch
@@ -420,6 +431,7 @@ def main():
     from ssqueeze_rs_tpu_torch.utils.pad import padsignal
     from ssqueeze_rs_tpu_torch.wavelets import Wavelet
     from ssqueeze_rs_tpu_torch.config import EPS32
+    from ssqueeze_rs_tpu_torch.tools import ablate_reassign as ar
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -565,17 +577,31 @@ def main():
     # that) shows as a whole entry's difference
     relB = absB / float(Tp.abs().max())
     same = float((Tk == Tp).float().mean())
-    msB = cuda_ms(torch, lambda: reassign_cuda.reassign(*bargs))
+    # the design B had before (the row walk: P4's full at 3 planes) gives
+    # the same bits
+    kW = ar.ablate_reassign3(*bargs)
+    walk_equal = all(torch.equal(a, b) for a, b in zip(kB, kW))
+    del kW
+    msB, *spreadB = spread_ms(torch, lambda: reassign_cuda.reassign(*bargs))
+    msB_walk, *spreadW = spread_ms(torch,
+                                   lambda: ar.ablate_reassign3(*bargs))
     msB_plain = cuda_ms(torch, lambda: reassign_cuda.reassign_plain(*bargs))
+    colsB = reassign_cuda._block_cols(nf)
     boundB = bound(tensor_bytes(bargs, kB), BIN_FLOPS * kA[0].numel())
     results["B"] = dict(colsum_rel=errB, tx_abs=absB, tx_rel=relB,
-                        equal_frac=same,
-                        bitwise=bitwise, ms=msB, plain_ms=msB_plain, nf=nf,
-                        mode=mode, bound_ms=boundB[0], bound_by=boundB[1])
+                        equal_frac=same, walk_equal=walk_equal,
+                        bitwise=bitwise, ms=msB, ms_spread=spreadB,
+                        walk_ms=msB_walk, walk_ms_spread=spreadW,
+                        plain_ms=msB_plain, nf=nf, cols=colsB, mode=mode,
+                        bound_ms=boundB[0], bound_by=boundB[1])
     print(f"[4] kernel B: nf={nf} mode={mode} Tx rel={relB:.3e} column-sum "
-          f"rel={errB:.3e} Tx equal={same:.6f} bitwise-repeat={bitwise} | {msB:.3f} ms vs "
-          f"plain {msB_plain:.3f} ms, bound {boundB[0]:.3f} ms ({card})")
+          f"rel={errB:.3e} Tx equal={same:.6f} bitwise-repeat={bitwise} "
+          f"== row walk (P4 full, 3 planes) {walk_equal} | {colsB}x16 "
+          f"{msB:.3f} ms ({spreadB[0]:.3f}-{spreadB[1]:.3f}) vs row walk "
+          f"{msB_walk:.3f} ms ({spreadW[0]:.3f}-{spreadW[1]:.3f}), plain "
+          f"{msB_plain:.3f} ms, bound {boundB[0]:.3f} ms ({card})")
     check(bitwise, "kernel B differs between two runs")
+    check(walk_equal, "kernel B differs from the row walk (P4 full)")
     check(errB < 1e-5, f"kernel B column-sum rel error {errB:.3e} >= 1e-5")
     check(relB <= 1e-5, f"kernel B Tx rel error {relB:.3e} > 1e-5: "
           "entries in other bins than the plain version's")
@@ -729,7 +755,9 @@ def stft_phases(np, torch, dev, card, results):
                 torch.as_tensor(const, dtype=torch.float32, device=dev),
                 mode, params)
 
-    # 6. kernels B and B' at nf = 1025 (16 columns per block)
+    # 6. kernels B and B' at nf = 1025 against their plain versions and
+    # bitwise the row walk (P4's full at 3 and 4 planes)
+    from ssqueeze_rs_tpu_torch.tools import ablate_reassign as ar
     x20 = torch.as_tensor(rng.standard_normal(N_SMALL), dtype=torch.float32,
                           device=dev)
     (sr, si), (dr, di) = stft(x20, n_fft=2048, derivative=True,
@@ -741,24 +769,35 @@ def stft_phases(np, torch, dev, card, results):
     w6 = reassign_cuda.phase_w(sr, si, dr, di, Sfs6, gamma, "stft")
     a3 = (sr, si, w6, const6, params6, mode6, False, nf6)
     line = []
-    for name, fn, plain, args in (
-            ("B", reassign_cuda.reassign, reassign_cuda.reassign_plain, a3),
+    for name, fn, plain, walk, args in (
+            ("B", reassign_cuda.reassign, reassign_cuda.reassign_plain,
+             ar.ablate_reassign3, a3),
             ("B'", reassign_cuda.reassign4, reassign_cuda.reassign4_plain,
-             a4)):
+             ar.ablate_reassign, a4)):
         k1, k2, p = fn(*args), fn(*args), plain(*args)
+        kw = walk(*args)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        walk_equal = all(torch.equal(a, b) for a, b in zip(k1, kw))
         r6, _, col, _ = entry_metrics(torch, torch.complex(*k1),
                                       torch.complex(*p))
-        results[f"nf1025_{name}"] = dict(tx_rel=r6, colsum_rel=col,
-                                         bitwise=bitwise)
+        ms6 = cuda_ms(torch, lambda: fn(*args))
+        ms6_walk = cuda_ms(torch, lambda: walk(*args))
+        res = dict(tx_rel=r6, colsum_rel=col, bitwise=bitwise,
+                   walk_equal=walk_equal, ms=ms6, walk_ms=ms6_walk)
+        results[f"nf1025_{name}"] = res
         line.append(f"{name} Tx rel={r6:.3e} col rel={col:.3e} "
-                    f"bitwise-repeat={bitwise}")
+                    f"bitwise-repeat={bitwise} == row walk {walk_equal} | "
+                    f"{ms6:.3f} ms vs row walk {ms6_walk:.3f} ms")
         check(bitwise, f"kernel {name} at nf={nf6} differs between two runs")
+        check(walk_equal, f"kernel {name} at nf={nf6} differs from the row "
+              "walk (P4 full)")
         check(r6 <= 1e-5, f"kernel {name} at nf={nf6}: Tx rel {r6:.3e}")
+        del k1, k2, p, kw
     cols = reassign_cuda._block_cols(nf6)
-    print(f"[6] nf={nf6} ({cols} columns per block): {'; '.join(line)}")
-    check(nf6 == 1025 and cols == 16, f"nf={nf6}, {cols} columns")
+    print(f"[6] nf={nf6} ({cols} columns x 16 lanes a block): "
+          f"{'; '.join(line)} ({card})")
+    check(nf6 == 1025 and cols == 8, f"nf={nf6}, {cols} columns")
     del sr, si, dr, di, w6, a3, a4
 
     # 7. kernel F against plain F at the STFT width, both against the
@@ -835,18 +874,29 @@ def stft_phases(np, torch, dev, card, results):
     p4 = reassign_cuda.reassign4_plain(*a4)
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+    walk_equal = all(torch.equal(a, b) for a, b in
+                     zip(k1, ar.ablate_reassign(*a4)))
     Tb = torch.complex(*k1)
     rel4, _, col4, abs4 = entry_metrics(torch, Tb, torch.complex(*p4))
-    ms4 = cuda_ms(torch, lambda: reassign_cuda.reassign4(*a4))
+    ms4, *spread4 = spread_ms(torch,
+                              lambda: reassign_cuda.reassign4(*a4))
+    ms4_walk, *spread4w = spread_ms(torch, lambda: ar.ablate_reassign(*a4))
     ms4_plain = cuda_ms(torch, lambda: reassign_cuda.reassign4_plain(*a4))
     bound4 = bound(tensor_bytes(a4, k1), BIN4_FLOPS * sr.numel())
+    cols4 = reassign_cuda._block_cols(nf)
     results["B4"] = dict(tx_rel=rel4, colsum_rel=col4, tx_abs=abs4,
-                         bitwise=bitwise, ms=ms4, plain_ms=ms4_plain, nf=nf,
-                         bound=bound4)
+                         bitwise=bitwise, walk_equal=walk_equal, ms=ms4,
+                         ms_spread=spread4, walk_ms=ms4_walk,
+                         walk_ms_spread=spread4w, plain_ms=ms4_plain, nf=nf,
+                         cols=cols4, bound=bound4)
     print(f"[8] kernel B': nf={nf} mode={mode} Tx rel={rel4:.3e} column-sum "
-          f"rel={col4:.3e} bitwise-repeat={bitwise} | {ms4:.3f} ms vs plain "
-          f"{ms4_plain:.3f} ms ({card})")
+          f"rel={col4:.3e} bitwise-repeat={bitwise} == row walk "
+          f"{walk_equal} | {cols4}x16 {ms4:.3f} ms ({spread4[0]:.3f}-"
+          f"{spread4[1]:.3f}) vs row walk {ms4_walk:.3f} ms "
+          f"({spread4w[0]:.3f}-{spread4w[1]:.3f}), plain {ms4_plain:.3f} ms "
+          f"({card})")
     check(bitwise, "kernel B' differs between two runs")
+    check(walk_equal, "kernel B' differs from the row walk (P4 full)")
     check(rel4 <= 1e-5 and col4 < 1e-5,
           f"kernel B' Tx rel {rel4:.3e}, column sums {col4:.3e}")
     del p4, k2
@@ -2346,6 +2396,11 @@ def probe_phases(np, torch, dev, card, results):
     rest = (ar.GAMMA, ar.PARAMS, ar.MODE, True, nf, "cwt")
     with scatter_impl("vpu"):
         b4 = reassign_cuda.reassign4(*planes, *rest)
+        # B' beside the row walk at the headline, both timed here
+        R["B'"] = dict(
+            ms=cuda_ms(torch, lambda: reassign_cuda.reassign4(*planes, *rest)),
+            walk_ms=cuda_ms(torch, lambda: ar.ablate_reassign(*planes, *rest)),
+            cols=reassign_cuda._block_cols(nf))
     for c in (32, 16, 8):
         k1 = ar.ablate_reassign(*planes, *rest, "full", c)
         R[f"full/{c}"] = dict(bitwise_b4=equal(k1, b4),
@@ -2385,6 +2440,7 @@ def probe_phases(np, torch, dev, card, results):
     R["batch"] = rows["bench_reassign_batch"]
     lap("21 P4 against its plain twin")
 
+    lanes = R["B'"]
     results["probes"] = dict(launches=launches, cwt=P, reassign=R,
                              plain_ms=dict(full=plain_full_ms,
                                            copy=copy_plain_ms,
@@ -2407,7 +2463,9 @@ def probe_phases(np, torch, dev, card, results):
         "batches (ms a transform): " + ", ".join(
             f"{k} {r['per_transform_ms']:.3f}"
             for k, r in R["batch"].items()) +
-        f", grid modes bitwise equal; launches {launches} ({card})")
+        f", grid modes bitwise equal; launches {launches}; B' "
+        f"({lanes['cols']}x16) {lanes['ms']:.3f} ms vs row walk "
+        f"{lanes['walk_ms']:.3f} ms ({card})")
 
     full, cp, st, re = (rows_cwt["full"], rows_cwt["dmaonly"],
                         rows_cwt["staged"], rows_re["full/32"])

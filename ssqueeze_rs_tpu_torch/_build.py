@@ -57,6 +57,8 @@ _SIGNATURES = {
                       [_P, _LL] + [_P] * 5,
     "ssq_ablate_reassign": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                            _PLAN + [_I, _I, _I, _P, _P, _P],
+    "ssq_ablate_reassign3": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
+                            [_I, _P, _P, _P],
     "ssq_grid_slope": [_P, _P, _LL, _I, _I, _P],
     "ssq_rate_dot": [_P, _P, _P] + [_I] * 7 + [_P],
     "ssq_rate_copy": [_P, _P] + [_I] * 4 + [_P],

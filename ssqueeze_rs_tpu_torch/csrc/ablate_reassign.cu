@@ -1,13 +1,17 @@
-// Probe P4: the ablation of kernel B' (the 4-plane reassignment scatter of
-// csrc/reassign.cu) and its batch grid modes, for sm_90a.
+// Probe P4: the ablation of the row walk, the design kernels B and B'
+// (the reassignment scatter of csrc/reassign.cu) ran before their
+// redesign, and its batch grid modes, for sm_90a.
 //
 // Replaces the TPU probes tools/ablate_reassign.py::_make_kernel (its
 // pallas_call at :225: the Pallas scatter with parts stripped) and
 // tools/bench_reassign_batch.py::grid3d (:134: the production scatter on a
-// flattened batch grid). It instantiates B''s own kernel (reassign.cuh)
-// with a variant V, so `full` is B' bit for bit:
+// flattened batch grid). It instantiates the row walk (reassign_walk.cuh:
+// one thread a column, one warp a block) with a variant V. Its `full` is
+// the old B' (4 planes) and, through ssq_ablate_reassign3, the old B (3
+// planes); the redesigned B and B' give the same Tx bit for bit:
 //
-//   full     B' (32, 16 or 8 columns a block, the caller's choice)
+//   full     the row walk itself (32, 16 or 8 columns a block, the
+//            caller's choice)
 //   dmaonly  the four planes read, two zero Tx planes written
 //   binonly  w and the bin of every entry; one row out per plane: the sum
 //            of the unmasked bins (Txr) and their count (Txi)
@@ -17,24 +21,24 @@
 //   chains2  even and odd rows into two accumulators, summed at the end
 //
 // Grid modes of `full` over a (batch, na, n) batch: the batch on
-// blockIdx.y (B''s own launch) or one 1-D grid of batch * ceil(n / cols)
-// blocks; the third mode, one call over (na, batch * n) columns, is B''s
-// launch at batch 1 on relaid planes (the wrapper's). The scatter is
-// column-local, so the three give the same bits.
+// blockIdx.y or one 1-D grid of batch * ceil(n / cols) blocks; the third
+// mode, one call over (na, batch * n) columns, is the launch at batch 1 on
+// relaid planes (the wrapper's). The scatter is column-local, so the
+// three give the same bits.
 //
 // The TPU probe's cmponly, groupG and overlap variants ask about its
 // one-hot compare and VMEM traffic, which this kernel does not have.
 //
 // What bounds it: as B', the four planes read once and the two Tx planes
 // written once (0.34 ms at 293 x 160 000 on an H100 at 3.35 TB/s); the
-// variants split the 1.8 ms B' takes between the loads (dmaonly), the
-// phase and bin arithmetic (binonly), the shared-memory accumulate
-// (addonly) and its dependency chain (chains2).
+// variants split the 1.7 ms the row walk takes between the loads
+// (dmaonly), the phase and bin arithmetic (binonly), the shared-memory
+// accumulate (addonly) and its dependency chain (chains2).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "reassign.cuh"
+#include "reassign_walk.cuh"
 
 namespace {
 
@@ -45,11 +49,12 @@ int launch_mode(int grid1d, const float* wr, const float* wi, const float* dr,
                 float gamma2, float* txr, float* txi, cudaStream_t s) {
   if (grid1d) {
     if (V != kRFull) return (int)cudaErrorInvalidValue;
-    return launch<COLS, 4, kRFull, true>(wr, wi, dr, di, cst, sfs, batch, na,
-                                         n, P, transform, gamma2, txr, txi, s);
+    return launch_walk<COLS, 4, kRFull, true>(wr, wi, dr, di, cst, sfs,
+                                              batch, na, n, P, transform,
+                                              gamma2, txr, txi, s);
   }
-  return launch<COLS, 4, V, false>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
-                                   transform, gamma2, txr, txi, s);
+  return launch_walk<COLS, 4, V, false>(wr, wi, dr, di, cst, sfs, batch, na,
+                                        n, P, transform, gamma2, txr, txi, s);
 }
 
 template <int COLS>
@@ -102,6 +107,27 @@ extern "C" int ssq_ablate_reassign(const float* wr, const float* wi,
     case 8: return launch_variant<8>(variant, grid1d, wr, wi, dr, di, cst,
                                      sfs, batch, na, n, P, transform, gamma2,
                                      txr, txi, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// `full` at 3 planes (the old B): Wx and the w plane, +inf where masked;
+// the arguments of ssq_reassign (cols: 32, 16 or 8).
+extern "C" int ssq_ablate_reassign3(const float* wr, const float* wi,
+                                    const float* w, const float* cst,
+                                    int batch, int na, long long n, int nf,
+                                    int mode, int flipud, float p0, float p1,
+                                    float p2, float p3, float p4, int cols,
+                                    float* txr, float* txi, void* stream) {
+  const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cols) {
+    case 32: return launch_walk<32, 3>(wr, wi, w, nullptr, cst, nullptr, batch,
+                                       na, n, P, ssq::kCwt, 0.f, txr, txi, s);
+    case 16: return launch_walk<16, 3>(wr, wi, w, nullptr, cst, nullptr, batch,
+                                       na, n, P, ssq::kCwt, 0.f, txr, txi, s);
+    case 8: return launch_walk<8, 3>(wr, wi, w, nullptr, cst, nullptr, batch,
+                                     na, n, P, ssq::kCwt, 0.f, txr, txi, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,28 +12,33 @@
 //   k = bin(w[i,j])   log / log-piecewise / lin closed form (bins.cuh)
 //   Tx[k, j] += (Wxr[i,j] * const[i], Wxi[i,j] * const[i])
 //
-// One thread owns one column and walks its rows in order, accumulating
-// into that column of a shared-memory (2, nf, COLS) block of planes. No
-// two threads touch the same accumulator, so there are no atomics and no
-// barriers, and every output is a sum taken in row order: the result is
-// bitwise the same from run to run. The block then stores its columns.
-// COLS (32, 16 or 8) is the largest whose accumulator fits in 227 KB, so
-// any nf up to 3632 launches (the TPU kernel's (nf, 512) accumulator
-// lives in VMEM and has no such bound).
+// A block owns COLS columns and 16 lanes a column (thread (c, g)); a warp
+// covers 2 columns and 16 rows at a step. Each lane loads one entry of its
+// column (row i0 + g), forms its bin and products once and adds them
+// itself to the block's shared-memory (2, nf, COLS) accumulator. Lanes
+// whose entries share a (bin, column) find each other with
+// __match_any_sync and add in rounds by row, one __syncwarp apart, so
+// every (bin, column) sum takes its adds in row order from zero: no
+// atomics, the same bits from run to run, and the same bits as the row
+// walk these kernels ran before (reassign_walk.cuh, probe P4's subject).
+// The block then stores its columns with all its threads. COLS comes from
+// nf alone (reassign_cuda._block_cols): 32 where the accumulator fits
+// 227 KB (nf <= 908), else 8, so any nf up to 3632 launches (the TPU
+// kernel's (nf, 512) accumulator lives in VMEM and has no such bound).
 //
-// What bounds it on Hopper: latency of the row walk at low occupancy. The
-// accumulator (2 * nf * 32 * 4 B = 75 KB at nf = 293) admits 3 blocks of
-// one warp per SM, so few loads are in flight; the bytes moved (three or
-// four input planes read once, two output planes written once) would take
-// well under a millisecond at full bandwidth. What the design does about
-// it: the row loop is unrolled so each thread issues the loads of kUnroll
-// rows before it uses them, and the products are rounded as in the
-// reference (value = Wx * const, then added) so the sum order is the only
-// freedom and it is fixed. The banded variant of the reference
-// (_band_mode) is later work.
-//
-// The kernel lives in reassign.cuh, which csrc/ablate_reassign.cu
-// instantiates with its ablation variants and grid modes.
+// What bounds it on Hopper: the bytes (three or four planes read once,
+// two written once: 0.28 / 0.34 ms at 293 x 160 000 at 3.35 TB/s) once
+// enough loads are in flight. The row walk held one warp a block, and its
+// 75 KB accumulator at nf = 293 let 3 blocks share an SM: 3 warps, each
+// entry a serial chain of load, bin and a shared read-modify-write at an
+// address the bin picks. Here the same accumulator carries 16 warps a
+// block (48 an SM at nf = 293), each entry is binned by its own lane
+// instead of in one thread's chain, a step's rows go into the accumulator
+// in one round unless two of them share a bin, and each lane keeps the
+// loads of the next rows in flight while it adds the current ones. The
+// products are rounded as in the reference (value = Wx * const, then
+// added), so the sum order is the only freedom and it is fixed. The
+// banded variant of the reference (_band_mode) is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,18 +56,16 @@ int dispatch(int cols, const float* wr, const float* wi, const float* p2,
   switch (cols) {
     case 32: return launch<32, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na,
                                         n, P, transform, gamma2, txr, txi, s);
-    case 16: return launch<16, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na,
-                                        n, P, transform, gamma2, txr, txi, s);
-    case 8: return launch<8, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na,
-                                      n, P, transform, gamma2, txr, txi, s);
+    case 8: return launch<8, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na, n,
+                                      P, transform, gamma2, txr, txi, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Planes are (batch, na, n) and (batch, nf, n), row-major float32; cols is
-// the columns per block (32, 16 or 8) the wrapper chose from nf.
+// Planes are (batch, na, n) and (batch, nf, n), row-major float32; cols
+// (32 or 8) is the columns a block the wrapper chose from nf.
 // Return cudaGetLastError() after the launch (0 on success).
 extern "C" int ssq_reassign(const float* wr, const float* wi, const float* w,
                             const float* cst, int batch, int na, long long n,

@@ -1,9 +1,26 @@
-// The scatter of kernels B and B' (csrc/reassign.cu), shared with the
-// probe of csrc/ablate_reassign.cu. The kernel takes a variant V
-// (`ReassignAblate`; B and B' are kRFull) and a grid mode: the batch on
-// blockIdx.y (B, B') or folded into a 1-D grid of batch * column tiles.
-// The code lives in an anonymous namespace so that each source that
-// includes it compiles its own instances.
+// The scatter of kernels B and B' (csrc/reassign.cu): 16 lanes a column,
+// each entry loaded and binned once by one lane and added, in row order,
+// by that lane.
+//
+// A block owns COLS consecutive columns of one batch item (the batch on
+// blockIdx.y) and has 16 * COLS threads. Lane l of warp w is thread (c, g)
+// with c = 2 * w + l % 2, the block's column, and g = l / 2, its row
+// group: a warp covers 2 columns and 16 rows at a step. The block keeps a
+// (2, nf, COLS) float accumulator in shared memory, the entry of bin k and
+// column c at column c ^ (k mod COLS) of row k (the lanes of one column
+// that add to different bins in one round then hit different banks).
+//
+// A step takes rows i0 .. i0 + 15: thread (c, g) loads row i0 + g of
+// column c (every plane) and forms its bin and its two products once.
+// Lanes whose entries share a (bin, column) find each other with
+// __match_any_sync, each takes the rank of its row among them, and the
+// warp adds in rounds: in round r the lanes of rank r add their entries,
+// then __syncwarp. So every (bin, column) sum takes its adds in
+// increasing row order from zero, the same adds in the same order as the
+// row walk (reassign_walk.cuh), with no atomics and no block barrier
+// inside the walk; a step whose rows all land in different bins takes
+// one round. The loads of the next step go out before this step's bins
+// and adds.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,151 +32,114 @@ namespace {
 
 using ssq::Plan;
 
-constexpr int kUnroll = 8;    // rows whose loads are issued together
+constexpr int kLanes = 16;             // lanes a column (G)
+constexpr int kWarpCols = 32 / kLanes;  // columns a warp covers
 
-enum ReassignAblate {
-  kRFull = 0,
-  kRDmaOnly = 1,   // every plane read, zero Tx planes written
-  kRBinOnly = 2,   // w and the bin of every entry; one row out: the sum of
-                   // the unmasked bins and their count
-  kRAddOnly = 3,   // Wx * const added into row i % nf in row order
-                   // (no phase, no bin, no mask); dWx read
-  kRChains2 = 4,   // even and odd rows into two accumulators, summed last
-};
-
-// Accumulator planes (of 2 * nf * COLS floats) a variant keeps in shared
-// memory.
-__host__ __device__ constexpr int acc_sets(int V) {
-  return V == kRChains2 ? 2 : (V == kRDmaOnly || V == kRBinOnly) ? 0 : 1;
+// Offset of bin k, column c in one accumulator plane.
+template <int COLS>
+__device__ __forceinline__ int acc_at(int k, int c) {
+  return k * COLS + (c ^ (k & (COLS - 1)));
 }
 
-// kPlanes = 3: p2 is the w plane; kPlanes = 4: p2, p3 are dWx. `sink` is 0
-// in every call: a store under it keeps the loads of the variants that
-// drop their values (the compiler cannot know it is never taken).
-template <int COLS, int kPlanes, int V = kRFull, bool kGrid1d = false>
-__global__ void __launch_bounds__(COLS)
+// kPlanes = 3: p2 is the w plane (+inf where masked); kPlanes = 4: p2, p3
+// are dWx, and w and the mask |Wx|^2 > gamma^2 are formed here.
+template <int COLS, int kPlanes>
+__global__ void __launch_bounds__(COLS * kLanes)
 reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
                 const float* __restrict__ p2, const float* __restrict__ p3,
                 const float* __restrict__ cst, const float* __restrict__ sfs,
                 int na, long long n, Plan P, int transform, float gamma2,
-                int sink, float* __restrict__ txr, float* __restrict__ txi) {
+                float* __restrict__ txr, float* __restrict__ txi) {
+  static_assert(COLS % kWarpCols == 0, "plan");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [sets][2][nf][COLS]
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [2][nf][COLS]
   const int nf = P.nf;
   const int tid = threadIdx.x;
-  long long tile, bat;
-  if constexpr (kGrid1d) {
-    const long long tiles = (n + COLS - 1) / COLS;
-    bat = blockIdx.x / tiles;
-    tile = blockIdx.x % tiles;
-  } else {
-    tile = blockIdx.x;
-    bat = blockIdx.y;
-  }
-  const long long j = tile * COLS + tid;
-  const long long set = 2LL * nf * COLS;          // one accumulator set
+  const int lane = tid & 31;
+  const int g = lane / kWarpCols;
+  const int c = (tid >> 5) * kWarpCols + lane % kWarpCols;
+  const long long j0 = (long long)blockIdx.x * COLS;
+  const long long bat = blockIdx.y;
+  const bool live = j0 + c < n;
+  float* acc_i = acc + (long long)nf * COLS;
 
-  float* ar = acc + tid;
-  float* ai = acc + (long long)nf * COLS + tid;
-  constexpr int kSets = acc_sets(V);
-#pragma unroll
-  for (int s = 0; s < kSets; ++s) {
-    for (int k = 0; k < nf; ++k) {
-      ar[s * set + k * COLS] = 0.f;
-      ai[s * set + k * COLS] = 0.f;
+  for (int e = tid; e < 2 * nf * COLS; e += COLS * kLanes) acc[e] = 0.f;
+  __syncthreads();
+
+  const long long base = bat * na * n + j0 + c;
+  float vr = 0.f, vi = 0.f, va = 0.f, vb = 0.f;
+  if (live && g < na) {
+    vr = wr[base + (long long)g * n];
+    vi = wi[base + (long long)g * n];
+    va = p2[base + (long long)g * n];
+    if (kPlanes == 4) vb = p3[base + (long long)g * n];
+  }
+  for (int i0 = 0; i0 < na; i0 += kLanes) {
+    // this step's entry: its bin and products
+    const int i = i0 + g;
+    int k = -1;
+    float pr = 0.f, pi = 0.f;
+    if (live && i < na) {
+      const float w = (kPlanes == 4)
+          ? ssq::phase_w(vr, vi, va, vb, sfs[i], gamma2, transform)
+          : va;
+      k = ssq::bin_of(w, P);
+      const float cc = cst[i];
+      pr = __fmul_rn(vr, cc);
+      pi = __fmul_rn(vi, cc);
     }
-  }
-  if (j >= n) return;
-
-  float held = 0.f;             // values a variant reads but does not use
-  float kbins = 0.f, kcount = 0.f;  // kRBinOnly
-  const long long base = bat * na * n + j;
-  for (int i0 = 0; i0 < na; i0 += kUnroll) {
-    float vr[kUnroll], vi[kUnroll], va[kUnroll], vb[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i0 + u < na) {
-        const long long o = base + (long long)(i0 + u) * n;
-        vr[u] = wr[o];
-        vi[u] = wi[o];
-        va[u] = p2[o];
-        if (kPlanes == 4) vb[u] = p3[o];
+    // the next step's loads go out before this one's adds
+    const int in = i + kLanes;
+    if (live && in < na) {
+      const long long o = base + (long long)in * n;
+      vr = wr[o];
+      vi = wi[o];
+      va = p2[o];
+      if (kPlanes == 4) vb = p3[o];
+    }
+    // the lanes of one (bin, column) add in rounds by row: a lane's rank
+    // is the count of lower lanes (lower rows) in its group
+    const int key = k >= 0 ? k * COLS + c : -1 - lane;
+    const unsigned same = __match_any_sync(0xffffffffu, key);
+    const int rank = __popc(same & ((1u << lane) - 1u));
+    const int rounds = __reduce_max_sync(0xffffffffu, rank);
+    for (int r = 0; r <= rounds; ++r) {
+      if (rank == r && k >= 0) {
+        const int a = acc_at<COLS>(k, c);
+        acc[a] += pr;
+        acc_i[a] += pi;
       }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i0 + u < na) {
-        const int i = i0 + u;
-        if constexpr (V == kRDmaOnly) {
-          held += vr[u] + vi[u] + va[u] + (kPlanes == 4 ? vb[u] : 0.f);
-        } else if constexpr (V == kRAddOnly) {
-          const int k = i % nf;
-          const float c = cst[i];
-          ar[k * COLS] += __fmul_rn(vr[u], c);
-          ai[k * COLS] += __fmul_rn(vi[u], c);
-          held += va[u] + (kPlanes == 4 ? vb[u] : 0.f);
-        } else {
-          const float w = (kPlanes == 4)
-              ? ssq::phase_w(vr[u], vi[u], va[u], vb[u], sfs[i], gamma2,
-                             transform)
-              : va[u];
-          const int k = ssq::bin_of(w, P);
-          if constexpr (V == kRBinOnly) {
-            if (k >= 0) {
-              kbins += (float)k;
-              kcount += 1.f;
-            }
-          } else if (k >= 0) {
-            const float c = cst[i];
-            // kRChains2: odd rows (u odd: i0 is a multiple of kUnroll)
-            // go to the second set
-            const long long s = (V == kRChains2 && (u & 1)) ? set : 0;
-            ar[s + k * COLS] += __fmul_rn(vr[u], c);
-            ai[s + k * COLS] += __fmul_rn(vi[u], c);
-          }
-        }
-      }
+      __syncwarp();
     }
   }
+  __syncthreads();
 
-  if constexpr (V == kRBinOnly) {
-    txr[bat * n + j] = kbins;
-    txi[bat * n + j] = kcount;
-    return;
-  }
-  const long long ob = bat * nf * n + j;
-  for (int k = 0; k < nf; ++k) {
-    float r = 0.f, m = 0.f;
-    if constexpr (V == kRChains2) {
-      r = __fadd_rn(ar[k * COLS], ar[set + k * COLS]);
-      m = __fadd_rn(ai[k * COLS], ai[set + k * COLS]);
-    } else if constexpr (V != kRDmaOnly) {
-      r = ar[k * COLS];
-      m = ai[k * COLS];
+  // every thread stores: a warp writes COLS consecutive floats of Tx rows
+  const long long ob = bat * nf * n + j0;
+  for (int e = tid; e < nf * COLS; e += COLS * kLanes) {
+    const int kk = e / COLS, cc = e % COLS;
+    if (j0 + cc < n) {
+      txr[ob + (long long)kk * n + cc] = acc[acc_at<COLS>(kk, cc)];
+      txi[ob + (long long)kk * n + cc] = acc_i[acc_at<COLS>(kk, cc)];
     }
-    txr[ob + (long long)k * n] = r;
-    txi[ob + (long long)k * n] = m;
   }
-  if (sink) txr[ob] = held;
 }
 
-// One launch of the scatter over planes (batch, na, n) into (batch, nf, n)
-// (kRBinOnly: (batch, 1, n)).
-template <int COLS, int kPlanes, int V = kRFull, bool kGrid1d = false>
+// One launch over planes (batch, na, n) into Tx planes (batch, nf, n).
+template <int COLS, int kPlanes>
 int launch(const float* wr, const float* wi, const float* p2, const float* p3,
            const float* cst, const float* sfs, int batch, int na, long long n,
            const Plan& P, int transform, float gamma2, float* txr, float* txi,
            cudaStream_t stream) {
-  const size_t smem = (size_t)acc_sets(V) * 2 * P.nf * COLS * sizeof(float);
+  const size_t smem = (size_t)2 * P.nf * COLS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      reassign_kernel<COLS, kPlanes, V, kGrid1d>,
+      reassign_kernel<COLS, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned tiles = (unsigned)((n + COLS - 1) / COLS);
-  const dim3 grid = kGrid1d ? dim3(tiles * (unsigned)batch)
-                            : dim3(tiles, (unsigned)batch);
-  reassign_kernel<COLS, kPlanes, V, kGrid1d><<<grid, COLS, smem, stream>>>(
-      wr, wi, p2, p3, cst, sfs, na, n, P, transform, gamma2, 0, txr, txi);
+  const dim3 grid((unsigned)((n + COLS - 1) / COLS), (unsigned)batch);
+  reassign_kernel<COLS, kPlanes>
+      <<<grid, COLS * kLanes, smem, stream>>>(wr, wi, p2, p3, cst, sfs, na, n,
+                                              P, transform, gamma2, txr, txi);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,8 @@ Pallas body is `_make_kernel`), in its two input contracts:
     are formed in the kernel; `_make_kernel` with `phase_in=False`.
 
 Both dispatch on the device of their inputs: on a CUDA tensor they
-launch the hand-written kernel (``csrc/reassign.cu``) or raise; on a CPU
+launch the hand-written kernel (``csrc/reassign.cu``: 16 lanes a column,
+at the columns a block `_block_cols` takes from nf) or raise; on a CPU
 tensor they run their plain-torch versions. Both are differentiable with
 the JAX package's gradient semantics (`ReassignFn`, `Reassign4Fn`): the
 backward is the VJP gather C / C' (`reassign_bwd`, `reassign4_bwd`,
@@ -59,10 +60,11 @@ _TWO_PI = 6.283185307179586
 
 
 def _block_cols(nf: int) -> int:
-    """Columns (= threads) per block of csrc/reassign.cu: the largest of
-    32, 16, 8 whose (2, nf, cols) float32 accumulator fits in shared
-    memory; raises beyond nf = 3632."""
-    for cols in (32, 16, 8):
+    """Columns a block (COLS) of csrc/reassign.cu, whose blocks have 16
+    lanes a column: 32 where the (2, nf, 32) float32 accumulator fits in
+    shared memory (nf <= 908), else 8 (16 columns were slower at nf = 1025
+    on the card, PERF.md); raises beyond nf = 3632."""
+    for cols in (32, 8):
         if 2 * nf * cols * 4 <= MAX_SMEM:
             return cols
     raise ValueError(f"nf={nf} frequency rows exceed the kernel's "
@@ -187,12 +189,13 @@ def reassign4_bwd_plain(wr, wi, dr, di, const, Sfs, gr, gi, gamma,
 
 def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
             per_block=None):
-    """Common launch of the five C entry points: planes (..., na, n) and
-    per-row vectors in. The forward ones (B, B', I; `grads` None) take one
-    launch-shape int (B, B': the columns per block; I: `per_block`, its
-    tiles per pass) and write (Txr, Txi), each (..., nf, n); the backward
-    ones (C, C') read the cotangents `grads` = (gr, gi), each (..., nf,
-    n), and write (gWr, gWi), each (..., na, n)."""
+    """Common launch of the C entry points: planes (..., na, n) and
+    per-row vectors in. The forward ones (B, B', I and probe P4's 3-plane
+    `full`; `grads` None) take one launch-shape int (B, B': the columns
+    per block, `_block_cols`, unless `per_block` is given; I: `per_block`,
+    its tiles per pass) and write (Txr, Txi), each (..., nf, n); the
+    backward ones (C, C') read the cotangents `grads` = (gr, gi), each
+    (..., nf, n), and write (gWr, gWi), each (..., na, n)."""
     from .. import _build
     device = planes[0].device
     na, n = planes[0].shape[-2:]

@@ -1,15 +1,18 @@
-"""Where kernel B''s time goes: probe P4 (``csrc/ablate_reassign.cu``), the
-counterpart of the TPU probe ``tools/ablate_reassign.py``.
+"""Where the row walk's time goes: probe P4 (``csrc/ablate_reassign.cu``),
+the counterpart of the TPU probe ``tools/ablate_reassign.py``.
 
     python -m ssqueeze_rs_tpu_torch.tools.ablate_reassign [K] [--device cpu]
 
-Kernel B' (the 4-plane reassignment scatter, ``csrc/reassign.cu``) at
-na = nf = 293, n = 160 000, random planes from a seed, const 1, the TPU
-probe's log-piecewise plan (`PARAMS`), transform 'cwt', flipud. Every
-variant but `full` computes wrong math by design and keeps the memory
-traffic of what it does not remove:
+The row walk (``csrc/reassign_walk.cuh``: one thread a column, one warp a
+block) is the design kernels B and B' (the reassignment scatter,
+``csrc/reassign.cu``) had before they took 16 lanes a column; B and B'
+give its Tx bit for bit. P4 runs its 4-plane form
+(B') at na = nf = 293, n = 160 000, random planes from a seed, const 1,
+the TPU probe's log-piecewise plan (`PARAMS`), transform 'cwt', flipud.
+Every variant but `full` computes wrong math by design and keeps the
+memory traffic of what it does not remove:
 
-  full     B' itself (bit for bit), at 32, 16 and 8 columns a block: the
+  full     the row walk's B', at 32, 16 and 8 columns a block: the
            occupancy its shared-memory accumulator allows
   dmaonly  the four planes read, two zero Tx planes written
   binonly  w and the bin of every entry, no accumulation; one row out:
@@ -22,14 +25,19 @@ traffic of what it does not remove:
 The TPU's `cmponly`, `groupG` and `overlap` time its one-hot compare and
 its VMEM traffic, which this kernel does not have: no counterpart.
 
-`ablate_reassign` also runs B''s batch three ways (`GRIDS`; the probe of
-``bench_reassign_batch.py``): the batch on blockIdx.y (B''s own launch),
+`ablate_reassign` also runs the row walk's B' over a batch three ways
+(`GRIDS`; the probe of ``bench_reassign_batch.py``): the batch on
+blockIdx.y (as B and B' take it),
 one 1-D grid of batch x column tiles, or one call over the columns of
 all signals side by side (the planes relaid to (na, batch * n) and back).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs its plain version (`ablate_reassign_plain`, the same
-function in plain torch). `LAUNCHES` counts kernel launches.
+`ablate_reassign3` is `full` at 3 planes (Wx and the w plane: the row
+walk's B).
+
+On a CUDA tensor the wrappers launch the kernel or raise; on a CPU
+tensor they run their plain versions (`ablate_reassign_plain`, the same
+function in plain torch; `reassign_cuda.reassign_plain` for
+`ablate_reassign3`). `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -40,8 +48,8 @@ from ..ops import fft_cuda, reassign_cuda
 from . import _common
 
 __all__ = ["VARIANTS", "GRIDS", "PARAMS", "ablate_reassign",
-           "ablate_reassign_plain", "make_planes", "variant_cost", "run",
-           "main", "LAUNCHES"]
+           "ablate_reassign_plain", "ablate_reassign3", "make_planes",
+           "variant_cost", "run", "main", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -193,9 +201,9 @@ def _cuda(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud, nf,
 def ablate_reassign(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
                     flipud, nf, transform, variant="full", cols=None,
                     grid="batch2d"):
-    """P4: kernel B' (the arguments of `reassign_cuda.reassign4`) as
-    `variant`, at `cols` columns a block (default: the most whose
-    accumulators fit, as B' chooses), over its batch on `grid`
+    """P4: the row walk's B' (the arguments of `reassign_cuda.reassign4`)
+    as `variant`, at `cols` columns a block (default: the most whose
+    accumulators fit), over its batch on `grid`
     ('batch2d', 'grid1d' or 'flat'; the last two with 'full' only).
     Returns (Txr, Txi), each (..., nf, n) ('binonly': (..., 1, n)). A
     CUDA tensor launches the kernel, a CPU tensor runs
@@ -212,6 +220,30 @@ def ablate_reassign(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
     if device.type != "cuda":
         raise ValueError(f"ablate_reassign: unsupported device {device}")
     return _cuda(*args, variant, cols, grid)
+
+
+def ablate_reassign3(wr, wi, w, const, plan_params, mode, flipud, nf,
+                     cols=None):
+    """P4's `full` at 3 planes: the row walk's B (the arguments of
+    `reassign_cuda.reassign`) at `cols` columns a block (default: the
+    most whose accumulator fits). Returns (Txr, Txi), each (..., nf, n).
+    A CUDA tensor launches the kernel, a CPU tensor runs
+    `reassign_cuda.reassign_plain`."""
+    global LAUNCHES
+    device, wr, wi, w, const = reassign_cuda._prepare(wr, wi, w, const)
+    cols = _cols(nf, "full", cols)
+    if device.type == "cpu":
+        return reassign_cuda.reassign_plain(wr, wi, w, const, plan_params,
+                                            mode, flipud, nf)
+    if device.type != "cuda":
+        raise ValueError(f"ablate_reassign3: unsupported device {device}")
+    out = reassign_cuda._launch(
+        lambda lib: lib.ssq_ablate_reassign3, [wr, wi, w], [const],
+        [reassign_cuda.MODES[mode], int(bool(flipud))],
+        reassign_cuda._plan_floats(mode, plan_params), nf,
+        "ablate_reassign3 kernel", per_block=cols)
+    LAUNCHES += 1
+    return out
 
 
 # -- the probe ------------------------------------------------------------------

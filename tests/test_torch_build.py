@@ -40,7 +40,8 @@ def test_library_name_follows_source_content(src_tree):
                                   "ablate_reassign.cu", "mma.cuh",
                                   "grid_slope.cu", "rate_probe.cu",
                                   "dma_overlap.cu", "mxu_probe.cu",
-                                  "fft_radix.cuh", "planes.cuh"])
+                                  "fft_radix.cuh", "planes.cuh",
+                                  "reassign_walk.cuh"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -89,12 +90,14 @@ def test_cwt_kernels_share_the_four_step_header():
     probes P1-P3 (ablate_cwt.cu, through cwt_planes.cuh) keep the radix-2
     four-step header fft4.cuh. The second launches' output planes
     (planes.cuh) are shared by cwt_planes.cu and cwt_planes.cuh. The build
-    hashes every header with the sources; B''s scatter (reassign.cuh) is
-    shared with its probe."""
+    hashes every header with the sources; B and B' (reassign.cu) run
+    reassign.cuh, and their probe P4 the row walk they ran before
+    (reassign_walk.cuh)."""
     import re
     sources = [os.path.basename(p) for p in _build._sources()]
     assert {"fft4.cuh", "fft_radix.cuh", "cwt_planes.cuh", "planes.cuh",
-            "reassign.cuh", "bluestein.cuh"} <= set(sources)
+            "reassign.cuh", "reassign_walk.cuh",
+            "bluestein.cuh"} <= set(sources)
     assert not {"cwt_phase.cu", "dft_tile.cuh"} & set(sources)
     for name, header in (("cwt_planes.cuh", "fft4.cuh"),
                          ("cwt_planes.cuh", "planes.cuh"),
@@ -107,7 +110,7 @@ def test_cwt_kernels_share_the_four_step_header():
                          ("istft_ola.cu", "fft_radix.cuh"),
                          ("ablate_cwt.cu", "cwt_planes.cuh"),
                          ("reassign.cu", "reassign.cuh"),
-                         ("ablate_reassign.cu", "reassign.cuh")):
+                         ("ablate_reassign.cu", "reassign_walk.cuh")):
         with open(os.path.join(_build.CSRC, name)) as f:
             assert f'#include "{header}"' in f.read(), name
     for name in ("ablate_cwt.cu", "cwt_planes.cuh"):
@@ -148,6 +151,41 @@ def test_cwt_kernels_share_the_four_step_header():
     assert len(_build._SIGNATURES["ssq_stft_dft"]) == 15
     assert len(_build._SIGNATURES["ssq_stft_fused"]) == 28
     assert len(_build._SIGNATURES["ssq_istft_ola"]) == 15
+
+
+def test_reassign_sources():
+    """Kernels B and B' (reassign.cu) run the lanes kernel of reassign.cuh;
+    probe P4 (ablate_reassign.cu) runs the row walk of reassign_walk.cuh;
+    both headers bin through bins.cuh; no reassignment source uses
+    atomics; the columns a block the entry points dispatch are the
+    planner's, and the ctypes rows carry the one launch-shape int."""
+    import re
+    from ssqueeze_rs_tpu_torch.ops import reassign_cuda
+    text = {}
+    for name in ("reassign.cu", "reassign.cuh", "reassign_walk.cuh",
+                 "ablate_reassign.cu", "reassign_bwd.cu", "reassign_mxu.cu",
+                 "bins.cuh"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            text[name] = f.read()
+        assert "atomicAdd" not in text[name], name
+    inc = {n: set(re.findall(r'#include "([\w.]+)"', t))
+           for n, t in text.items()}
+    assert inc["reassign.cu"] == {"reassign.cuh"}
+    assert inc["ablate_reassign.cu"] == {"reassign_walk.cuh"}
+    assert "bins.cuh" in inc["reassign.cuh"] & inc["reassign_walk.cuh"]
+    assert "__match_any_sync" in text["reassign.cuh"]
+    assert "constexpr int kLanes = 16;" in text["reassign.cuh"]
+    assert "reassign_walk_kernel" in text["reassign_walk.cuh"]
+    dispatched = {int(c) for c in
+                  re.findall(r"case (\d+): return launch<", text["reassign.cu"])}
+    assert dispatched == {reassign_cuda._block_cols(nf)
+                          for nf in range(1, 3633)} == {32, 8}
+    # B 19 and B' 23 parameters (their inputs, the columns a block, the Tx
+    # planes, the stream); P4's 3-plane full B's
+    assert len(_build._SIGNATURES["ssq_reassign"]) == 19
+    assert len(_build._SIGNATURES["ssq_reassign4"]) == 23
+    assert _build._SIGNATURES["ssq_ablate_reassign3"] == \
+        _build._SIGNATURES["ssq_reassign"]
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

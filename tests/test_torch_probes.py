@@ -215,6 +215,23 @@ def test_wrappers_refuse_bad_arguments():
                            "chains2")
 
 
+def test_full3_plain():
+    """P4's 3-plane full (the row walk's B) runs B's plain version on the
+    CPU (no launch), and refuses a column count it is not built for or
+    whose accumulator does not fit."""
+    planes = ar.make_planes(torch.device("cpu"), 2, 8, 64)
+    w = reassign_cuda.phase_w(*planes[:4], planes[5], ar.GAMMA, "cwt")
+    args3 = (planes[0], planes[1], w, planes[4], ar.PARAMS, ar.MODE, True, 8)
+    before = ar.LAUNCHES
+    assert all(torch.equal(a, b) for a, b in zip(
+        ar.ablate_reassign3(*args3), reassign_cuda.reassign_plain(*args3)))
+    assert ar.LAUNCHES == before
+    with pytest.raises(ValueError, match="cols"):
+        ar.ablate_reassign3(*args3, cols=4)
+    with pytest.raises(ValueError, match="fit"):
+        ar.ablate_reassign3(*args3[:-1], 3000, cols=32)
+
+
 # -- P4 against the JAX package --------------------------------------------------
 GAMMA = 1e-5
 FREQS = np.hstack([np.geomspace(0.05, 1.0, 150, endpoint=False),
