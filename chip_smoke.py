@@ -13,7 +13,9 @@ sum squeezing; then the STFT family (`stft`, `ssq_stft`, `istft`,
 ssq_cwt widths; then kernel I and the serving and long-signal entry
 points (the SSQ streamers, `TransformServer`, `process_recording`); then
 the TPU probes' counterparts (`ssqueeze_rs_tpu_torch.tools`), the last
-of them (J5-J8) apart.
+of them (J5-J8) apart; then the component-separation workflow
+(`ssq_cwt` -> `extract_ridges` -> `issq_cwt`) and the reference-name
+kernel layer (`algos`) at the same length.
 Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
@@ -159,11 +161,26 @@ Phases, one line each:
      over the kernels' GRID copies (J6: every step's product); the
      library yardsticks (torch.matmul of the same total product in bf16,
      TF32 and float32, torch.bmm, .t().contiguous(), torch.add)
+ 23. examples/component_separation.py at N = 160 000: a TestSignals sine
+     plus a linear chirp at the example's fractions of the band, ssq_cwt
+     with ('gmw', beta 6) (A and B once), extract_ridges (penalty 2, two
+     ridges, bw 25) and issq_cwt over bands of 20 rows around each ridge,
+     each step timed; each component recovered within mad_rms 0.5, and
+     at every column but the first and last 2 % one ridge within 5 % of
+     the sine's frequency and the other of the chirp's; profiles of the
+     three steps (the ridge at 2048 columns). The ridge on the card
+     against the CPU (one thread) on Tx's first 16 384 columns: equal
+     indices, us a column on each. `algos` on the headline planes (293 x
+     160 000): indexed_sum_onfly (B once) and ssqueeze_fast (B' once)
+     within 1e-5 max|Tx| of their plain versions and bitwise repeated,
+     timed and profiled; indexed_sum bitwise over 5 calls and within 1e-6
+     of a float64 sum; a float64 CUDA input raises. tkeo and
+     tkeo_modified on the card against the CPU, 5e-6 relative
 
 A line "[t]" gives the wall seconds of each part of the script. Any
 failed check raises and exits non-zero. The last three lines are a
 JSON object of the twenty-two kernels' numbers (each with its launches on its
-path, its time, its plain version's, its bound from the bytes it must
+paths, B's and B''s including phase 23's, its time, its plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
 one), the card's name and power limit, and `{"ok": true, "device": ...}`.
@@ -705,6 +722,8 @@ def main():
     serving_kernels = serving_phases(np, torch, dev, card, results, ctx)
     probe_kernels = probe_phases(np, torch, dev, card, results)
     rate_kernels = rate_probe_phases(np, torch, dev, card, results)
+    sep_launches = component_phases(np, torch, dev, card, results, ctx)
+    lap("23 component separation")
 
     results["phase_s"] = LAPS
     print("[t] wall seconds by part: " + ", ".join(
@@ -723,6 +742,9 @@ def main():
                      None),
     ] + (stft_kernels + grad_kernels + cwt_kernels + serving_kernels +
          probe_kernels + rate_kernels)
+    # B and B' also ran on phase 23's paths
+    for entry in kernels:
+        entry["launches"] += sep_launches.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2811,6 +2833,241 @@ def rate_probe_phases(np, torch, dev, card, results):
                      launches["grid_slope"], 0.0, gs["ms"],
                      grid_plain_ms, bnd(gs), grid_lib_ms, root=tools),
     ]
+
+
+# phase 23: the component-separation workflow at the headline length, and
+# the ridge on the card against the CPU on Tx's first columns
+N_SEP = N
+RIDGE_COLS = 16_384
+RIDGE_PROFILE_COLS = 2048
+SEP_WAVELET = ("gmw", {"beta": 6.0})
+
+
+def wall_ms(torch, fn):
+    """(fn(), its host ms up to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def component_phases(np, torch, dev, card, results, ctx):
+    """Phase 23: examples/component_separation.py on the card (ssq_cwt ->
+    extract_ridges -> issq_cwt), the ridge against the CPU, `algos` on the
+    headline planes (kernels B and B') and the TKEO. Returns the launches
+    of B and B' on its paths, for their entries of the JSON line."""
+    from ssqueeze_rs_tpu_torch import (TestSignals, algos, cwt,
+                                       extract_ridges, issq_cwt, mad_rms,
+                                       ssq_cwt, tkeo, tkeo_modified)
+    from ssqueeze_rs_tpu_torch.config import EPS32
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda as R
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_ssqueeze
+
+    def zero_counts():
+        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
+        R.LAUNCHES = R.LAUNCHES4 = R.LAUNCHES_MXU = 0
+
+    def counts():
+        return dict(cwt_phase=fft_cuda.LAUNCHES, cwt_fused=fft_cuda.LAUNCHES_D,
+                    ifft_halfband=fft_cuda.LAUNCHES_E, reassign=R.LAUNCHES,
+                    reassign4=R.LAUNCHES4, reassign_mxu=R.LAUNCHES_MXU)
+
+    out = {}
+    path_launches = {"reassign": 0, "reassign4": 0}
+    rkw = dict(penalty=2.0, n_ridges=2, bw=25)
+
+    # (a) the workflow: a sine and a linear chirp at the example's
+    # fractions of the band (its frequencies times N_SEP / 2048)
+    n, k = N_SEP, N_SEP / 2048
+    ts = TestSignals(n)
+    x1, _ = ts.sine(n, f=64 * k)
+    x2, t2 = ts.lchirp(n, fmin=128 * k, fmax=400 * k)
+    f_known = (np.full(n, 64 * k / n),            # cycles a sample
+               TestSignals.lchirp_fn(t2, 0, 1, 128 * k, 400 * k,
+                                     get_w=True)[1] / (2 * np.pi) / (n - 1))
+    x = torch.as_tensor((x1 + x2).astype(np.float32), device=dev)
+    ssq_cwt(x, SEP_WAVELET)                        # plans and caches, once
+    zero_counts()
+    (Tx, _, ssq_freqs, scales), ms_ssq = wall_ms(
+        torch, lambda: ssq_cwt(x, SEP_WAVELET))
+    cc, ms_ridge = wall_ms(torch, lambda: extract_ridges(Tx, ssq_freqs,
+                                                         **rkw))
+    cw = np.full_like(cc, 20)
+    xrec, ms_issq = wall_ms(torch, lambda: issq_cwt(Tx, SEP_WAVELET, cc, cw))
+    moved = counts()
+    path_launches["reassign"] += moved["reassign"]
+    path_launches["reassign4"] += moved["reassign4"]
+    check(moved == dict(cwt_phase=1, cwt_fused=0, ifft_halfband=0,
+                        reassign=1, reassign4=0, reassign_mxu=0),
+          f"component separation: launches {moved}")
+    check(Tx.is_cuda and xrec.is_cuda, "component separation left the GPU")
+    check(bool(torch.isfinite(Tx).all()), "component separation: Tx not "
+          "finite")
+    xrec = xrec.cpu().numpy()
+    errs = [[mad_rms(src, xrec[j]) for j in range(2)] for src in (x1, x2)]
+    pick = [int(np.argmin(e)) for e in errs]
+    sep_err = [errs[0][pick[0]], errs[1][pick[1]]]
+    # each interior column: one ridge within 5 % of the sine's frequency,
+    # the other within 5 % of the chirp's (the two may trade places)
+    edge = int(0.02 * n)
+    fr = np.asarray(ssq_freqs)[cc[edge:n - edge]]
+    f1, f2 = (f[edge:n - edge] for f in f_known)
+    near = lambda f, g: np.abs(f - g) <= 0.05 * g          # noqa: E731
+    on_ridge = ((near(fr[:, 0], f1) & near(fr[:, 1], f2)) |
+                (near(fr[:, 0], f2) & near(fr[:, 1], f1)))
+    rel_f = np.minimum(
+        np.maximum(np.abs(fr[:, 0] - f1) / f1, np.abs(fr[:, 1] - f2) / f2),
+        np.maximum(np.abs(fr[:, 0] - f2) / f2, np.abs(fr[:, 1] - f1) / f1))
+    prof_ssq = device_breakdown(torch, lambda: ssq_cwt(x, SEP_WAVELET),
+                                (K_A, K_B, K_FFT, K_CPLX, K_PAD))
+    prof_issq = device_breakdown(torch, lambda: issq_cwt(Tx, SEP_WAVELET, cc,
+                                                         cw), ())
+    Tp = Tx[:, :RIDGE_PROFILE_COLS].contiguous()
+    prof_ridge = device_breakdown(
+        torch, lambda: extract_ridges(Tp, ssq_freqs, **rkw), (), calls=1)
+    out["workflow"] = dict(
+        n=n, rows=int(Tx.shape[0]), ms=dict(ssq_cwt=ms_ssq,
+                                            extract_ridges=ms_ridge,
+                                            issq_cwt=ms_issq),
+        ridge_us_per_column=ms_ridge * 1e3 / n, mad_rms=sep_err,
+        component_of=pick, freq_on_ridge=float(on_ridge.mean()),
+        freq_rel_max=float(rel_f.max()), launches=moved,
+        profile=dict(ssq_cwt=prof_ssq, issq_cwt=prof_issq,
+                     extract_ridges_cols=RIDGE_PROFILE_COLS,
+                     extract_ridges=prof_ridge))
+    print(f"[23] component separation N={n} ({Tx.shape[0]} rows, "
+          f"{SEP_WAVELET}): ssq_cwt {ms_ssq:.2f} ms, extract_ridges "
+          f"{ms_ridge:.1f} ms ({ms_ridge * 1e3 / n:.2f} us a column, 2 "
+          f"ridges), issq_cwt {ms_issq:.2f} ms; mad_rms sine "
+          f"{sep_err[0]:.3f}, chirp {sep_err[1]:.3f} (components {pick}); "
+          f"ridges within 5 % of both known frequencies on "
+          f"{on_ridge.mean():.6f} of the interior (worst {rel_f.max():.3f}); "
+          f"launches {moved}; profiles: ssq_cwt {breakdown_line(prof_ssq)}; "
+          f"issq_cwt {breakdown_line(prof_issq)}; extract_ridges at "
+          f"{RIDGE_PROFILE_COLS} columns {breakdown_line(prof_ridge)} ({card})")
+    check(max(sep_err) < 0.5 and pick[0] != pick[1],
+          f"component separation mad_rms {sep_err}, components {pick}")
+    check(on_ridge.all(), f"ridges off the known frequencies on "
+          f"{int((~on_ridge).sum())} interior columns (worst rel "
+          f"{rel_f.max():.3f})")
+
+    # (b) the ridge on the card against the CPU run on the same Tx's first
+    # RIDGE_COLS columns
+    Tc = Tx[:, :RIDGE_COLS].contiguous()
+    cc_g, ms_g = wall_ms(torch, lambda: extract_ridges(Tc, ssq_freqs, **rkw))
+    Tc_cpu = Tc.cpu()
+    t0 = time.perf_counter()
+    cc_c = cpu_ref(torch, lambda: extract_ridges(Tc_cpu, ssq_freqs, **rkw))
+    ms_c = (time.perf_counter() - t0) * 1e3
+    same = float((cc_g == cc_c).mean())
+    out["ridge_vs_cpu"] = dict(cols=RIDGE_COLS, equal_frac=same,
+                               gpu_ms=ms_g, cpu_ms=ms_c,
+                               gpu_us_per_column=ms_g * 1e3 / RIDGE_COLS,
+                               cpu_us_per_column=ms_c * 1e3 / RIDGE_COLS)
+    print(f"[23] extract_ridges on {RIDGE_COLS} columns: card == CPU on "
+          f"{same:.6f} of the indices; card {ms_g:.1f} ms "
+          f"({ms_g * 1e3 / RIDGE_COLS:.2f} us a column), CPU one thread "
+          f"{ms_c:.1f} ms ({ms_c * 1e3 / RIDGE_COLS:.2f} us a column) "
+          f"({card})")
+    if same < 1:
+        diff = np.argwhere(cc_g != cc_c)
+        check(False, f"ridge on the card differs from the CPU at "
+              f"{len(diff)} entries (columns {diff[:, 0].min()}.."
+              f"{diff[:, 0].max()}, ridges {sorted(set(diff[:, 1]))})")
+    del Tx, Tc, Tp, xrec
+
+    # (c) algos on the headline planes: indexed_sum_onfly (B) and
+    # ssqueeze_fast (B') against their plain versions, bitwise repeats
+    wavelet, hscales = ctx["wavelet"], ctx["scales"]
+    xh = ctx["requests"]["noise"][0]
+    nh = xh.shape[-1]
+    Wx, _, dWx = cwt(xh, wavelet, scales=hscales, derivative=True)
+    na = Wx.shape[-2]
+    freqs, const_arr, mode, params = plan_ssqueeze(
+        nh, na, None, hscales, fs=1.0, maprange="peak", wavelet=wavelet)
+    const = torch.as_tensor(const_arr, dtype=torch.float32, device=dev)
+    gamma = 10 * EPS32
+    w = algos.phase_cwt_gpu(Wx, dWx, gamma)
+    onfly = lambda: algos.indexed_sum_onfly(            # noqa: E731
+        Wx, w, freqs, const_arr, logscale=True, flipud=True)
+    fast = lambda: algos.ssqueeze_fast(                 # noqa: E731
+        Wx, dWx, freqs, const_arr, logscale=True, flipud=True, gamma=gamma)
+    zero_counts()
+    T_on = onfly()
+    T_fast = fast()
+    torch.cuda.synchronize()
+    moved = counts()
+    path_launches["reassign"] += moved["reassign"]
+    path_launches["reassign4"] += moved["reassign4"]
+    check(moved == dict(cwt_phase=0, cwt_fused=0, ifft_halfband=0,
+                        reassign=1, reassign4=1, reassign_mxu=0),
+          f"algos: launches {moved}")
+    rep_on = torch.equal(onfly(), T_on)
+    rep_fast = torch.equal(fast(), T_fast)
+    P_on = torch.complex(*R.reassign_plain(Wx.real, Wx.imag, w, const, params,
+                                           mode, True, na))
+    P_fast = torch.complex(*R.reassign4_plain(
+        Wx.real, Wx.imag, dWx.real, dWx.imag, const,
+        torch.zeros(na, device=dev), gamma, params, mode, True, na, "cwt"))
+    rel_on, rel_fast = rel(torch, T_on, P_on), rel(torch, T_fast, P_fast)
+    ms_on, ms_fast = cuda_ms(torch, onfly), cuda_ms(torch, fast)
+    prof_on = device_breakdown(torch, onfly, (K_B,))
+    prof_fast = device_breakdown(torch, fast, (K_B,))
+    # indexed_sum: one scatter_add_ a row, in row order; bitwise over 5
+    # calls, and against a float64 sum
+    a = Wx.abs()
+    kb = R.bin_indices(w, mode, params, True, na).clamp(min=0)
+    sums = [algos.indexed_sum(a, kb) for _ in range(5)]
+    rep_sum = all(torch.equal(s_, sums[0]) for s_ in sums[1:])
+    ref64 = torch.zeros(a.shape, dtype=torch.float64, device=dev).scatter_add_(
+        0, kb, a.double())
+    rel_sum = float((sums[0].double() - ref64).abs().max() /
+                    ref64.abs().max())
+    ms_sum = cuda_ms(torch, lambda: algos.indexed_sum(a, kb), iters=5)
+    try:
+        algos.indexed_sum_onfly(Wx[:, :1000].to(torch.complex128),
+                                w[:, :1000], freqs)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    out["algos"] = dict(rows=na, onfly_rel=rel_on, fast_rel=rel_fast,
+                        onfly_repeat=rep_on, fast_repeat=rep_fast,
+                        onfly_ms=ms_on, fast_ms=ms_fast,
+                        profile=dict(indexed_sum_onfly=prof_on,
+                                     ssqueeze_fast=prof_fast),
+                        indexed_sum_repeat=rep_sum, indexed_sum_rel64=rel_sum,
+                        indexed_sum_ms=ms_sum, float64_raises=raised,
+                        launches=moved)
+    print(f"[23] algos on the headline planes ({na} x {nh}): "
+          f"indexed_sum_onfly (B) rel {rel_on:.2e} vs plain, repeat "
+          f"{rep_on}, {ms_on:.3f} ms ({breakdown_line(prof_on)}); "
+          f"ssqueeze_fast (B') rel {rel_fast:.2e}, repeat {rep_fast}, "
+          f"{ms_fast:.3f} ms ({breakdown_line(prof_fast)}); indexed_sum "
+          f"bitwise over 5 calls {rep_sum}, vs float64 {rel_sum:.2e}, "
+          f"{ms_sum:.3f} ms; float64 raises {raised}; launches {moved} "
+          f"({card})")
+    check(rel_on <= 1e-5 and rel_fast <= 1e-5,
+          f"algos vs plain: onfly {rel_on:.2e}, fast {rel_fast:.2e}")
+    check(rep_on and rep_fast and rep_sum, "algos differ between runs")
+    check(rel_sum < 1e-6, f"indexed_sum vs float64 {rel_sum:.2e}")
+    check(raised, "algos took a float64 CUDA input")
+    del Wx, dWx, w, T_on, T_fast, P_on, P_fast, a, kb, sums, ref64
+
+    # (d) the TKEO on the card against the CPU
+    xb = torch.stack([xh, xh.flip(0)])
+    tk = {}
+    for name, fn in (("tkeo", tkeo), ("tkeo_modified", tkeo_modified)):
+        g = fn(xb)
+        c = cpu_ref(torch, lambda: fn(xb.cpu()))
+        check(g.is_cuda, f"{name} left the GPU")
+        tk[name] = rel(torch, g.cpu(), c)
+    out["tkeo_rel"] = tk
+    print(f"[23] tkeo on (2, {nh}): card vs CPU rel " + ", ".join(
+        f"{k_} {v:.2e}" for k_, v in tk.items()) + f" ({card})")
+    check(all(v <= 5e-6 for v in tk.values()), f"tkeo card vs CPU {tk}")
+    results["components"] = out
+    return path_launches
 
 
 if __name__ == "__main__":

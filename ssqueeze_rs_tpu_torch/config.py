@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+pi = np.pi
 EPS32 = float(np.finfo(np.float32).eps)
 EPS64 = float(np.finfo(np.float64).eps)
 

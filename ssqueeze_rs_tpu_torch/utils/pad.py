@@ -148,3 +148,8 @@ def padsignal(x, padtype: str = "reflect",
     else:
         xp = _PadFn.apply(x, padtype, n1, n2)
     return (xp, n_up, n1, n2) if get_params else xp
+
+
+def unpad(xp, n1: int, N: int):
+    """Trim the centred pad back off: `xp[..., n1:n1+N]`."""
+    return xp[..., n1:n1 + N]

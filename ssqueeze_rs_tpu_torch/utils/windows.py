@@ -9,8 +9,8 @@ constants):
     (ifft(fft(w) * i*xi) with even-N Nyquist zeroed),
   * denormal zeroing.
 
-`buffer`/`unbuffer`, `window_resolution` and `window_area` are not ported
-yet (ROADMAP Queue 1 item 2).
+`buffer` / `unbuffer` (MATLAB-style framing and its overlap-add) take
+arrays (host numpy) or tensors (torch on their device).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ import torch
 from .common import WARN
 from .fft import xifn
 
-__all__ = ["get_window", "window_norm", "check_nola"]
+__all__ = ["get_window", "window_norm", "check_nola", "window_resolution",
+           "window_area", "buffer", "unbuffer"]
 
 
 def _zero_denormals(w: np.ndarray) -> np.ndarray:
@@ -139,3 +140,94 @@ def check_nola(window: np.ndarray, hop_len: int) -> bool:
              "inversion. Lower `hop_len`, choose wider `window`, or use "
              "`dtype='float64'`.")
     return ok
+
+
+def window_resolution(window: np.ndarray):
+    """(std_w, std_t, harea) of a window (host numpy)."""
+    assert window.min() >= 0, f"`window` must be >= 0 (got min={window.min()})"
+    N = len(window)
+    t = np.arange(-N / 2, N / 2, step=1)
+    ws = np.fft.fftshift(xifn(1, N))
+
+    psihs = np.fft.fftshift(np.fft.fft(window))
+    apsi2 = np.abs(window) ** 2
+    apsih2s = np.abs(psihs) ** 2
+
+    var_w = np.trapezoid(ws**2 * apsih2s, ws) / np.trapezoid(apsih2s, ws)
+    var_t = np.trapezoid(t**2 * apsi2, t) / np.trapezoid(apsi2, t)
+
+    std_w, std_t = np.sqrt(var_w), np.sqrt(var_t)
+    return std_w, std_t, std_w * std_t
+
+
+def window_area(window: np.ndarray, time: bool = True, frequency: bool = False):
+    """Area under |window|^2 in time and/or frequency (host numpy)."""
+    if not time and not frequency:
+        raise ValueError("must compute something")
+    if time:
+        t = np.arange(-len(window) / 2, len(window) / 2, step=1)
+        at = np.trapezoid(np.abs(window) ** 2, t)
+    if frequency:
+        ws = np.fft.fftshift(xifn(1, len(window)))
+        apsih2s = np.abs(np.fft.fftshift(np.fft.fft(window))) ** 2
+        aw = np.trapezoid(apsih2s, ws)
+    if time and frequency:
+        return at, aw
+    return at if time else aw
+
+
+def buffer(x, seg_len, n_overlap, modulated=False, parallel=None):
+    """MATLAB-style framing: columns are successive length-`seg_len`
+    slices of `x` overlapping by `n_overlap`; `modulated` swaps the halves
+    of each frame (a per-hop ifftshift). `parallel` is accepted and
+    ignored. 1D x -> (seg_len, n_segs); 2D (batch, N) -> (batch, seg_len,
+    n_segs). A tensor is framed on its device by one gather."""
+    is_t = isinstance(x, torch.Tensor)
+    if not is_t:
+        x = np.asarray(x)
+    assert x.ndim in (1, 2)
+    hop_len = seg_len - n_overlap
+    n_segs = (x.shape[-1] - seg_len) // hop_len + 1
+    starts = np.arange(n_segs) * hop_len
+    idx = starts[None, :] + np.arange(seg_len)[:, None]   # (seg_len, n_segs)
+    if modulated:
+        # the back part has ceil(seg_len/2) samples: the swap point is
+        # floor(seg_len/2) for odd lengths
+        s20 = int(np.ceil(seg_len / 2))
+        s21 = s20 - 1 if (seg_len % 2 == 1) else s20
+        idx = np.concatenate([idx[s21:], idx[:s21]], axis=0)
+    if is_t:
+        return x[..., torch.as_tensor(idx, device=x.device)]
+    return x[..., idx]
+
+
+def unbuffer(xbuf, window, hop_len, n_fft, N, win_exp=1):
+    """Overlap-add inverse of `buffer`: frame i, times window**win_exp,
+    added at i * hop_len, in frame order; length N + n_fft - 1. A tensor
+    `xbuf` is added on its device."""
+    is_t = isinstance(xbuf, torch.Tensor)
+    if is_t:
+        window = torch.as_tensor(window, dtype=xbuf.dtype,
+                                 device=xbuf.device)
+    else:
+        xbuf = np.asarray(xbuf)
+        window = np.asarray(window)
+    if N is None:
+        N = xbuf.shape[-1] * hop_len + len(window) - 1
+    if len(window) != n_fft:
+        raise ValueError(f"Must have `len(window) == n_fft` "
+                         f"(got {len(window)} != {n_fft})")
+    if win_exp == 0:
+        w = torch.ones_like(window) if is_t else np.ones_like(window)
+    elif win_exp == 1:
+        w = window
+    else:
+        w = window ** win_exp
+    if is_t:
+        x = torch.zeros(N + n_fft - 1, dtype=xbuf.dtype, device=xbuf.device)
+    else:
+        x = np.zeros(N + n_fft - 1, dtype=xbuf.dtype)
+    for i in range(xbuf.shape[-1]):
+        n = i * hop_len
+        x[n:n + n_fft] += xbuf[:, i] * w
+    return x

@@ -1,11 +1,13 @@
 """Analytic wavelet families: morlet, bump, cmhat, hhhat (counterpart of
 ``ssqueeze_rs_tpu/wavelets/families.py``). Each builder returns
-`fn(w, xp) -> psih`, evaluating with numpy or torch."""
+`fn(w, xp) -> psih`, evaluating with numpy or torch; `morlet`, `bump`,
+`cmhat` and `hhhat` are the reference's `lambda w: psih(w)` factories
+(`base.factory_psih`: host numpy, or torch on a tensor's device)."""
 from __future__ import annotations
 
 import numpy as np
 
-from .base import register_family
+from .base import factory_psih, register_family
 
 pi = np.pi
 
@@ -66,3 +68,31 @@ def _build_hhhat(cfg):
         return C * (_w * (1 + _w) * xp.exp(-0.5 * _w**2)) * (1 + xp.sign(_w))
 
     return fn
+
+
+# -- factory API: `lambda w: psih(w)` -----------------------------------------
+def _factory(name, dtype, **cfg):
+    builder = {"morlet": _build_morlet, "bump": _build_bump,
+               "cmhat": _build_cmhat, "hhhat": _build_hhhat}[name]
+    return factory_psih(
+        builder({k: v for k, v in cfg.items() if v is not None}), dtype)
+
+
+def morlet(mu=None, dtype="float64"):
+    """`lambda w: psih(w)` of the Morlet wavelet."""
+    return _factory("morlet", dtype, mu=mu)
+
+
+def bump(mu=None, s=None, om=None, dtype="float64"):
+    """`lambda w: psih(w)` of the bump wavelet."""
+    return _factory("bump", dtype, mu=mu, s=s, om=om)
+
+
+def cmhat(mu=None, s=None, dtype="float64"):
+    """`lambda w: psih(w)` of the complex Mexican hat."""
+    return _factory("cmhat", dtype, mu=mu, s=s)
+
+
+def hhhat(mu=None, dtype="float64"):
+    """`lambda w: psih(w)` of the Hilbert analytic Hermitian hat."""
+    return _factory("hhhat", dtype, mu=mu)

@@ -6,16 +6,17 @@
   order k > 0:   multiplied by the generalized Laguerre polynomial in 2*w^gamma.
 
 Constants are computed on the host (scipy); `fn(w, xp)` evaluates with
-numpy or torch. The morsewave family generator and the factory API wait
-for ROADMAP Queue 1 item 2 (wavelets remainder); `morsefreq` and
-`morseafun` are whole.
+numpy or torch. `morsewave` (the first K orders) and `compute_gmw` are
+host numpy, as in the JAX package; the `gmw*` factories evaluate on the
+host or on a tensor's device.
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy.special import gammaln as gammaln_fn, gamma as gamma_fn
 
-from .base import register_family
+from .base import factory_psih, register_family
+from ..utils.common import assert_is_one_of
 
 pi = np.pi
 
@@ -142,3 +143,161 @@ def _build_gmw(cfg):
             return C * xp.exp(beta * wl - wp**gamma) * (w > 0)
 
     return fn
+
+
+# -- the first-K-orders family generator (host numpy) -----------------------
+def laguerre(x, k: int, c: float):
+    """Generalized Laguerre polynomial L_k^c(x)."""
+    x = np.atleast_1d(np.asarray(x, dtype=np.float64).squeeze())
+    y = np.zeros(x.shape)
+    for m in range(k + 1):
+        fact = np.exp(gammaln_fn(k + c + 1) - gammaln_fn(c + m + 1) -
+                      gammaln_fn(k - m + 1))
+        y += (-1) ** m * fact * x**m / gamma_fn(m + 1)
+    return y
+
+
+def morsewave(N: int, freqs, gamma: float = 3, beta: float = 60, K: int = 1,
+              norm: str = "bandpass"):
+    """First-K orthogonal GMWs at (radian) peak frequencies `freqs`.
+
+    Host numpy. Returns (psih, psi), each of shape (N, len(freqs), K)
+    with length-1 dims squeezed. `beta=0` raises ZeroDivisionError (the
+    peak frequency is 0), as in the JAX package.
+    """
+    if gamma <= 0:
+        raise ValueError(f"`gamma` must be positive (got {gamma})")
+    if beta < 0:
+        raise ValueError(f"`beta` must be non-negative (got {beta})")
+    assert_is_one_of(norm, "norm", ("bandpass", "energy"))
+    if not isinstance(freqs, (list, tuple, np.ndarray)):
+        freqs = [freqs]
+    psi = np.zeros((N, len(freqs), K), dtype="complex128")
+    psif = np.zeros((N, len(freqs), K))
+
+    for n, f in enumerate(freqs):
+        X, x = _morse_family(N, abs(f), gamma, beta, K, norm)
+        psif[:, n:n + 1, :], psi[:, n:n + 1, :] = X, x
+        if f < 0:
+            # negative frequency: conjugate time wavelet / mirror spectrum
+            psi[:, n:n + 1, :] = psi[:, n, :].conj()[:, None]
+            psif[1:, n:n + 1, :] = np.flip(psif[1:, n, :], axis=0)[:, None]
+
+    return psif.squeeze(), psi.squeeze()
+
+
+def _morse_order_coeffs(gamma, beta, K, norm, fact):
+    """Normalization coefficient per order k = 0..K-1 (vectorized)."""
+    if norm == "energy":
+        return np.array([np.sqrt(1.0 / fact) *
+                         morseafun(gamma, beta, k + 1, norm="energy")
+                         for k in range(K)])
+    if beta == 0:
+        return np.ones(K)
+    r = (2 * beta + 1) / gamma
+    ks = np.arange(K, dtype=np.float64)
+    return np.sqrt(np.exp(gammaln_fn(r) + gammaln_fn(ks + 1) -
+                          gammaln_fn(ks + r)))
+
+
+def _morse_family(N, f, gamma, beta, K, norm):
+    """Spectrum + centered time wavelets of the first K orders at peak
+    frequency `f`. The spectrum is analytic: only bins 0..N//2 are
+    nonzero, so everything is computed on the half grid and placed into
+    a zero full-length array."""
+    fo = morsefreq(gamma, beta)
+    fact = f / fo
+    nhalf = N // 2 + 1
+    # digital radian grid, peak moved to bin index N*f/(2*pi*fact)
+    w = (2 * pi * np.linspace(0, 1, N, endpoint=False)[:nhalf] / fact)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if beta == 0:
+            envelope = np.exp(-(w ** gamma))
+            base = envelope if norm == "energy" else 2 * envelope
+        elif norm == "energy":
+            base = np.exp(beta * np.log(w) - w ** gamma)
+        else:
+            # log-domain form, cancels the wc**beta blowup
+            base = 2 * np.exp(-beta * np.log(fo) + fo ** gamma
+                              + beta * np.log(w) - w ** gamma)
+    if beta == 0:
+        base[0] /= 2            # unit-step halving for the lowpass
+    base[~np.isfinite(base)] = 0.0
+
+    coeffs = _morse_order_coeffs(gamma, beta, K, norm, fact)
+    c = (2 * beta + 1) / gamma - 1
+    lag = np.stack([laguerre(2 * (w ** gamma), k, c) for k in range(K)],
+                   axis=-1)                                   # (nhalf, K)
+    half = coeffs * base[:, None] * lag
+    half[np.isinf(half)] = 0.0
+
+    psif = np.zeros((N, 1, K))
+    psif[:nhalf, 0, :] = half
+
+    # time domain: alternate spectral signs (= centering shift by N/2),
+    # halve the even-N Nyquist bin, invert
+    spec = psif.copy()
+    spec[1::2] = -spec[1::2]
+    if N % 2 == 0:
+        spec[N // 2] /= 2
+    return psif, np.fft.ifft(spec, axis=0)
+
+
+# -- factory / array API ----------------------------------------------------
+def gmw(gamma=3.0, beta=60.0, norm="bandpass", order=0,
+        centered_scale=False, dtype="float64"):
+    """`lambda w: psih(w)` factory (`base.factory_psih`: host numpy, or
+    torch on a tensor's device)."""
+    if norm == "energy" and str(np.dtype(dtype)) == "float32":
+        # wp**beta overflows float32 -> inf*0 NaNs across entire Wx rows
+        raise ValueError("`norm='energy'` w/ `dtype='float32'` is "
+                         "unsupported; use 'float64' instead.")
+    fn = _build_gmw(dict(gamma=gamma, beta=beta, norm=norm, order=order,
+                         centered_scale=centered_scale))
+    return factory_psih(fn, dtype)
+
+
+def gmw_l1(gamma=3.0, beta=60.0, centered_scale=False, dtype="float64"):
+    """First-order L1 (bandpass) GMW factory."""
+    return gmw(gamma, beta, "bandpass", 0, centered_scale, dtype)
+
+
+def gmw_l2(gamma=3.0, beta=60.0, centered_scale=False, dtype="float64"):
+    """First-order L2 (energy) GMW factory."""
+    return gmw(gamma, beta, "energy", 0, centered_scale, dtype)
+
+
+def gmw_l1_k(gamma=3.0, beta=60.0, k=1, centered_scale=False,
+             dtype="float64"):
+    """k-th order L1 GMW factory."""
+    return gmw(gamma, beta, "bandpass", k, centered_scale, dtype)
+
+
+def gmw_l2_k(gamma=3.0, beta=60.0, k=1, centered_scale=False,
+             dtype="float64"):
+    """k-th order L2 GMW factory."""
+    return gmw(gamma, beta, "energy", k, centered_scale, dtype)
+
+
+def compute_gmw(N, scale, gamma=3.0, beta=60.0, time=False,
+                norm="bandpass", order=0, centered_scale=False,
+                norm_scale=True, dtype="float64"):
+    """Sampled GMW arrays (host numpy): psih [N] (+ psi [N] if `time`)."""
+    from ..utils.fft import xifn
+
+    fn = gmw(gamma, beta, norm, order, centered_scale, dtype)
+    w = xifn(scale, N)
+    X = np.zeros(N, dtype)
+    X[:N // 2 + 1] = fn(w[:N // 2 + 1])
+    if norm == "energy" and norm_scale:
+        wc = float(np.atleast_1d(morsefreq(gamma, beta))[0])
+        X *= np.sqrt(wc * scale) if centered_scale else np.sqrt(scale)
+    X[np.isinf(X) | np.isnan(X)] = 0.0
+    if time:
+        Xr = X.copy()
+        if N % 2 == 0:
+            Xr[N // 2] /= 2  # halve the even-N Nyquist bin
+        x = np.fft.ifft(Xr * (-1.0) ** np.arange(N))
+        return X, x
+    return X

@@ -1,7 +1,7 @@
-"""Wavelet center frequency and the 1D searches behind it (host numpy;
-counterpart of ``ssqueeze_rs_tpu/wavelets/props.py``). Results are cached
-per (wavelet, scale, N, kind) since Wavelet is hashable. The frequency
-resolution waits for ROADMAP Queue 1 item 2."""
+"""Wavelet center frequency, time and frequency resolution, and the 1D
+searches behind them (host numpy; counterpart of
+``ssqueeze_rs_tpu/wavelets/props.py``). Results are cached per (wavelet,
+scale, N, kind) since Wavelet is hashable."""
 from __future__ import annotations
 
 from functools import lru_cache
@@ -117,6 +117,38 @@ def _center_frequency_cached(wavelet, scale=None, N=1024, kind="energy",
     else:  # peak-ct
         wc, _ = find_maximum(wavelet)
         return float(wc)
+
+
+def freq_resolution(wavelet, scale=10, N=1024, nondim=True, force_int=True):
+    """Frequency std of the wavelet at `scale`. Accepts str / (str, dict) /
+    Wavelet specs."""
+    from .base import Wavelet
+    return _freq_resolution_cached(Wavelet.build(wavelet), scale, N, nondim,
+                                   force_int)
+
+
+@lru_cache(maxsize=1024)
+def _freq_resolution_cached(wavelet, scale=10, N=1024, nondim=True,
+                            force_int=True):
+    use_formula = ((scale < 4 or scale > N / 5) and not force_int)
+    if use_formula:
+        scale_orig = scale
+        scale = (4 / pi) * wavelet.wc_ct
+
+    w = xifn(1, N)[aifftshift_idx(N)]
+    psih = np.asarray(wavelet(scale * w))
+    wce = center_frequency(wavelet, scale, force_int=force_int, kind="energy")
+
+    apsih2 = np.abs(psih) ** 2
+    var_w = (np.trapezoid((w - wce) ** 2 * apsih2, w) /
+             np.trapezoid(apsih2, w))
+    std_w = np.sqrt(var_w)
+    if use_formula:
+        std_w *= (scale / scale_orig)
+        scale = scale_orig
+    if nondim:
+        std_w /= center_frequency(wavelet, scale, kind="peak")
+    return float(std_w)
 
 
 def time_resolution(wavelet, scale=10, N=1024, min_decay=1e3, max_mult=2,

@@ -157,17 +157,18 @@ UNPORTED = {
     "abs": dict(squeezing="abs"),
     "callable_squeezing": dict(squeezing=_double),
     "complex_psih": dict(wavelet=("bump", {"om": 0.5})),
-    "callable_wavelet": dict(wavelet=lambda w: w),
+    "callable_wavelet": dict(wavelet=lambda w: (w > 0) * w**2 / (1 + w**4)),
     "no_pad_not_pow2": dict(padtype=None),
 }
-STILL_REFUSED = ("float64", "callable_wavelet")
+STILL_REFUSED = ("float64",)
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_options_raise(name):
-    """float64 (the squeeze takes float32 planes) and custom callable
-    wavelets still raise NotImplementedError naming their ROADMAP item;
-    every other option runs on the CPU and gives a finite Tx."""
+    """float64 (the squeeze takes float32 planes) still raises
+    NotImplementedError naming its ROADMAP item; every other option,
+    custom callable wavelets included, runs on the CPU and gives a finite
+    Tx."""
     x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
     if name in STILL_REFUSED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,13 +1,18 @@
 """The port's public surface against the JAX package's, on the CPU: the
-names the port exports with the JAX signatures (apart from `device`),
-`morsefreq` with every `n_out`, and a guard that no module of the port,
-nor chip_smoke.py, imports JAX or the JAX package.
+names the port exports with the JAX signatures (apart from `device`;
+for a module, its `__all__` and the signature of each name in it), the
+`Wavelet` members with their kinds and signatures (all but `viz` and
+`VISUALS`, which wait for `visuals`), `morsefreq` with every `n_out`, and
+a guard that no module of the port, nor chip_smoke.py, imports JAX or the
+JAX package.
 
 Tolerances: `morsefreq` is host float64 scipy in both packages, computed
 in the same order, so equal.
 """
 import inspect
+import json
 import os
+import types
 import subprocess
 import sys
 import textwrap
@@ -25,21 +30,88 @@ EXPORTED = ["DEFAULTS", "EPS32", "EPS64", "mad", "WARN", "NOTE", "p2up",
             "make_scales", "cwt_scalebounds", "infer_scaletype",
             "logscale_transition_idx", "find_maximum",
             "find_first_occurrence", "morsefreq", "gmw_k_constants",
-            "morseafun"]
+            "morseafun", "pi", "wavs", "morlet", "bump", "cmhat", "hhhat",
+            "gmw", "gmw_l1", "gmw_l2", "gmw_l1_k", "gmw_l2_k", "compute_gmw",
+            "morsewave", "laguerre", "freq_resolution",
+            "est_riskshrink_thresh", "replace_at_inf", "replace_at_nan",
+            "replace_at_inf_or_nan", "replace_at_value", "replace_under_abs",
+            "afftshift_idx", "window_resolution", "tkeo", "tkeo_modified",
+            "extract_ridges", "ridge", "TestSignals", "signals", "toolkit",
+            "experimental", "scale_to_freq", "freq_to_scale", "algos"]
+
+# the JAX package's public names the port leaves to later items (ROADMAP
+# Queue 1 items 3, 7 and 9)
+NOT_YET = {"compat", "io", "ParquetRecording", "parquet_to_raw", "visuals"}
+WAVELET_NOT_YET = {"viz", "VISUALS"}
+
+
+def _same_signature(ours, theirs):
+    sig = inspect.signature(ours)
+    params = [p for p in sig.parameters.values() if p.name != "device"]
+    return sig.replace(parameters=params) == inspect.signature(theirs)
 
 
 @pytest.mark.parametrize("name", EXPORTED)
 def test_exported_with_the_jax_signature(name):
     assert name in T.__all__
     ours, theirs = getattr(T, name), getattr(J, name)
+    if isinstance(theirs, types.ModuleType):
+        assert isinstance(ours, types.ModuleType)
+        assert ours.__all__ == theirs.__all__
+        for sub in theirs.__all__:
+            a, b = getattr(ours, sub), getattr(theirs, sub)
+            if callable(b) and not isinstance(b, type):
+                assert _same_signature(a, b), sub
+        return
+    if isinstance(theirs, type):
+        members = [m for m in dir(theirs) if not m.startswith("_")]
+        for m in members:
+            a, b = getattr(ours, m), getattr(theirs, m)
+            if callable(b):
+                assert _same_signature(a, b), m
+        return
     if not callable(theirs):
         assert type(ours) is type(theirs)
         assert (sorted(ours) == sorted(theirs) if isinstance(theirs, dict)
                 else ours == theirs)
         return
-    sig = inspect.signature(ours)
-    params = [p for p in sig.parameters.values() if p.name != "device"]
-    assert sig.replace(parameters=params) == inspect.signature(theirs)
+    assert _same_signature(ours, theirs)
+
+
+def test_every_public_name_but_the_later_items():
+    """In a fresh process: a long one has more of the JAX package's
+    submodules imported (and so listed by dir) than its __init__ imports."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {REPO!r})
+        import ssqueeze_rs_tpu as J, ssqueeze_rs_tpu_torch as T
+        names = lambda m: {{n for n in dir(m) if not n.startswith("_")}}
+        print(json.dumps(sorted(names(J) - names(T))))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert set(json.loads(res.stdout.strip().splitlines()[-1])) == NOT_YET
+    assert set(EXPORTED) <= set(T.__all__)
+
+
+def test_wavelet_members_match_jax():
+    """Every public member of the JAX `Wavelet` but viz/VISUALS, of the
+    same kind (property, cached property, method, static method, value)
+    and, for callables, the same signature apart from `device`."""
+    names = {m for m in dir(J.Wavelet) if not m.startswith("_")}
+    assert names - WAVELET_NOT_YET <= set(dir(T.Wavelet))
+    for m in sorted(names - WAVELET_NOT_YET):
+        a = inspect.getattr_static(T.Wavelet, m)
+        b = inspect.getattr_static(J.Wavelet, m)
+        assert type(a) is type(b), m
+        fa, fb = getattr(a, "__func__", a), getattr(b, "__func__", b)
+        if isinstance(b, property) or not callable(fb):
+            if not isinstance(b, property) and not hasattr(b, "func"):
+                assert a == b, m
+            continue
+        assert _same_signature(fa, fb), m
 
 
 @pytest.mark.parametrize("n_out", [1, 2, 3, 4])
