@@ -15,7 +15,9 @@ points (the SSQ streamers, `TransformServer`, `process_recording`); then
 the TPU probes' counterparts (`ssqueeze_rs_tpu_torch.tools`), the last
 of them (J5-J8) apart; then the component-separation workflow
 (`ssq_cwt` -> `extract_ridges` -> `issq_cwt`) and the reference-name
-kernel layer (`algos`) at the same length.
+kernel layer (`algos`) at the same length; then the float64 routes: the
+drop-in `compat` API at N = 160 000 and `ssq_cwt(dtype='float64')` at the
+headline, through kernels B, B', C and C' in double, and `cache_wavelet`.
 Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
@@ -174,13 +176,34 @@ Phases, one line each:
      160 000): indexed_sum_onfly (B once) and ssqueeze_fast (B' once)
      within 1e-5 max|Tx| of their plain versions and bitwise repeated,
      timed and profiled; indexed_sum bitwise over 5 calls and within 1e-6
-     of a float64 sum; a float64 CUDA input raises. tkeo and
-     tkeo_modified on the card against the CPU, 5e-6 relative
+     of a float64 sum; a complex128 input runs B in double (once, within
+     1e-12 of its float64 plain version). tkeo and tkeo_modified on the
+     card against the CPU, 5e-6 relative
+ 24. the float64 routes: kernels B, B', C and C' in double on the headline
+     float64 planes (293 x 160 000) at the headline plan (nf = 293, 32
+     columns a block) and on log grids of nf = 1025 (8) and 2000 (4)
+     against their float64 plain versions on the card: Tx within 1e-12 of
+     max|Tx|, the bins equal on every entry (C and C' given a cotangent
+     whose row k holds k + 1 equal the plain gather), C and C' equal to
+     the plain gather on a seeded cotangent, every kernel bitwise
+     repeated; timed at the headline beside the plain versions and their
+     bounds. Then the main path, its launches counted: compat.ssq_cwt
+     (the Rust default scales: 490 rows), compat.cwt + compat.icwt,
+     compat.stft and compat.ssq_stft (n_fft = 598, hop 1) at N = 160 000,
+     ssq_cwt(dtype='float64') at the headline and with get_w, and the
+     gradient of each (C' and C in double): B' four times, B twice, C'
+     and C once, no float32 kernel; for each compat call its end-to-end
+     ms, device ms, D2H ms and peak memory; each against the one-thread
+     CPU at N = 16 384 (1e-10 of max; Tx 1e-9 of sum|Tx|). Last, cwt and
+     ssq_cwt at the headline with cache_wavelet=True against without (Wx
+     within 1e-5; Tx column sums 1e-4), their device ms with and without,
+     and the cache's device bytes
 
 A line "[t]" gives the wall seconds of each part of the script. Any
 failed check raises and exits non-zero. The last three lines are a
-JSON object of the twenty-two kernels' numbers (each with its launches on its
-paths, B's and B''s including phase 23's, its time, its plain version's, its bound from the bytes it must
+JSON object of the twenty-six kernels' numbers (each with its launches on
+its paths, B's, B''s and B's double's including phase 23's, its time, its
+plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
 one), the card's name and power limit, and `{"ok": true, "device": ...}`.
@@ -724,6 +747,7 @@ def main():
     rate_kernels = rate_probe_phases(np, torch, dev, card, results)
     sep_launches = component_phases(np, torch, dev, card, results, ctx)
     lap("23 component separation")
+    f64_kernels = float64_phases(np, torch, dev, card, results, ctx)
 
     results["phase_s"] = LAPS
     print("[t] wall seconds by part: " + ", ".join(
@@ -741,8 +765,8 @@ def main():
                      launches["reassign"], absB, msB, msB_plain, boundB,
                      None),
     ] + (stft_kernels + grad_kernels + cwt_kernels + serving_kernels +
-         probe_kernels + rate_kernels)
-    # B and B' also ran on phase 23's paths
+         probe_kernels + rate_kernels + f64_kernels)
+    # B and B' (and B in double) also ran on phase 23's paths
     for entry in kernels:
         entry["launches"] += sep_launches.get(entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
@@ -3025,33 +3049,41 @@ def component_phases(np, torch, dev, card, results, ctx):
     rel_sum = float((sums[0].double() - ref64).abs().max() /
                     ref64.abs().max())
     ms_sum = cuda_ms(torch, lambda: algos.indexed_sum(a, kb), iters=5)
-    try:
-        algos.indexed_sum_onfly(Wx[:, :1000].to(torch.complex128),
-                                w[:, :1000], freqs)
-        raised = False
-    except NotImplementedError:
-        raised = True
+    # a complex128 input runs B in double (its planes kept float64)
+    R.LAUNCHES_F64 = 0
+    W64, w64 = Wx.to(torch.complex128), w.double()
+    T64 = algos.indexed_sum_onfly(W64, w64, freqs, const_arr, logscale=True,
+                                  flipud=True)
+    moved64 = R.LAUNCHES_F64
+    path_launches["reassign_f64"] = moved64
+    P64 = torch.complex(*R.reassign_plain(
+        W64.real, W64.imag, w64, torch.as_tensor(const_arr, device=dev),
+        params, mode, True, na))
+    rel64 = rel(torch, T64, P64)
+    del W64, w64, T64, P64
     out["algos"] = dict(rows=na, onfly_rel=rel_on, fast_rel=rel_fast,
                         onfly_repeat=rep_on, fast_repeat=rep_fast,
                         onfly_ms=ms_on, fast_ms=ms_fast,
                         profile=dict(indexed_sum_onfly=prof_on,
                                      ssqueeze_fast=prof_fast),
                         indexed_sum_repeat=rep_sum, indexed_sum_rel64=rel_sum,
-                        indexed_sum_ms=ms_sum, float64_raises=raised,
-                        launches=moved)
+                        indexed_sum_ms=ms_sum, float64_rel=rel64,
+                        float64_launches=moved64, launches=moved)
     print(f"[23] algos on the headline planes ({na} x {nh}): "
           f"indexed_sum_onfly (B) rel {rel_on:.2e} vs plain, repeat "
           f"{rep_on}, {ms_on:.3f} ms ({breakdown_line(prof_on)}); "
           f"ssqueeze_fast (B') rel {rel_fast:.2e}, repeat {rep_fast}, "
           f"{ms_fast:.3f} ms ({breakdown_line(prof_fast)}); indexed_sum "
           f"bitwise over 5 calls {rep_sum}, vs float64 {rel_sum:.2e}, "
-          f"{ms_sum:.3f} ms; float64 raises {raised}; launches {moved} "
+          f"{ms_sum:.3f} ms; complex128 indexed_sum_onfly (B in double) rel "
+          f"{rel64:.2e}, {moved64} launch; launches {moved} "
           f"({card})")
     check(rel_on <= 1e-5 and rel_fast <= 1e-5,
           f"algos vs plain: onfly {rel_on:.2e}, fast {rel_fast:.2e}")
     check(rep_on and rep_fast and rep_sum, "algos differ between runs")
     check(rel_sum < 1e-6, f"indexed_sum vs float64 {rel_sum:.2e}")
-    check(raised, "algos took a float64 CUDA input")
+    check(moved64 == 1 and rel64 <= 1e-12,
+          f"algos on complex128: {moved64} double launches, rel {rel64:.2e}")
     del Wx, dWx, w, T_on, T_fast, P_on, P_fast, a, kb, sums, ref64
 
     # (d) the TKEO on the card against the CPU
@@ -3069,6 +3101,411 @@ def component_phases(np, torch, dev, card, results, ctx):
     results["components"] = out
     return path_launches
 
+
+
+# The card's published float64 rate outside the tensor cores (NVIDIA H100
+# SXM data sheet, at 700 W): the operations bound of the double kernels.
+F64_FLOP_S = 34e12
+N_F64_CPU = 16_384      # the float64 transforms against the one-thread CPU
+F64_BAR = 1e-10         # float64 transforms: max|d| / max|ref|
+F64_TX_BAR = 1e-9       # float64 Tx: max|d| / sum|Tx|
+
+
+def bound64(nbytes, flops):
+    """`bound` for a kernel doing float64 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / F64_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def float64_phases(np, torch, dev, card, results, ctx):
+    """Phase 24: kernels B, B', C and C' in double against their float64
+    plain versions at the headline (293 x 160 000) and at nf = 1025 and
+    2000; the drop-in `compat` API at N = 160 000 in float64 (ssq_cwt with
+    the Rust default scales, cwt + icwt, stft and ssq_stft at n_fft = 598)
+    with device ms, D2H ms and peak memory, each against the one-thread CPU
+    at N = 16 384; ssq_cwt(dtype='float64') at the headline and its
+    gradients (C' and C in double); cwt and ssq_cwt with cache_wavelet.
+    Returns the four double kernels' entries of the JSON line."""
+    from ssqueeze_rs_tpu_torch import (compat, cwt, icwt, ssq_cwt, ssq_stft,
+                                       stft)
+    from ssqueeze_rs_tpu_torch.config import EPS64
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda as R
+    from ssqueeze_rs_tpu_torch.ops import stft_cuda
+    from ssqueeze_rs_tpu_torch.ops.cwt import _FB_CACHE
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import bin_params, plan_ssqueeze
+
+    f64 = torch.float64
+    out = {}
+    wavelet, scales = ctx["wavelet"], ctx["scales"]
+    x64 = ctx["requests"]["noise"][0].to(f64)
+    n = x64.shape[-1]
+    rng = np.random.default_rng(24)
+
+    def zero_counts():
+        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
+        for k in stft_cuda.LAUNCHES:
+            stft_cuda.LAUNCHES[k] = 0
+        R.LAUNCHES = R.LAUNCHES4 = R.LAUNCHES_MXU = 0
+        R.LAUNCHES_BWD = R.LAUNCHES4_BWD = 0
+        R.LAUNCHES_F64 = R.LAUNCHES4_F64 = 0
+        R.LAUNCHES_BWD_F64 = R.LAUNCHES4_BWD_F64 = 0
+
+    def counts():
+        return dict(stft_cuda.LAUNCHES, cwt_phase=fft_cuda.LAUNCHES,
+                    cwt_fused=fft_cuda.LAUNCHES_D,
+                    ifft_halfband=fft_cuda.LAUNCHES_E, reassign=R.LAUNCHES,
+                    reassign4=R.LAUNCHES4, reassign_mxu=R.LAUNCHES_MXU,
+                    reassign_bwd=R.LAUNCHES_BWD,
+                    reassign4_bwd=R.LAUNCHES4_BWD,
+                    reassign_f64=R.LAUNCHES_F64,
+                    reassign4_f64=R.LAUNCHES4_F64,
+                    reassign_bwd_f64=R.LAUNCHES_BWD_F64,
+                    reassign4_bwd_f64=R.LAUNCHES4_BWD_F64)
+
+    def only(**nonzero):
+        want = {k: 0 for k in counts()}
+        want.update(nonzero)
+        return want
+
+    # (a) the double kernels on the headline float64 planes
+    torch.cuda.empty_cache()
+    out["allocated_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
+    Wx, _, dWx = cwt(x64, wavelet, scales=scales, derivative=True,
+                     dtype="float64")
+    planes = [p.contiguous() for p in (Wx.real, Wx.imag, dWx.real,
+                                       dWx.imag)]
+    del Wx, dWx
+    na = planes[0].shape[0]
+    freqs, const_arr, mode, params = plan_ssqueeze(
+        n, na, None, scales, fs=1.0, maprange="peak", wavelet=wavelet)
+    const = torch.as_tensor(const_arr, dtype=f64, device=dev)
+    zeros = torch.zeros(na, dtype=f64, device=dev)
+    gamma = 10 * EPS64
+    w = R.phase_w(*planes, zeros, gamma, "cwt")
+    # the headline plan (nf = 293, 32 columns a block in double), and log
+    # grids over the same band at nf = 1025 (8 columns) and 2000 (4)
+    plans = {len(freqs): (mode, params)}
+    for nfx in (1025, 2000):
+        plans[nfx] = bin_params(np.geomspace(float(freqs.min()),
+                                             float(freqs.max()), nfx), True)
+    K = {}
+    lines = []
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def tx_off(k, p):
+        """(max|k - p| / max|p|, max|k - p|) over the complex entries of two
+        (real, imag) plane pairs."""
+        d = float(torch.hypot(k[0] - p[0], k[1] - p[1]).max())
+        return d / float(torch.hypot(*p).max()), d
+
+    # one plan at a time, each output checked and freed before the next
+    # (at nf = 2000 a Tx plane pair in float64 is 5.1 GB)
+    for nfx, (m, prm) in plans.items():
+        head = nfx == len(freqs)
+        a4 = (*planes, const, zeros, gamma, prm, m, True, nfx, "cwt")
+        a3 = (planes[0], planes[1], w, const, prm, m, True, nfx)
+        row = dict(nf=nfx, cols=R._block_cols(nfx, 8), mode=m, tx_rel={},
+                   masked=float(torch.isinf(w).double().mean()))
+        fwd = {"reassign_f64": ("B", R.reassign, R.reassign_plain, a3, 4,
+                                BIN_FLOPS),
+               "reassign4_f64": ("B'", R.reassign4, R.reassign4_plain, a4, 6,
+                                 BIN4_FLOPS)}
+        for name, (key, fn, plain, args, n_in, flops) in fwd.items():
+            k1 = fn(*args)
+            row[key + " repeat"] = same(k1, fn(*args))
+            row["out_dtype"] = str(k1[0].dtype)
+            p1 = plain(*args)
+            row["tx_rel"][key], err = tx_off(k1, p1)
+            if head:
+                K[name] = dict(max_abs_err=err, bound=bound64(
+                    tensor_bytes(args[:n_in], k1), flops * w.numel()))
+            del k1, p1
+        bwd = {"reassign_bwd_f64": ("C", R.reassign_bwd,
+                                    R.reassign_bwd_plain,
+                                    lambda g: (w, const, *g, prm, m, True,
+                                               nfx), (w, const), BIN_FLOPS),
+               "reassign4_bwd_f64": ("C'", R.reassign4_bwd,
+                                     R.reassign4_bwd_plain,
+                                     lambda g: (*planes, const, zeros, *g,
+                                                gamma, prm, m, True, nfx,
+                                                "cwt"),
+                                     (planes, const, zeros), BIN4_FLOPS)}
+        # a cotangent that names its bin (row k holds k + 1): C's and C''s
+        # outputs are then (k + 1) * const[i], equal to the plain gather's
+        # exactly where every entry's bin is the plain bin
+        g = (torch.arange(1, nfx + 1, dtype=f64, device=dev)[:, None]
+             .expand(nfx, n).contiguous(),
+             torch.zeros(nfx, n, dtype=f64, device=dev))
+        for key, fn, plain, args, _, _ in bwd.values():
+            row[key + " bins equal"] = same(fn(*args(g)), plain(*args(g)))
+        g = tuple(torch.as_tensor(rng.standard_normal((nfx, n)), dtype=f64,
+                                  device=dev) for _ in range(2))
+        for name, (key, fn, plain, args, ins, flops) in bwd.items():
+            k1, p1 = fn(*args(g)), plain(*args(g))
+            row[key + " equal"] = same(k1, p1)
+            row[key + " repeat"] = same(k1, fn(*args(g)))
+            if head:
+                K[name] = dict(max_abs_err=max(float((u - v).abs().max())
+                                               for u, v in zip(k1, p1)),
+                               bound=bound64(tensor_bytes(ins, g, k1),
+                                             flops * w.numel()))
+            del k1, p1
+        if head:
+            # the headline: timed beside the plain versions and the bound
+            timed = {"reassign_f64": (lambda: R.reassign(*a3),
+                                      lambda: R.reassign_plain(*a3)),
+                     "reassign4_f64": (lambda: R.reassign4(*a4),
+                                       lambda: R.reassign4_plain(*a4)),
+                     "reassign_bwd_f64": (
+                         lambda: R.reassign_bwd(*bwd["reassign_bwd_f64"][3](
+                             g)),
+                         lambda: R.reassign_bwd_plain(
+                             *bwd["reassign_bwd_f64"][3](g))),
+                     "reassign4_bwd_f64": (
+                         lambda: R.reassign4_bwd(*bwd["reassign4_bwd_f64"][3](
+                             g)),
+                         lambda: R.reassign4_bwd_plain(
+                             *bwd["reassign4_bwd_f64"][3](g)))}
+            for name, (fk, fp) in timed.items():
+                K[name].update(ms=cuda_ms(torch, fk),
+                               plain_ms=cuda_ms(torch, fp, warmup=1, iters=5))
+            row["ms"] = {k: v["ms"] for k, v in K.items()}
+        del g
+        out[f"nf{nfx}"] = row
+        rel_b, rel_b4 = row["tx_rel"]["B"], row["tx_rel"]["B'"]
+        flags = {k: v for k, v in row.items() if isinstance(v, bool)}
+        lines.append(
+            f"nf={nfx} ({row['cols']} columns a block, {m}): B Tx rel "
+            f"{rel_b:.2e}, B' {rel_b4:.2e}; " +
+            ", ".join(f"{k} {v}" for k, v in flags.items()))
+        check(row["out_dtype"] == "torch.float64", f"nf={nfx}: Tx in "
+              f"{row['out_dtype']}")
+        check(max(rel_b, rel_b4) <= 1e-12,
+              f"double B/B' at nf={nfx}: Tx rel {row['tx_rel']}")
+        check(all(flags.values()), f"double kernels at nf={nfx}: {flags}")
+    times = ", ".join(f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, "
+                      f"bound {v['bound'][0]:.3f})" for k, v in K.items())
+    print(f"[24] double kernels on the headline float64 planes ({na} x {n}"
+          f"): " + "; ".join(lines) + f" | {times} ({card})")
+    del planes, w
+    torch.cuda.empty_cache()
+    lap("24 double kernels")
+
+    # (b) the main path: compat at N = 160 000, ssq_cwt(float64) at the
+    # headline and its gradients, with every launch counted
+    t = np.arange(n) / 1000.0
+    xs_np = (np.random.default_rng(2).standard_normal(n) +
+             np.cos(2 * np.pi * (5 * t + 1.5 * t * t)))
+    xs = torch.as_tensor(xs_np, dtype=f64, device=dev)
+    win = np.hanning(N_FFT + 1)[:-1]
+    rust = compat._default_rust_scales(n)
+    # the compat calls as a user makes them, in order (icwt inverts the
+    # numpy Wx that cwt returned), and the device part of each (the same
+    # transforms, their outputs left on the card)
+    calls = {
+        "ssq_cwt": lambda x, d: compat.ssq_cwt(x, device=d),
+        "cwt": lambda x, d: compat.cwt(x, device=d),
+        "icwt": lambda Wx, d: compat.icwt(Wx, device=d),
+        "stft": lambda x, d: compat.stft(x, N_FFT, 1, win, device=d),
+        "ssq_stft": lambda x, d: compat.ssq_stft(x, win, n_fft=N_FFT,
+                                                 device=d),
+    }
+
+    def run_calls(x, d):
+        """{name: first output} of the compat calls on x (device d), with
+        their host ms (each to a synchronize)."""
+        res, ms = {}, {}
+        for name, fn in calls.items():
+            arg = res["cwt"] if name == "icwt" else x
+            r, ms[name] = wall_ms(torch, lambda: fn(arg, d))
+            res[name] = r[0] if isinstance(r, tuple) else r
+            if name.startswith("ssq"):
+                res[name + " freqs"] = r[1]
+        return res, ms
+
+    wx_dev = {}
+    dev_calls = {
+        "ssq_cwt": lambda: ssq_cwt(xs, "gmw", scales=rust, nv=32,
+                                   dtype="float64")[0],
+        "cwt": lambda: wx_dev.setdefault("Wx", cwt(
+            xs, "gmw", scales=rust, dtype="float64")[0]),
+        "icwt": lambda: icwt(wx_dev["Wx"], "gmw", scales=rust),
+        "stft": lambda: stft(xs, window=win, n_fft=N_FFT, win_len=N_FFT,
+                             modulated=False, dtype="float64"),
+        "ssq_stft": lambda: ssq_stft(xs, window=win, n_fft=N_FFT, fs=1.0,
+                                     dtype="float64")[0],
+    }
+    groups = (("B'", ("reassign_kernel",)), K_FFT)
+    user = None if dev.type == "cuda" else dev    # the device rule's default
+    zero_counts()
+    res, e2e = run_calls(xs, user)
+    C = {name: dict(e2e_ms=e2e[name], shape=list(res[name].shape))
+         for name in calls}
+    for name in calls:
+        check(isinstance(res[name], np.ndarray) and
+              np.isfinite(res[name]).all(),
+              f"compat.{name}: not a finite host array")
+    del res
+    # ssq_cwt(float64) at the headline (B'), through its w route (B), and
+    # the gradient of each (C', C): loss sum|Tx|^2 + sum|Wx|^2
+    head = lambda get_w=False: ssq_cwt(                      # noqa: E731
+        xs, wavelet, scales=scales, dtype="float64", get_w=get_w)
+    (Tx_h, *_), ms_h = wall_ms(torch, head)
+    _, ms_w = wall_ms(torch, lambda: head(True))
+    xg = xs.clone().requires_grad_(True)
+
+    def grad(get_w=False):
+        Tg, Wg, *_ = ssq_cwt(xg, wavelet, scales=scales, dtype="float64",
+                             get_w=get_w)
+        ((Tg.abs() ** 2).sum() + (Wg.abs() ** 2).sum()).backward()
+        gx = xg.grad
+        xg.grad = None
+        return gx
+
+    (gx, peak_g, base_g), ms_g = wall_ms(torch, lambda: peak_gb(torch, grad))
+    gx_w, ms_gw = wall_ms(torch, lambda: grad(True))
+    moved = counts()
+    path = dict(reassign_f64=moved["reassign_f64"],
+                reassign4_f64=moved["reassign4_f64"],
+                reassign_bwd_f64=moved["reassign_bwd_f64"],
+                reassign4_bwd_f64=moved["reassign4_bwd_f64"])
+    out["path_launches"] = moved
+    check(moved == only(reassign_f64=2, reassign4_f64=4, reassign_bwd_f64=1,
+                        reassign4_bwd_f64=1),
+          f"float64 main path: launches {moved}")
+    check(Tx_h.dtype == torch.complex128 and Tx_h.is_cuda and
+          bool(torch.isfinite(Tx_h).all()), "ssq_cwt(float64) at the "
+          "headline: Tx not finite complex128 on the card")
+    check(bool(torch.isfinite(gx).all()) and gx.dtype == f64 and
+          bool(torch.isfinite(gx_w).all()), "float64 gradients not finite")
+    rows_h = list(Tx_h.shape)
+    del Tx_h, gx, gx_w
+    # steady times of the same (median of 3 after one more call)
+    steady = dict(ssq_cwt=host_ms(torch, head, n=3)[0],
+                  ssq_cwt_get_w=host_ms(torch, lambda: head(True), n=3)[0],
+                  grad=host_ms(torch, grad, n=3)[0],
+                  grad_get_w=host_ms(torch, lambda: grad(True), n=3)[0])
+    out["headline"] = dict(first_ms=dict(ssq_cwt=ms_h, ssq_cwt_get_w=ms_w,
+                                         grad=ms_g, grad_get_w=ms_gw),
+                           steady_ms=steady, grad_peak_gb=peak_g,
+                           grad_base_gb=base_g, rows=rows_h)
+    del xg
+    # each compat call: its device part (ms, device ms, peak memory) and
+    # the fetch of its output to the host
+    for name, fn in dev_calls.items():
+        r, peak, base = peak_gb(torch, fn)
+        _, ms_d2h = wall_ms(torch, lambda: r.cpu().numpy())
+        nbytes = r.numel() * r.element_size()
+        C[name].update(
+            out_bytes=nbytes, d2h_ms=ms_d2h, d2h_gb_s=nbytes / ms_d2h / 1e6,
+            device_part_ms=cuda_ms(torch, fn, warmup=1, iters=3),
+            peak_gb=peak, base_gb=base,
+            profile=device_breakdown(torch, fn, groups, calls=2))
+        del r
+    wx_dev.clear()
+    out["compat"] = C
+    print(f"[24] compat (float64) at N={n}: " + "; ".join(
+        f"{k} {v['e2e_ms']:.1f} ms end to end, {v['shape']}, device part "
+        f"{v['device_part_ms']:.2f} ms ({breakdown_line(v['profile'])}), "
+        f"D2H {v['d2h_ms']:.1f} ms for {v['out_bytes'] / 1e9:.3f} GB "
+        f"({v['d2h_gb_s']:.2f} GB/s), peak {v['peak_gb']:.2f} GB"
+        for k, v in C.items()) + f"; ssq_cwt(float64) at the headline "
+        f"({rows_h[0]} rows) first call {ms_h:.2f} ms, steady "
+        f"{steady['ssq_cwt']:.2f} (get_w {ms_w:.2f}, "
+        f"{steady['ssq_cwt_get_w']:.2f}); "
+        f"gradient first {ms_g:.1f} ms, steady {steady['grad']:.2f} (get_w "
+        f"{ms_gw:.1f}, {steady['grad_get_w']:.2f}), peak {peak_g:.2f} GB; "
+        f"launches {path} ({card})")
+    lap("24 compat at 160k")
+
+    # (c) the card against the one-thread CPU at N = 16 384
+    xc = xs_np[:N_F64_CPU]
+    g, _ = run_calls(torch.as_tensor(xc, device=dev), user)
+    c, _ = cpu_ref(torch, lambda: run_calls(torch.as_tensor(xc), "cpu"))
+    cpu = {}
+    for name in calls:
+        if name.startswith("ssq"):
+            err = float(np.abs(g[name] - c[name]).max() /
+                        np.abs(c[name]).sum())
+            bar = F64_TX_BAR
+            check(np.array_equal(g[name + " freqs"], c[name + " freqs"]),
+                  f"compat.{name}: freqs differ")
+        else:
+            err = float(np.abs(g[name] - c[name]).max() /
+                        np.abs(c[name]).max())
+            bar = F64_BAR
+        cpu[name] = err
+        check(err < bar, f"compat.{name} card vs CPU at N={N_F64_CPU}: "
+              f"{err:.2e} >= {bar}")
+    out["vs_cpu"] = cpu
+    print(f"[24] compat card vs one-thread CPU at N={N_F64_CPU}: " +
+          ", ".join(f"{k} {v:.2e}" for k, v in cpu.items()) +
+          f" (bars: transforms {F64_BAR} of max, Tx {F64_TX_BAR} of sum|Tx|)")
+    del xs, g, c
+
+    # (d) cache_wavelet at the headline (float32): cwt (D) and ssq_cwt
+    # (A, B) with the cached filterbank against without
+    x32 = ctx["requests"]["noise"][0]
+    n_cached = len(_FB_CACHE)
+    CW = {}
+    for name, fn, want in (
+            ("cwt", lambda cw: cwt(x32, wavelet, scales=scales,
+                                   cache_wavelet=cw),
+             only(cwt_fused=1)),
+            ("ssq_cwt", lambda cw: ssq_cwt(x32, wavelet, scales=scales,
+                                           cache_wavelet=cw),
+             only(cwt_phase=1, reassign=1))):
+        ref = fn(None)
+        fn(True)                          # samples and uploads once
+        zero_counts()
+        got = fn(True)
+        check(counts() == want, f"{name} with cache_wavelet: launches "
+              f"{counts()}")
+        torch.cuda.synchronize()
+        wx, wx_ref = (got[0], ref[0]) if name == "cwt" else (got[1], ref[1])
+        wx_rel = rel(torch, wx, wx_ref)
+        row = dict(wx_rel=wx_rel, ms=cuda_ms(torch, lambda: fn(True)),
+                   ms_without=cuda_ms(torch, lambda: fn(None)),
+                   profile=device_breakdown(torch, lambda: fn(True),
+                                            (K_A, K_D, K_B, K_FFT)),
+                   profile_without=device_breakdown(
+                       torch, lambda: fn(None), (K_A, K_D, K_B, K_FFT)))
+        if name == "ssq_cwt":
+            row["tx_col_rel"], row["tx_total_rel"] = tx_metrics(
+                np, got[0].cpu().numpy(), ref[0].cpu().numpy())
+            check(row["tx_col_rel"] < 1e-4, f"ssq_cwt with cache_wavelet: "
+                  f"Tx col rel {row['tx_col_rel']:.2e}")
+        check(wx_rel < 1e-5, f"{name} with cache_wavelet: Wx rel "
+              f"{wx_rel:.2e} >= 1e-5")
+        CW[name] = row
+        del ref, got, wx, wx_ref
+    fb = list(_FB_CACHE.values())[-1]
+    CW["cache_bytes"] = sum(v.numel() * v.element_size() for v in fb)
+    CW["entries_added"] = len(_FB_CACHE) - n_cached
+    out["cache_wavelet"] = CW
+    print("[24] cache_wavelet at the headline: " + "; ".join(
+        f"{k} Wx rel {v['wx_rel']:.2e}"
+        + (f", Tx col rel {v['tx_col_rel']:.2e}" if k == "ssq_cwt" else "")
+        + f", {v['ms']:.3f} ms vs {v['ms_without']:.3f} without; device "
+        f"{breakdown_line(v['profile'])} vs without "
+        f"{breakdown_line(v['profile_without'])}"
+        for k, v in CW.items() if isinstance(v, dict)) +
+        f"; the cache holds {CW['cache_bytes'] / 1e6:.1f} MB on the device "
+        f"({CW['entries_added']} entry) ({card})")
+    results["float64"] = out
+    lap("24 CPU checks, cache_wavelet")
+
+    src = {"reassign_f64": ("reassign.cu", "reassign_pallas.py:175"),
+           "reassign4_f64": ("reassign.cu", "reassign_pallas.py:175"),
+           "reassign_bwd_f64": ("reassign_bwd.cu", "reassign_pallas.py:485"),
+           "reassign4_bwd_f64": ("reassign_bwd.cu", "reassign_pallas.py:485")}
+    return [kernel_entry(name, src[name][0], src[name][1], path[name],
+                         K[name]["max_abs_err"], K[name]["ms"],
+                         K[name]["plain_ms"], K[name]["bound"], None)
+            for name in src]
 
 if __name__ == "__main__":
     try:

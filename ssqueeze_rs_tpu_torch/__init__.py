@@ -9,8 +9,9 @@ their host planning, the streaming transforms (`StreamingSTFT`,
 `TransformServer`, the recording pipeline
 (`parallel.process_recording`), the wavelet builders (`morlet`, `gmw`,
 `morsewave`, ...), ridge extraction (`extract_ridges`), the TKEO, the
-test signals, `toolkit`, `experimental` and the reference's kernel-layer
-names (`algos`). Array input runs on the CUDA device unless
+test signals, `toolkit`, `experimental`, the reference's kernel-layer
+names (`algos`) and the drop-in `_rs` API (`compat`). Every transform
+takes `dtype="float64"` as the JAX package's does. Array input runs on the CUDA device unless
 `device="cpu"` is given; a tensor runs on its own device. On a CUDA
 tensor the hand-written Hopper kernels run (``csrc/*.cu``, built with nvcc
 at first use); on a CPU tensor their plain-torch versions run. ROADMAP.md
@@ -42,7 +43,8 @@ from .experimental import scale_to_freq, freq_to_scale
 from .serve import TransformServer
 from .streaming import (StreamingSTFT, StreamingSSQSTFT, StreamingCWT,
                         StreamingSSQCWT)
-from . import algos, experimental, parallel, ridge, signals, toolkit
+from . import (algos, compat, experimental, parallel, ridge, signals,
+               toolkit)
 
 
 def wavs():
@@ -68,4 +70,5 @@ __all__ = ["cwt", "icwt", "ssq_cwt", "issq_cwt", "ssq_stft", "issq_stft",
            "replace_at_inf_or_nan", "replace_at_value", "replace_under_abs",
            "afftshift_idx", "window_resolution", "tkeo", "tkeo_modified",
            "extract_ridges", "ridge", "TestSignals", "signals", "toolkit",
-           "experimental", "scale_to_freq", "freq_to_scale", "algos"]
+           "experimental", "scale_to_freq", "freq_to_scale", "algos",
+           "compat"]

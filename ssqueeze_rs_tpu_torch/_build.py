@@ -28,7 +28,9 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-lineinfo"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_D = ctypes.c_double
 _PLAN = [_F] * 5        # the binning plan p0..p4 (reassign_cuda._plan_floats)
+_PLAN64 = [_D] * 5      # the same in double (the `_f64` entry points)
 _SIGNATURES = {
     "ssq_cwt_phase": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _LL, _I, _I, _I,
                       _I, _I, _F, _P, _LL, _P, _P, _P, _P],
@@ -49,6 +51,15 @@ _SIGNATURES = {
     "ssq_reassign_bwd": [_P, _P, _I, _I, _LL, _I, _I, _I] + _PLAN + [_P] * 5,
     "ssq_reassign4_bwd": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                          _PLAN + [_P] * 5,
+    # B, B', C and C' on float64 planes
+    "ssq_reassign_f64": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN64 +
+                        [_I, _P, _P, _P],
+    "ssq_reassign4_f64": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _D] +
+                         _PLAN64 + [_I, _P, _P, _P],
+    "ssq_reassign_bwd_f64": [_P, _P, _I, _I, _LL, _I, _I, _I] + _PLAN64 +
+                            [_P] * 5,
+    "ssq_reassign4_bwd_f64": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _D] +
+                             _PLAN64 + [_P] * 5,
     # the probes (ssqueeze_rs_tpu_torch/tools)
     "ssq_ablate_cwt": [_P] * 4 + [_F] + [_P] * 4 + [_LL] + [_I] * 6 +
                       [_P, _LL] + [_P] * 5,

@@ -4,9 +4,10 @@
 
   * `indexed_sum_onfly` and `ssqueeze_fast` are the reassignment: kernel B
     (3 planes, from a phase) and kernel B' (4 planes, from Wx and dWx) of
-    `ops.reassign_cuda` on a CUDA tensor, their plain versions on a CPU
-    tensor. The output has Wx's row count and the bin clamp is
-    len(Wx) - 1, as in the reference, which sizes `out` by Wx.
+    `ops.reassign_cuda` on a CUDA tensor (their double instantiations for
+    float64 / complex128), their plain versions on a CPU tensor. The
+    output has Wx's row count and the bin clamp is len(Wx) - 1, as in the
+    reference, which sizes `out` by Wx.
   * `indexed_sum` is one `scatter_add_` per row, in row order: a row puts
     at most one entry in each (k, j), so no two adds of one launch meet
     and the sums are bitwise run to run on any device (a single
@@ -14,9 +15,10 @@
   * the phase pairs are the elementwise phase transforms; `_cpu` and
     `_gpu` are one implementation.
 
-float64 / complex128 planes raise (the kernels take float32; ROADMAP
-Queue 1 item 3) rather than being cast. `out=` is accepted and ignored:
-results are returned. `parallel=` is accepted and ignored.
+Planes keep their precision: float64 / complex128 run in float64, and
+planes of mixed precision raise rather than being cast. `out=` is
+accepted and ignored: results are returned. `parallel=` is accepted and
+ignored.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from .config import EPS32
+from .config import EPS32, EPS64
 from .ops.phase import _imag_ratio_over_2pi
 from .ops.reassign_cuda import reassign, reassign4
 from .ops.ssqueeze import bin_params
@@ -34,7 +36,7 @@ from .utils.closest import (find_closest, find_closest_brute,
                             find_closest_lin)
 from .utils.common import (as_signal, replace_at_inf_or_nan, replace_at_inf,
                            replace_at_nan, replace_at_value,
-                           replace_under_abs, unported)
+                           replace_under_abs)
 from .wavelets.props import find_maximum, find_first_occurrence
 
 __all__ = [
@@ -59,25 +61,24 @@ def nCk(n, k):
     return float(math.comb(int(n), r))
 
 
-def _tensors(name, *arrays):
-    """`arrays` as tensors on the first one's device; float64 or
-    complex128 raises."""
+def _tensors(*arrays):
+    """`arrays` as tensors on the first one's device."""
     out = [as_signal(arrays[0])]
-    out += [as_signal(a, out[0].device) for a in arrays[1:]]
-    if any(t.dtype in _DOUBLE for t in out):
-        unported(f"{name} on float64 / complex128",
-                 "Queue 1 item 3, float64 route")
-    return out
+    return out + [as_signal(a, out[0].device) for a in arrays[1:]]
 
 
 def _planes(W):
     return (W.real, W.imag) if W.is_complex() else (W, torch.zeros_like(W))
 
 
-def _const_row(const, na, device):
+def _real_dtype(W):
+    return torch.float64 if W.dtype in _DOUBLE else torch.float32
+
+
+def _const_row(const, na, W):
     return torch.as_tensor(np.broadcast_to(
         np.asarray(const, np.float64).squeeze(), (na,)).copy(),
-        dtype=torch.float32, device=device)
+        dtype=_real_dtype(W), device=W.device)
 
 
 def _result(Wx, txr, txi):
@@ -102,10 +103,10 @@ def indexed_sum_onfly(Wx, w, ssq_freqs, const=1, logscale=False,
     Tx[k(w[i,j]), j] += Wx[i,j] * const[i], entries with infinite `w`
     skipped; `k` by the closed-form log / log-piecewise / linear maps of
     `ssq_freqs`. Tx has Wx's shape."""
-    Wx, w = _tensors("indexed_sum_onfly", Wx, w)
+    Wx, w = _tensors(Wx, w)
     mode, params = bin_params(ssq_freqs, bool(logscale))
     na = Wx.shape[-2]
-    txr, txi = reassign(*_planes(Wx), w, _const_row(const, na, Wx.device),
+    txr, txi = reassign(*_planes(Wx), w, _const_row(const, na, Wx),
                         params, mode, bool(flipud), na)
     return _result(Wx, txr, txi)
 
@@ -115,17 +116,17 @@ def ssqueeze_fast(Wx, dWx, ssq_freqs, const, logscale=False, flipud=False,
     """Phase transform, bins and scatter in one pass (kernel B' on CUDA):
     `Sfs=None` takes the CWT phase |Im(dWx/Wx)|/2pi, else the STFT phase
     |Sfs - Im(dSx/Sx)/2pi|; entries with |Wx| <= gamma are skipped
-    (default 10 * EPS32). Tx has Wx's shape."""
-    Wx, dWx = _tensors("ssqueeze_fast", Wx, dWx)
+    (default 10 * eps of Wx's precision). Tx has Wx's shape."""
+    Wx, dWx = _tensors(Wx, dWx)
     if gamma is None:
-        gamma = 10 * EPS32
+        gamma = 10 * (EPS64 if Wx.dtype == torch.complex128 else EPS32)
     mode, params = bin_params(ssq_freqs, bool(logscale))
     na = Wx.shape[-2]
     transform = "cwt" if Sfs is None else "stft"
     Sfs = torch.as_tensor(np.zeros(na) if Sfs is None else Sfs,
-                          dtype=torch.float32, device=Wx.device)
+                          dtype=_real_dtype(Wx), device=Wx.device)
     txr, txi = reassign4(*_planes(Wx), *_planes(dWx),
-                         _const_row(const, na, Wx.device), Sfs, float(gamma),
+                         _const_row(const, na, Wx), Sfs, float(gamma),
                          params, mode, bool(flipud), na, transform)
     return _result(Wx, txr, txi)
 

@@ -6,9 +6,11 @@
 // blockIdx.y) and has 16 * COLS threads. Lane l of warp w is thread (c, g)
 // with c = 2 * w + l % 2, the block's column, and g = l / 2, its row
 // group: a warp covers 2 columns and 16 rows at a step. The block keeps a
-// (2, nf, COLS) float accumulator in shared memory, the entry of bin k and
-// column c at column c ^ (k mod COLS) of row k (the lanes of one column
-// that add to different bins in one round then hit different banks).
+// (2, nf, COLS) accumulator of the planes' real type T (float, or double
+// for float64 planes) in shared memory, the entry of bin k and column c at
+// column c ^ (k mod COLS) of row k (the lanes of one column that add to
+// different bins in one round then hit different 4-byte banks; a double
+// entry spans two banks, and the swizzle is not retuned for that).
 //
 // A step takes rows i0 .. i0 + 15: thread (c, g) loads row i0 + g of
 // column c (every plane) and forms its bin and its two products once.
@@ -30,7 +32,7 @@
 
 namespace {
 
-using ssq::Plan;
+using ssq::PlanT;
 
 constexpr int kLanes = 16;             // lanes a column (G)
 constexpr int kWarpCols = 32 / kLanes;  // columns a warp covers
@@ -43,16 +45,16 @@ __device__ __forceinline__ int acc_at(int k, int c) {
 
 // kPlanes = 3: p2 is the w plane (+inf where masked); kPlanes = 4: p2, p3
 // are dWx, and w and the mask |Wx|^2 > gamma^2 are formed here.
-template <int COLS, int kPlanes>
+template <typename T, int COLS, int kPlanes>
 __global__ void __launch_bounds__(COLS * kLanes)
-reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
-                const float* __restrict__ p2, const float* __restrict__ p3,
-                const float* __restrict__ cst, const float* __restrict__ sfs,
-                int na, long long n, Plan P, int transform, float gamma2,
-                float* __restrict__ txr, float* __restrict__ txi) {
+reassign_kernel(const T* __restrict__ wr, const T* __restrict__ wi,
+                const T* __restrict__ p2, const T* __restrict__ p3,
+                const T* __restrict__ cst, const T* __restrict__ sfs,
+                int na, long long n, PlanT<T> P, int transform, T gamma2,
+                T* __restrict__ txr, T* __restrict__ txi) {
   static_assert(COLS % kWarpCols == 0, "plan");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [2][nf][COLS]
+  T* acc = reinterpret_cast<T*>(smem_raw);  // [2][nf][COLS]
   const int nf = P.nf;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -61,13 +63,13 @@ reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
   const long long j0 = (long long)blockIdx.x * COLS;
   const long long bat = blockIdx.y;
   const bool live = j0 + c < n;
-  float* acc_i = acc + (long long)nf * COLS;
+  T* acc_i = acc + (long long)nf * COLS;
 
-  for (int e = tid; e < 2 * nf * COLS; e += COLS * kLanes) acc[e] = 0.f;
+  for (int e = tid; e < 2 * nf * COLS; e += COLS * kLanes) acc[e] = T(0);
   __syncthreads();
 
   const long long base = bat * na * n + j0 + c;
-  float vr = 0.f, vi = 0.f, va = 0.f, vb = 0.f;
+  T vr = T(0), vi = T(0), va = T(0), vb = T(0);
   if (live && g < na) {
     vr = wr[base + (long long)g * n];
     vi = wi[base + (long long)g * n];
@@ -78,15 +80,15 @@ reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
     // this step's entry: its bin and products
     const int i = i0 + g;
     int k = -1;
-    float pr = 0.f, pi = 0.f;
+    T pr = T(0), pi = T(0);
     if (live && i < na) {
-      const float w = (kPlanes == 4)
+      const T w = (kPlanes == 4)
           ? ssq::phase_w(vr, vi, va, vb, sfs[i], gamma2, transform)
           : va;
       k = ssq::bin_of(w, P);
-      const float cc = cst[i];
-      pr = __fmul_rn(vr, cc);
-      pi = __fmul_rn(vi, cc);
+      const T cc = cst[i];
+      pr = ssq::mul_rn(vr, cc);
+      pi = ssq::mul_rn(vi, cc);
     }
     // the next step's loads go out before this one's adds
     const int in = i + kLanes;
@@ -114,7 +116,7 @@ reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
   }
   __syncthreads();
 
-  // every thread stores: a warp writes COLS consecutive floats of Tx rows
+  // every thread stores: a warp writes COLS consecutive entries of Tx rows
   const long long ob = bat * nf * n + j0;
   for (int e = tid; e < nf * COLS; e += COLS * kLanes) {
     const int kk = e / COLS, cc = e % COLS;
@@ -126,18 +128,17 @@ reassign_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
 }
 
 // One launch over planes (batch, na, n) into Tx planes (batch, nf, n).
-template <int COLS, int kPlanes>
-int launch(const float* wr, const float* wi, const float* p2, const float* p3,
-           const float* cst, const float* sfs, int batch, int na, long long n,
-           const Plan& P, int transform, float gamma2, float* txr, float* txi,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)2 * P.nf * COLS * sizeof(float);
+template <typename T, int COLS, int kPlanes>
+int launch(const T* wr, const T* wi, const T* p2, const T* p3, const T* cst,
+           const T* sfs, int batch, int na, long long n, const PlanT<T>& P,
+           int transform, T gamma2, T* txr, T* txi, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * P.nf * COLS * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      reassign_kernel<COLS, kPlanes>,
+      reassign_kernel<T, COLS, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + COLS - 1) / COLS), (unsigned)batch);
-  reassign_kernel<COLS, kPlanes>
+  reassign_kernel<T, COLS, kPlanes>
       <<<grid, COLS * kLanes, smem, stream>>>(wr, wi, p2, p3, cst, sfs, na, n,
                                               P, transform, gamma2, txr, txi);
   return (int)cudaGetLastError();

@@ -19,6 +19,9 @@
 // kernels (ssq::phase_w, ssq::bin_of), so it rounds log2 and every division
 // the same way and reads exactly the bin the forward scattered to.
 //
+// Templated on the real type: float, and double for float64 planes (the
+// `_f64` entry points), with the bins of bins.cuh in the same type.
+//
 // Design: one thread per entry, j fastest across a warp, one block row per
 // (row i, signal): the w plane (or the four planes) is read and the two gW
 // planes written coalesced, and each output is one product, so there are
@@ -39,48 +42,52 @@
 namespace {
 
 using ssq::Plan;
+using ssq::Plan64;
+using ssq::PlanT;
 
 constexpr int kThreads = 256;     // columns per block
 
+// T: the planes' real type (float; double for float64 planes).
 // kPlanes = 3: p0 is the w plane (p1..p3 unused); kPlanes = 4: p0, p1 are
 // Wx and p2, p3 dWx.
-template <int kPlanes>
+template <typename T, int kPlanes>
 __global__ void __launch_bounds__(kThreads)
-reassign_bwd_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
-                    const float* __restrict__ p2, const float* __restrict__ p3,
-                    const float* __restrict__ cst, const float* __restrict__ sfs,
-                    int na, long long n, Plan P, int transform, float gamma2,
-                    const float* __restrict__ gr, const float* __restrict__ gi,
-                    float* __restrict__ gwr, float* __restrict__ gwi) {
+reassign_bwd_kernel(const T* __restrict__ p0, const T* __restrict__ p1,
+                    const T* __restrict__ p2, const T* __restrict__ p3,
+                    const T* __restrict__ cst, const T* __restrict__ sfs,
+                    int na, long long n, PlanT<T> P, int transform, T gamma2,
+                    const T* __restrict__ gr, const T* __restrict__ gi,
+                    T* __restrict__ gwr, T* __restrict__ gwi) {
   const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (j >= n) return;
   const int i = blockIdx.y;
   const long long bat = blockIdx.z;
   const long long o = (bat * na + i) * n + j;
-  const float w = (kPlanes == 4)
+  const T w = (kPlanes == 4)
       ? ssq::phase_w(p0[o], p1[o], p2[o], p3[o], sfs[i], gamma2, transform)
       : p0[o];
   const int k = ssq::bin_of(w, P);
-  float vr = 0.f, vi = 0.f;
+  T vr = T(0), vi = T(0);
   if (k >= 0) {
     const long long g = (bat * P.nf + k) * n + j;
-    const float c = cst[i];
-    vr = __fmul_rn(gr[g], c);
-    vi = __fmul_rn(gi[g], c);
+    const T c = cst[i];
+    vr = ssq::mul_rn(gr[g], c);
+    vi = ssq::mul_rn(gi[g], c);
   }
   gwr[o] = vr;
   gwi[o] = vi;
 }
 
-template <int kPlanes>
-int launch(const float* p0, const float* p1, const float* p2, const float* p3,
-           const float* cst, const float* sfs, int batch, int na, long long n,
-           const Plan& P, int transform, float gamma2, const float* gr,
-           const float* gi, float* gwr, float* gwi, void* stream) {
+template <typename T, int kPlanes>
+int launch(const T* p0, const T* p1, const T* p2, const T* p3, const T* cst,
+           const T* sfs, int batch, int na, long long n, const PlanT<T>& P,
+           int transform, T gamma2, const T* gr, const T* gi, T* gwr, T* gwi,
+           void* stream) {
   if (na > 65535 || batch > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)na,
                   (unsigned)batch);
-  reassign_bwd_kernel<kPlanes><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  reassign_bwd_kernel<T, kPlanes><<<grid, kThreads, 0,
+                                    (cudaStream_t)stream>>>(
       p0, p1, p2, p3, cst, sfs, na, n, P, transform, gamma2, gr, gi, gwr,
       gwi);
   return (int)cudaGetLastError();
@@ -98,8 +105,8 @@ extern "C" int ssq_reassign_bwd(const float* w, const float* cst, int batch,
                                 const float* gi, float* gwr, float* gwi,
                                 void* stream) {
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
-  return launch<3>(w, nullptr, nullptr, nullptr, cst, nullptr, batch, na, n,
-                   P, ssq::kCwt, 0.f, gr, gi, gwr, gwi, stream);
+  return launch<float, 3>(w, nullptr, nullptr, nullptr, cst, nullptr, batch,
+                          na, n, P, ssq::kCwt, 0.f, gr, gi, gwr, gwi, stream);
 }
 
 // wr, wi, dr, di: (batch, na, n) Wx and dWx planes; the rest as above.
@@ -113,6 +120,35 @@ extern "C" int ssq_reassign4_bwd(const float* wr, const float* wi,
                                  const float* gi, float* gwr, float* gwi,
                                  void* stream) {
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
-  return launch<4>(wr, wi, dr, di, cst, sfs, batch, na, n, P, transform,
-                   gamma2, gr, gi, gwr, gwi, stream);
+  return launch<float, 4>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
+                          transform, gamma2, gr, gi, gwr, gwi, stream);
+}
+
+// The same two in double: float64 planes, cotangents, constants and
+// gamma^2 (the VJP of ssq_reassign_f64 / ssq_reassign4_f64).
+extern "C" int ssq_reassign_bwd_f64(const double* w, const double* cst,
+                                    int batch, int na, long long n, int nf,
+                                    int mode, int flipud, double p0,
+                                    double p1, double p2, double p3,
+                                    double p4, const double* gr,
+                                    const double* gi, double* gwr,
+                                    double* gwi, void* stream) {
+  const Plan64 P{mode, flipud, nf, p0, p1, p2, p3, p4};
+  return launch<double, 3>(w, nullptr, nullptr, nullptr, cst, nullptr,
+                           batch, na, n, P, ssq::kCwt, 0.0, gr, gi, gwr, gwi,
+                           stream);
+}
+
+extern "C" int ssq_reassign4_bwd_f64(const double* wr, const double* wi,
+                                     const double* dr, const double* di,
+                                     const double* cst, const double* sfs,
+                                     int batch, int na, long long n, int nf,
+                                     int transform, int mode, int flipud,
+                                     double gamma2, double p0, double p1,
+                                     double p2, double p3, double p4,
+                                     const double* gr, const double* gi,
+                                     double* gwr, double* gwi, void* stream) {
+  const Plan64 P{mode, flipud, nf, p0, p1, p2, p3, p4};
+  return launch<double, 4>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
+                           transform, gamma2, gr, gi, gwr, gwi, stream);
 }

@@ -6,9 +6,11 @@ padded length M only (never by device):
 
   * planar (float32, real psih, M a power of 2 that `best_split` takes):
     `rfft` of the padded signal, psih sampled on the half-band grid
-    (k = M2*k1 + k2, k < M/2) on the signal's device, the Nyquist term,
-    then kernel D (`fft_cuda.cwt_fused`: Wx and, with the derivative, dWx
-    planes) or, for `ssq_cwt`'s phase, kernel A (`fft_cuda.cwt_phase`);
+    (k = M2*k1 + k2, k < M/2) on the signal's device (or, with
+    `cache_wavelet=True`, taken from `cache_filterbank`: sampled once on
+    the host, as the JAX package's cache), the Nyquist term, then kernel D
+    (`fft_cuda.cwt_fused`: Wx and, with the derivative, dWx planes) or,
+    for `ssq_cwt`'s phase, kernel A (`fft_cuda.cwt_phase`);
   * complex half-band (float32, complex psih, the same M): Z = psih * xhat
     on bins 0..M/2 in torch, stacked over rows with Z * i*xi/dt for the
     derivative, then kernel E (`fft_cuda.ifft_halfband_planar`);
@@ -21,13 +23,16 @@ The planes come back N wide (or M with `rpadded`); the TPU package's
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from ..config import DEFAULTS
+from ..config import real_dtype
 from ..scales import (process_scales, process_fs_and_t,
                       logscale_transition_idx)
-from ..utils.common import as_signal, unported
+from ..utils.common import as_signal
 from ..utils.fft import xifn
 from ..utils.pad import padsignal
 from ..wavelets.adm import adm_cwt, adm_ssq
@@ -35,7 +40,13 @@ from ..wavelets.base import Wavelet
 from .fft_cuda import best_split, cwt_phase, cwt_fused, ifft_halfband_planar
 
 __all__ = ["cwt", "icwt", "cwt_core", "cwt_higher_order", "cwt_phase_args",
-           "xi_grid"]
+           "xi_grid", "cache_filterbank"]
+
+# the host-sampled filterbank cache of `cache_wavelet=True` (the JAX
+# package's `_cache_filterbank`, ssqueeze_rs_tpu/ops/cwt.py): at most
+# `_FB_CACHE_MAX` entries, least recently used out first
+_FB_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_FB_CACHE_MAX = 8   # an entry is ~na*M/2*4 bytes (~150 MB at (300, 2^18))
 
 
 def xi_grid(M: int, device="cpu") -> torch.Tensor:
@@ -47,10 +58,45 @@ def xi_grid(M: int, device="cpu") -> torch.Tensor:
     return (k * (2 * np.pi / M)).to(torch.float32).reshape(M1 // 2, M2)
 
 
-def cwt_phase_args(xp: torch.Tensor, scales, dt: float, wavelet: Wavelet):
+@lru_cache(maxsize=64)
+def _xi_grid_np(M: int):
+    """`xi_grid` on the host, as the JAX package builds it: `xifn` on the
+    bins k < M/2, rounded once to float32, in the (K1, M2) layout."""
+    M1, M2 = best_split(M)
+    return xifn(1, M)[:M // 2].astype(np.float32).reshape(M1 // 2, M2)
+
+
+def cache_filterbank(wavelet: Wavelet, scales_np, M: int, device):
+    """The filterbank of `cache_wavelet=True` on `device`: (Pw (na, K1,
+    M2), its Nyquist vector psih(scale*pi)/2 (na,)), both float32, sampled
+    on the host with numpy exactly as the JAX package's
+    `_cache_filterbank` (so bitwise its arrays) and uploaded once. The key
+    is the full tuple (name, params, scales' bytes, M) and the device; at
+    most `_FB_CACHE_MAX` entries are kept, least recently used out
+    first."""
+    scales_np = np.asarray(scales_np)
+    key = (wavelet.name, wavelet.params, scales_np.tobytes(), int(M),
+           str(torch.device(device)))
+    if key in _FB_CACHE:
+        _FB_CACHE.move_to_end(key)
+        return _FB_CACHE[key]
+    xig = _xi_grid_np(M)
+    sc = scales_np.astype(np.float32)
+    Pw = wavelet.psih(sc[:, None, None] * xig[None], np).astype(np.float32)
+    pnyq = (wavelet.psih(sc * np.float32(np.pi), np) / 2).astype(np.float32)
+    _FB_CACHE[key] = (torch.as_tensor(Pw, device=device),
+                      torch.as_tensor(pnyq, device=device))
+    while len(_FB_CACHE) > _FB_CACHE_MAX:
+        _FB_CACHE.popitem(last=False)
+    return _FB_CACHE[key]
+
+
+def cwt_phase_args(xp: torch.Tensor, scales, dt: float, wavelet: Wavelet,
+                   filterbank=None):
     """Kernel A's and D's inputs for an already padded f32 signal xp
-    (..., M): the filterbank Pw sampled on xp's device, the signal
-    spectrum planes, the grid, 1/dt and the Nyquist vectors (rows
+    (..., M): the filterbank Pw sampled on xp's device (or the cached
+    (Pw, Nyquist vector) pair `filterbank`, from `cache_filterbank`), the
+    signal spectrum planes, the grid, 1/dt and the Nyquist vectors (rows
     b-major), as the tuple (Pw, xr, xi, xig, inv_dt, nyq_w, nyq_d)."""
     M = xp.shape[-1]
     split = best_split(M)
@@ -65,10 +111,14 @@ def cwt_phase_args(xp: torch.Tensor, scales, dt: float, wavelet: Wavelet):
 
     xh = torch.fft.rfft(xp.reshape(b, M), dim=-1)            # (b, M/2+1)
     xig = xi_grid(M, device)
-    sc = torch.as_tensor(np.asarray(scales, dtype=np.float32), device=device)
-    na = sc.shape[0]
-    Pw = wavelet.psih(sc[:, None, None] * xig[None], torch).to(f32)
-    pnyq = (wavelet.psih(sc * np.float32(np.pi), torch) / 2).to(f32)
+    if filterbank is not None:
+        Pw, pnyq = filterbank
+    else:
+        sc = torch.as_tensor(np.asarray(scales, dtype=np.float32),
+                             device=device)
+        Pw = wavelet.psih(sc[:, None, None] * xig[None], torch).to(f32)
+        pnyq = (wavelet.psih(sc * np.float32(np.pi), torch) / 2).to(f32)
+    na = Pw.shape[0]
     # Nyquist bin: psih(scale*pi)/2 * Re xhat[M/2], rows b-major; the
     # derivative spectrum's Nyquist value is i*pi/dt times it
     znyq = (xh[:, -1].real[:, None] * pnyq[None, :]).reshape(b * na)
@@ -90,7 +140,8 @@ def _route(xp, wavelet):
 
 def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
              derivative: bool, l1_norm: bool, N: int, n1: int,
-             rpadded: bool, planar_out: bool = False, phase_gamma=None):
+             rpadded: bool, planar_out: bool = False, phase_gamma=None,
+             filterbank=None):
     """CWT of an already padded signal xp (..., M); scales: (na,) host
     array. Keeps [n1, n1+N) (or all M with `rpadded`). Returns
     (Wx, dWx or None), complex (..., na, L).
@@ -98,7 +149,9 @@ def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
     `planar_out=True` (planar route only) returns float32 plane tuples
     ((Wxr, Wxi), (dWxr, dWxi) or None) instead. `phase_gamma` (with
     `planar_out` and `derivative`) runs kernel A: the second item is then
-    the phase plane w = |Im(dWx/Wx)|/2pi, +inf where |Wx| <= gamma."""
+    the phase plane w = |Im(dWx/Wx)|/2pi, +inf where |Wx| <= gamma.
+    `filterbank`: the planar route's cached (Pw, Nyquist vector)
+    (`cache_filterbank`); the other routes sample psih themselves."""
     M = xp.shape[-1]
     route = _route(xp, wavelet)
     if planar_out and route != "planar":
@@ -115,7 +168,7 @@ def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
             torch.as_tensor(np.sqrt(sc), device=xp.device)[:, None])
 
     if route == "planar":
-        args = cwt_phase_args(xp, sc, dt, wavelet)
+        args = cwt_phase_args(xp, sc, dt, wavelet, filterbank)
         if phase_gamma is not None:
             if not (planar_out and derivative):
                 raise ValueError("phase_gamma needs planar_out and derivative")
@@ -172,13 +225,6 @@ def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
     return Wx, dWx
 
 
-def _torch_dtype(dtype):
-    dtype = np.dtype(dtype or DEFAULTS["dtype"])
-    if dtype not in (np.float32, np.float64):
-        raise ValueError(f"`dtype` must be float32 or float64 (got {dtype})")
-    return torch.float64 if dtype == np.float64 else torch.float32
-
-
 def cwt(x, wavelet="gmw", scales="log-piecewise", fs=None, t=None, nv=32,
         l1_norm=True, derivative=False, padtype="reflect", rpadded=False,
         vectorized=True, astensor=True, cache_wavelet=None, order=0,
@@ -187,9 +233,12 @@ def cwt(x, wavelet="gmw", scales="log-piecewise", fs=None, t=None, nv=32,
 
     Runs on x's device (`utils.common.as_signal`: array input goes to the
     CUDA device unless `device` says otherwise). `vectorized`, `astensor`
-    and `patience` are accepted and ignored, as in the JAX package;
-    `cache_wavelet=True` is not ported. `order > 0` or a tuple of orders
-    goes to `cwt_higher_order`.
+    and `patience` are accepted and ignored, as in the JAX package.
+    `cache_wavelet=True` takes the planar route's filterbank from
+    `cache_filterbank` (host-sampled once per wavelet, scales, length and
+    device) instead of sampling psih on the device at each call; on the
+    other routes it does nothing, as in the JAX package. `order > 0` or
+    a tuple of orders goes to `cwt_higher_order`.
 
     Returns (Wx, scales) or (Wx, scales, dWx) if `derivative`: Wx, dWx
     complex (..., na, N) tensors (M wide with `rpadded`), scales a numpy
@@ -200,13 +249,11 @@ def cwt(x, wavelet="gmw", scales="log-piecewise", fs=None, t=None, nv=32,
             fs=fs, t=t, nv=nv, l1_norm=l1_norm, derivative=derivative,
             padtype=padtype, rpadded=rpadded, nan_checks=nan_checks,
             dtype=dtype, device=device)
-    if cache_wavelet:
-        unported("cache_wavelet=True", "Queue 1 item 3, cache_wavelet")
 
     x = as_signal(x, device)
     if nan_checks is None or nan_checks:
         x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
-    x = x.to(_torch_dtype(dtype))
+    x = x.to(getattr(torch, real_dtype(dtype)))
 
     N = x.shape[-1]
     dt, fs, _ = process_fs_and_t(fs, t, N)
@@ -221,9 +268,13 @@ def cwt(x, wavelet="gmw", scales="log-piecewise", fs=None, t=None, nv=32,
     else:
         xp, n1 = x, 0
 
+    filterbank = None
+    if cache_wavelet and _route(xp, wavelet) == "planar":
+        filterbank = cache_filterbank(wavelet, scales_arr.squeeze(-1),
+                                      xp.shape[-1], xp.device)
     Wx, dWx = cwt_core(xp, scales_arr.squeeze(-1), dt, wavelet=wavelet,
                        derivative=derivative, l1_norm=l1_norm, N=N, n1=n1,
-                       rpadded=rpadded)
+                       rpadded=rpadded, filterbank=filterbank)
     scales_out = scales_arr.squeeze()
     if derivative:
         return Wx, scales_out, dWx

@@ -71,15 +71,20 @@ def _device_of(a):
     return a.device if isinstance(a, torch.Tensor) else torch.device("cpu")
 
 
-def _f32(a, device):
-    """`a` as float32 on `device`. Arrays are copied there; a tensor on
+def _as(a, device, dtype):
+    """`a` as `dtype` on `device`. Arrays are copied there; a tensor on
     another device raises, so no tensor changes device (and route)."""
     if isinstance(a, torch.Tensor) and a.device != device:
         raise ValueError(f"inputs on {a.device} and {device}: pass every "
                          "tensor on one device")
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()    # torch would share a buffer it may not write
-    return torch.as_tensor(a, dtype=torch.float32, device=device)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _f32(a, device):
+    """`a` as float32 on `device` (`_as`)."""
+    return _as(a, device, torch.float32)
 
 
 def _f32_scalar(v) -> float:

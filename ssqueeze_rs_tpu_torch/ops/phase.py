@@ -70,17 +70,19 @@ def phase_cwt(Wx, dWx, difftype="trig", gamma=None, device=None):
 
 
 def phase_stft(Sx, dSx, Sfs, gamma=None, device=None):
-    """STFT phase transform of complex64 Sx, dSx (..., n_freqs, n);
-    Sfs: (n_freqs,) row frequencies. +inf where |Sx| < gamma (default
-    10 * EPS32). Runs on Sx's device (`as_signal`'s rule for arrays and
-    `device`); a dSx array follows Sx."""
+    """STFT phase transform of complex Sx, dSx (..., n_freqs, n); Sfs:
+    (n_freqs,) row frequencies, taken in Sx's real type. +inf where
+    |Sx| < gamma (default 10 * eps of Sx's precision). Runs on Sx's device
+    (`as_signal`'s rule for arrays and `device`); a dSx array follows
+    Sx."""
     Sx = as_signal(Sx, device)
     dSx = as_signal(dSx, Sx.device)
     if gamma is None:
-        gamma = 10 * EPS32
-    Sfs = (Sfs.to(Sx.device, torch.float32) if isinstance(Sfs, torch.Tensor)
-           else torch.as_tensor(np.ascontiguousarray(Sfs, np.float32),
-                                device=Sx.device))
+        gamma = 10 * _eps(Sx)
+    rdtype = Sx.real.dtype if Sx.is_complex() else Sx.dtype
+    Sfs = torch.as_tensor(Sfs if isinstance(Sfs, torch.Tensor)
+                          else np.ascontiguousarray(Sfs), dtype=rdtype,
+                          device=Sx.device)
     w = (Sfs[:, None] - _imag_ratio_over_2pi(Sx, dSx)).abs()
     return torch.where(Sx.abs() < gamma, torch.full_like(w, float("inf")), w)
 

@@ -9,12 +9,16 @@ Pallas body is `_make_kernel`), in its two input contracts:
 
 Both dispatch on the device of their inputs: on a CUDA tensor they
 launch the hand-written kernel (``csrc/reassign.cu``: 16 lanes a column,
-at the columns a block `_block_cols` takes from nf) or raise; on a CPU
-tensor they run their plain-torch versions. Both are differentiable with
-the JAX package's gradient semantics (`ReassignFn`, `Reassign4Fn`): the
-backward is the VJP gather C / C' (`reassign_bwd`, `reassign4_bwd`,
-``csrc/reassign_bwd.cu``; counterpart of `_make_bwd_kernel`), which
-dispatches the same way.
+at the columns a block `_block_cols` takes from nf and the element size)
+or raise; on a CPU tensor they run their plain-torch versions. Planes
+stay in their real type, float32 or float64 (as the JAX `reassign_pallas`
+keeps float64 planes float64): float64 CUDA planes launch the kernels'
+double instantiations (the `_f64` entry points), with the plan constants,
+gamma^2 and the row vectors in float64; planes of mixed type raise. Both
+are differentiable with the JAX package's gradient semantics
+(`ReassignFn`, `Reassign4Fn`): the backward is the VJP gather C / C'
+(`reassign_bwd`, `reassign4_bwd`, ``csrc/reassign_bwd.cu``; counterpart
+of `_make_bwd_kernel`), which dispatches the same way.
 
 The 4-plane contract has a second implementation, kernel I
 (``csrc/reassign_mxu.cu``, plain version `reassign_mxu_plain`;
@@ -23,9 +27,12 @@ digit-split one-hot matrix product on the tensor cores. It has no entry
 of its own: `reassign4` picks B' or I from
 SSQ_TPU_REASSIGN_IMPL at each call ('vpu', the default, or 'mxu'; any
 other value raises), as the JAX package's `reassign_pallas` does; the
-3-plane `reassign` ignores it. Both share the backward C'.
+3-plane `reassign` ignores it, and float64 planes take B' under either
+(I is float32 only, as in JAX). Both share the backward C'.
 `LAUNCHES` (B), `LAUNCHES4` (B'), `LAUNCHES_MXU` (I), `LAUNCHES_BWD` (C)
-and `LAUNCHES4_BWD` (C') count kernel launches.
+and `LAUNCHES4_BWD` (C') count float32 kernel launches, `LAUNCHES_F64`,
+`LAUNCHES4_F64`, `LAUNCHES_BWD_F64` and `LAUNCHES4_BWD_F64` the double
+ones.
 """
 from __future__ import annotations
 
@@ -36,20 +43,25 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .fft_cuda import _device_of, _f32, _zeros_for
+from .fft_cuda import _as, _device_of, _zeros_for
 
 __all__ = ["reassign", "reassign_plain", "reassign4", "reassign4_plain",
            "reassign_bwd", "reassign_bwd_plain", "reassign4_bwd",
            "reassign4_bwd_plain", "ReassignFn", "Reassign4Fn", "phase_w",
            "bin_indices", "reassign_mxu_plain",
            "reassign_impl", "LAUNCHES", "LAUNCHES4", "LAUNCHES_MXU",
-           "LAUNCHES_BWD", "LAUNCHES4_BWD"]
+           "LAUNCHES_BWD", "LAUNCHES4_BWD", "LAUNCHES_F64", "LAUNCHES4_F64",
+           "LAUNCHES_BWD_F64", "LAUNCHES4_BWD_F64"]
 
 LAUNCHES = 0
 LAUNCHES4 = 0
 LAUNCHES_MXU = 0
 LAUNCHES_BWD = 0
 LAUNCHES4_BWD = 0
+LAUNCHES_F64 = 0
+LAUNCHES4_F64 = 0
+LAUNCHES_BWD_F64 = 0
+LAUNCHES4_BWD_F64 = 0
 MODES = {"log": 0, "log-piecewise": 1, "lin": 2}
 TRANSFORMS = {"cwt": 0, "stft": 1}
 _PARAM_ORDER = {"log": ("vlmin", "dvl"),
@@ -59,28 +71,61 @@ MAX_SMEM = 227 * 1024       # per-block shared memory on Hopper
 _TWO_PI = 6.283185307179586
 
 
-def _block_cols(nf: int) -> int:
+def _block_cols(nf: int, itemsize: int = 4) -> int:
     """Columns a block (COLS) of csrc/reassign.cu, whose blocks have 16
-    lanes a column: 32 where the (2, nf, 32) float32 accumulator fits in
-    shared memory (nf <= 908), else 8 (16 columns were slower at nf = 1025
-    on the card, PERF.md); raises beyond nf = 3632."""
-    for cols in (32, 8):
-        if 2 * nf * cols * 4 <= MAX_SMEM:
+    lanes a column, for elements of `itemsize` bytes: in float32, 32 where
+    the (2, nf, 32) accumulator fits in shared memory (nf <= 908), else 8
+    (16 columns were slower at nf = 1025 on the card, PERF.md); in
+    float64, 32 to nf = 454, 8 to 1816 and 4 to 3632. Raises beyond
+    nf = 3632 in either."""
+    for cols in (32, 8) if itemsize == 4 else (32, 8, 4):
+        if 2 * nf * cols * itemsize <= MAX_SMEM:
             return cols
     raise ValueError(f"nf={nf} frequency rows exceed the kernel's "
                      f"shared-memory accumulator (max {MAX_SMEM // 64})")
 
 
-def _plan_floats(mode, params):
-    """The plan constants rounded once to float32, in kernel order."""
+def _plan_floats(mode, params, dtype=torch.float32):
+    """The plan constants in kernel order: rounded once to float32 for
+    float32 planes, unrounded for float64 (as the JAX XLA route uses
+    them)."""
     if mode not in MODES:
         raise ValueError(f"`mode` must be one of {tuple(MODES)} (got {mode})")
-    vals = [float(np.float32(params[k])) for k in _PARAM_ORDER[mode]]
+    vals = [float(params[k]) for k in _PARAM_ORDER[mode]]
+    if dtype != torch.float64:
+        vals = [float(np.float32(v)) for v in vals]
     return vals + [0.0] * (5 - len(vals))
 
 
-def _gamma2(gamma):
-    return float(np.float32(float(gamma) ** 2))
+def _gamma2(gamma, dtype=torch.float32):
+    g2 = float(gamma) ** 2
+    return g2 if dtype == torch.float64 else float(np.float32(g2))
+
+
+_REAL = (torch.float32, torch.float64)
+
+
+def _dtype_of(a):
+    """The torch dtype of a tensor or array (None for anything else)."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    if isinstance(a, np.ndarray):
+        return {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64}.get(a.dtype)
+    return None
+
+
+def _plane_dtype(*planes):
+    """The real type the planes run in: float64 if they are float64, else
+    float32. Planes of both real types raise: nothing is rounded
+    silently."""
+    types = {_dtype_of(p) for p in planes} & set(_REAL)
+    if len(types) > 1:
+        raise ValueError("planes of mixed dtypes (" +
+                         ", ".join(str(_dtype_of(p)) for p in planes) +
+                         "): pass every plane as float32 or every plane as "
+                         "float64")
+    return torch.float64 if types == {torch.float64} else torch.float32
 
 
 def bin_indices(w, mode, params, flipud, nf):
@@ -90,7 +135,7 @@ def bin_indices(w, mode, params, flipud, nf):
     The constants are 0-d tensors so every division is a true IEEE
     division (torch divides by a Python scalar through its reciprocal on
     CUDA, which can move a value across a rounding tie)."""
-    p = torch.tensor(_plan_floats(mode, params), dtype=w.dtype,
+    p = torch.tensor(_plan_floats(mode, params, w.dtype), dtype=w.dtype,
                      device=w.device)
     omax = float(nf - 1)
     mask = w < float("inf")
@@ -119,12 +164,12 @@ def phase_w(wr, wi, dr, di, Sfs, gamma, transform):
     w = |Sfs - (B*C - A*D) / (|Wx|^2 * 2pi)| for 'stft' and |...| alone
     for 'cwt' (C, D = Wx planes, A, B = dWx planes), +inf where
     |Wx|^2 <= gamma^2. Every product is rounded on its own, as torch
-    rounds each op."""
+    rounds each op, in the planes' type (gamma^2 too)."""
     mag2 = wr * wr + wi * wi
     ratio = (di * wr - dr * wi) / (mag2 * _TWO_PI)
     if transform == "stft":
         ratio = Sfs[:, None] - ratio
-    return torch.where(mag2 > _gamma2(gamma), ratio.abs(),
+    return torch.where(mag2 > _gamma2(gamma, wr.dtype), ratio.abs(),
                        torch.full_like(ratio, float("inf")))
 
 
@@ -142,8 +187,10 @@ def _check_row_vec(name, v, na):
 
 
 def _prepare(wr, wi, w, const):
-    device = _device_of(wr)
-    wr, wi, w, const = (_f32(a, device) for a in (wr, wi, w, const))
+    """The planes in their real type (`_plane_dtype`) on wr's device, and
+    const in the same type."""
+    device, dtype = _device_of(wr), _plane_dtype(wr, wi, w)
+    wr, wi, w, const = (_as(a, device, dtype) for a in (wr, wi, w, const))
     _check_planes(wr, wi, w)
     _check_row_vec("const", const, wr.shape[-2])
     return device, wr, wi, w, const
@@ -170,7 +217,7 @@ def reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf):
 def reassign_bwd_plain(w, const, gr, gi, plan_params, mode, flipud, nf):
     """Plain-torch kernel C: gW[i,j] = gTx[k(i,j), j] * const[i] with
     `torch.gather`, 0 where masked. gr/gi: (..., nf, n) cotangents of Tx.
-    Returns (gWr, gWi), each (..., na, n)."""
+    Returns (gWr, gWi), each (..., na, n), in gr's type."""
     k = bin_indices(w, mode, plan_params, flipud, nf)
     mask = k >= 0
     k = torch.where(mask, k, torch.zeros_like(k))
@@ -195,26 +242,29 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
     per block, `_block_cols`, unless `per_block` is given; I: `per_block`,
     its tiles per pass) and write (Txr, Txi), each (..., nf, n); the
     backward ones (C, C') read the cotangents `grads` = (gr, gi), each
-    (..., nf, n), and write (gWr, gWi), each (..., na, n)."""
+    (..., nf, n), and write (gWr, gWi), each (..., na, n). Outputs are
+    in the planes' type."""
     from .. import _build
     device = planes[0].device
     na, n = planes[0].shape[-2:]
     batch = planes[0].shape[:-2]
     B = int(np.prod(batch)) if batch else 1
+    dtype = planes[0].dtype
     planes = [t.contiguous() for t in planes]
     vecs = [t.contiguous() for t in vecs]
     if grads is None:
-        mid = [_block_cols(nf) if per_block is None else per_block]
+        mid = [_block_cols(nf, planes[0].element_size())
+               if per_block is None else per_block]
         rows = nf
     else:
-        grads = [_f32(g, device).contiguous() for g in grads]
+        grads = [_cotangent(g, device, dtype).contiguous() for g in grads]
         if any(g.shape != batch + (nf, n) for g in grads):
             raise ValueError(f"{what}: cotangents " +
                              ", ".join(str(tuple(g.shape)) for g in grads) +
                              f" are not {batch + (nf, n)}")
         mid, rows = [g.data_ptr() for g in grads], na
-    outs = [torch.empty(batch + (rows, n), dtype=torch.float32,
-                        device=device) for _ in range(2)]
+    outs = [torch.empty(batch + (rows, n), dtype=dtype, device=device)
+            for _ in range(2)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(_build.lib())(
@@ -224,15 +274,34 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
     return tuple(outs)
 
 
+def _entry(name, dtype):
+    """The C entry point `name`, or its double instantiation `name_f64`
+    for float64 planes, as `_launch` takes it."""
+    name += "_f64" if dtype == torch.float64 else ""
+    return lambda lib: getattr(lib, name)
+
+
+def _cotangent(g, device, dtype):
+    """A Tx cotangent on `device` in the planes' type; a tensor of the
+    other real type raises."""
+    if _dtype_of(g) in _REAL and _dtype_of(g) != dtype:
+        raise ValueError(f"cotangent of dtype {_dtype_of(g)} for {dtype} "
+                         "planes")
+    return _as(g, device, dtype)
+
+
 def _reassign_dispatch(device, wr, wi, w, const, plan_params, mode, flipud,
                        nf):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     if device.type == "cuda":
-        plan = _plan_floats(mode, plan_params)
-        out = _launch(lambda lib: lib.ssq_reassign, [wr, wi, w], [const],
+        plan = _plan_floats(mode, plan_params, w.dtype)
+        out = _launch(_entry("ssq_reassign", w.dtype), [wr, wi, w], [const],
                       [MODES[mode], int(bool(flipud))], plan, nf,
                       "reassign kernel")
-        LAUNCHES += 1
+        if w.dtype == torch.float64:
+            LAUNCHES_F64 += 1
+        else:
+            LAUNCHES += 1
         return out
     if device.type == "cpu":
         return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
@@ -244,21 +313,25 @@ def reassign_bwd(w, const, gr, gi, plan_params, mode, flipud, nf):
     each (..., na, n), from the cotangents gr/gi (..., nf, n) of (Txr,
     Txi); gW[i,j] = gTx[k(i,j), j] * const[i] with the bins of `reassign`,
     0 where masked. On a CUDA tensor it launches the kernel or raises; on
-    a CPU tensor it runs `reassign_bwd_plain`."""
-    global LAUNCHES_BWD
-    device = _device_of(w)
-    w, const = _f32(w, device), _f32(const, device)
+    a CPU tensor it runs `reassign_bwd_plain`. In w's type (float32 or
+    float64)."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_F64
+    device, dtype = _device_of(w), _plane_dtype(w)
+    w, const = _as(w, device, dtype), _as(const, device, dtype)
     if device.type == "cuda":
-        out = _launch(lambda lib: lib.ssq_reassign_bwd, [w], [const],
+        out = _launch(_entry("ssq_reassign_bwd", dtype), [w], [const],
                       [MODES[mode], int(bool(flipud))],
-                      _plan_floats(mode, plan_params), nf,
+                      _plan_floats(mode, plan_params, dtype), nf,
                       "reassign_bwd kernel", grads=(gr, gi))
-        LAUNCHES_BWD += 1
+        if dtype == torch.float64:
+            LAUNCHES_BWD_F64 += 1
+        else:
+            LAUNCHES_BWD += 1
         return out
     if device.type == "cpu":
-        return reassign_bwd_plain(w, const, _f32(gr, device),
-                                  _f32(gi, device), plan_params, mode,
-                                  flipud, nf)
+        return reassign_bwd_plain(w, const, _cotangent(gr, device, dtype),
+                                  _cotangent(gi, device, dtype), plan_params,
+                                  mode, flipud, nf)
     raise ValueError(f"reassign_bwd: unsupported device {device}")
 
 
@@ -292,14 +365,16 @@ def reassign(wr, wi, w, const, plan_params, mode, flipud, nf):
     bin constants from `bin_params` for `mode` ('log', 'log-piecewise',
     'lin'); flipud: reverse the bin order; nf: number of frequency rows.
     Returns (Txr, Txi), each (..., nf, n). Arrays may be numpy (they go to
-    the CPU) or tensors. Differentiable (`ReassignFn`: kernel C on CUDA)."""
+    the CPU) or tensors, all float32 or all float64 (Tx in that type).
+    Differentiable (`ReassignFn`: kernel C on CUDA)."""
     _, wr, wi, w, const = _prepare(wr, wi, w, const)
     return ReassignFn.apply(wr, wi, w, const, plan_params, mode, flipud, nf)
 
 
 def _prepare4(wr, wi, dr, di, const, Sfs):
-    device = _device_of(wr)
-    wr, wi, dr, di, const, Sfs = (_f32(a, device)
+    """As `_prepare`, for the four planes and the two row vectors."""
+    device, dtype = _device_of(wr), _plane_dtype(wr, wi, dr, di)
+    wr, wi, dr, di, const, Sfs = (_as(a, device, dtype)
                                   for a in (wr, wi, dr, di, const, Sfs))
     _check_planes(wr, wi, dr, di)
     _check_row_vec("const", const, wr.shape[-2])
@@ -326,7 +401,8 @@ def reassign_impl() -> str:
     """The 4-plane implementation SSQ_TPU_REASSIGN_IMPL selects, read at
     call time: 'vpu' (the default, kernel B') or 'mxu' (kernel I). Unlike
     the JAX package, which takes any other value as 'vpu', an unknown
-    value raises, so a typo cannot hide which kernel ran."""
+    value raises, so a typo cannot hide which kernel ran. float64 planes
+    take B' under either value (I is float32 only, as in JAX)."""
     impl = os.environ.get("SSQ_TPU_REASSIGN_IMPL", "vpu")
     if impl not in ("vpu", "mxu"):
         raise ValueError("SSQ_TPU_REASSIGN_IMPL must be 'vpu' or 'mxu' "
@@ -336,17 +412,22 @@ def reassign_impl() -> str:
 
 def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
                         plan_params, mode, flipud, nf, transform):
-    global LAUNCHES4
-    if reassign_impl() == "mxu":
+    global LAUNCHES4, LAUNCHES4_F64
+    dtype = wr.dtype
+    if reassign_impl() == "mxu" and dtype == torch.float32:
         return _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
                              plan_params, mode, flipud, nf, transform)
     if device.type == "cuda":
-        plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
-        out = _launch(lambda lib: lib.ssq_reassign4, [wr, wi, dr, di],
+        plan = ([_gamma2(gamma, dtype)] +
+                _plan_floats(mode, plan_params, dtype))
+        out = _launch(_entry("ssq_reassign4", dtype), [wr, wi, dr, di],
                       [const, Sfs],
                       [TRANSFORMS[transform], MODES[mode],
                        int(bool(flipud))], plan, nf, "reassign4 kernel")
-        LAUNCHES4 += 1
+        if dtype == torch.float64:
+            LAUNCHES4_F64 += 1
+        else:
+            LAUNCHES4 += 1
         return out
     if device.type == "cpu":
         return reassign4_plain(wr, wi, dr, di, const, Sfs, gamma,
@@ -359,21 +440,27 @@ def reassign4_bwd(wr, wi, dr, di, const, Sfs, gr, gi, gamma, plan_params,
     """VJP gather of the 4-plane reassignment (kernel C'): as
     `reassign_bwd`, with the bins of `reassign4` (w and the mask formed
     from Wx and dWx)."""
-    global LAUNCHES4_BWD
+    global LAUNCHES4_BWD, LAUNCHES4_BWD_F64
     _check_transform(transform)
     device, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const,
                                                    Sfs)
+    dtype = wr.dtype
     if device.type == "cuda":
-        plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
-        out = _launch(lambda lib: lib.ssq_reassign4_bwd, [wr, wi, dr, di],
+        plan = ([_gamma2(gamma, dtype)] +
+                _plan_floats(mode, plan_params, dtype))
+        out = _launch(_entry("ssq_reassign4_bwd", dtype), [wr, wi, dr, di],
                       [const, Sfs], [TRANSFORMS[transform], MODES[mode],
                                      int(bool(flipud))], plan, nf,
                       "reassign4_bwd kernel", grads=(gr, gi))
-        LAUNCHES4_BWD += 1
+        if dtype == torch.float64:
+            LAUNCHES4_BWD_F64 += 1
+        else:
+            LAUNCHES4_BWD += 1
         return out
     if device.type == "cpu":
         return reassign4_bwd_plain(wr, wi, dr, di, const, Sfs,
-                                   _f32(gr, device), _f32(gi, device), gamma,
+                                   _cotangent(gr, device, dtype),
+                                   _cotangent(gi, device, dtype), gamma,
                                    plan_params, mode, flipud, nf, transform)
     raise ValueError(f"reassign4_bwd: unsupported device {device}")
 
@@ -414,8 +501,9 @@ def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
     normalization and row frequencies (Sfs is read for 'stft' only);
     gamma: entries with |Wx|^2 <= gamma^2 are masked; transform: 'stft'
     (w = |Sfs - Im(dWx/Wx)/2pi|) or 'cwt' (w = |Im(dWx/Wx)/2pi|); the rest
-    as `reassign`. Returns (Txr, Txi), each (..., nf, n). Differentiable
-    (`Reassign4Fn`: kernel C' on CUDA)."""
+    as `reassign`. Returns (Txr, Txi), each (..., nf, n), in the planes'
+    type (all float32 or all float64). Differentiable (`Reassign4Fn`:
+    kernel C' on CUDA)."""
     _check_transform(transform)
     _, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const, Sfs)
     return Reassign4Fn.apply(wr, wi, dr, di, const, Sfs, gamma, plan_params,
@@ -489,6 +577,8 @@ def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
     SSQ_TPU_REASSIGN_IMPL=mxu."""
     global LAUNCHES_MXU
     if device.type == "cuda":
+        if wr.dtype != torch.float32:
+            raise ValueError("kernel I takes float32 planes only")
         plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
         out = _launch(lambda lib: lib.ssq_reassign_mxu, [wr, wi, dr, di],
                       [const, Sfs], [TRANSFORMS[transform], MODES[mode],

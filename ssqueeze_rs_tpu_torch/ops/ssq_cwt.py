@@ -3,29 +3,30 @@
 
 Forward routes, all on the input's device, as the JAX package's:
   * the planar route (float32, real psih, sum squeezing, trig phase):
-    pad -> rfft -> psih on the half-band grid -> kernel A (Wx planes and
-    the phase plane w) -> host planning -> kernel B; with `get_dWx`,
-    kernel D (Wx and dWx planes) -> kernel B';
-  * `cwt(derivative=True)` for every other option (squeezing 'lebesgue',
-    'abs' or a callable, difftype 'phase' / 'numeric', a complex psih,
-    `padtype=None` with N not a power of 2): kernel D, E or plain torch
-    FFTs (see `cwt.cwt_core`), then B' from dWx or B from `phase_cwt` /
-    `phase_cwt_num` with `get_w`;
+    pad -> rfft -> psih on the half-band grid (or the cached filterbank
+    with `cache_wavelet=True`) -> kernel A (Wx planes and the phase plane
+    w) -> host planning -> kernel B; with `get_dWx`, kernel D (Wx and dWx
+    planes) -> kernel B';
+  * `cwt(derivative=True)` for every other option (float64, squeezing
+    'lebesgue', 'abs' or a callable, difftype 'phase' / 'numeric', a
+    complex psih, `padtype=None` with N not a power of 2): kernel D, E or
+    plain torch FFTs (float64: the full-length route; see
+    `cwt.cwt_core`), then B' from dWx or B from `phase_cwt` /
+    `phase_cwt_num` with `get_w` (in double for float64);
   * `order > 0`: `cwt_higher_order` (kernel D per order) + `trigdiff`.
-float64 is refused: the squeeze (kernels B, B') takes float32 planes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import DEFAULTS, EPS32, EPS64
+from ..config import EPS32, EPS64, real_dtype
 from ..scales import process_scales, process_fs_and_t
-from ..utils.common import as_signal, unported as _unported
+from ..utils.common import as_signal
 from ..utils.pad import padsignal, p2up
 from ..wavelets.adm import adm_ssq
 from ..wavelets.base import Wavelet
-from .cwt import cwt, cwt_core, cwt_higher_order
+from .cwt import cwt, cwt_core, cwt_higher_order, cache_filterbank
 from .diff import trigdiff
 from .fft_cuda import best_split
 from .phase import phase_cwt, phase_cwt_num
@@ -51,17 +52,16 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
     """Synchrosqueezed CWT of `x` ((N,) or (..., N)).
 
     Returns (Tx, Wx, ssq_freqs, scales[, w][, dWx]): Tx (..., nf, N), Wx
-    (..., na, N), w and dWx complex64 / float32 tensors on x's device
-    (`utils.common.as_signal`: array input goes to the CUDA device unless
-    `device` says otherwise); ssq_freqs and scales numpy arrays.
+    (..., na, N), w and dWx tensors on x's device (complex64 / float32, or
+    complex128 / float64 for `dtype='float64'`; `utils.common.as_signal`:
+    array input goes to the CUDA device unless `device` says otherwise);
+    ssq_freqs and scales numpy arrays. `cache_wavelet=True` takes the
+    planar route's filterbank from `cwt.cache_filterbank`.
     `vectorized`, `preserve_transform`, `astensor` and `patience` are
     accepted and ignored, as in the JAX package."""
     difforder = check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
                                       difforder, get_w, transform="cwt")
-    if str(dtype or DEFAULTS["dtype"]) != "float32":
-        _unported(f"dtype={dtype!r}", "Queue 1 item 3, float64 route")
-    if cache_wavelet:
-        _unported("cache_wavelet=True", "Queue 1 item 3, cache_wavelet")
+    dtype = real_dtype(dtype)
     planes_w = w_plane = dwx_planes = None
     x = as_signal(x, device)
     N = x.shape[-1]
@@ -89,7 +89,7 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
         scales, cwt_scaletype, *_ = process_scales(scales, N, wavelet, nv=nv,
                                                    get_params=True)
         rpadded = difftype == "numeric"
-        if (not rpadded and not get_w and
+        if (not rpadded and not get_w and dtype == "float32" and
                 _planar_ssq_ok(N, wavelet, padtype, squeezing)):
             xx = x
             if nan_checks is None or nan_checks:
@@ -103,10 +103,14 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
             # asked for (then kernel D emits them for B')
             phase_gamma = (float(gamma if gamma is not None else 10 * EPS32)
                            if not get_dWx and difftype == "trig" else None)
+            sc = np.asarray(scales).squeeze(-1)
+            filterbank = (cache_filterbank(wavelet, sc, xp.shape[-1],
+                                           xp.device)
+                          if cache_wavelet else None)
             planes_w, planes_d = cwt_core(
-                xp, np.asarray(scales).squeeze(-1), dt, wavelet=wavelet,
-                derivative=True, l1_norm=True, N=N, n1=n1, rpadded=False,
-                planar_out=True, phase_gamma=phase_gamma)
+                xp, sc, dt, wavelet=wavelet, derivative=True, l1_norm=True,
+                N=N, n1=n1, rpadded=False, planar_out=True,
+                phase_gamma=phase_gamma, filterbank=filterbank)
             Wx = torch.complex(*planes_w)
             if phase_gamma is not None:
                 w_plane, dWx = planes_d, None
@@ -117,7 +121,7 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
             Wx, _, dWx = cwt(x, wavelet, scales=scales, fs=fs, nv=nv,
                              l1_norm=True, derivative=True, padtype=padtype,
                              rpadded=rpadded, nan_checks=nan_checks,
-                             dtype=dtype)
+                             dtype=dtype, cache_wavelet=cache_wavelet)
 
     if gamma is None:
         gamma = 10 * (EPS64 if Wx.dtype == torch.complex128 else EPS32)

@@ -1,21 +1,23 @@
 """Synchrosqueezed STFT, forward and inverse (counterpart of
 ``ssqueeze_rs_tpu/ops/ssq_stft.py``).
 
-Routes, decided from the arguments and shapes before anything launches:
+Routes, decided from the arguments and shapes before anything launches
+(float64 takes the last, as in the JAX package):
   * fused: float32, n_fft <= 2048, hop 1, sum squeezing, default
     ssq_freqs, no get_w / get_dWx, and kernel G's shared-memory plan fits
     (`stft_cuda.ssq_stft_fused_ok`) -> kernel G, the whole pipeline.
   * planar: otherwise with float32, n_fft <= 2048, sum squeezing and no
     get_w -> the STFT planes (kernel F at hop 1) -> kernel B'.
-  * otherwise the complex STFT -> `ssqueeze` (B' from dSx, or B from w
-    when get_w).
+  * otherwise the complex STFT (the rfft route for float64) ->
+    `ssqueeze` (B' from dSx, or B from w when get_w; their double
+    instantiations for float64 on the card).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import EPS32
+from ..config import EPS32, EPS64, real_dtype
 from ..scales import process_fs_and_t, infer_scaletype
 from ..utils.common import WARN, as_signal
 from ..utils.pad import padsignal
@@ -23,8 +25,7 @@ from ..utils.windows import get_window, check_nola
 from .phase import phase_stft
 from .ssq_cwt import _process_component_inversion_args, _invert_components
 from .ssqueeze import ssqueeze, check_ssqueezing_args, plan_reassignment
-from .stft import (stft, _check_f32, _dft_spec, _k_t, _win_bytes,
-                   MATMUL_NFFT_MAX)
+from .stft import stft, _dft_spec, _k_t, _win_bytes, MATMUL_NFFT_MAX
 from .stft_cuda import ssq_stft_fused, ssq_stft_fused_ok
 
 __all__ = ["ssq_stft", "issq_stft", "make_Sfs"]
@@ -46,8 +47,9 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     (`utils.common.as_signal`: array input goes to the CUDA device unless
     `device` says otherwise).
 
-    Returns (Tx, Sx, ssq_freqs, Sfs[, w][, dSx]): Tx, Sx complex64
-    (..., n_fft//2 + 1, n_hops); ssq_freqs, Sfs numpy. `preserve_transform`
+    Returns (Tx, Sx, ssq_freqs, Sfs[, w][, dSx]): Tx, Sx (..., n_fft//2
+    + 1, n_hops), complex64 for `dtype` float32 (the default) and
+    complex128 for float64; ssq_freqs, Sfs numpy. `preserve_transform`
     and `astensor` are accepted for signature parity and unused."""
     x = as_signal(x, device)
     N = x.shape[-1]
@@ -57,17 +59,18 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
             infer_scaletype(np.asarray(ssq_freqs))[0] != "linear"):
         raise ValueError("`ssq_freqs` must be linearly distributed for "
                          "`ssq_stft`")
-    _check_f32(dtype)
+    dtype = real_dtype(dtype)
 
     n_fft_eff = int(n_fft or min(N // hop_len, 512))
-    planar = (n_fft_eff <= MATMUL_NFFT_MAX and squeezing == "sum" and
-              not get_w)
+    planar = (dtype == "float32" and n_fft_eff <= MATMUL_NFFT_MAX and
+              squeezing == "sum" and not get_w)
     if (planar and hop_len == 1 and not get_dWx and ssq_freqs is None and
             ssq_stft_fused_ok(n_fft_eff)):
         return _ssq_stft_fused(x, window, n_fft_eff, win_len, fs, modulated,
                                padtype, gamma, flipud)
     kw = dict(n_fft=n_fft_eff, win_len=win_len, hop_len=hop_len, fs=fs,
-              padtype=padtype, modulated=modulated, derivative=True)
+              padtype=padtype, modulated=modulated, derivative=True,
+              dtype=dtype)
     if planar:
         sxp, dsp = stft(x, window, planar_out=True, **kw)
         Sx = torch.complex(*sxp)
@@ -78,7 +81,7 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
 
     Sfs = make_Sfs(Sx, fs)
     if gamma is None:
-        gamma = 10 * EPS32
+        gamma = 10 * (EPS64 if Sx.dtype == torch.complex128 else EPS32)
 
     if get_w:
         w = phase_stft(Sx, dSx, Sfs, gamma)

@@ -22,7 +22,7 @@ import torch
 from ..config import EPS64
 from ..scales import (process_scales, process_fs_and_t, infer_scaletype,
                       logscale_transition_idx)
-from ..utils.common import WARN, NOTE, as_signal, assert_is_one_of, unported
+from ..utils.common import WARN, NOTE, as_signal, assert_is_one_of
 from ..utils.pad import p2up
 from ..wavelets.base import Wavelet
 from ..wavelets.props import center_frequency
@@ -241,7 +241,7 @@ def plan_ssqueeze(N, na, ssq_freqs, scales, fs=None, t=None,
 
 
 def _planes(Wx):
-    """(real, imag) float32 planes of a complex or real tensor."""
+    """(real, imag) planes of a complex or real tensor, in its real type."""
     if Wx.is_complex():
         return Wx.real, Wx.imag
     return Wx, torch.zeros_like(Wx)
@@ -251,10 +251,10 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
              t=None, squeezing="sum", maprange="maximal", wavelet=None,
              gamma=None, was_padded=True, flipud=False, dWx=None,
              transform="cwt", wx_planes=None, w_plane=None, device=None):
-    """Synchrosqueeze a CWT or STFT. Returns (Tx complex64 (..., nf, n),
-    ssq_freqs).
+    """Synchrosqueeze a CWT or STFT. Returns (Tx (..., nf, n), ssq_freqs):
+    Tx complex128 for a complex128 (or float64) Wx, else complex64.
 
-    Wx: complex64 (..., na, n) tensor or array; the scatter runs on its
+    Wx: complex (..., na, n) tensor or array; the scatter runs on its
     device (`utils.common.as_signal`: array input goes to the CUDA device
     unless `device` says otherwise); `w` and `dWx` arrays follow Wx to
     its device. Routes, by what is given:
@@ -275,10 +275,6 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     check_ssqueezing_args(squeezing, maprange, transform=transform,
                           wavelet=wavelet)
 
-    if not isinstance(Wx, torch.Tensor):
-        Wx = np.asarray(Wx)
-    if str(Wx.dtype).split(".")[-1] in ("float64", "complex128"):
-        unported("float64 / complex128 Wx", "Queue 1 item 3, float64 route")
     Wx = as_signal(Wx, device)
     device = Wx.device
     if w is not None and not isinstance(w, torch.Tensor):
@@ -296,7 +292,11 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     elif squeezing == "abs":
         Wx = Wx.abs().to(Wx.dtype)
 
-    const = torch.as_tensor(const_arr, dtype=torch.float32, device=device)
+    # the row constants in Wx's real type (unrounded for float64, as the JAX
+    # package's `jnp.asarray(const_arr, rdtype)`)
+    rdtype = (torch.float64 if Wx.dtype in (torch.complex128, torch.float64)
+              else torch.float32)
+    const = torch.as_tensor(const_arr, dtype=rdtype, device=device)
     nf = len(ssq_freqs)
     wr, wi = (wx_planes if (wx_planes is not None and squeezing == "sum")
               else _planes(Wx))
@@ -307,7 +307,7 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
         dr, di = dWx if isinstance(dWx, tuple) else _planes(
             dWx if isinstance(dWx, torch.Tensor) else as_signal(dWx, device))
         if Sfs is None:
-            Sfs = np.zeros(len(const_arr), np.float32)
+            Sfs = torch.zeros(len(const_arr), dtype=rdtype, device=device)
         txr, txi = reassign4(wr, wi, dr, di, const, Sfs, gamma, params,
                              mode, flipud, nf, transform)
 

@@ -8,17 +8,20 @@
     them from K_T's structure (`_dft_spec`); at hop > 1 the frames are an
     `unfold` view and the product a `torch.matmul`, as the JAX package
     leaves it to XLA.
-  * n_fft > 2048: `torch.fft.rfft` of the windowed frames.
+  * float64, or n_fft > 2048: `torch.fft.rfft` of the windowed frames
+    (the JAX package's batched-rfft route), window and signal in the
+    transform's type, on either device.
   * The inverse is the Griffin-Lim least-squares overlap-add with
     window^win_exp and the sum of shifted window^(win_exp+1) as its norm.
-    At hop 1 with one column per sample the irfft product and the
-    overlap-add are kernel H (`stft_cuda.istft_ola`); otherwise the
-    product (or irfft) and a deterministic overlap-add run in torch.
+    For complex64 at hop 1 with one column per sample the irfft product
+    and the overlap-add are kernel H (`stft_cuda.istft_ola`); otherwise
+    the product (or, for complex128 or n_fft > 2048, `torch.fft.irfft`)
+    and a deterministic overlap-add run in torch, complex128 in
+    float64 throughout.
 
 Rows are frequencies, columns time: Sx is (..., n_fft//2 + 1, n_segs).
 Both directions are differentiable on either device (kernels F and H are
-each other's adjoint, `stft_cuda.StftDftFn` / `IstftOlaFn`). float64
-raises NotImplementedError naming its ROADMAP item.
+each other's adjoint, `stft_cuda.StftDftFn` / `IstftOlaFn`).
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..config import DEFAULTS
+from ..config import real_dtype
 from ..scales import process_fs_and_t
-from ..utils.common import as_signal, unported
+from ..utils.common import as_signal
 from ..utils.pad import padsignal
 from ..utils.windows import get_window, window_norm, check_nola
 from .stft_cuda import (DftSpec, stft_dft, istft_ola, istft_ola_ok,
@@ -38,11 +41,6 @@ from .stft_cuda import (DftSpec, stft_dft, istft_ola, istft_ola_ok,
 __all__ = ["stft", "istft", "stft_core", "overlap_add", "MATMUL_NFFT_MAX"]
 
 MATMUL_NFFT_MAX = 2048
-
-
-def _check_f32(dtype):
-    if str(dtype or DEFAULTS["dtype"]) != "float32":
-        unported(f"dtype={dtype!r}", "Queue 1 item 3, float64 route")
 
 
 def _dft_matrix(window, n_fft, modulated):
@@ -92,11 +90,14 @@ def _dft_spec(win_bytes, dwin_bytes, n_fft, modulated):
 
 def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
               derivative, planar_out=False):
-    """STFT of an already padded float32 signal (time = last axis).
+    """STFT of an already padded float32 or float64 signal (time = last
+    axis).
 
     `window`/`diff_window` are host numpy arrays. Returns (Sx, dSx or
-    None), each (..., n_freqs, n_segs) complex64; with `planar_out` (the
-    matrix-product route only), float32 planes (Sxr, Sxi[, dSxr, dSxi])."""
+    None), each (..., n_freqs, n_segs), complex128 for a float64 signal
+    and complex64 otherwise; with `planar_out` (the float32
+    matrix-product route only), float32 planes (Sxr, Sxi[, dSxr,
+    dSxi])."""
     n_freqs = n_fft // 2 + 1
     use_matmul = xp.dtype == torch.float32 and n_fft <= MATMUL_NFFT_MAX
     if planar_out and not use_matmul:
@@ -127,7 +128,7 @@ def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
     frames = xp.unfold(-1, n_fft, hop_len)              # (..., n_segs, n_fft)
 
     def one(win, scale=None):
-        fw = frames * torch.as_tensor(win.astype(np.float32), device=xp.device)
+        fw = frames * torch.as_tensor(win, dtype=xp.dtype, device=xp.device)
         if modulated:
             fw = torch.fft.ifftshift(fw, dim=-1)
         S = torch.fft.rfft(fw, dim=-1).transpose(-1, -2)
@@ -142,9 +143,10 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
     """Short-Time Fourier Transform.
 
     `x`: array or tensor, time on the last axis, any leading batch dims.
-    Returns `Sx` (..., n_fft//2 + 1, n_hops) complex64 on x's device
+    Returns `Sx` (..., n_fft//2 + 1, n_hops) on x's device
     (`utils.common.as_signal`: array input goes to the CUDA device unless
-    `device` says otherwise), plus `dSx` if `derivative`. `dSx` is scaled by
+    `device` says otherwise), complex64 for `dtype` float32 (the default)
+    and complex128 for float64, plus `dSx` if `derivative`. `dSx` is scaled by
     `fs` for modulated and unmodulated STFTs alike, as in the JAX package.
     `planar_out` returns float32 plane tuples ((Sxr, Sxi)[, (dSxr, dSxi)])
     from the matrix-product route."""
@@ -155,12 +157,13 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
     if win_len is None:
         win_len = (len(window) if isinstance(window, (np.ndarray, torch.Tensor))
                    else n_fft)
-    _check_f32(dtype)
+    dtype = real_dtype(dtype)
     window, diff_window = get_window(window, win_len, n_fft, derivative=True,
-                                     dtype="float32")
+                                     dtype=dtype)
     check_nola(window, hop_len)
 
-    xp = padsignal(x.to(torch.float32), padtype, padlength=N + n_fft - 1)
+    xp = padsignal(x.to(getattr(torch, dtype)), padtype,
+                   padlength=N + n_fft - 1)
     out = stft_core(xp, window, diff_window, fs, n_fft=n_fft,
                     hop_len=hop_len, modulated=modulated,
                     derivative=derivative, planar_out=planar_out)
@@ -244,29 +247,31 @@ def _irfft_mats_weighted(n_fft, modulated, win_bytes, win_exp, device):
 def istft(Sx, window=None, n_fft=None, win_len=None, hop_len=1, N=None,
           modulated=True, win_exp=1, device=None):
     """Inverse STFT, Griffin-Lim least-squares for win_exp=1, with leading
-    batch dims. Sx: complex64 (..., n_freqs, n_segs) array or tensor.
-    Returns float32 (..., N) on Sx's device (`as_signal`'s rule for
-    arrays and `device`)."""
+    batch dims. Sx: complex (..., n_freqs, n_segs) array or tensor.
+    Returns (..., N) on Sx's device (`as_signal`'s rule for arrays and
+    `device`): float64 for a complex128 Sx (irfft and overlap-add in
+    float64, as the JAX package), else float32."""
     Sx = as_signal(Sx, device)
-    if Sx.dtype in (torch.complex128, torch.float64):
-        unported("complex128 input", "Queue 1 item 3, float64 route")
-    Sx = Sx.to(torch.complex64)
+    double = Sx.dtype in (torch.complex128, torch.float64)
+    Sx = Sx.to(torch.complex128 if double else torch.complex64)
     n_fft = int(n_fft or (Sx.shape[-2] - 1) * 2)
     win_len = int(win_len or n_fft)
     N = int(N or hop_len * Sx.shape[-1])
 
-    window = get_window(window, win_len, n_fft=n_fft, dtype="float32")
+    window = get_window(window, win_len, n_fft=n_fft,
+                        dtype="float64" if double else "float32")
     check_nola(window, hop_len)
     wn = torch.as_tensor(window_norm(window, hop_len, n_fft, N, win_exp),
                          device=Sx.device)
 
     Sr, Si = Sx.real, Sx.imag
-    if hop_len == 1 and N == Sx.shape[-1] and istft_ola_ok(n_fft):
+    if (not double and hop_len == 1 and N == Sx.shape[-1] and
+            istft_ola_ok(n_fft)):
         mats = (n_fft, bool(modulated), _win_bytes(window), int(win_exp))
         Fr, Fs = _irfft_mats_weighted(*mats, Sx.device)
         x = istft_ola(Sr, Si, Fr, Fs, n_fft, adjoint=_irfft_spec(*mats))
     else:
-        if n_fft <= MATMUL_NFFT_MAX:
+        if not double and n_fft <= MATMUL_NFFT_MAX:
             Fr, Fs = (torch.as_tensor(F, device=Sx.device)
                       for F in _irfft_mats(n_fft, bool(modulated)))
             xbuf = torch.matmul(Fr, Sr) - torch.matmul(Fs, Si)

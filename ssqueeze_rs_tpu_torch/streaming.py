@@ -10,7 +10,9 @@ of its transform: kernel F with the derivative (STFT family) or kernel D
 reassignment `reassign_cuda.reassign4`, whose implementation
 SSQ_TPU_REASSIGN_IMPL picks (kernel B' by default, kernel I with 'mxu').
 On the CPU the same steps run the kernels' plain versions. Outputs come
-back as numpy arrays.
+back as numpy arrays. `dtype='float64'` runs every step in float64 (the
+STFT's rfft route or the full-length CWT, then B' in double on the card),
+as the JAX package's float64 streamers.
 
 Exactness, as in the JAX package:
 
@@ -39,13 +41,13 @@ from types import FunctionType
 import numpy as np
 import torch
 
-from .config import DEFAULTS, EPS32
+from .config import EPS32, EPS64, real_dtype
 from .ops import reassign_cuda
 from .ops.cwt import cwt_core
 from .ops.fft_cuda import best_split
 from .ops.ssqueeze import (plan_reassignment, compute_associated_frequencies,
                            check_ssqueezing_args)
-from .ops.stft import stft_core, _check_f32
+from .ops.stft import stft_core
 from .parallel.chunked import default_cwt_halo, overlap_save_tail_mass
 from .scales import process_scales, process_fs_and_t
 from .utils.common import WARN, array_device
@@ -69,7 +71,7 @@ class _SqueezeMixin:
     4-plane reassignment of the block's columns."""
 
     def _init_squeeze(self, squeezing, gamma, flipud, const_arr, mode,
-                      params, Sfs_row, nf, transform):
+                      params, Sfs_row, nf, transform, rdtype):
         check_ssqueezing_args(squeezing, transform=transform)
         self.squeezing = squeezing
         self.flipud = bool(flipud)
@@ -77,10 +79,11 @@ class _SqueezeMixin:
         self._transform = transform
         self._mode = mode
         self._params = dict(params)
-        self._gamma = float(10 * EPS32 if gamma is None else gamma)
-        self._const = torch.as_tensor(const_arr, dtype=torch.float32,
+        eps = EPS64 if rdtype == torch.float64 else EPS32
+        self._gamma = float(10 * eps if gamma is None else gamma)
+        self._const = torch.as_tensor(const_arr, dtype=rdtype,
                                       device=self.device)
-        self._Sfs = torch.as_tensor(np.asarray(Sfs_row, np.float32),
+        self._Sfs = torch.as_tensor(np.asarray(Sfs_row), dtype=rdtype,
                                     device=self.device)
 
     def _squeezed(self, W):
@@ -241,7 +244,7 @@ class _StreamerBase:
 # -- STFT family (exact) ---------------------------------------------------------
 class StreamingSTFT(_StreamerBase):
     """Streaming STFT, column-exact against `ops.stft.stft`
-    (padtype='reflect'). float32 only, as `stft`.
+    (padtype='reflect'), in float32 or float64, as `stft`.
 
     `block`: samples consumed per step (a multiple of hop_len); chunks of
     any size are buffered to blocks. `device`: where the steps run.
@@ -258,9 +261,8 @@ class StreamingSTFT(_StreamerBase):
         if self.n_fft < self.hop_len:
             raise ValueError("n_fft must be >= hop_len")
         _, self.fs, _ = process_fs_and_t(fs, None, self.block)
-        self.dtype = dtype or DEFAULTS["dtype"]
-        _check_f32(self.dtype)
-        self._np_dtype = np.float32
+        self.dtype = real_dtype(dtype)
+        self._np_dtype = np.dtype(self.dtype)
         self.device = array_device(device)
         self.derivative = bool(derivative)
         self.modulated = bool(modulated)
@@ -282,13 +284,14 @@ class StreamingSTFT(_StreamerBase):
         self._init_stream()
 
     def _step_out_struct(self):
-        s = ((self.n_fft // 2 + 1, 0), "complex64")
+        cd = "complex128" if self.dtype == "float64" else "complex64"
+        s = ((self.n_fft // 2 + 1, 0), cd)
         return (s, s) if self.derivative else (s,)
 
     def _stft(self, xe, planar):
         """The block's STFT (and dSx with the derivative); float32 planes
         with `planar` where the matrix-product route runs."""
-        planar = planar and self.n_fft <= 2048
+        planar = planar and self.n_fft <= 2048 and self.dtype == "float32"
         out = stft_core(xe, self._window, self._dwindow, self.fs,
                         n_fft=self.n_fft, hop_len=self.hop_len,
                         modulated=self.modulated,
@@ -323,12 +326,14 @@ class StreamingSSQSTFT(_SqueezeMixin, _StreamerBase):
         self.device = self._stft.device
         self._np_dtype = self._stft._np_dtype
         nf = self._stft.n_fft // 2 + 1
-        self.Sfs = np.linspace(0, 0.5 * self._stft.fs, nf, dtype=np.float32)
+        self.Sfs = np.linspace(0, 0.5 * self._stft.fs, nf,
+                               dtype=self._np_dtype)
         const_arr, mode, params = plan_reassignment(
             self.Sfs, nf, False, transform="stft")
         self._init_squeeze(squeezing, gamma, flipud,
                            np.full(nf, float(const_arr[0])), mode, params,
-                           self.Sfs, nf, "stft")
+                           self.Sfs, nf, "stft", getattr(torch,
+                                                         self._stft.dtype))
         self.ssq_freqs = self.Sfs[::-1] if self.flipud else self.Sfs
 
         for a in ("_E", "_advance", "_cols_per_step", "_prefix_len",
@@ -341,7 +346,8 @@ class StreamingSSQSTFT(_SqueezeMixin, _StreamerBase):
         return self._stft.latency_samples
 
     def _step_out_struct(self):
-        s = ((self.nf, 0), "complex64")
+        cd = "complex128" if self._stft.dtype == "float64" else "complex64"
+        s = ((self.nf, 0), cd)
         return (s, s)
 
     def _step(self, xe):
@@ -368,10 +374,7 @@ class StreamingCWT(_StreamerBase):
                  nv=32, fs=None, l1_norm=True, derivative=False, halo=None,
                  plan_N=None, dtype=None, device=None):
         self.block = int(block)
-        self.dtype = str(dtype or DEFAULTS["dtype"])
-        if self.dtype not in ("float32", "float64"):
-            raise ValueError(f"`dtype` must be float32 or float64 (got "
-                             f"{self.dtype})")
+        self.dtype = real_dtype(dtype)
         self._np_dtype = np.dtype(self.dtype)
         self.device = array_device(device)
         self.derivative = bool(derivative)
@@ -452,14 +455,13 @@ class StreamingSSQCWT(_SqueezeMixin, StreamingCWT):
     """Streaming synchrosqueezed CWT: halo-bounded CWT columns, then the
     exact column-local reassignment. Each step: kernel D with the
     derivative, then the 4-plane reassignment (B', or I under
-    SSQ_TPU_REASSIGN_IMPL=mxu). float32 only, as `ssq_cwt`.
-    feed()/flush() return (Tx, Wx) column blocks."""
+    SSQ_TPU_REASSIGN_IMPL=mxu); in float64, the full-length CWT and B' in
+    double. feed()/flush() return (Tx, Wx) column blocks."""
 
     def __init__(self, block=8192, wavelet="gmw", scales="log-piecewise",
                  nv=32, fs=None, maprange="peak", squeezing="sum",
                  gamma=None, flipud=True, halo=None, plan_N=None,
                  dtype=None, device=None):
-        _check_f32(dtype)
         super().__init__(block, wavelet=wavelet, scales=scales, nv=nv,
                          fs=fs, l1_norm=True, derivative=True, halo=halo,
                          plan_N=plan_N, dtype=dtype, device=device)
@@ -473,14 +475,16 @@ class StreamingSSQCWT(_SqueezeMixin, StreamingCWT):
             transform="cwt", cwt_scaletype=self.scaletype, nv=self.nv,
             scales=scales_col)
         self._init_squeeze(squeezing, gamma, flipud, const_arr, mode,
-                           params, np.zeros(na), len(self.ssq_freqs), "cwt")
+                           params, np.zeros(na), len(self.ssq_freqs), "cwt",
+                           getattr(torch, self.dtype))
         # the CWT's ssq_freqs are reported flipped whatever `flipud` says
         # (scales go high -> low), as ssq_cwt reports them
         self.ssq_freqs = self.ssq_freqs[::-1]
 
     def _step_out_struct(self):
         na = len(self._scales_1d)
-        return (((self.nf, 0), "complex64"), ((na, 0), "complex64"))
+        cd = "complex128" if self.dtype == "float64" else "complex64"
+        return (((self.nf, 0), cd), ((na, 0), cd))
 
     def _step(self, xe):
         W, dW = self._cwt_cols(xe)

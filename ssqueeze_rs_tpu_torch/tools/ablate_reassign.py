@@ -114,6 +114,13 @@ def _cols(nf, variant, cols):
                      "shared memory")
 
 
+def _check_f32(wr):
+    """The probe's kernels take float32 planes, as the TPU probe's."""
+    if wr.dtype != torch.float32:
+        raise ValueError(f"the P4 kernels take float32 planes (got "
+                         f"{wr.dtype})")
+
+
 # -- plain version --------------------------------------------------------------
 def ablate_reassign_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params,
                           mode, flipud, nf, transform, variant="full",
@@ -219,6 +226,7 @@ def ablate_reassign(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
         return ablate_reassign_plain(*args, variant, grid)
     if device.type != "cuda":
         raise ValueError(f"ablate_reassign: unsupported device {device}")
+    _check_f32(wr)
     return _cuda(*args, variant, cols, grid)
 
 
@@ -237,6 +245,7 @@ def ablate_reassign3(wr, wi, w, const, plan_params, mode, flipud, nf,
                                             mode, flipud, nf)
     if device.type != "cuda":
         raise ValueError(f"ablate_reassign3: unsupported device {device}")
+    _check_f32(wr)
     out = reassign_cuda._launch(
         lambda lib: lib.ssq_ablate_reassign3, [wr, wi, w], [const],
         [reassign_cuda.MODES[mode], int(bool(flipud))],

@@ -150,13 +150,21 @@ def test_phase_pairs(planes):
 
 
 def test_double_planes_raise(planes):
-    Wx = torch.as_tensor(planes["Wx"]).to(torch.complex128)
-    w = torch.ones(Wx.shape, dtype=torch.float32)
+    """complex128 planes (once refused) run in float64: the same bars as
+    float32 against the JAX package's complex128 results; a float32 w
+    beside complex128 Wx raises (mixed precision)."""
+    Wx = planes["Wx"].astype(np.complex128)
+    dWx = planes["dWx"].astype(np.complex128)
     freqs = np.linspace(0.5, 50, Wx.shape[0])
-    with pytest.raises(NotImplementedError, match="float64"):
-        ta.indexed_sum_onfly(Wx, w, freqs)
-    with pytest.raises(NotImplementedError, match="float64"):
-        ta.ssqueeze_fast(Wx, Wx, freqs, 1.0)
+    w = np.array(ja.phase_cwt_cpu(Wx, dWx, 1e-5))
+    on = ta.indexed_sum_onfly(torch.as_tensor(Wx), torch.as_tensor(w), freqs)
+    _tx_close(on, ja.indexed_sum_onfly(Wx, w, freqs))
+    fast = ta.ssqueeze_fast(torch.as_tensor(Wx), torch.as_tensor(dWx), freqs,
+                            1.0)
+    _tx_close(fast, ja.ssqueeze_fast(Wx, dWx, freqs, 1.0))
+    with pytest.raises(ValueError, match="mixed"):
+        ta.indexed_sum_onfly(torch.as_tensor(Wx),
+                             torch.ones(Wx.shape, dtype=torch.float32), freqs)
 
 
 def test_zero_denormals():

@@ -67,7 +67,43 @@ def test_entry_points_have_signatures():
             "ssq_reassign_mxu", "ssq_ablate_cwt", "ssq_cwt_copy_floor",
             "ssq_cwt_staged", "ssq_ablate_reassign", "ssq_grid_slope",
             "ssq_rate_dot", "ssq_rate_copy", "ssq_dma_overlap",
-            "ssq_mxu_dots", "ssq_mxu_elem"} <= set(_build._SIGNATURES)
+            "ssq_mxu_dots", "ssq_mxu_elem", "ssq_reassign_f64",
+            "ssq_reassign4_f64", "ssq_reassign_bwd_f64",
+            "ssq_reassign4_bwd_f64"} <= set(_build._SIGNATURES)
+
+
+def _c_entry_points():
+    import re
+    for path in _build._sources():
+        if path.endswith(".cu"):
+            with open(path) as f:
+                yield from re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                      f.read())
+
+
+@pytest.mark.parametrize("name", ["ssq_reassign", "ssq_reassign4",
+                                  "ssq_reassign_bwd", "ssq_reassign4_bwd",
+                                  "ssq_reassign_f64", "ssq_reassign4_f64",
+                                  "ssq_reassign_bwd_f64",
+                                  "ssq_reassign4_bwd_f64"])
+def test_reassign_argtypes_follow_the_c_types(name):
+    """Each parameter of kernels B, B', C and C' (float and double) has the
+    ctypes type of its C declaration: a pointer, long long, int, float or
+    double (a float64 constant passed as c_float would be rounded)."""
+    import ctypes
+    params = dict(_c_entry_points())[name].split(",")
+    want = []
+    for decl in params:
+        decl = decl.strip()
+        want.append(ctypes.c_void_p if "*" in decl else
+                    ctypes.c_longlong if "long long" in decl else
+                    ctypes.c_double if decl.startswith("double") else
+                    ctypes.c_float if decl.startswith("float") else
+                    ctypes.c_int)
+    assert _build._SIGNATURES[name] == want
+    doubles = sum(t is ctypes.c_double for t in want)
+    assert doubles == (0 if not name.endswith("_f64") else
+                       6 if "reassign4" in name else 5)
 
 
 def test_tensor_core_helpers_are_shared():

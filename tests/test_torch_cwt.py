@@ -313,13 +313,16 @@ def test_cwt_higher_order_matches_jax(order, average):
 
 
 def test_cwt_nan_checks_and_cache_wavelet():
+    """NaN input is zeroed; `cache_wavelet=True` (once refused) takes the
+    cached filterbank and matches the JAX package's cached cwt at 1e-5."""
     x = _signal(1024)
     x[10] = np.nan
     Wx, _ = T.cwt(torch.as_tensor(x), nv=8)
     assert bool(torch.isfinite(Wx).all())
     _check_cwt((Wx,), (J.cwt(x, nv=8, dtype="float32")[0],))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.cwt(torch.as_tensor(x), cache_wavelet=True)
+    Wc, sc = T.cwt(torch.as_tensor(x), nv=8, cache_wavelet=True)
+    _check_cwt((Wc, sc), J.cwt(x, nv=8, dtype="float32", cache_wavelet=True))
+    _check_cwt((Wc,), (Wx.numpy(),))
 
 
 # -- icwt -------------------------------------------------------------------------

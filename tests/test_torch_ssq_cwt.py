@@ -143,8 +143,8 @@ def _double(W):
     return W * 2
 
 
-# fixed ids: every xdist worker must collect the same names. The options
-# this port has opened keep their ids and now run; the rest still raise.
+# fixed ids: every xdist worker must collect the same names. Every option
+# the port once refused keeps its id and now runs.
 UNPORTED = {
     "float64": dict(dtype="float64"),
     "order1": dict(order=1),
@@ -160,29 +160,45 @@ UNPORTED = {
     "callable_wavelet": dict(wavelet=lambda w: (w > 0) * w**2 / (1 + w**4)),
     "no_pad_not_pow2": dict(padtype=None),
 }
-STILL_REFUSED = ("float64",)
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_options_raise(name):
-    """float64 (the squeeze takes float32 planes) still raises
-    NotImplementedError naming its ROADMAP item; every other option,
-    custom callable wavelets included, runs on the CPU and gives a finite
-    Tx."""
+    """Every option the port once refused runs on the CPU, custom callable
+    wavelets included, and gives a finite Tx; float64 (the squeeze in
+    double) gives complex128 outputs within 1e-10 of the JAX package's
+    float64 ssq_cwt (Tx: max|d| <= 1e-9 of sum|Tx|)."""
     x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
-    if name in STILL_REFUSED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ssq_cwt(x, device="cpu", **UNPORTED[name])
-        return
     out = ssq_cwt(torch.as_tensor(x), **UNPORTED[name])
     assert out[0].shape[-1] == 1000 and bool(torch.isfinite(out[0]).all())
     assert out[1].shape[-1] == 1000
+    if name == "float64":
+        ref = j_ssq_cwt(x, **UNPORTED[name])
+        assert out[0].dtype == out[1].dtype == torch.complex128
+        Tx, Tx_j = out[0].numpy(), np.asarray(ref[0])
+        assert np.abs(Tx - Tx_j).max() <= 1e-9 * np.abs(Tx_j).sum()
+        Wx_j = np.asarray(ref[1])
+        assert np.abs(out[1].numpy() - Wx_j).max() < 1e-10 * np.abs(Wx_j).max()
+        assert np.array_equal(out[2], ref[2])
 
 
 def test_cache_wavelet_raises():
-    x = torch.zeros(256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssq_cwt(x, cache_wavelet=True)
+    """`cache_wavelet=True` (once refused) runs kernel A's plain version on
+    the cached filterbank, against the JAX package's cached ssq_cwt at
+    tests/test_cwt.py's bars: Wx within 1e-5 of max|Wx|, the mean
+    column-sum difference of |Tx| within 1e-4 of the mean column sum."""
+    x = np.random.default_rng(3).standard_normal(4000).astype(np.float32)
+    kw = dict(scales="log", fs=1.0, cache_wavelet=True)
+    wav = ("gmw", {"beta": 8.0})
+    Tx, Wx, f, _ = ssq_cwt(torch.as_tensor(x), wav, **kw)
+    Tx_j, Wx_j, f_j, _ = (np.asarray(a) for a in j_ssq_cwt(
+        x, wav, dtype="float32", **kw))
+    assert np.array_equal(f, f_j)
+    Wx_j = Wx_j[..., :Wx.shape[-1]]
+    assert np.abs(Wx.numpy() - Wx_j).max() < 1e-5 * np.abs(Wx_j).max()
+    cs, cs_j = np.abs(Tx.numpy()).sum(0), np.abs(Tx_j[..., :Tx.shape[-1]]
+                                                 ).sum(0)
+    assert np.abs(cs - cs_j).mean() < 1e-4 * cs_j.mean()
 
 
 # -- the routes through kernels D and E (and the plain FFT route) ----------------

@@ -176,14 +176,23 @@ def test_component_inversion_matches_jax(which):
 
 
 def test_unported_raise():
-    """float64 is refused, naming its ROADMAP item; a signal that requires
-    grad stays in its graph and gets a finite gradient through ssq_stft
-    (tests/test_torch_grad.py holds it to jax.grad)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssq_stft(_signal(), device="cpu", n_fft=N_FFT, dtype="float64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssqueeze(np.zeros((5, 40), np.complex128), w=np.zeros((5, 40)),
-                 ssq_freqs=np.linspace(0, 1, 5), transform="stft")
+    """float64 (once refused) runs: ssq_stft within the float64 bars of
+    the JAX package's (Sx 1e-10 of max|Sx|, Tx 1e-9 of sum|Tx|), and
+    `ssqueeze` of a complex128 Wx gives complex128 Tx; a signal that
+    requires grad stays in its graph and gets a finite gradient through
+    ssq_stft (tests/test_torch_grad.py holds it to jax.grad)."""
+    x64 = _signal().astype(np.float64)
+    Tx, Sx, f, _ = ssq_stft(x64, device="cpu", n_fft=N_FFT, dtype="float64")
+    Tx_j, Sx_j, f_j, _ = (np.asarray(a) for a in j_ssq_stft(
+        x64, n_fft=N_FFT, dtype="float64"))
+    assert Tx.dtype == Sx.dtype == torch.complex128
+    assert np.array_equal(f, f_j)
+    assert np.abs(Sx.numpy() - Sx_j).max() < 1e-10 * np.abs(Sx_j).max()
+    assert np.abs(Tx.numpy() - Tx_j).max() <= 1e-9 * np.abs(Tx_j).sum()
+    Tw, _ = ssqueeze(np.ones((5, 40), np.complex128), w=np.full((5, 40), 0.5),
+                     ssq_freqs=np.linspace(0, 1, 5), transform="stft",
+                     device="cpu")
+    assert Tw.dtype == torch.complex128 and bool(torch.isfinite(Tw).all())
     x = torch.tensor(_signal(), requires_grad=True)
     assert as_signal(x) is x
     Tx, Sx, *_ = ssq_stft(x, device="cpu", n_fft=N_FFT, fs=FS)

@@ -252,11 +252,18 @@ def test_shape_contracts_and_gates():
 
 
 def test_float64_raises():
-    x = _signal(1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stft(x, device="cpu", n_fft=64, dtype="float64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        istft(np.zeros((33, 100), np.complex128), device="cpu", n_fft=64)
+    """float64 (once refused) takes the rfft route in float64, and a
+    complex128 Sx the irfft route: both within 1e-10 of the JAX package's
+    float64 transforms."""
+    x = _signal(1000).astype(np.float64)
+    Sx = stft(x, device="cpu", n_fft=64, dtype="float64")
+    Sj = np.array(j_stft(x, n_fft=64, dtype="float64"))
+    assert Sx.dtype == torch.complex128
+    assert np.abs(Sx.numpy() - Sj).max() < 1e-10 * np.abs(Sj).max()
+    xr = istft(Sj, device="cpu", n_fft=64)
+    xj = np.asarray(j_istft(Sj, n_fft=64))
+    assert xr.dtype == torch.float64
+    assert np.abs(xr.numpy() - xj).max() < 1e-10 * np.abs(xj).max()
 
 
 # -- kernel F's structure (DftSpec) and its Bluestein tables ----------------

@@ -37,11 +37,12 @@ EXPORTED = ["DEFAULTS", "EPS32", "EPS64", "mad", "WARN", "NOTE", "p2up",
             "replace_at_inf_or_nan", "replace_at_value", "replace_under_abs",
             "afftshift_idx", "window_resolution", "tkeo", "tkeo_modified",
             "extract_ridges", "ridge", "TestSignals", "signals", "toolkit",
-            "experimental", "scale_to_freq", "freq_to_scale", "algos"]
+            "experimental", "scale_to_freq", "freq_to_scale", "algos",
+            "compat"]
 
 # the JAX package's public names the port leaves to later items (ROADMAP
-# Queue 1 items 3, 7 and 9)
-NOT_YET = {"compat", "io", "ParquetRecording", "parquet_to_raw", "visuals"}
+# Queue 1 items 7 and 9)
+NOT_YET = {"io", "ParquetRecording", "parquet_to_raw", "visuals"}
 WAVELET_NOT_YET = {"viz", "VISUALS"}
 
 
