@@ -112,15 +112,18 @@ Phases, one line each:
  17. the gradient of cwt at the headline, loss sum|Wx|^2 + sum|dWx|^2: D
      once per call, finite, bitwise repeat, forward+backward time and peak
      memory, device against CPU at N = 20 000 within 1e-4
- 18. kernel I (reassign_mxu, the digit-split tensor-core scatter, reached
+ 18. kernel I (reassign_mxu, the digit-split wgmma scatter, reached
      through reassign4 under SSQ_TPU_REASSIGN_IMPL=mxu) against its plain
      version and against B' on D's ssq_cwt planes (293 x 160 000, nf =
      293) and on F's STFT planes at n_fft = 598 (nf = 300) and 2048 (nf =
      1025, N = 20 000), timed beside B' and its bound (B''s: the same
-     function); then untimed at n_fft = 510 (nf = 256, 1 tile a pass),
-     2046 (nf = 1024, 4 tiles) and on a batch of two at n_fft = 598:
-     sum |d| / sum |ref| < 2e-5 and nonzero patterns equal on >= 99.99 %,
-     bitwise repeat, the gradient through I bitwise the one through B'
+     function); then untimed at the edges of its plan: n_fft = 14 (nf = 8,
+     the narrowest wgmma), 510 (nf = 256), 2046 (nf = 1024), seeded planes
+     at nf = 2048 and 2049 (two warpgroups a column) and 2689 (four), and
+     a batch of two at n_fft = 598: sum |d| / sum |ref| < 2e-5 and nonzero
+     patterns equal on >= 99.99 %, bitwise repeat, the gradient through I
+     bitwise the one through B'; and a line with the HGMMA count of each
+     of I's instantiations in the built library's SASS (cuobjdump)
  19. StreamingSSQSTFT(block=16384, n_fft=598) and StreamingSSQCWT(block=
      16384, plan_N=160000) on 160 000 samples of noise, a 100 Hz sine and a
      chirp at fs = 1000 in ragged chunks of 1000-20000, under the default
@@ -1937,17 +1940,36 @@ def serving_phases(np, torch, dev, card, results, ctx):
                 torch.zeros(na, device=dev), gamma, params, mode, True,
                 len(freqs), "cwt")
 
+    def planes_case(nf, n):
+        """Seeded normal planes of nf rows with the STFT's linear plan, for
+        widths past the STFT's float32 route (n_fft <= 2048)."""
+        g = torch.Generator(device=dev).manual_seed(nf)
+        planes = [torch.randn((nf, n), device=dev, generator=g)
+                  for _ in range(4)]
+        Sfs = np.linspace(0, 0.5, nf, dtype=np.float32)
+        const, mode, params = plan_reassignment(Sfs, nf, False,
+                                                transform="stft")
+        return (*planes,
+                torch.as_tensor(const, dtype=torch.float32, device=dev),
+                torch.as_tensor(Sfs, device=dev), gamma, params, mode, False,
+                nf, "stft")
+
     x20 = torch.as_tensor(np.random.default_rng(18).standard_normal(N_SMALL),
                           dtype=torch.float32, device=dev)
     xb = torch.as_tensor(np.random.default_rng(21).standard_normal(
         (2, N_SMALL)), dtype=torch.float32, device=dev)
-    # the first three are timed; the last three run I's other
-    # instantiations (1 and 4 tiles a pass) and a batch of two planes
+    # the first three are timed; the rest run I at the edges of its plan
+    # (the narrowest N, one and two warpgroups a column, the first of four)
+    # and a batch of two planes
     cases = {"cwt nf=293": cwt_case,
              "stft nf=300": lambda: stft_case(x, N_FFT),
              "stft nf=1025": lambda: stft_case(x20, 2048),
+             "stft nf=8": lambda: stft_case(x20, 14),
              "stft nf=256": lambda: stft_case(x20, 510),
              "stft nf=1024": lambda: stft_case(x20, 2046),
+             "planes nf=2048": lambda: planes_case(2048, 6000),
+             "planes nf=2049": lambda: planes_case(2049, 6000),
+             "planes nf=2689": lambda: planes_case(2689, 4001),
              "stft nf=300 batch 2": lambda: stft_case(xb, N_FFT)}
     timed = ("cwt nf=293", "stft nf=300", "stft nf=1025")
     I = {}
@@ -1980,8 +2002,11 @@ def serving_phases(np, torch, dev, card, results, ctx):
         grad_equal = all(torch.equal(u, v)
                          for u, v in zip(grad("vpu"), grad("mxu")))
         del g
+        plan = R._mxu_plan(nf)
         I[key] = dict(nf=nf, shape=list(a[0].shape),
-                      tiles_per_pass=R._mxu_tiles_per_pass(nf),
+                      plan=dict(f0=plan.f0, n_tile=plan.n_tile,
+                                split=plan.split, cols=plan.cols,
+                                rows=plan.rows),
                       sum_rel_vs_B4=sB, nonzero_agree_B4=nzB,
                       sum_rel_vs_plain=sP, nonzero_agree_plain=nzP,
                       abs_vs_plain=absP, bitwise=bitwise,
@@ -2004,8 +2029,15 @@ def serving_phases(np, torch, dev, card, results, ctx):
               f"plain version: sum rel {sP:.3e}, nonzero patterns {nzP:.6f}")
         check(grad_equal, f"kernel I ({key}): gradient differs from B''s")
     results["I"] = I
+    results["I_sass"] = sass = hgmma_count()
+    print("[18] kernel I's SASS (cuobjdump -sass of the built library): " +
+          (", ".join(f"{k} {v} HGMMA" for k, v in sass.items())
+           if isinstance(sass, dict) else sass))
+    check(not isinstance(sass, dict) or all(sass.values()),
+          f"kernel I's SASS lacks HGMMA: {sass}")
     print("[18] kernel I: " + "; ".join(
-        f"{k} ({v['tiles_per_pass']} tiles/pass): vs B' sum rel "
+        f"{k} (N {v['plan']['n_tile']}, {v['plan']['cols']} columns a "
+        f"block): vs B' sum rel "
         f"{v['sum_rel_vs_B4']:.3e} nonzero {v['nonzero_agree_B4']:.6f}, vs "
         f"plain {v['sum_rel_vs_plain']:.3e}, bitwise-repeat={v['bitwise']}, "
         f"grad == B' {v['grad_equal_B4']}" +
@@ -2865,6 +2897,28 @@ N_SEP = N
 RIDGE_COLS = 16_384
 RIDGE_PROFILE_COLS = 2048
 SEP_WAVELET = ("gmw", {"beta": 6.0})
+
+
+def hgmma_count():
+    """HGMMA instructions in each instantiation of kernel I (by its wgmma
+    width N) in the built library's SASS (cuobjdump -sass), or why they
+    could not be counted."""
+    import re
+    import shutil
+    from ssqueeze_rs_tpu_torch import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    res = subprocess.run([tool, "-sass", _build.library_path()],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        return f"cuobjdump failed ({res.returncode})"
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", res.stdout)[1:]:
+        m = re.match(r"\S*reassign_mxu_kernelILi(\d+)E", fn)
+        if m:
+            counts[int(m.group(1))] = fn.count("HGMMA")
+    return dict(sorted(counts.items())) or "no kernel I in the SASS"
 
 
 def wall_ms(torch, fn):

@@ -1,5 +1,6 @@
 // Kernel I: the 4-plane reassignment (synchrosqueezing scatter) as a
-// digit-split one-hot matrix product on the tensor cores, for sm_90a.
+// digit-split one-hot matrix product on Hopper's warpgroup tensor-core
+// instruction (wgmma), for sm_90a.
 //
 // Replaces ssqueeze_rs_tpu/ops/reassign_pallas.py::_make_mxu_kernel (the
 // SSQ_TPU_REASSIGN_IMPL=mxu forward of _reassign_with_vjp). It computes
@@ -9,232 +10,459 @@
 //
 //   Tx[k, j] += Wx[i, j] * const[i].
 //
-// The bin is split into digits k = 16*khi + klo, and each column's sums
-// become a product of indicators:
+// The digit split. The bin is k = F0 * khi + klo, F0 = ceil(nf / 64), so
+// khi < 64. Each value v = Wx * const (__fmul_rn) is cut into three bf16
+// parts, v = hi + mid + lo (the TPU kernel's split3; exact for float32's
+// 24 bits), and per column the sums become one product over the rows:
 //
-//   Tx[16*f1 + f0, j] = sum_i [khi(i,j) == f1] * (v(i,j) * [klo(i,j) == f0])
+//   D[f1, (3c + p) F0 + f0] = sum_i [khi(i) == f1] * part_p(v_c(i))
+//                                   * [klo(i) == f0]
 //
-// that is, per column, A (F1 x na, the one-hot of khi) times B (na x 16,
-// v times the one-hot of klo). The TPU kernel packed 8 columns into one
-// (8*F1 x na) @ (na x 128) product and pulled out the diagonal with mask
-// matmuls, which its 128-lane layout needs and which does 8x the MACs.
-// Here each warp owns one column and runs mma.sync.m16n8k8 TF32 tiles:
-// M = 16 values of f1 (a "tile" of 256 bins), N = 8 values of f0 (two
-// halves), K = 8 rows per step. The 0/1 factor is exact in TF32; v is
-// split in two terms, v_hi = tf32(v) and v_lo = tf32(v - v_hi), both
-// accumulated in float32, which keeps ~22 of v's 24 bits (the tensor
-// cores take no float32 operands).
+// with c = re, im and p = hi, mid, lo; then Tx_c[F0 f1 + f0] = (D[.., 3c
+// F0 + f0] + D[.., (3c + 1) F0 + f0]) + D[.., (3c + 2) F0 + f0], in that
+// order, and bins >= nf are dropped. A (M = 64 high digits x 16 rows) is
+// the one-hot of khi; B (16 rows x N) holds the parts at their low digit;
+// N = 6 F0 rounded up to 8 (16 past 128, 32 past 256). One m64nNk16
+// wgmma a column and 16 rows covers every bin of nf <= 4096: the planes
+// are read once, with no passes. Past N = 128, two or four warpgroups
+// share a column, each multiplying the same A tile by its own 128 or
+// fewer of B's columns.
 //
-// Block: 8 warps, 8 consecutive columns (one sector of each plane row).
-// The block walks the rows in stages of 32: each thread loads one entry
-// of the four planes (the next stage's loads are issued before this
-// stage's products), forms its bin and value into shared memory, and each
-// warp then reads the two rows its lanes need per k-step (rows tig and
-// tig + 4 of the fragment layout) from shared memory. A pass keeps TG
-// tiles of accumulators in registers (16 floats per tile per thread);
-// nf > 4 tiles (1024 bins) takes several passes, one per blockIdx.y, each
-// re-reading the planes. The results leave through shared memory, so
-// each stored row is 8 consecutive columns, in direct bin order (the TPU
-// wrapper's un-interleave is gone).
+// The block: 4 warpgroups (512 threads, one block an SM), COLS columns,
+// each warpgroup's sums in its registers for the whole walk down the
+// rows (at most 64 accumulators a thread: COLS = 16 at nf <= 320, 4 at
+// nf = 1025, 1 past 2688). The rows go in stages of ROWS (a multiple of
+// 16, at most 128, at most two entries a thread):
+//   1. the four planes' (ROWS x COLS) tiles and the rows' sfs and const
+//      arrive in a ring of 3 shared-memory stages by cp.async (16 bytes a
+//      copy where the rows allow it, else 4), each stage completing on
+//      its mbarrier; a stage's copies go out two stages ahead of its use;
+//   2. each thread bins its entries of stage t (16 consecutive threads
+//      take the 16 rows of one column's step) while the products of
+//      stage t - 1 run;
+//   3. after a barrier (every product of t - 1 done) each thread clears
+//      the marks its entries left in the tiles at t - 1 and writes the
+//      new ones: a bf16 one at (row, khi) in A, the six parts at (row,
+//      (3c + p) F0 + klo) in B. The tiles stay zero but for the stage's
+//      entries, so no thread writes a dense operand;
+//   4. fence.proxy.async, a barrier, and each warpgroup issues its
+//      products of the stage, both operands from the tiles, and commits
+//      without waiting.
+// D leaves through shared memory ([64][N + 1][COLS + 1] floats, odd
+// strides), so each stored Tx row is COLS consecutive columns, in direct
+// bin order.
 //
-// Deterministic: a fixed sequence of mma instructions, no atomics, so
-// the result repeats bit for bit. Not IEEE-ordered against B' (the
-// tensor cores add in their own order): held to B' by the JAX package's
-// bar for I (sum-relative < 2e-5, nonzero patterns equal).
+// Deterministic: each column's sums come from one warpgroup (a fixed
+// share of N) in one fixed sequence of wgmma instructions, no atomics, so
+// Tx repeats bit for bit. Not IEEE-ordered against B' (the tensor cores
+// add in their own order): held to B' by the JAX package's bar for I
+// (sum-relative < 2e-5, nonzero patterns equal).
 //
-// What bounds it on Hopper: the function is B''s scatter, so its bound is
-// B''s, its bytes (4 planes in, 2 out: 0.344 ms at 293 x 160 000 at 3.35
-// TB/s); the binning's arithmetic is far below that. The tensor-core
-// products are this design's own cost, not the function's: 16 mma per 8
-// rows per column at nf <= 512, 15 of 16 terms of the one-hot zero, the
-// bins padded to whole tiles and doubled by the split. This first, simple
-// version runs at ~15 % of the bound: the fragment selects around each
-// mma and two barriers per 32-row stage; wgmma and TMA are later work.
-// Its time grows slowly with nf (a pass holds 4 tiles = 1024 bins), so at
-// nf ~1000 it beats B', whose accumulator then leaves one block of 16
-// threads per SM.
+// What bounds it on Hopper. The function is B''s scatter, so its least
+// time is B''s: the bytes of four planes in and two out (0.344 ms at
+// 293 x 160 000, 0.147 ms at 1025 x 20 000, at 3.35 TB/s). This design
+// adds tensor-core work, 64 N MACs an entry: 2048 at nf = 293 (N = 32),
+// 6656 at nf = 1025 (N = 104), that is 0.194 and 0.276 ms at 989 TFLOP/s
+// (bf16). So the bytes bound it below nf ~600 (12 nf FLOP an entry
+// against ~24 bytes) and the tensor-core work above. The design reads
+// each plane byte once (no passes) and keeps the products' work near the
+// function's: a column's 16 rows a product, the bins padded only to the
+// next 64 F0. On the card it is held back by neither (PERF.md: its times;
+// tools/reassign_mxu_phases.py: the phases' clocks): a small wgmma costs
+// ~20-30 cycles of the SM (m64n32k16 at nf = 293, m64n104k16 at 1025),
+// binning an entry and writing its marks each take ~1400 cycles of one
+// thread, and a warpgroup's binning and its stalled product issue take
+// turns.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bins.cuh"
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using ssq::Plan;
-using ssq::mma_tf32;
-using ssq::tf32;
 
-constexpr int kCols = 8;       // columns per block = warps per block
-constexpr int kRows = 32;      // rows per shared-memory stage
-constexpr int kThreads = kCols * 32;
-constexpr int kTileBins = 256; // 16 f1 x 16 f0
+constexpr int kGroups = 4;                 // warpgroups a block
+constexpr int kThreads = 128 * kGroups;
+constexpr int kStages = 3;                 // plane stages in the ring
+constexpr int kMaxSmem = 232448;           // a block's shared memory
+constexpr int kMaxNf = 4096;               // 64 high digits x F0 = 64
+constexpr int kAccRegs = 64;               // accumulators a thread
+constexpr int kMaxCols = 32;               // columns a block
+constexpr int kMaxEntries = 2;             // entries a thread bins a stage
+constexpr int kMaxRows = 128;              // rows a stage
+constexpr int kParts = 3;                  // bf16 parts of a value
+constexpr int kTileA = 2048;               // bytes of a step's A tile
+constexpr uint16_t kOne = 0x3F80u;         // bf16 one
 
-template <int TG>
-__global__ void __launch_bounds__(kThreads)
+// The host plan (reassign_cuda._mxu_plan mirrors these). F0, the low
+// digit's width, is the smallest with 64 * F0 >= nf; N = 6 * F0 (re, im
+// x 3 parts) rounded up to 8 (to 16 past 128, to 32 past 256).
+__host__ __device__ constexpr int f0_for(int nf) { return (nf + 63) / 64; }
+
+__host__ __device__ constexpr int n_tile_for(int nf) {
+  return 6 * f0_for(nf) <= 128   ? (6 * f0_for(nf) + 7) / 8 * 8
+         : 6 * f0_for(nf) <= 256 ? (6 * f0_for(nf) + 15) / 16 * 16
+                                 : (6 * f0_for(nf) + 31) / 32 * 32;
+}
+
+// warpgroups that share a column: each takes N / split of its products
+// (at most 128)
+__host__ __device__ constexpr int split_for(int N) {
+  return N <= 128 ? 1 : N <= 256 ? 2 : 4;
+}
+
+// columns a warpgroup: its accumulators (N / split / 2 a column) within
+// kAccRegs registers a thread, the block's columns within kMaxCols
+__host__ __device__ constexpr int cols_per_group(int N) {
+  return kAccRegs / (N / split_for(N) / 2) <
+                 kMaxCols * split_for(N) / kGroups
+             ? kAccRegs / (N / split_for(N) / 2)
+             : kMaxCols * split_for(N) / kGroups;
+}
+
+__host__ __device__ constexpr int cols_for(int N) {
+  return kGroups / split_for(N) * cols_per_group(N);
+}
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Dynamic shared memory: the A tiles then the B tiles of a stage
+// ([COLS][STEPS] each), or at the end the products D ([64][N + 1][COLS +
+// 1] floats: odd strides, so the store's reads spread over the banks),
+// then the plane ring (each stage the four planes' (rows x
+// cols) tiles, rows padded to cols + 4 floats, then the rows' sfs and
+// const) and the mbarriers.
+__host__ __device__ constexpr int tile_bytes(int N, int cols, int rows) {
+  return cols * (rows / 16) * (kTileA + 32 * N);
+}
+
+__host__ __device__ constexpr int region_bytes(int N, int cols, int rows) {
+  return round_up(tile_bytes(N, cols, rows) > 64 * (N + 1) * (cols + 1) * 4
+                      ? tile_bytes(N, cols, rows)
+                      : 64 * (N + 1) * (cols + 1) * 4,
+                  128);
+}
+
+__host__ __device__ constexpr int stage_floats(int cols, int rows) {
+  return 4 * rows * (cols + 4) + 2 * rows;
+}
+
+__host__ __device__ constexpr int smem_bytes(int N, int cols, int rows) {
+  return region_bytes(N, cols, rows) + kStages * stage_floats(cols, rows) * 4 +
+         kStages * 8;
+}
+
+// rows a stage: a multiple of 16 (whole k16 steps), at most kMaxRows and
+// kMaxEntries entries a thread, less by 16 until the shared memory fits
+__host__ __device__ constexpr int rows_for(int N) {
+  const int most = kMaxEntries * kThreads / cols_for(N) / 16 * 16;
+  int rows = most < kMaxRows ? most : kMaxRows;
+  rows = rows < 16 ? 16 : rows;
+  while (smem_bytes(N, cols_for(N), rows) > kMaxSmem) rows -= 16;
+  return rows;
+}
+
+template <int N>
+struct Shape {
+  static constexpr int kSplit = split_for(N);
+  static constexpr int kNW = N / kSplit;       // products of a warpgroup
+  static constexpr int kCpg = cols_per_group(N);
+  static constexpr int kCols = cols_for(N);
+  static constexpr int kRows = rows_for(N);
+  static constexpr int kSteps = kRows / 16;    // k16 steps a stage
+  static constexpr int kTileB = 32 * N;        // bytes of a step's B tile
+  static constexpr int kTilesB = kCols * kSteps * kTileA;  // B tiles' offset
+  static constexpr int kEntries = (kRows * kCols + kThreads - 1) / kThreads;
+  static constexpr int kLd = kCols + 1;        // D strides
+  static constexpr int kLdn = (N + 1) * kLd;
+  static constexpr int kLdr = kCols + 4;       // plane row stride in the ring
+  static constexpr int kPlane = kRows * kLdr;  // floats of a plane's tile
+  static constexpr int kPlanes = region_bytes(N, kCols, kRows);
+  static constexpr int kStage = stage_floats(kCols, kRows);
+  static constexpr int kBars = kPlanes + kStages * kStage * 4;
+  static constexpr int kSmem = kBars + kStages * 8;
+  static_assert(kSmem == smem_bytes(N, kCols, kRows), "layout");
+  static_assert(kSmem <= kMaxSmem && kRows % 16 == 0 && kRows >= 16, "plan");
+  static_assert(kEntries <= kMaxEntries && kNW % 8 == 0 && kNW <= 128 &&
+                    kCpg >= 1 && kCpg * kNW / 2 <= kAccRegs,
+                "plan");
+};
+
+// The three bf16 parts of v, v = hi + mid + lo, each rounded to nearest
+// even (hi of v, mid of v - hi, lo of the rest), as bits.
+__device__ __forceinline__ void split3(float v, uint16_t (&b)[kParts]) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+  const float r1 = __fsub_rn(v, __bfloat162float(hi));
+  const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 lo =
+      __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+  b[0] = __bfloat16_as_ushort(hi);
+  b[1] = __bfloat16_as_ushort(mid);
+  b[2] = __bfloat16_as_ushort(lo);
+}
+
+// Byte of element (k, row) in a K-major tile (wgmma.cuh: LBO 128, SBO 256).
+__device__ __forceinline__ int at(int k, int row) {
+  return ((row & 7) << 4) + ((k & 7) << 1) + ((k >> 3) << 7) +
+         ((row >> 3) << 8);
+}
+
+// Entry e of a stage: 16 consecutive threads take the 16 rows of one
+// column's k16 step (their tile writes and plane reads then spread over
+// the banks), the columns next, then the steps.
+template <int COLS>
+__device__ __forceinline__ int entry_row(int e) {
+  return (e >> 4) / COLS * 16 + (e & 15);
+}
+
+template <int COLS>
+__device__ __forceinline__ int entry_col(int e) {
+  return (e >> 4) % COLS;
+}
+
+__device__ __forceinline__ void set16(unsigned char* p, uint16_t v) {
+  *reinterpret_cast<uint16_t*>(p) = v;
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
 reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
                     const float* __restrict__ dr, const float* __restrict__ di,
                     const float* __restrict__ cst, const float* __restrict__ sfs,
                     int na, long long n, Plan P, int transform, float gamma2,
-                    int ntiles, float* __restrict__ txr,
+                    int F0, int vec, float* __restrict__ txr,
                     float* __restrict__ txi) {
-  __shared__ int sk[kRows][kCols];
-  __shared__ float svr[kRows][kCols];
-  __shared__ float svi[kRows][kCols];
-  __shared__ float sout[2][kTileBins][kCols];
+  using S = Shape<N>;
+  constexpr int COLS = S::kCols, ROWS = S::kRows, STEPS = S::kSteps;
+  constexpr int CPG = S::kCpg, NW = S::kNW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* tilesA = smem;                    // [COLS][STEPS]
+  unsigned char* tilesB = smem + S::kTilesB;       // [COLS][STEPS]
+  float* ring = reinterpret_cast<float*>(smem + S::kPlanes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  float* prod = reinterpret_cast<float*>(smem);    // D at the end
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;       // groupID, thread in group
-  const long long j0 = (long long)blockIdx.x * kCols;
-  const int tile0 = blockIdx.y * TG;
-  const long long bat = blockIdx.z;
-
-  // loader role: this thread's entry of each stage
-  const int lr = tid / kCols, lc = tid % kCols;
-  const long long jl = j0 + lc;
-  const long long pbase = bat * na * n + jl;
-
-  float acc[TG][2][2][4];      // [tile][f0 half][re, im][fragment]
-#pragma unroll
-  for (int t = 0; t < TG; ++t)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][h][c][e] = 0.f;
-
-  float C = 0.f, D = 0.f, A = 0.f, B = 0.f;
-  auto load = [&](int i0) {
-    const int i = i0 + lr;
-    if (i < na && jl < n) {
-      const long long o = pbase + (long long)i * n;
-      C = wr[o];
-      D = wi[o];
-      A = dr[o];
-      B = di[o];
-    }
-  };
-  load(0);
-
-  for (int i0 = 0; i0 < na; i0 += kRows) {
-    // this thread's entry: its bin and value (k = -1, v = 0 when masked,
-    // past the last row or past the last column)
-    const int i = i0 + lr;
-    int k = -1;
-    float vr = 0.f, vi = 0.f;
-    if (i < na && jl < n) {
-      const float w = ssq::phase_w(C, D, A, B, sfs[i], gamma2, transform);
-      k = ssq::bin_of(w, P);
-      if (k >= 0) {
-        const float c = cst[i];
-        vr = __fmul_rn(C, c);
-        vi = __fmul_rn(D, c);
-      }
-    }
-    __syncthreads();           // the previous stage's readers are done
-    sk[lr][lc] = k;
-    svr[lr][lc] = vr;
-    svi[lr][lc] = vi;
-    __syncthreads();
-    if (i0 + kRows < na) load(i0 + kRows);   // in flight during the mma
-
-#pragma unroll
-    for (int s = 0; s < kRows / 8; ++s) {
-      const int r0 = s * 8 + q, r1 = r0 + 4;
-      const int k0 = sk[r0][warp], k1 = sk[r1][warp];
-      const float vr0 = svr[r0][warp], vr1 = svr[r1][warp];
-      const float vi0 = svi[r0][warp], vi1 = svi[r1][warp];
-      const int hi0 = k0 >> 4, hi1 = k1 >> 4;  // -1 >> 4 == -1: no f1
-      const int lo0 = k0 & 15, lo1 = k1 & 15;
-      // A fragments (one per tile): rows g, g + 8 (f1), cols q, q + 4 (rows)
-      uint32_t a[TG][4];
-#pragma unroll
-      for (int t = 0; t < TG; ++t) {
-        const int f1 = (tile0 + t) * 16 + g;
-        a[t][0] = (hi0 == f1) ? 0x3f800000u : 0u;
-        a[t][1] = (hi0 == f1 + 8) ? 0x3f800000u : 0u;
-        a[t][2] = (hi1 == f1) ? 0x3f800000u : 0u;
-        a[t][3] = (hi1 == f1 + 8) ? 0x3f800000u : 0u;
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // B fragments: rows q, q + 4 (rows of Wx), col g (f0 = 8h + g)
-        const int f0 = h * 8 + g;
-        const float br0 = (lo0 == f0) ? vr0 : 0.f;
-        const float br1 = (lo1 == f0) ? vr1 : 0.f;
-        const float bi0 = (lo0 == f0) ? vi0 : 0.f;
-        const float bi1 = (lo1 == f0) ? vi1 : 0.f;
-        const uint32_t rh0 = tf32(br0), rh1 = tf32(br1);
-        const uint32_t ih0 = tf32(bi0), ih1 = tf32(bi1);
-        const uint32_t rl0 = tf32(br0 - __uint_as_float(rh0));
-        const uint32_t rl1 = tf32(br1 - __uint_as_float(rh1));
-        const uint32_t il0 = tf32(bi0 - __uint_as_float(ih0));
-        const uint32_t il1 = tf32(bi1 - __uint_as_float(ih1));
-#pragma unroll
-        for (int t = 0; t < TG; ++t) {
-          if (tile0 + t < ntiles) {
-            mma_tf32(acc[t][h][0], a[t], rh0, rh1);
-            mma_tf32(acc[t][h][0], a[t], rl0, rl1);
-            mma_tf32(acc[t][h][1], a[t], ih0, ih1);
-            mma_tf32(acc[t][h][1], a[t], il0, il1);
-          }
-        }
-      }
-    }
-  }
-
-  // store: each tile's 256 bins of the block's 8 columns through shared
-  // memory; C fragment e sits at row g (+8 for e >= 2), col 2q + (e & 1)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, q = tid & 3;
+  const int c0 = wg / S::kSplit * CPG;             // this warpgroup's columns
+  const int n0 = wg % S::kSplit * NW;              // and products
+  const long long j0 = (long long)blockIdx.x * COLS;
+  const long long pbase = (long long)blockIdx.y * na * n;
+  const int T = (na + ROWS - 1) / ROWS;
   const int nf = P.nf;
-  const long long obase = bat * nf * n + j0;
-#pragma unroll
-  for (int t = 0; t < TG; ++t) {
-    if (tile0 + t >= ntiles) break;
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int lb = (g + (e >= 2 ? 8 : 0)) * 16 + h * 8 + 2 * q + (e & 1);
-        sout[0][lb][warp] = acc[t][h][0][e];
-        sout[1][lb][warp] = acc[t][h][1][e];
+  const float inv_f0 = 1.f / (float)F0;
+
+  for (int o = tid * 16; o < S::kPlanes; o += kThreads * 16)
+    *reinterpret_cast<uint4*>(smem + o) = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) ssq::mbar_init(&bars[s], kThreads);
+    ssq::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // stage t's tiles of the four planes and its rows' sfs and const into
+  // ring slot t % kStages; each thread arrives once on the slot's barrier
+  // when its copies land
+  auto load = [&](int t) {
+    float* dst = ring + (t % kStages) * S::kStage;
+    const int i0 = t * ROWS;
+    if (vec) {
+      constexpr int kQuads = COLS / 4 > 0 ? COLS / 4 : 1;
+      for (int c = tid; c < 4 * ROWS * kQuads; c += kThreads) {
+        const int p = c / (ROWS * kQuads), rc = c - p * (ROWS * kQuads);
+        const int r = rc / kQuads, c4 = (rc - r * kQuads) * 4;
+        const float* src = p == 0 ? wr : p == 1 ? wi : p == 2 ? dr : di;
+        if (i0 + r < na && j0 + c4 < n)
+          ssq::cp_async16(dst + p * S::kPlane + r * S::kLdr + c4,
+                          src + pbase + (long long)(i0 + r) * n + j0 + c4);
       }
-    __syncthreads();
-    const int kb = (tile0 + t) * kTileBins;
-    for (int e = tid; e < kTileBins * kCols; e += kThreads) {
-      const int lb = e / kCols, c = e % kCols;
-      const int kk = kb + lb;
-      if (kk < nf && j0 + c < n) {
-        const long long o = obase + (long long)kk * n + c;
-        txr[o] = sout[0][lb][c];
-        txi[o] = sout[1][lb][c];
+    } else {
+      for (int e = tid; e < 4 * ROWS * COLS; e += kThreads) {
+        const int p = e / (ROWS * COLS), rc = e - p * (ROWS * COLS);
+        const int r = rc / COLS, c = rc - r * COLS;
+        const float* src = p == 0 ? wr : p == 1 ? wi : p == 2 ? dr : di;
+        if (i0 + r < na && j0 + c < n)
+          ssq::cp_async4(dst + p * S::kPlane + r * S::kLdr + c,
+                         src + pbase + (long long)(i0 + r) * n + j0 + c);
       }
+    }
+    if (tid < ROWS && i0 + tid < na) {
+      ssq::cp_async4(dst + 4 * S::kPlane + tid, sfs + i0 + tid);
+      ssq::cp_async4(dst + 4 * S::kPlane + ROWS + tid, cst + i0 + tid);
+    }
+    ssq::cp_async_arrive(&bars[t % kStages]);
+  };
+
+  float acc[CPG][NW / 2];
+#pragma unroll
+  for (int u = 0; u < CPG; ++u)
+#pragma unroll
+    for (int x = 0; x < NW / 2; ++x) acc[u][x] = 0.f;
+  int prev_hi[S::kEntries], prev_lo[S::kEntries];   // marks in the tiles
+#pragma unroll
+  for (int u = 0; u < S::kEntries; ++u) prev_hi[u] = prev_lo[u] = -1;
+
+  for (int t = 0; t < kStages - 1 && t < T; ++t) load(t);
+  for (int t = 0; t < T; ++t) {
+    // ring slot (t + 2) % kStages was read at stage t - 1, before its
+    // barriers
+    if (t + kStages - 1 < T) load(t + kStages - 1);
+    ssq::mbar_wait(&bars[t % kStages], (t / kStages) & 1);
+    // this thread's entries: every bin first (independent chains, while
+    // the products of stage t - 1 run), then the writes
+    const float* st = ring + (t % kStages) * S::kStage;
+    int kv[S::kEntries];
+    uint16_t pv[S::kEntries][2][kParts];
+#pragma unroll
+    for (int u = 0; u < S::kEntries; ++u) {
+      const int e = tid + u * kThreads;
+      const int r = entry_row<COLS>(e), c = entry_col<COLS>(e);
+      const bool valid = e < ROWS * COLS && t * ROWS + r < na && j0 + c < n;
+      const float* sp = st + (valid ? r * S::kLdr + c : 0);
+      const float C = sp[0], D = sp[S::kPlane];
+      const float A = sp[2 * S::kPlane], B = sp[3 * S::kPlane];
+      const float* rv = st + 4 * S::kPlane + (valid ? r : 0);
+      const float w = ssq::phase_w(C, D, A, B, rv[0], gamma2, transform);
+      kv[u] = valid ? ssq::bin_of(w, P) : -1;
+      split3(__fmul_rn(C, rv[ROWS]), pv[u][0]);
+      split3(__fmul_rn(D, rv[ROWS]), pv[u][1]);
+    }
+    ssq::wgmma_wait<0>();       // this warpgroup's products of stage t - 1
+#pragma unroll
+    for (int u = 0; u < CPG; ++u)
+#pragma unroll
+      for (int x = 0; x < NW / 2; ++x) ssq::fence_operand(acc[u][x]);
+    __syncthreads();            // every product of stage t - 1 has run
+#pragma unroll
+    for (int u = 0; u < S::kEntries; ++u) {
+      const int e = tid + u * kThreads;
+      if (e < ROWS * COLS) {
+        const int r = entry_row<COLS>(e), c = entry_col<COLS>(e);
+        const int tile = c * STEPS + (r >> 4), k = r & 15;
+        unsigned char* ta = tilesA + tile * kTileA;
+        unsigned char* tb = tilesB + tile * S::kTileB;
+        if (prev_hi[u] >= 0) {
+          set16(ta + at(k, prev_hi[u]), 0);
+#pragma unroll
+          for (int z = 0; z < 2 * kParts; ++z)
+            set16(tb + at(k, z * F0 + prev_lo[u]), 0);
+        }
+        const int bin = kv[u];
+        int khi = -1, klo = -1;
+        if (bin >= 0) {
+          khi = (int)(((float)bin + 0.5f) * inv_f0);
+          klo = bin - khi * F0;
+          set16(ta + at(k, khi), kOne);
+#pragma unroll
+          for (int z = 0; z < 2 * kParts; ++z)
+            set16(tb + at(k, z * F0 + klo), pv[u][z / kParts][z % kParts]);
+        }
+        prev_hi[u] = khi;
+        prev_lo[u] = klo;
+      }
+    }
+    ssq::fence_proxy_async();
+    __syncthreads();            // stage t's tiles are whole
+    // this warpgroup's products of stage t: a step, a column, one
+    // m64n(NW)k16 over its share of B's columns; they run while the next
+    // stage is binned
+    ssq::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s)
+#pragma unroll
+      for (int u = 0; u < CPG; ++u) {
+        const int tile = (c0 + u) * STEPS + s;
+        ssq::WgmmaSS<NW>::mma(
+            acc[u], ssq::desc_kmajor(tilesA + tile * kTileA),
+            ssq::desc_kmajor(tilesB + tile * S::kTileB + n0 * 32));
+      }
+    ssq::wgmma_commit();
+#pragma unroll
+    for (int u = 0; u < CPG; ++u)
+#pragma unroll
+      for (int x = 0; x < NW / 2; ++x) ssq::fence_operand(acc[u][x]);
+  }
+  ssq::wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < CPG; ++u)
+#pragma unroll
+    for (int x = 0; x < NW / 2; ++x) ssq::fence_operand(acc[u][x]);
+  __syncthreads();              // every product has run: D takes the tiles
+
+#pragma unroll
+  for (int u = 0; u < CPG; ++u)
+#pragma unroll
+    for (int x = 0; x < NW / 2; ++x) {
+      const int t8 = x >> 2, e = x & 3;
+      const int f1 = 16 * warp + g + 8 * (e >> 1);
+      const int col = n0 + 8 * t8 + 2 * q + (e & 1);
+      prod[f1 * S::kLdn + col * S::kLd + c0 + u] = acc[u][x];
+    }
+  __syncthreads();
+
+  // Tx[c][f1 * F0 + f0] = (D[3c F0 + f0] + D[(3c + 1) F0 + f0])
+  //                       + D[(3c + 2) F0 + f0], at row f1 of D
+  const long long obase = (long long)blockIdx.y * nf * n + j0;
+  auto tx = [&](int part, int bin, int c) {
+    const int f1 = (int)(((float)bin + 0.5f) * inv_f0), f0 = bin - f1 * F0;
+    const float* d = prod + f1 * S::kLdn + (3 * part * F0 + f0) * S::kLd + c;
+    const int stride = F0 * S::kLd;
+    return __fadd_rn(__fadd_rn(d[0], d[stride]), d[2 * stride]);
+  };
+  if (vec) {                    // whole float4s of each row (n % 4 == 0)
+    constexpr int Q = COLS / 4 > 0 ? COLS / 4 : 1;
+    for (int o = tid; o < 2 * nf * Q; o += kThreads) {
+      const int pb = o / Q, c = (o - pb * Q) * 4;
+      const int part = pb >= nf ? 1 : 0, bin = pb - part * nf;
+      if (j0 + c < n)
+        *reinterpret_cast<float4*>((part ? txi : txr) + obase +
+                                   (long long)bin * n + c) =
+            make_float4(tx(part, bin, c), tx(part, bin, c + 1),
+                        tx(part, bin, c + 2), tx(part, bin, c + 3));
+    }
+  } else {
+    for (int o = tid; o < 2 * nf * COLS; o += kThreads) {
+      const int pb = o / COLS, c = o - pb * COLS;
+      const int part = pb >= nf ? 1 : 0, bin = pb - part * nf;
+      if (j0 + c < n)
+        (part ? txi : txr)[obase + (long long)bin * n + c] = tx(part, bin, c);
     }
   }
 }
 
-template <int TG>
+template <int N>
 int launch(const float* wr, const float* wi, const float* dr, const float* di,
            const float* cst, const float* sfs, int batch, int na, long long n,
-           const Plan& P, int transform, float gamma2, int ntiles,
-           int passes, float* txr, float* txi, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + kCols - 1) / kCols), (unsigned)passes,
-                  (unsigned)batch);
-  reassign_mxu_kernel<TG><<<grid, kThreads, 0, stream>>>(
-      wr, wi, dr, di, cst, sfs, na, n, P, transform, gamma2, ntiles, txr,
-      txi);
+           const Plan& P, int transform, float gamma2, float* txr, float* txi,
+           cudaStream_t stream) {
+  using S = Shape<N>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      reassign_mxu_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = S::kCols % 4 == 0 && n % 4 == 0 &&
+                  (((uintptr_t)wr | (uintptr_t)wi | (uintptr_t)dr |
+                    (uintptr_t)di | (uintptr_t)txr | (uintptr_t)txi) & 15) == 0;
+  const dim3 grid((unsigned)((n + S::kCols - 1) / S::kCols), (unsigned)batch);
+  reassign_mxu_kernel<N><<<grid, kThreads, S::kSmem, stream>>>(
+      wr, wi, dr, di, cst, sfs, na, n, P, transform, gamma2, f0_for(P.nf),
+      vec, txr, txi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Planes are (batch, na, n) and (batch, nf, n), row-major float32. The
-// wrapper splits the ntiles = ceil(nf / 256) tiles into `passes` passes
-// of `tiles_per_pass` (1..4) tiles each (reassign_cuda._mxu_passes).
+// Planes are (batch, na, n) and (batch, nf, n), row-major float32; nf <=
+// 4096. `n_tile` is the plan's wgmma width N (reassign_cuda._mxu_plan);
+// any other value, or nf out of range, returns cudaErrorInvalidValue.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ssq_reassign_mxu(const float* wr, const float* wi,
                                 const float* dr, const float* di,
@@ -242,21 +470,25 @@ extern "C" int ssq_reassign_mxu(const float* wr, const float* wi,
                                 int na, long long n, int nf, int transform,
                                 int mode, int flipud, float gamma2, float p0,
                                 float p1, float p2, float p3, float p4,
-                                int tiles_per_pass, float* txr, float* txi,
+                                int n_tile, float* txr, float* txi,
                                 void* stream) {
+  if (nf < 1 || nf > kMaxNf || n_tile != n_tile_for(nf))
+    return (int)cudaErrorInvalidValue;
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
-  const int ntiles = (nf + kTileBins - 1) / kTileBins;
-  const int passes = (ntiles + tiles_per_pass - 1) / tiles_per_pass;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (tiles_per_pass) {
-    case 1: return launch<1>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
-                             transform, gamma2, ntiles, passes, txr, txi, s);
-    case 2: return launch<2>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
-                             transform, gamma2, ntiles, passes, txr, txi, s);
-    case 3: return launch<3>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
-                             transform, gamma2, ntiles, passes, txr, txi, s);
-    case 4: return launch<4>(wr, wi, dr, di, cst, sfs, batch, na, n, P,
-                             transform, gamma2, ntiles, passes, txr, txi, s);
+#define SSQ_MXU_CASE(NT)                                                    \
+  case NT:                                                                  \
+    return launch<NT>(wr, wi, dr, di, cst, sfs, batch, na, n, P, transform, \
+                      gamma2, txr, txi, s);
+  switch (n_tile) {
+    SSQ_MXU_CASE(8) SSQ_MXU_CASE(16) SSQ_MXU_CASE(24) SSQ_MXU_CASE(32)
+    SSQ_MXU_CASE(40) SSQ_MXU_CASE(48) SSQ_MXU_CASE(56) SSQ_MXU_CASE(64)
+    SSQ_MXU_CASE(72) SSQ_MXU_CASE(80) SSQ_MXU_CASE(88) SSQ_MXU_CASE(96)
+    SSQ_MXU_CASE(104) SSQ_MXU_CASE(112) SSQ_MXU_CASE(120) SSQ_MXU_CASE(128)
+    SSQ_MXU_CASE(144) SSQ_MXU_CASE(160) SSQ_MXU_CASE(176) SSQ_MXU_CASE(192)
+    SSQ_MXU_CASE(208) SSQ_MXU_CASE(224) SSQ_MXU_CASE(240) SSQ_MXU_CASE(256)
+    SSQ_MXU_CASE(288) SSQ_MXU_CASE(320) SSQ_MXU_CASE(352) SSQ_MXU_CASE(384)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SSQ_MXU_CASE
 }

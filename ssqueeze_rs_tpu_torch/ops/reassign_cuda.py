@@ -23,7 +23,8 @@ of `_make_bwd_kernel`), which dispatches the same way.
 The 4-plane contract has a second implementation, kernel I
 (``csrc/reassign_mxu.cu``, plain version `reassign_mxu_plain`;
 counterpart of `_make_mxu_kernel`): the same bins, summed as a
-digit-split one-hot matrix product on the tensor cores. It has no entry
+digit-split one-hot matrix product on the tensor cores (wgmma, one
+pass over the planes for every nf <= 4096, `_mxu_plan`). It has no entry
 of its own: `reassign4` picks B' or I from
 SSQ_TPU_REASSIGN_IMPL at each call ('vpu', the default, or 'mxu'; any
 other value raises), as the JAX package's `reassign_pallas` does; the
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -240,7 +242,7 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
     per-row vectors in. The forward ones (B, B', I and probe P4's 3-plane
     `full`; `grads` None) take one launch-shape int (B, B': the columns
     per block, `_block_cols`, unless `per_block` is given; I: `per_block`,
-    its tiles per pass) and write (Txr, Txi), each (..., nf, n); the
+    its wgmma width `_mxu_plan(nf).n_tile`) and write (Txr, Txi), each (..., nf, n); the
     backward ones (C, C') read the cotangents `grads` = (gr, gi), each
     (..., nf, n), and write (gWr, gWi), each (..., na, n). Outputs are
     in the planes' type."""
@@ -511,15 +513,72 @@ def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
 
 
 # -- kernel I: the digit-split tensor-core scatter ------------------------------
-TILE_BINS = 256          # bins per tile of kernel I: 16 high x 16 low digits
+MXU_MAX_NF = 4096        # kernel I's bins: 64 high digits x a low digit <= 64
+MXU_GROUPS = 4           # warpgroups of a block: each bins and multiplies
+MXU_STAGES = 3           # plane stages in kernel I's shared-memory ring
+_MXU_ACC = 64            # accumulator registers a thread
+_MXU_MAX_COLS = 32       # columns a block
+_MXU_ENTRIES = 2         # entries a thread bins a stage
+_MXU_MAX_ROWS = 128      # rows a stage
 
 
-def _mxu_tiles_per_pass(nf: int) -> int:
-    """Tiles (of 256 bins) that one pass of kernel I keeps in registers:
-    at most 4, the tiles spread evenly over ceil(tiles / 4) passes."""
-    tiles = -(-nf // TILE_BINS)
-    passes = -(-tiles // 4)
-    return -(-tiles // passes)
+class MxuPlan(NamedTuple):
+    """Kernel I's launch plan for nf bins (csrc/reassign_mxu.cu computes
+    the same from nf): bin k = f0 * khi + klo with khi < f1 <= 64 (the
+    wgmma's M); N = `n_tile`, 6 * f0 (real and imaginary parts, three
+    bf16 parts each) rounded up to 8 (16 past 128, 32 past 256), shared
+    by `split` warpgroups a column (1, 2 or 4: at most 128 each); `cols`
+    columns a block, whose sums stay in registers for the whole walk down
+    the rows; `rows` rows a stage (whole k16 steps of 16 rows); `stages`
+    plane stages in flight; `smem` bytes of dynamic shared memory;
+    `passes` over the planes (one for every nf it takes)."""
+    f0: int
+    f1: int
+    n_tile: int
+    split: int
+    cols: int
+    rows: int
+    stages: int
+    smem: int
+    passes: int
+
+
+def _mxu_smem(n_tile: int, cols: int, rows: int) -> int:
+    """Kernel I's shared memory: a stage's A tiles (2048 bytes a column a
+    step) and B tiles (32 * n_tile bytes), which at the end hold the
+    products D (64 x n_tile + 1 x cols + 1 floats), then the plane ring (each
+    stage the four planes' tiles, rows padded to cols + 4 floats, and the
+    rows' sfs and const) and the mbarriers."""
+    tiles = cols * (rows // 16) * (2048 + 32 * n_tile)
+    region = -(-max(tiles, 64 * (n_tile + 1) * (cols + 1) * 4) // 128) * 128
+    stage = 4 * rows * (cols + 4) + 2 * rows     # rows padded to cols + 4
+    return region + MXU_STAGES * stage * 4 + MXU_STAGES * 8
+
+
+def _mxu_plan(nf: int) -> MxuPlan:
+    """Kernel I's plan for nf bins: the smallest low-digit width f0 that
+    keeps the high digit under 64, so that one product of N = `n_tile`
+    columns (split over 1, 2 or 4 warpgroups, at most 128 each) a column
+    and 16 rows covers every bin; as many columns a warpgroup as keep its
+    accumulators within 64 registers a thread (at most 32 a block); the
+    most rows a stage (a multiple of 16, at most 128 and two entries a
+    thread) whose shared memory fits. Raises beyond nf = 4096."""
+    if not 1 <= nf <= MXU_MAX_NF:
+        raise ValueError(f"nf={nf} frequency rows: kernel I takes 1 to "
+                         f"{MXU_MAX_NF}")
+    f0 = -(-nf // 64)
+    step = 8 if 6 * f0 <= 128 else 16 if 6 * f0 <= 256 else 32
+    n_tile = -(-6 * f0 // step) * step
+    split = 1 if n_tile <= 128 else 2 if n_tile <= 256 else 4
+    per_group = min(_MXU_ACC // (n_tile // split // 2),
+                    _MXU_MAX_COLS * split // MXU_GROUPS)
+    cols = MXU_GROUPS // split * per_group
+    rows = max(16, min(_MXU_MAX_ROWS,
+                       _MXU_ENTRIES * 128 * MXU_GROUPS // cols // 16 * 16))
+    while _mxu_smem(n_tile, cols, rows) > MAX_SMEM:
+        rows -= 16
+    return MxuPlan(f0, -(-nf // f0), n_tile, split, cols, rows, MXU_STAGES,
+                   _mxu_smem(n_tile, cols, rows), 1)
 
 
 @contextlib.contextmanager
@@ -533,41 +592,57 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def _split3(v):
+    """v = hi + mid + lo, each part rounded to bfloat16 (to nearest even)
+    and carried in v's type: kernel I's `split3`."""
+    hi = v.to(torch.bfloat16).to(v.dtype)
+    r1 = v - hi
+    mid = r1.to(torch.bfloat16).to(v.dtype)
+    return hi, mid, (r1 - mid).to(torch.bfloat16).to(v.dtype)
+
+
 def reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
                        flipud, nf, transform):
-    """Plain-torch kernel I: the bins of `reassign4_plain`, split into
-    digits k = 16*khi + klo, and per column the product of khi's one-hot
-    (F1 x na) with v times klo's one-hot (na x 16), by `einsum` over the
-    rows in column chunks (one-hots under ~1 GB). Returns (Txr, Txi),
+    """Plain-torch kernel I, step by step: the bins of `reassign4_plain`,
+    split into digits k = f0 * khi + klo by `_mxu_plan(nf)`, each value
+    cut into its three bfloat16 parts (`_split3`), and per column the
+    product of khi's one-hot (rows x 64 high digits) with the parts at
+    their low digit (rows x 3 parts x f0), real and imaginary parts side
+    by side as the kernel's N, summed over rows and parts in float32 by
+    `einsum` in column chunks (one-hots under ~1 GB). Returns (Txr, Txi),
     each (..., nf, n)."""
     _check_transform(transform)
     _, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const, Sfs)
+    plan = _mxu_plan(nf)
+    f0 = plan.f0
     w = phase_w(wr, wi, dr, di, Sfs, gamma, transform)
     k = bin_indices(w, mode, plan_params, flipud, nf)
     mask = k >= 0
     c = const[:, None]
     zero = torch.zeros((), dtype=wr.dtype, device=wr.device)
     vr, vi = torch.where(mask, wr * c, zero), torch.where(mask, wi * c, zero)
-    khi, klo = k >> 4, k & 15          # k = -1: khi = -1 matches no row
+    khi = torch.where(mask, torch.div(k, f0, rounding_mode="floor"), -1)
+    klo = torch.where(mask, k % f0, 0)
     batch, (na, n) = wr.shape[:-2], wr.shape[-2:]
-    F1 = -(-nf // 16)
-    f1 = torch.arange(F1, device=wr.device)
-    f0 = torch.arange(16, device=wr.device)
-    step = max(1, (1 << 30) // (na * (4 * F1 + 144)))
+    f1 = torch.arange(64, device=wr.device)
+    lo = torch.arange(f0, device=wr.device)
+    step = max(1, (1 << 30) // (na * 4 * (64 + 2 * 3 * f0)))
     khi, klo, vr, vi = (a.reshape(-1, na, n) for a in (khi, klo, vr, vi))
-    outs = [torch.empty((khi.shape[0], F1 * 16, n), dtype=wr.dtype,
-                        device=wr.device) for _ in range(2)]
+    out = torch.empty((khi.shape[0], 64 * f0, 2, n), dtype=wr.dtype,
+                      device=wr.device)
     with _full_f32_matmul():
         for b in range(khi.shape[0]):
             for j0 in range(0, n, step):
                 cols = slice(j0, j0 + step)
                 A = (khi[b, :, cols, None] == f1).to(wr.dtype)
-                sel = klo[b, :, cols, None] == f0
-                for out, v in zip(outs, (vr, vi)):
-                    Bm = torch.where(sel, v[b, :, cols, None], zero)
-                    out[b, :, cols] = torch.einsum(
-                        "icf,icg->fgc", A, Bm).reshape(F1 * 16, -1)
-    return tuple(o[:, :nf].reshape(batch + (nf, n)) for o in outs)
+                sel = klo[b, :, cols, None] == lo
+                Bm = torch.stack([torch.stack(
+                    [torch.where(sel, p[..., None], zero)
+                     for p in _split3(v[b, :, cols])], 2)
+                    for v in (vr, vi)], 3)        # (rows, cols, 3, 2, f0)
+                out[b, :, :, cols] = torch.einsum(
+                    "icf,icpzg->fgzc", A, Bm).reshape(64 * f0, 2, -1)
+    return tuple(out[:, :nf, z].reshape(batch + (nf, n)) for z in (0, 1))
 
 
 def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
@@ -584,7 +659,7 @@ def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
                       [const, Sfs], [TRANSFORMS[transform], MODES[mode],
                                      int(bool(flipud))], plan, nf,
                       "reassign_mxu kernel",
-                      per_block=_mxu_tiles_per_pass(nf))
+                      per_block=_mxu_plan(nf).n_tile)
         LAUNCHES_MXU += 1
         return out
     if device.type == "cpu":

@@ -41,7 +41,7 @@ def test_library_name_follows_source_content(src_tree):
                                   "grid_slope.cu", "rate_probe.cu",
                                   "dma_overlap.cu", "mxu_probe.cu",
                                   "fft_radix.cuh", "planes.cuh",
-                                  "reassign_walk.cuh"])
+                                  "reassign_walk.cuh", "wgmma.cuh"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -85,11 +85,13 @@ def _c_entry_points():
                                   "ssq_reassign_bwd", "ssq_reassign4_bwd",
                                   "ssq_reassign_f64", "ssq_reassign4_f64",
                                   "ssq_reassign_bwd_f64",
-                                  "ssq_reassign4_bwd_f64"])
+                                  "ssq_reassign4_bwd_f64",
+                                  "ssq_reassign_mxu"])
 def test_reassign_argtypes_follow_the_c_types(name):
-    """Each parameter of kernels B, B', C and C' (float and double) has the
-    ctypes type of its C declaration: a pointer, long long, int, float or
-    double (a float64 constant passed as c_float would be rounded)."""
+    """Each parameter of kernels B, B', C and C' (float and double) and I
+    has the ctypes type of its C declaration: a pointer, long long, int,
+    float or double (a float64 constant passed as c_float would be
+    rounded)."""
     import ctypes
     params = dict(_c_entry_points())[name].split(",")
     want = []
@@ -107,14 +109,22 @@ def test_reassign_argtypes_follow_the_c_types(name):
 
 
 def test_tensor_core_helpers_are_shared():
-    """Kernel I and the probes' tensor-core kernels take their mma.sync
-    tiles and roundings from one header, which defines them once."""
-    for name in ("reassign_mxu.cu", "rate_probe.cu", "dma_overlap.cu",
-                 "mxu_probe.cu"):
+    """The probes' tensor-core kernels take their mma.sync tiles and
+    roundings from one header, which defines them once; kernel I takes
+    its wgmma products, async copies and barriers from another
+    (wgmma.cuh), and writes none of that PTX itself."""
+    for name in ("rate_probe.cu", "dma_overlap.cu", "mxu_probe.cu"):
         with open(os.path.join(_build.CSRC, name)) as f:
             text = f.read()
         assert '#include "mma.cuh"' in text, name
         assert '"mma.sync' not in text and '"cvt.rna' not in text, name
+    with open(os.path.join(_build.CSRC, "reassign_mxu.cu")) as f:
+        text = f.read()
+    assert '#include "wgmma.cuh"' in text
+    assert "asm" not in text
+    with open(os.path.join(_build.CSRC, "wgmma.cuh")) as f:
+        header = f.read()
+    assert header.count("\"wgmma.mma_async.sync.aligned.m64n") == 16
 
 
 def test_cwt_kernels_share_the_four_step_header():

@@ -174,10 +174,172 @@ def test_selector(monkeypatch, planes):
                    reassign_cuda.reassign_mxu_plain(*a)))
 
 
-def test_tiles_per_pass():
-    """Kernel I keeps at most 4 tiles of 256 bins in registers per pass
-    and spreads the tiles evenly over the passes; every nf B' takes (up
-    to 3632) launches."""
-    assert [reassign_cuda._mxu_tiles_per_pass(nf) for nf in
-            (1, 256, 257, 293, 300, 1024, 1025, 2048, 3632)] == \
-        [1, 1, 2, 2, 2, 4, 3, 4, 4]
+EDGES = [1, 8, 255, 256, 257, 293, 300, 512, 513, 1024, 1025, 2048, 2049,
+         2688, 2689, 3632, reassign_cuda.MXU_MAX_NF]
+
+
+@pytest.mark.parametrize("nf", EDGES)
+def test_mxu_plan(nf):
+    """Kernel I's host plan at every edge of its digit split: the
+    smallest low-digit width that keeps the high digit under the wgmma's
+    64 rows; N = 6 * f0 rounded up to 8 (16 past 128, 32 past 256) and
+    shared by 1, 2 or 4 of a block's four warpgroups, at most 128 each;
+    each warpgroup's accumulators within 64 registers a thread and at
+    most 32 columns a block; whole k16 steps of 16 rows a stage and at
+    most two entries a thread; shared memory within Hopper's 232 448
+    bytes a block; one pass over the planes."""
+    p = reassign_cuda._mxu_plan(nf)
+    assert p.f0 == -(-nf // 64) and 64 * p.f0 >= nf > 64 * (p.f0 - 1)
+    assert p.f1 == -(-nf // p.f0) <= 64
+    step = 8 if 6 * p.f0 <= 128 else 16 if 6 * p.f0 <= 256 else 32
+    assert p.n_tile % step == 0 and 0 <= p.n_tile - 6 * p.f0 < step
+    assert p.split == min(s for s in (1, 2, 4) if p.n_tile // s <= 128)
+    share = p.n_tile // p.split
+    assert share % 8 == 0 and share <= 128
+    per_group = p.cols * p.split // reassign_cuda.MXU_GROUPS
+    assert per_group >= 1 and per_group * share // 2 <= 64 and p.cols <= 32
+    assert p.cols == 32 or (per_group + 1) * share // 2 > 64
+    assert p.rows % 16 == 0 and 16 <= p.rows <= 128
+    assert p.rows * p.cols <= 2 * 128 * reassign_cuda.MXU_GROUPS or \
+        p.rows == 16
+    assert p.stages == 3
+    assert p.smem == reassign_cuda._mxu_smem(p.n_tile, p.cols, p.rows)
+    assert p.smem <= 232448
+    assert p.passes == 1
+
+
+def test_mxu_plan_shapes():
+    """The plan at the timed shapes and where its width changes, and its
+    range: every nf from 1 to 4096 in one pass; beyond, it raises, as B'
+    does beyond its own limit (3632)."""
+    plan = reassign_cuda._mxu_plan
+    assert [tuple(plan(nf)[:6]) for nf in
+            (8, 256, 257, 293, 300, 1025, 2048, 2688, 2689)] == \
+        [(1, 8, 8, 1, 32, 32), (4, 64, 24, 1, 20, 48),
+         (5, 52, 32, 1, 16, 48), (5, 59, 32, 1, 16, 48),
+         (5, 60, 32, 1, 16, 48), (17, 61, 104, 1, 4, 128),
+         (32, 64, 192, 2, 2, 128), (42, 64, 256, 2, 2, 112),
+         (43, 63, 288, 4, 1, 128)]
+    widths = {plan(nf).n_tile for nf in range(1, 4097)}
+    assert widths == (set(range(8, 129, 8)) | set(range(144, 257, 16)) |
+                      {288, 320, 352, 384})
+    assert all(plan(nf).passes == 1 and plan(nf).smem <= 232448
+               for nf in range(1, 4097))
+    for nf in (0, 4097):
+        with pytest.raises(ValueError, match="kernel I takes"):
+            plan(nf)
+
+
+def test_mxu_kernel_dispatches_every_width():
+    """csrc/reassign_mxu.cu instantiates the kernel at every wgmma width
+    the plan hands it, and its constants are the plan's."""
+    import os
+    import re
+    from ssqueeze_rs_tpu_torch import _build
+    with open(os.path.join(_build.CSRC, "reassign_mxu.cu")) as f:
+        text = f.read()
+    cases = {int(c) for c in re.findall(r"SSQ_MXU_CASE\((\d+)\)", text)}
+    assert cases == {reassign_cuda._mxu_plan(nf).n_tile
+                     for nf in range(1, 4097)}
+    for const, value in (("kMaxNf", reassign_cuda.MXU_MAX_NF),
+                         ("kStages", reassign_cuda.MXU_STAGES),
+                         ("kGroups", reassign_cuda.MXU_GROUPS),
+                         ("kAccRegs", reassign_cuda._MXU_ACC),
+                         ("kMaxCols", reassign_cuda._MXU_MAX_COLS),
+                         ("kMaxEntries", reassign_cuda._MXU_ENTRIES),
+                         ("kMaxRows", reassign_cuda._MXU_MAX_ROWS)):
+        assert f"constexpr int {const} = {value};" in text, const
+    assert "atomicAdd" not in text and "blockIdx.z" not in text
+
+
+def _at(k, row):
+    """Byte of element (k, row) of a K-major, unswizzled bf16 tile
+    (csrc/wgmma.cuh: LBO 128, SBO 256)."""
+    return (row & 7) * 16 + (k & 7) * 2 + (k >> 3) * 128 + (row >> 3) * 256
+
+
+def _tiles_model(khi, klo, parts, f0, n_tile):
+    """numpy model of one column of kernel I through the layouts of
+    csrc/reassign_mxu.cu: for each step of 16 rows the A tile (64 x 16,
+    a one at (row e, khi)) and the B tile (16 x n_tile, the parts of the
+    real then the imaginary value at e, (3 c + p) * f0 + klo) written as
+    bf16 slots at `_at`'s bytes, read back through the descriptor's
+    layout, D += A @ B; then Tx[c][f1 * f0 + g] = (D[f1, 3c f0 + g] +
+    D[f1, (3c+1) f0 + g]) + D[f1, (3c+2) f0 + g] in float32, as the
+    store sums it. khi/klo (rows,), parts (rows, 2, 3) float32; returns
+    (2, 64 * f0)."""
+    rows = len(khi)
+    D = np.zeros((64, n_tile))
+    for s0 in range(0, rows, 16):
+        ta = np.zeros(1024, np.float32)
+        tb = np.zeros(16 * n_tile, np.float32)
+        for e in range(16):
+            i = s0 + e
+            if i >= rows or khi[i] < 0:
+                continue
+            ta[_at(e, khi[i]) // 2] = 1.0
+            for z in range(6):
+                tb[_at(e, z * f0 + klo[i]) // 2] = parts[i, z // 3, z % 3]
+        A = np.array([[ta[_at(k, m) // 2] for k in range(16)]
+                      for m in range(64)])
+        B = np.array([[tb[_at(k, c) // 2] for c in range(n_tile)]
+                      for k in range(16)])
+        D += A @ B
+    D = D.astype(np.float32)
+    out = np.zeros((2, 64 * f0), np.float32)
+    for c in range(2):
+        for f1 in range(64):
+            for g in range(f0):
+                out[c, f1 * f0 + g] = (D[f1, 3 * c * f0 + g] +
+                                       D[f1, (3 * c + 1) * f0 + g]) + \
+                    D[f1, (3 * c + 2) * f0 + g]
+    return out
+
+
+@pytest.mark.parametrize("nf", [8, 293, 1025])
+def test_kernel_layout_model(nf):
+    """The kernel's index arithmetic, modelled in numpy on a seeded
+    column (a third of its rows masked, several rows a bin, a row count
+    that leaves a partial step): the A and B tile bytes, the descriptor's
+    reading of them and the store's bins give the scatter sum_i v_i at
+    bin k_i, as the plain version does."""
+    rng = np.random.default_rng(nf)
+    p = reassign_cuda._mxu_plan(nf)
+    rows = 45
+    k = rng.integers(0, nf, rows)
+    k[: rows // 4] = k[rows // 4: 2 * (rows // 4)]       # shared bins
+    k[rng.random(rows) < 0.3] = -1
+    v = rng.standard_normal((rows, 2)).astype(np.float32)
+    parts = np.stack([np.stack([q.numpy() for q in reassign_cuda._split3(
+        torch.as_tensor(v[:, z]))], 1) for z in range(2)], 1)
+    assert np.array_equal(parts.astype(np.float64).sum(2),
+                          v.astype(np.float64))
+    khi = np.where(k >= 0, k // p.f0, -1)
+    klo = np.where(k >= 0, k % p.f0, 0)
+    got = _tiles_model(khi, klo, parts, p.f0, p.n_tile)[:, :nf]
+    want = np.zeros((2, nf))
+    for i in np.flatnonzero(k >= 0):
+        want[:, k[i]] += v[i]
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.array_equal(got != 0, want != 0)
+
+
+def test_phase_probe_edits_apply():
+    """tools/reassign_mxu_phases.py edits the kernel's source at fixed
+    anchors (its clocks around every phase, its two ablations): each
+    anchor is in reassign_mxu.cu once, the clocks cover its phases, and
+    without a card the tool raises."""
+    import os
+    from ssqueeze_rs_tpu_torch import _build
+    from ssqueeze_rs_tpu_torch.tools import reassign_mxu_phases as probe
+    with open(os.path.join(_build.CSRC, "reassign_mxu.cu")) as f:
+        text = f.read()
+    clocked = probe.clocked_source(text)
+    assert clocked.count("pr[") == len(probe.PHASES) + 2
+    assert "ssq_mxu_phase_clocks" in clocked
+    for name in ("no_products", "no_bins"):
+        assert probe.ablated_source(text, name).count("N < 0") == 1
+    with pytest.raises(ValueError, match="anchor"):
+        probe.clocked_source(text.replace("__syncthreads();", ""))
+    with pytest.raises(RuntimeError):
+        probe.main(["1", "--device", "cpu"])
