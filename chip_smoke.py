@@ -3172,6 +3172,87 @@ def bound64(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_ordered(torch, R, wr, wi, w, const, prm, mode, flipud, nf):
+    """Tx of the 3-plane contract summed in increasing row order on the
+    card: the plain bins and products, then one `scatter_add_` a row. No
+    two entries of one row share a (bin, column), so every add is one
+    IEEE add, in row order: the sums the double kernels B and B' must
+    equal bit for bit (masked entries add 0 to bin 0)."""
+    k = R.bin_indices(w, mode, prm, flipud, nf)
+    mask = k >= 0
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    vr = torch.where(mask, wr * const[:, None], zero)
+    vi = torch.where(mask, wi * const[:, None], zero)
+    k = torch.where(mask, k, torch.zeros_like(k))
+    txr = torch.zeros((nf,) + w.shape[1:], dtype=w.dtype, device=w.device)
+    txi = torch.zeros_like(txr)
+    for i in range(w.shape[0]):
+        txr.scatter_add_(0, k[i:i + 1], vr[i:i + 1])
+        txi.scatter_add_(0, k[i:i + 1], vi[i:i + 1])
+    return txr, txi
+
+
+FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")   # the FP64 pipe's
+
+
+def sass_fp64(path, symbol):
+    """{template arguments: (FP64 instructions of the main body, of the
+    whole function)} of each instantiation of the kernel `symbol` with
+    int template arguments in the cubin or library at path, counted in
+    `cuobjdump -sass` (FP64_OPS). The main body ends at the last EXIT
+    before the first RET: after it come the out-of-line subroutines (the
+    bins' exact path, the divisions' slow paths), which few entries run.
+    Static counts: every branch once."""
+    import re
+    from ssqueeze_rs_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-300:]}")
+    ops, key = {}, None
+    for line in res.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            m = re.search(symbol + r"I((?:Li\d+E)+)E", fn.group(1))
+            key = (tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1)))
+                   if m else None)
+            if key:
+                ops[key] = []
+            continue
+        op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                       line)
+        if key and op:
+            ops[key].append(op.group(1).split(".")[0])
+    check(bool(ops), f"no {symbol} in the SASS of {path}")
+    counts = {}
+    for key, seq in ops.items():
+        ret = seq.index("RET") if "RET" in seq else len(seq)
+        end = max((i for i in range(ret) if seq[i] == "EXIT"), default=ret)
+        counts[key] = (sum(o in FP64_OPS for o in seq[:end + 1]),
+                       sum(o in FP64_OPS for o in seq))
+    return counts
+
+
+def entry_path_fp64():
+    """{(planes, bin mode, transform): FP64 instructions an entry} of the
+    double B/B' kernels' screened path: the main body of
+    tools/reassign64_path.cu's entry_path, built here into a cubin."""
+    import tempfile
+    from ssqueeze_rs_tpu_torch import _build
+    src = os.path.join(HERE, "ssqueeze_rs_tpu_torch", "tools",
+                       "reassign64_path.cu")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
+        cubin = os.path.join(work, "path.cubin")
+        res = subprocess.run([_build._nvcc()] + _build.ARCH +
+                             ["-std=c++17", "-O3", "-cubin", "-o", cubin,
+                              src], capture_output=True, text=True,
+                             timeout=300)
+        check(res.returncode == 0, f"nvcc {src}: {res.stdout[-500:]}"
+              f"{res.stderr[-500:]}")
+        return {k: v[0] for k, v in sass_fp64(cubin, "entry_path").items()}
+
+
 def float64_phases(np, torch, dev, card, results, ctx):
     """Phase 24: kernels B, B', C and C' in double against their float64
     plain versions at the headline (293 x 160 000) and at nf = 1025 and
@@ -3181,9 +3262,9 @@ def float64_phases(np, torch, dev, card, results, ctx):
     at N = 16 384; ssq_cwt(dtype='float64') at the headline and its
     gradients (C' and C in double); cwt and ssq_cwt with cache_wavelet.
     Returns the four double kernels' entries of the JSON line."""
-    from ssqueeze_rs_tpu_torch import (compat, cwt, icwt, ssq_cwt, ssq_stft,
-                                       stft)
-    from ssqueeze_rs_tpu_torch.config import EPS64
+    from ssqueeze_rs_tpu_torch import (_build, compat, cwt, icwt, ssq_cwt,
+                                       ssq_stft, stft)
+    from ssqueeze_rs_tpu_torch.config import EPS32, EPS64
     from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda as R
     from ssqueeze_rs_tpu_torch.ops import stft_cuda
     from ssqueeze_rs_tpu_torch.ops.cwt import _FB_CACHE
@@ -3222,27 +3303,26 @@ def float64_phases(np, torch, dev, card, results, ctx):
         want.update(nonzero)
         return want
 
-    # (a) the double kernels on the headline float64 planes
+    # (a) the double kernels on float64 planes: the headline (293 x 160
+    # 000) at its own plan (nf = 293) and at log grids over the same band
+    # (nf = 1025 and 2000), and compat.ssq_cwt's planes (the Rust default
+    # scales, 490 x 160 000) at their own plan (nf = 490)
+    fp64 = sass_fp64(_build.library_path(), "reassign_kernel_f64")
+    path64 = entry_path_fp64()
+    out["sass_fp64"] = {str(k): v for k, v in fp64.items()}
+    out["entry_fp64"] = {str(k): v for k, v in path64.items()}
+    print("[24] FP64 instructions (DADD DMUL DFMA DSETP DMNMX, cuobjdump "
+          "-sass, static) of the double B/B' kernels: an entry on the "
+          "screened path (tools/reassign64_path.cu) by (planes, bin mode, "
+          "transform): " + ", ".join(f"{k} {v}" for k, v in
+                                     sorted(path64.items())) +
+          "; each kernel by (columns, row groups, blocks an SM, planes), "
+          "main body (every mode and transform once) / whole function (with "
+          "the exact path and the divisions' slow paths): " + ", ".join(
+              f"{k} {v[0]} / {v[1]}" for k, v in sorted(fp64.items())))
     torch.cuda.empty_cache()
     out["allocated_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
-    Wx, _, dWx = cwt(x64, wavelet, scales=scales, derivative=True,
-                     dtype="float64")
-    planes = [p.contiguous() for p in (Wx.real, Wx.imag, dWx.real,
-                                       dWx.imag)]
-    del Wx, dWx
-    na = planes[0].shape[0]
-    freqs, const_arr, mode, params = plan_ssqueeze(
-        n, na, None, scales, fs=1.0, maprange="peak", wavelet=wavelet)
-    const = torch.as_tensor(const_arr, dtype=f64, device=dev)
-    zeros = torch.zeros(na, dtype=f64, device=dev)
-    gamma = 10 * EPS64
-    w = R.phase_w(*planes, zeros, gamma, "cwt")
-    # the headline plan (nf = 293, 32 columns a block in double), and log
-    # grids over the same band at nf = 1025 (8 columns) and 2000 (4)
-    plans = {len(freqs): (mode, params)}
-    for nfx in (1025, 2000):
-        plans[nfx] = bin_params(np.geomspace(float(freqs.min()),
-                                             float(freqs.max()), nfx), True)
+    rust = compat._default_rust_scales(n)
     K = {}
     lines = []
 
@@ -3255,97 +3335,176 @@ def float64_phases(np, torch, dev, card, results, ctx):
         d = float(torch.hypot(k[0] - p[0], k[1] - p[1]).max())
         return d / float(torch.hypot(*p).max()), d
 
-    # one plan at a time, each output checked and freed before the next
-    # (at nf = 2000 a Tx plane pair in float64 is 5.1 GB)
-    for nfx, (m, prm) in plans.items():
-        head = nfx == len(freqs)
-        a4 = (*planes, const, zeros, gamma, prm, m, True, nfx, "cwt")
-        a3 = (planes[0], planes[1], w, const, prm, m, True, nfx)
-        row = dict(nf=nfx, cols=R._block_cols(nfx, 8), mode=m, tx_rel={},
-                   masked=float(torch.isinf(w).double().mean()))
-        fwd = {"reassign_f64": ("B", R.reassign, R.reassign_plain, a3, 4,
-                                BIN_FLOPS),
-               "reassign4_f64": ("B'", R.reassign4, R.reassign4_plain, a4, 6,
-                                 BIN4_FLOPS)}
-        for name, (key, fn, plain, args, n_in, flops) in fwd.items():
-            k1 = fn(*args)
-            row[key + " repeat"] = same(k1, fn(*args))
-            row["out_dtype"] = str(k1[0].dtype)
-            p1 = plain(*args)
-            row["tx_rel"][key], err = tx_off(k1, p1)
+    def fp64_bound(nbytes, planes, mode, entries):
+        """bound64 with the SASS count of an entry's FP64 instructions on
+        the screened path, for the entries the mask leaves (each
+        instruction one slot of the 64-lane pipe: 2 of the rate's
+        operations)."""
+        key = (planes, R.MODES[mode], R.TRANSFORMS["cwt"])
+        return bound64(nbytes, 2 * path64[key] * entries)
+
+    for set_name, sc in (("headline", scales), ("compat", rust)):
+        Wx, _, dWx = cwt(x64, wavelet, scales=sc, derivative=True,
+                         dtype="float64")
+        planes = [p.contiguous() for p in (Wx.real, Wx.imag, dWx.real,
+                                           dWx.imag)]
+        del Wx, dWx
+        na = planes[0].shape[0]
+        freqs, const_arr, mode, params = plan_ssqueeze(
+            n, na, None, sc, fs=1.0, maprange="peak", wavelet=wavelet)
+        const = torch.as_tensor(const_arr, dtype=f64, device=dev)
+        zeros = torch.zeros(na, dtype=f64, device=dev)
+        gamma = 10 * EPS64
+        w = R.phase_w(*planes, zeros, gamma, "cwt")
+        plans = {len(freqs): (mode, params)}
+        if set_name == "headline":
+            for nfx in (1025, 2000):
+                plans[nfx] = bin_params(np.geomspace(
+                    float(freqs.min()), float(freqs.max()), nfx), True)
+        # one plan at a time, each output checked and freed before the
+        # next (at nf = 2000 a Tx plane pair in float64 is 5.1 GB)
+        for nfx, (m, prm) in plans.items():
+            head = nfx == len(freqs) and set_name == "headline"
+            # timed: the headline (nf = 293), compat.ssq_cwt's plan (nf =
+            # 490) and nf = 1025 on the headline planes
+            timed = head or set_name == "compat" or nfx == 1025
+            a4 = (*planes, const, zeros, gamma, prm, m, True, nfx, "cwt")
+            a3 = (planes[0], planes[1], w, const, prm, m, True, nfx)
+            row = dict(planes=set_name, na=na, nf=nfx, mode=m, tx_rel={},
+                       plan={p: R._f64_plan(nfx, p)._asdict() for p in (3, 4)},
+                       masked=float(torch.isinf(w).double().mean()))
+            ordered = row_ordered(torch, R, planes[0], planes[1], w, const,
+                                  prm, m, True, nfx)
+            fwd = {"reassign_f64": ("B", R.reassign, R.reassign_plain, a3,
+                                    3),
+                   "reassign4_f64": ("B'", R.reassign4, R.reassign4_plain,
+                                     a4, 4)}
+            for name, (key, fn, plain, args, n_in) in fwd.items():
+                k1 = fn(*args)
+                row[key + " repeat"] = same(k1, fn(*args))
+                row[key + " row-ordered"] = same(k1, ordered)
+                row["out_dtype"] = str(k1[0].dtype)
+                p1 = plain(*args)
+                row["tx_rel"][key], err = tx_off(k1, p1)
+                if timed:
+                    bnd = fp64_bound(tensor_bytes(args[:n_in + 1], k1),
+                                     n_in, m, w.numel() * (1 - row["masked"]))
+                    row[key + " ms"] = cuda_ms(torch, lambda: fn(*args))
+                    row[key + " plain_ms"] = cuda_ms(
+                        torch, lambda: plain(*args), warmup=1, iters=5)
+                    row[key + " bound"] = bnd
+                    if head:
+                        K[name] = dict(max_abs_err=err, bound=bnd,
+                                       ms=row[key + " ms"],
+                                       plain_ms=row[key + " plain_ms"])
+                del k1, p1
+            del ordered
+            bwd = {"reassign_bwd_f64": ("C", R.reassign_bwd,
+                                        R.reassign_bwd_plain,
+                                        lambda g: (w, const, *g, prm, m,
+                                                   True, nfx), (w, const),
+                                        BIN_FLOPS),
+                   "reassign4_bwd_f64": ("C'", R.reassign4_bwd,
+                                         R.reassign4_bwd_plain,
+                                         lambda g: (*planes, const, zeros,
+                                                    *g, gamma, prm, m, True,
+                                                    nfx, "cwt"),
+                                         (planes, const, zeros),
+                                         BIN4_FLOPS)}
+            # a cotangent that names its bin (row k holds k + 1): C's and
+            # C''s outputs are then (k + 1) * const[i], equal to the plain
+            # gather's exactly where every entry's bin is the plain bin
+            g = (torch.arange(1, nfx + 1, dtype=f64, device=dev)[:, None]
+                 .expand(nfx, n).contiguous(),
+                 torch.zeros(nfx, n, dtype=f64, device=dev))
+            for key, fn, plain, args, _, _ in bwd.values():
+                row[key + " bins equal"] = same(fn(*args(g)), plain(*args(g)))
+            g = tuple(torch.as_tensor(rng.standard_normal((nfx, n)),
+                                      dtype=f64, device=dev)
+                      for _ in range(2))
+            for name, (key, fn, plain, args, ins, flops) in bwd.items():
+                k1, p1 = fn(*args(g)), plain(*args(g))
+                row[key + " equal"] = same(k1, p1)
+                row[key + " repeat"] = same(k1, fn(*args(g)))
+                if head:
+                    K[name] = dict(
+                        max_abs_err=max(float((u - v).abs().max())
+                                        for u, v in zip(k1, p1)),
+                        bound=bound64(tensor_bytes(ins, g, k1),
+                                      flops * w.numel()),
+                        ms=cuda_ms(torch, lambda: fn(*args(g))),
+                        plain_ms=cuda_ms(torch, lambda: plain(*args(g)),
+                                         warmup=1, iters=5))
+                del k1, p1
+            del g
             if head:
-                K[name] = dict(max_abs_err=err, bound=bound64(
-                    tensor_bytes(args[:n_in], k1), flops * w.numel()))
-            del k1, p1
-        bwd = {"reassign_bwd_f64": ("C", R.reassign_bwd,
-                                    R.reassign_bwd_plain,
-                                    lambda g: (w, const, *g, prm, m, True,
-                                               nfx), (w, const), BIN_FLOPS),
-               "reassign4_bwd_f64": ("C'", R.reassign4_bwd,
-                                     R.reassign4_bwd_plain,
-                                     lambda g: (*planes, const, zeros, *g,
-                                                gamma, prm, m, True, nfx,
-                                                "cwt"),
-                                     (planes, const, zeros), BIN4_FLOPS)}
-        # a cotangent that names its bin (row k holds k + 1): C's and C''s
-        # outputs are then (k + 1) * const[i], equal to the plain gather's
-        # exactly where every entry's bin is the plain bin
-        g = (torch.arange(1, nfx + 1, dtype=f64, device=dev)[:, None]
-             .expand(nfx, n).contiguous(),
-             torch.zeros(nfx, n, dtype=f64, device=dev))
-        for key, fn, plain, args, _, _ in bwd.values():
-            row[key + " bins equal"] = same(fn(*args(g)), plain(*args(g)))
-        g = tuple(torch.as_tensor(rng.standard_normal((nfx, n)), dtype=f64,
-                                  device=dev) for _ in range(2))
-        for name, (key, fn, plain, args, ins, flops) in bwd.items():
-            k1, p1 = fn(*args(g)), plain(*args(g))
-            row[key + " equal"] = same(k1, p1)
-            row[key + " repeat"] = same(k1, fn(*args(g)))
-            if head:
-                K[name] = dict(max_abs_err=max(float((u - v).abs().max())
-                                               for u, v in zip(k1, p1)),
-                               bound=bound64(tensor_bytes(ins, g, k1),
-                                             flops * w.numel()))
-            del k1, p1
-        if head:
-            # the headline: timed beside the plain versions and the bound
-            timed = {"reassign_f64": (lambda: R.reassign(*a3),
-                                      lambda: R.reassign_plain(*a3)),
-                     "reassign4_f64": (lambda: R.reassign4(*a4),
-                                       lambda: R.reassign4_plain(*a4)),
-                     "reassign_bwd_f64": (
-                         lambda: R.reassign_bwd(*bwd["reassign_bwd_f64"][3](
-                             g)),
-                         lambda: R.reassign_bwd_plain(
-                             *bwd["reassign_bwd_f64"][3](g))),
-                     "reassign4_bwd_f64": (
-                         lambda: R.reassign4_bwd(*bwd["reassign4_bwd_f64"][3](
-                             g)),
-                         lambda: R.reassign4_bwd_plain(
-                             *bwd["reassign4_bwd_f64"][3](g)))}
-            for name, (fk, fp) in timed.items():
-                K[name].update(ms=cuda_ms(torch, fk),
-                               plain_ms=cuda_ms(torch, fp, warmup=1, iters=5))
-            row["ms"] = {k: v["ms"] for k, v in K.items()}
-        del g
-        out[f"nf{nfx}"] = row
-        rel_b, rel_b4 = row["tx_rel"]["B"], row["tx_rel"]["B'"]
-        flags = {k: v for k, v in row.items() if isinstance(v, bool)}
-        lines.append(
-            f"nf={nfx} ({row['cols']} columns a block, {m}): B Tx rel "
-            f"{rel_b:.2e}, B' {rel_b4:.2e}; " +
-            ", ".join(f"{k} {v}" for k, v in flags.items()))
-        check(row["out_dtype"] == "torch.float64", f"nf={nfx}: Tx in "
-              f"{row['out_dtype']}")
-        check(max(rel_b, rel_b4) <= 1e-12,
-              f"double B/B' at nf={nfx}: Tx rel {row['tx_rel']}")
-        check(all(flags.values()), f"double kernels at nf={nfx}: {flags}")
+                # float32 B and B' on the same planes rounded to float32:
+                # their kernels are not changed by the double ones
+                p32 = [p.float() for p in planes]
+                w32 = R.phase_w(*p32, zeros.float(), 10 * EPS32, "cwt")
+                a32 = {"B": (R.reassign, (p32[0], p32[1], w32,
+                                          const.float(), prm, m, True, nfx)),
+                       "B'": (R.reassign4, (*p32, const.float(),
+                                            zeros.float(), 10 * EPS32, prm,
+                                            m, True, nfx, "cwt"))}
+                row["float32_ms"] = {k: cuda_ms(torch, lambda: fn(*args))
+                                     for k, (fn, args) in a32.items()}
+                del p32, w32, a32
+                # the launch's other inputs: n odd (8-byte copies and
+                # stores in place of the TMA) and a batch of two (the TMA
+                # maps' item axis), each to the row-ordered sums
+                half = n // 2
+                for tag, cut in (("odd n", lambda t: t[..., :n - 1]),
+                                 ("batch of 2", lambda t: torch.stack(
+                                     [t[..., :half], t[..., half:2 * half]]))):
+                    pl = [cut(p).contiguous() for p in planes]
+                    wc = cut(w).contiguous()
+                    items = pl[0].reshape(-1, na, pl[0].shape[-1])
+                    wi_ = wc.reshape(-1, na, wc.shape[-1])
+                    ims = pl[1].reshape(items.shape)
+                    refs = [row_ordered(torch, R, items[b], ims[b], wi_[b],
+                                        const, prm, m, True, nfx)
+                            for b in range(items.shape[0])]
+                    ref = tuple(torch.stack([r[z] for r in refs]).reshape(
+                        pl[0].shape[:-2] + (nfx, pl[0].shape[-1]))
+                        for z in (0, 1))
+                    got3 = R.reassign(pl[0], pl[1], wc, const, prm, m, True,
+                                      nfx)
+                    got4 = R.reassign4(*pl, const, zeros, gamma, prm, m, True,
+                                       nfx, "cwt")
+                    row[f"B {tag} row-ordered"] = same(got3, ref)
+                    row[f"B' {tag} row-ordered"] = same(got4, ref)
+                    del pl, wc, items, wi_, ims, refs, ref, got3, got4
+            out[f"nf{nfx}"] = row
+            rel_b, rel_b4 = row["tx_rel"]["B"], row["tx_rel"]["B'"]
+            flags = {k: v for k, v in row.items() if isinstance(v, bool)}
+            plan4 = row["plan"][4]
+            lines.append(
+                f"{set_name} {na} rows, nf={nfx} ({m}; B' plan "
+                f"{plan4['cols']} columns x {plan4['groups']} row groups, "
+                f"{plan4['stages']} stages, {plan4['blocks']} block(s) an SM, "
+                f"{plan4['flight'] / 1024:.0f} KB in flight an SM): B Tx rel "
+                f"{rel_b:.2e}, B' {rel_b4:.2e}; " +
+                ", ".join(f"{k} {v}" for k, v in flags.items()) +
+                "".join(f"; {k} {row[k + ' ms']:.3f} ms (plain "
+                        f"{row[k + ' plain_ms']:.3f}, bound "
+                        f"{row[k + ' bound'][0]:.3f} by "
+                        f"{row[k + ' bound'][1]})"
+                        for k in ("B", "B'") if k + " ms" in row) +
+                ("; float32 on these planes: " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in row["float32_ms"].items())
+                 if "float32_ms" in row else ""))
+            check(row["out_dtype"] == "torch.float64", f"nf={nfx}: Tx in "
+                  f"{row['out_dtype']}")
+            check(max(rel_b, rel_b4) <= 1e-12,
+                  f"double B/B' at nf={nfx}: Tx rel {row['tx_rel']}")
+            check(all(flags.values()), f"double kernels at nf={nfx}: {flags}")
+        del planes, w
+        torch.cuda.empty_cache()
     times = ", ".join(f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, "
                       f"bound {v['bound'][0]:.3f})" for k, v in K.items())
-    print(f"[24] double kernels on the headline float64 planes ({na} x {n}"
-          f"): " + "; ".join(lines) + f" | {times} ({card})")
-    del planes, w
-    torch.cuda.empty_cache()
+    print(f"[24] double kernels on float64 planes: " + "; ".join(lines) +
+          f" | at the headline: {times} ({card})")
     lap("24 double kernels")
 
     # (b) the main path: compat at N = 160 000, ssq_cwt(float64) at the
@@ -3355,7 +3514,6 @@ def float64_phases(np, torch, dev, card, results, ctx):
              np.cos(2 * np.pi * (5 * t + 1.5 * t * t)))
     xs = torch.as_tensor(xs_np, dtype=f64, device=dev)
     win = np.hanning(N_FFT + 1)[:-1]
-    rust = compat._default_rust_scales(n)
     # the compat calls as a user makes them, in order (icwt inverts the
     # numpy Wx that cwt returned), and the device part of each (the same
     # transforms, their outputs left on the card)
@@ -3552,8 +3710,8 @@ def float64_phases(np, torch, dev, card, results, ctx):
     results["float64"] = out
     lap("24 CPU checks, cache_wavelet")
 
-    src = {"reassign_f64": ("reassign.cu", "reassign_pallas.py:175"),
-           "reassign4_f64": ("reassign.cu", "reassign_pallas.py:175"),
+    src = {"reassign_f64": ("reassign64.cu", "reassign_pallas.py:175"),
+           "reassign4_f64": ("reassign64.cu", "reassign_pallas.py:175"),
            "reassign_bwd_f64": ("reassign_bwd.cu", "reassign_pallas.py:485"),
            "reassign4_bwd_f64": ("reassign_bwd.cu", "reassign_pallas.py:485")}
     return [kernel_entry(name, src[name][0], src[name][1], path[name],

@@ -52,10 +52,11 @@ _SIGNATURES = {
     "ssq_reassign4_bwd": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                          _PLAN + [_P] * 5,
     # B, B', C and C' on float64 planes
+    # (B, B' in double: columns, row groups and stages of _f64_plan)
     "ssq_reassign_f64": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN64 +
-                        [_I, _P, _P, _P],
+                        [_I, _I, _I, _P, _P, _P],
     "ssq_reassign4_f64": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _D] +
-                         _PLAN64 + [_I, _P, _P, _P],
+                         _PLAN64 + [_I, _I, _I, _P, _P, _P],
     "ssq_reassign_bwd_f64": [_P, _P, _I, _I, _LL, _I, _I, _I] + _PLAN64 +
                             [_P] * 5,
     "ssq_reassign4_bwd_f64": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _D] +

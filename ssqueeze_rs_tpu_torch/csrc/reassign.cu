@@ -22,12 +22,10 @@
 // atomics, the same bits from run to run, and the same bits as the row
 // walk these kernels ran before (reassign_walk.cuh, probe P4's subject).
 // The block then stores its columns with all its threads. COLS comes from
-// nf and the element size (reassign_cuda._block_cols): in float32, 32
-// where the accumulator fits 227 KB (nf <= 908), else 8; in double
-// (float64 planes, the JAX float64 kernel's counterpart), 32 to nf = 454,
-// 8 to 1816 and 4 to 3632. So any nf up to 3632 launches in either type
-// (the TPU kernel's (nf, 512) accumulator lives in VMEM and has no such
-// bound).
+// nf (reassign_cuda._block_cols): 32 where the accumulator fits 227 KB
+// (nf <= 908), else 8, so any nf up to 3632 launches (the TPU kernel's
+// (nf, 512) accumulator lives in VMEM and has no such bound). Float64
+// planes take their own kernel, reassign64.cu.
 //
 // What bounds it on Hopper: the bytes (three or four planes read once,
 // two written once: 0.28 / 0.34 ms at 293 x 160 000 at 3.35 TB/s) once
@@ -49,7 +47,6 @@
 #include "reassign.cuh"
 
 using ssq::Plan;
-using ssq::Plan64;
 
 namespace {
 
@@ -66,12 +63,6 @@ int dispatch(int cols, const T* wr, const T* wi, const T* p2, const T* p3,
     case 8: return launch<T, 8, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na,
                                          n, P, transform, gamma2, txr, txi,
                                          s);
-    case 4:       // double only: its accumulator past nf = 1816
-      if constexpr (sizeof(T) == 8)
-        return launch<T, 4, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na, n,
-                                     P, transform, gamma2, txr, txi, s);
-      else
-        return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -101,32 +92,6 @@ extern "C" int ssq_reassign4(const float* wr, const float* wi,
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
   return dispatch<float, 4>(cols, wr, wi, dr, di, cst, sfs, batch, na, n, P,
                             transform, gamma2, txr, txi, stream);
-}
-
-// The same in double: float64 planes, constants and gamma^2; cols 32, 8
-// or 4 (reassign_cuda._block_cols(nf, 8)).
-extern "C" int ssq_reassign_f64(const double* wr, const double* wi,
-                                const double* w, const double* cst, int batch,
-                                int na, long long n, int nf, int mode,
-                                int flipud, double p0, double p1, double p2,
-                                double p3, double p4, int cols, double* txr,
-                                double* txi, void* stream) {
-  const Plan64 P{mode, flipud, nf, p0, p1, p2, p3, p4};
-  return dispatch<double, 3>(cols, wr, wi, w, nullptr, cst, nullptr, batch,
-                             na, n, P, ssq::kCwt, 0.0, txr, txi, stream);
-}
-
-extern "C" int ssq_reassign4_f64(const double* wr, const double* wi,
-                                 const double* dr, const double* di,
-                                 const double* cst, const double* sfs,
-                                 int batch, int na, long long n, int nf,
-                                 int transform, int mode, int flipud,
-                                 double gamma2, double p0, double p1,
-                                 double p2, double p3, double p4, int cols,
-                                 double* txr, double* txi, void* stream) {
-  const Plan64 P{mode, flipud, nf, p0, p1, p2, p3, p4};
-  return dispatch<double, 4>(cols, wr, wi, dr, di, cst, sfs, batch, na, n,
-                             P, transform, gamma2, txr, txi, stream);
 }
 
 extern "C" const char* ssq_error_string(int err) {

@@ -6,11 +6,11 @@
 // blockIdx.y) and has 16 * COLS threads. Lane l of warp w is thread (c, g)
 // with c = 2 * w + l % 2, the block's column, and g = l / 2, its row
 // group: a warp covers 2 columns and 16 rows at a step. The block keeps a
-// (2, nf, COLS) accumulator of the planes' real type T (float, or double
-// for float64 planes) in shared memory, the entry of bin k and column c at
+// (2, nf, COLS) accumulator of the planes' type T (float: reassign.cu
+// instantiates it for float32 planes only; float64 planes run
+// reassign64.cu) in shared memory, the entry of bin k and column c at
 // column c ^ (k mod COLS) of row k (the lanes of one column that add to
-// different bins in one round then hit different 4-byte banks; a double
-// entry spans two banks, and the swizzle is not retuned for that).
+// different bins in one round then hit different 4-byte banks).
 //
 // A step takes rows i0 .. i0 + 15: thread (c, g) loads row i0 + g of
 // column c (every plane) and forms its bin and its two products once.

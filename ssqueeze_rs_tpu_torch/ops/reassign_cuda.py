@@ -8,13 +8,15 @@ Pallas body is `_make_kernel`), in its two input contracts:
     are formed in the kernel; `_make_kernel` with `phase_in=False`.
 
 Both dispatch on the device of their inputs: on a CUDA tensor they
-launch the hand-written kernel (``csrc/reassign.cu``: 16 lanes a column,
-at the columns a block `_block_cols` takes from nf and the element size)
-or raise; on a CPU tensor they run their plain-torch versions. Planes
-stay in their real type, float32 or float64 (as the JAX `reassign_pallas`
-keeps float64 planes float64): float64 CUDA planes launch the kernels'
-double instantiations (the `_f64` entry points), with the plan constants,
-gamma^2 and the row vectors in float64; planes of mixed type raise. Both
+launch the hand-written kernel or raise; on a CPU tensor they run their
+plain-torch versions. Planes stay in their real type, float32 or float64
+(as the JAX `reassign_pallas` keeps float64 planes float64): float32
+planes launch ``csrc/reassign.cu`` (16 lanes a column, at the columns a
+block `_block_cols` takes from nf), float64 planes its double
+counterpart ``csrc/reassign64.cu`` (the `_f64` entry points: the planes
+staged by TMA, a float screen of the bins, the launch shape from
+`_f64_plan`), with the plan constants, gamma^2 and the row vectors in
+float64; planes of mixed type raise. Both
 are differentiable with the JAX package's gradient semantics
 (`ReassignFn`, `Reassign4Fn`): the backward is the VJP gather C / C'
 (`reassign_bwd`, `reassign4_bwd`, ``csrc/reassign_bwd.cu``; counterpart
@@ -73,18 +75,106 @@ MAX_SMEM = 227 * 1024       # per-block shared memory on Hopper
 _TWO_PI = 6.283185307179586
 
 
-def _block_cols(nf: int, itemsize: int = 4) -> int:
-    """Columns a block (COLS) of csrc/reassign.cu, whose blocks have 16
-    lanes a column, for elements of `itemsize` bytes: in float32, 32 where
-    the (2, nf, 32) accumulator fits in shared memory (nf <= 908), else 8
-    (16 columns were slower at nf = 1025 on the card, PERF.md); in
-    float64, 32 to nf = 454, 8 to 1816 and 4 to 3632. Raises beyond
-    nf = 3632 in either."""
-    for cols in (32, 8) if itemsize == 4 else (32, 8, 4):
-        if 2 * nf * cols * itemsize <= MAX_SMEM:
+def _block_cols(nf: int) -> int:
+    """Columns a block (COLS) of csrc/reassign.cu (float32 planes), whose
+    blocks have 16 lanes a column: 32 where the (2, nf, 32) accumulator
+    fits in shared memory (nf <= 908), else 8 (16 columns were slower at
+    nf = 1025 on the card, PERF.md). Raises beyond nf = 3632."""
+    for cols in (32, 8):
+        if 2 * nf * cols * 4 <= MAX_SMEM:
             return cols
     raise ValueError(f"nf={nf} frequency rows exceed the kernel's "
                      f"shared-memory accumulator (max {MAX_SMEM // 64})")
+
+
+# -- kernels B and B' in double (csrc/reassign64.cu) ----------------------------
+F64_LANES = 16              # lanes a column: the rows a row group takes
+F64_MIN_FLIGHT = 32 * 1024  # plane bytes in flight an SM the plan keeps
+SM_SMEM = 228 * 1024        # shared memory of an SM
+BLOCK_RESERVE = 1024        # of it, the runtime's share a resident block
+_F64_MAX_STAGES = 16        # csrc/reassign64.cu kMaxStages
+# the (columns, row groups) csrc/reassign64.cu instantiates: (8, 2) runs
+# 2 to 4 blocks an SM of 256 threads (one instantiation for each count,
+# with the registers that count allows); the others one block an SM of
+# 512 threads, at 8, 4 or 2 columns as the accumulator allows
+F64_SHAPES = {8: (2, 4), 4: (8,), 2: (16,)}
+_F64_SINGLE = {8: 4, 4: 8, 2: 16}
+
+
+class F64Plan(NamedTuple):
+    """Launch plan of the double kernels B and B' (csrc/reassign64.cu)
+    for nf bins and `planes` input planes: `cols` columns a block (a
+    tile; each plane row of a tile is one run of 8 cols bytes),
+    `groups` row groups of 16 rows (cols / 2 warps each), so `rows` =
+    16 groups rows a ring stage; `stages` ring stages; `smem` bytes of
+    dynamic shared memory a block; `blocks` blocks an SM the shared
+    memory allows; `flight` plane bytes in flight an SM (blocks x
+    (stages - 1) stages)."""
+    cols: int
+    groups: int
+    rows: int
+    stages: int
+    smem: int
+    blocks: int
+    flight: int
+
+
+def _f64_stage(cols: int, groups: int, planes: int) -> int:
+    """Bytes of one ring stage: its planes' TMA boxes (16 groups rows x
+    cols doubles each) and its mbarrier."""
+    return planes * F64_LANES * groups * cols * 8 + 8
+
+
+def _f64_acc(nf: int, cols: int) -> int:
+    """Bytes of the two (nf, cols) float64 accumulator planes, each
+    rounded up to 1024 bytes (the TMA's alignment)."""
+    return 2 * -(-nf * cols * 8 // 1024) * 1024
+
+
+def _f64_smem(nf: int, cols: int, groups: int, planes: int,
+              stages: int) -> int:
+    """csrc/reassign64.cu smem_bytes: 1024 bytes to align the base, the
+    accumulator and the ring."""
+    return 1024 + _f64_acc(nf, cols) + stages * _f64_stage(cols, groups,
+                                                            planes)
+
+
+def _f64_fit(nf, cols, groups, planes, blocks):
+    """The plan of `blocks` blocks an SM at (cols, groups) with as many
+    stages as their share of the SM holds, or None if that keeps fewer
+    than 2 stages or F64_MIN_FLIGHT bytes in flight."""
+    room = min(MAX_SMEM, SM_SMEM // blocks - BLOCK_RESERVE)
+    stage = _f64_stage(cols, groups, planes)
+    stages = min(_F64_MAX_STAGES,
+                 (room - _f64_smem(nf, cols, groups, planes, 0)) // stage)
+    flight = blocks * (stages - 1) * (stage - 8)
+    if stages < 2 or flight < F64_MIN_FLIGHT:
+        return None
+    return F64Plan(cols, groups, F64_LANES * groups, stages,
+                   _f64_smem(nf, cols, groups, planes, stages), blocks,
+                   flight)
+
+
+def _f64_plan(nf: int, planes: int = 4) -> F64Plan:
+    """The double kernels' plan for nf bins and 3 or 4 planes: 8 columns
+    (64-byte plane row runs) and 2 row groups in as many blocks an SM (4
+    to 2) as leave each a ring of 2 or more stages keeping F64_MIN_FLIGHT
+    bytes in flight an SM; else one block an SM of 512 threads, at the
+    most columns (8, 4, 2) whose accumulator leaves such a ring. Then as
+    many stages as the block's share of the SM holds, at most 16.
+    Raises beyond nf = 3632."""
+    if not 1 <= nf <= 3632:
+        raise ValueError(f"nf={nf} frequency rows: the double kernels take "
+                         "1 to 3632")
+    for blocks in (4, 3, 2):
+        plan = _f64_fit(nf, 8, 2, planes, blocks)
+        if plan:
+            return plan
+    for cols, groups in _F64_SINGLE.items():
+        plan = _f64_fit(nf, cols, groups, planes, 1)
+        if plan:
+            return plan
+    raise AssertionError(f"no double plan at nf={nf}")
 
 
 def _plan_floats(mode, params, dtype=torch.float32):
@@ -240,9 +330,10 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
             per_block=None):
     """Common launch of the C entry points: planes (..., na, n) and
     per-row vectors in. The forward ones (B, B', I and probe P4's 3-plane
-    `full`; `grads` None) take one launch-shape int (B, B': the columns
-    per block, `_block_cols`, unless `per_block` is given; I: `per_block`,
-    its wgmma width `_mxu_plan(nf).n_tile`) and write (Txr, Txi), each (..., nf, n); the
+    `full`; `grads` None) take the launch-shape ints `per_block` (float32
+    B, B': the columns a block, `_block_cols`, when it is None; double B,
+    B': `_f64_plan`'s columns, row groups and stages; I: its wgmma width
+    `_mxu_plan(nf).n_tile`) and write (Txr, Txi), each (..., nf, n); the
     backward ones (C, C') read the cotangents `grads` = (gr, gi), each
     (..., nf, n), and write (gWr, gWi), each (..., na, n). Outputs are
     in the planes' type."""
@@ -255,8 +346,9 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
     planes = [t.contiguous() for t in planes]
     vecs = [t.contiguous() for t in vecs]
     if grads is None:
-        mid = [_block_cols(nf, planes[0].element_size())
-               if per_block is None else per_block]
+        mid = ([_block_cols(nf)] if per_block is None else
+               [per_block] if isinstance(per_block, int) else
+               list(per_block))
         rows = nf
     else:
         grads = [_cotangent(g, device, dtype).contiguous() for g in grads]
@@ -283,6 +375,15 @@ def _entry(name, dtype):
     return lambda lib: getattr(lib, name)
 
 
+def _f64_shape(dtype, nf, planes):
+    """The launch-shape ints of B or B' for planes of `dtype`: the double
+    plan's (columns, row groups, stages), or None (float32: `_block_cols`)."""
+    if dtype != torch.float64:
+        return None
+    plan = _f64_plan(nf, planes)
+    return plan.cols, plan.groups, plan.stages
+
+
 def _cotangent(g, device, dtype):
     """A Tx cotangent on `device` in the planes' type; a tensor of the
     other real type raises."""
@@ -299,7 +400,7 @@ def _reassign_dispatch(device, wr, wi, w, const, plan_params, mode, flipud,
         plan = _plan_floats(mode, plan_params, w.dtype)
         out = _launch(_entry("ssq_reassign", w.dtype), [wr, wi, w], [const],
                       [MODES[mode], int(bool(flipud))], plan, nf,
-                      "reassign kernel")
+                      "reassign kernel", per_block=_f64_shape(w.dtype, nf, 3))
         if w.dtype == torch.float64:
             LAUNCHES_F64 += 1
         else:
@@ -425,7 +526,8 @@ def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
         out = _launch(_entry("ssq_reassign4", dtype), [wr, wi, dr, di],
                       [const, Sfs],
                       [TRANSFORMS[transform], MODES[mode],
-                       int(bool(flipud))], plan, nf, "reassign4 kernel")
+                       int(bool(flipud))], plan, nf, "reassign4 kernel",
+                      per_block=_f64_shape(dtype, nf, 4))
         if dtype == torch.float64:
             LAUNCHES4_F64 += 1
         else:

@@ -41,7 +41,8 @@ def test_library_name_follows_source_content(src_tree):
                                   "grid_slope.cu", "rate_probe.cu",
                                   "dma_overlap.cu", "mxu_probe.cu",
                                   "fft_radix.cuh", "planes.cuh",
-                                  "reassign_walk.cuh", "wgmma.cuh"])
+                                  "reassign_walk.cuh", "wgmma.cuh",
+                                  "reassign64.cu", "reassign64.cuh"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -232,6 +233,50 @@ def test_reassign_sources():
     assert len(_build._SIGNATURES["ssq_reassign4"]) == 23
     assert _build._SIGNATURES["ssq_ablate_reassign3"] == \
         _build._SIGNATURES["ssq_reassign"]
+
+
+def test_reassign64_sources():
+    """B and B' in double (reassign64.cu) bin through bins.cuh, stage
+    the planes by TMA (8-byte cp.async where n is odd) on mbarriers
+    (wgmma.cuh's helpers) and store Tx by TMA, add in rounds by row with
+    no atomics, dispatch exactly the (columns, row groups, blocks an SM)
+    the plan takes over nf = 1..3632, and their entries take the plan's
+    columns, row groups and stages; reassign.cu has no double
+    instantiation left."""
+    import re
+    from ssqueeze_rs_tpu_torch.ops import reassign_cuda
+    with open(os.path.join(_build.CSRC, "reassign64.cu")) as f:
+        text = f.read()
+    with open(os.path.join(_build.CSRC, "reassign.cu")) as f:
+        old = f.read()
+    with open(os.path.join(_build.CSRC, "reassign64.cuh")) as f:
+        bins = f.read()
+    assert set(re.findall(r'#include "([\w.]+)"', text)) == {
+        "reassign64.cuh", "wgmma.cuh"}
+    assert set(re.findall(r'#include "([\w.]+)"', bins)) == {"bins.cuh"}
+    assert "atomicAdd" not in bins and "__noinline__" in bins
+    # the SASS count of an entry's path instantiates the same entry_bin
+    tool = os.path.join(os.path.dirname(_build.CSRC), "tools",
+                        "reassign64_path.cu")
+    with open(tool) as f:
+        assert '#include "../csrc/reassign64.cuh"' in f.read()
+    assert "atomicAdd" not in text and "__shfl_up_sync" in text
+    assert "cp.async.bulk.tensor.2d" in text and "mbar_wait" in text
+    assert "cp.async.bulk.tensor.3d.global.shared" in text
+    assert "double" not in old and "_f64" not in old
+    cases = {tuple(int(x) for x in case) for case in
+             re.findall(r"SSQ_F64_CASE\((\d+), (\d+), (\d+)\)\n", text)}
+    planned = {(p.cols, p.groups, p.blocks) for nf in range(1, 3633)
+               for p in (reassign_cuda._f64_plan(nf, 3),
+                         reassign_cuda._f64_plan(nf, 4))}
+    assert cases == planned
+    assert {case[:2] for case in cases} == {
+        (c, g) for c, gs in reassign_cuda.F64_SHAPES.items() for g in gs}
+    assert "kMaxStages = %d;" % reassign_cuda._F64_MAX_STAGES in text
+    # B 21 and B' 25 parameters: B's and B''s float32 ones, the columns a
+    # block replaced by the plan's columns, row groups and stages
+    assert len(_build._SIGNATURES["ssq_reassign_f64"]) == 21
+    assert len(_build._SIGNATURES["ssq_reassign4_f64"]) == 25
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

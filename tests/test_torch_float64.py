@@ -5,7 +5,7 @@ STFT family (`stft`, `istft`, `ssq_stft`, `issq_stft`), the CWT family
 kernels B'/C' in double against the JAX kernel B' in float64 (interpret
 mode) and the XLA route, the float64 gradients, the repaired precision
 fault of `reassign`/`reassign4`, and the launch plumbing of the double
-kernels (`_block_cols`, the plan constants).
+kernels (`_f64_plan`, the plan constants).
 
 Tolerances, and why:
   transforms  max|d| < 1e-10 of max|ref| (float64 FFTs in other orders:
@@ -295,18 +295,41 @@ def test_reassign_keeps_float64_repaired():
 
 
 def test_double_launch_plumbing():
-    """_block_cols in double: 32 to nf = 454, 8 to 1816, 4 to 3632, then
-    raises (the (2, nf, COLS) float64 accumulator within 227 KB); float32
-    unchanged. The float64 plan constants and gamma^2 are unrounded, the
-    float32 ones rounded once; the dispatch names the `_f64` entries."""
-    bc = R._block_cols
-    assert [bc(n, 8) for n in (1, 454, 455, 1816, 1817, 3632)] == \
-        [32, 32, 8, 8, 4, 4]
-    with pytest.raises(ValueError, match="shared-memory"):
-        bc(3633, 8)
-    assert [bc(n) for n in (908, 909, 3632)] == [32, 8, 8]
-    for nf, cols in ((454, 32), (1816, 8), (3632, 4)):
-        assert 2 * nf * cols * 8 <= R.MAX_SMEM < 2 * (nf + 1) * cols * 8
+    """_f64_plan, the launch plan of csrc/reassign64.cu in place of
+    _block_cols(nf, 8): 8 columns (64-byte plane row runs) and 2 row
+    groups in 4, 3 or 2 blocks an SM while each keeps a ring of 2 or more
+    stages with 32 KB in flight an SM (B' to nf = 688), then one block of
+    512 threads at 8 columns (to 1408), 4 (to 2816) and 2 (to 3632), then
+    raises; the shapes timed on the card; float32 _block_cols unchanged.
+    The float64 plan constants and gamma^2 are unrounded, the float32
+    ones rounded once; the dispatch names the `_f64` entries and hands
+    them (columns, row groups, stages)."""
+    plan = R._f64_plan
+    shape = lambda nf, planes=4: plan(nf, planes)[:4] + (  # noqa: E731
+        plan(nf, planes).blocks,)
+    # (columns, row groups, rows a stage, stages, blocks an SM)
+    assert shape(293) == (8, 2, 32, 2, 4)          # the ssq_cwt headline
+    assert shape(293, 3) == (8, 2, 32, 5, 3)
+    assert shape(490) == (8, 2, 32, 6, 2)          # compat.ssq_cwt
+    assert shape(1025) == (8, 4, 64, 5, 1)
+    assert shape(2000) == (4, 8, 128, 6, 1)
+    assert shape(3632) == (2, 16, 256, 6, 1)
+    assert [plan(nf).blocks for nf in (304, 305, 384, 385, 688)] == \
+        [4, 3, 3, 2, 2]
+    assert [plan(nf).cols for nf in (688, 689, 1408, 1409, 2816, 2817)] == \
+        [8, 8, 8, 4, 4, 2]
+    for nf in (1, 293, 490, 1025, 3632):
+        for planes in (3, 4):
+            p = plan(nf, planes)
+            assert p.smem == R._f64_smem(nf, p.cols, p.groups, planes,
+                                         p.stages) <= R.MAX_SMEM
+            assert p.flight >= 32 * 1024
+    for nf in (0, 3633):
+        with pytest.raises(ValueError, match="1 to 3632"):
+            plan(nf)
+    assert R._f64_shape(torch.float64, 1025, 4) == (8, 4, 5)
+    assert R._f64_shape(torch.float32, 1025, 4) is None
+    assert [R._block_cols(n) for n in (908, 909, 3632)] == [32, 8, 8]
     mode, params = bin_params(np.geomspace(0.013, 0.77, 300), True)
     p64 = R._plan_floats(mode, params, torch.float64)
     p32 = R._plan_floats(mode, params)

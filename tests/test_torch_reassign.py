@@ -252,9 +252,9 @@ def _lanes_model(vr, vi, k, nf, cols):
 
 
 def _ordered_sum(vr, vi, k, nf):
-    """Tx[k(i, j), j] += v[i, j] in float32, rows in increasing order."""
+    """Tx[k(i, j), j] += v[i, j] in v's type, rows in increasing order."""
     B, na, n = k.shape
-    out = np.zeros((2, B, nf, n), np.float32)
+    out = np.zeros((2, B, nf, n), vr.dtype)
     for i in range(na):
         b, j = np.nonzero(k[:, i] >= 0)
         out[0, b, k[b, i, j], j] += vr[b, i, j]
@@ -262,17 +262,17 @@ def _ordered_sum(vr, vi, k, nf):
     return out
 
 
-def _walk_inputs(nf, mode, seed, na=24, n=70):
-    """Seeded (2, na, n) Wx and dWx planes with masked entries, const,
-    Sfs and the plan of `mode` at nf bins."""
+def _walk_inputs(nf, mode, seed, na=24, n=70, dtype=np.float32):
+    """Seeded (2, na, n) Wx and dWx planes of `dtype` with masked entries,
+    const, Sfs and the plan of `mode` at nf bins."""
     rng = np.random.default_rng(seed)
-    wr, wi, dr, di = (rng.standard_normal((2, na, n)).astype(np.float32)
+    wr, wi, dr, di = (rng.standard_normal((2, na, n)).astype(dtype)
                       for _ in range(4))
     wr[:, 1, :9] = wi[:, 1, :9] = 0          # |Wx|^2 <= gamma^2: masked
-    dr *= np.float32(0.05)
-    di *= np.float32(0.05)
-    const = rng.uniform(0.01, 0.05, na).astype(np.float32)
-    Sfs = np.linspace(0.0, 0.5, na).astype(np.float32)
+    dr *= dtype(0.05)
+    di *= dtype(0.05)
+    const = rng.uniform(0.01, 0.05, na).astype(dtype)
+    Sfs = np.linspace(0.0, 0.5, na).astype(dtype)
     if nf == 1:
         return (wr, wi, dr, di, const, Sfs), "lin", dict(vmin=0.0, dv=0.25)
     freqs = {"log": np.geomspace(0.005, 0.5, nf),
@@ -351,3 +351,314 @@ def test_plans_fit_and_own_every_bin_once():
         at = kk * cols + (cc ^ (kk & (cols - 1)))
         assert np.unique(at).size == nf * cols
         assert at.min() == 0 and at.max() == nf * cols - 1
+
+
+# -- the walk of csrc/reassign64.cu (B and B' in double) --------------------------
+def _stage_at64(r, c, cols):
+    """Word of row r, column c in a stage plane of reassign64.cu: the TMA
+    box, dense, 16-byte chunks of each 128-byte line permuted by the
+    line's row bits (swizzle 64, 32 bytes at 8, 4 columns)."""
+    off = (r * cols + c) * 8
+    mask = {8: 3, 4: 1, 2: 0}[cols]
+    return (off ^ (((off >> 7) & mask) << 4)) // 8
+
+
+def _acc_at64(k, c, cols):
+    """Word of bin k, column c in an accumulator plane of reassign64.cu:
+    the (nf, cols) TMA box of the Tx store, with the stage's swizzle."""
+    return _stage_at64(k, c, cols)
+
+
+def _lane_map64(cols, groups):
+    """Thread t of a block of reassign64.cu -> (row group h, column c,
+    stage row g, warp): lane l of warp w is column 2 (w mod cols/2) +
+    l mod 2 and row 16 h + l / 2 of the stage, h = w / (cols/2)."""
+    t = np.arange(16 * cols * groups)
+    lane, warp = t % 32, t // 32
+    h = warp // (cols // 2)
+    return h, (warp % (cols // 2)) * 2 + lane % 2, h * 16 + lane // 2, warp
+
+
+def _lanes_model64(vr, vi, k, nf, cols, groups, grid=3):
+    """numpy model of the walk of csrc/reassign64.cu over (B, na, n)
+    float64 products vr, vi and int bins k (-1 masked): `grid` persistent
+    blocks, block b taking tiles (cols columns of one batch item) b,
+    b + grid, ... with one accumulator; a tile in stages of 16 groups
+    rows; at each stage every thread takes its entry, then the row groups
+    add in turn, in a group the lanes of a warp sharing a (bin, column)
+    key in rounds by rank (the lower lanes with the key); after a tile's
+    last stage its Tx columns are read out of the swizzled accumulator,
+    which is zeroed. Asserts that no word of a block takes two adds at
+    once."""
+    B, na, n = k.shape
+    h, c, g, _ = _lane_map64(cols, groups)
+    lane = np.arange(h.size) % 32
+    rows = 16 * groups
+    T = max(1, -(-na // rows))
+    tiles_row = -(-n // cols)
+    tiles = B * tiles_row
+    grid = min(grid, tiles)
+    out = np.full((2, B, nf, n), np.nan)
+    acc = np.zeros((2, grid, nf * cols))
+    lower = np.tril(np.ones((32, 32), bool), -1)     # [l, l']: l' < l
+    kk, cc = np.meshgrid(np.arange(nf), np.arange(cols), indexing="ij")
+    words = _acc_at64(kk, cc, cols)
+    for it in range(-(-tiles // grid)):
+        tile = np.arange(grid) + it * grid
+        alive = tile < tiles
+        bat = np.where(alive, tile // tiles_row, 0)
+        j0 = (tile % tiles_row) * cols
+        for s in range(T):
+            i = s * rows + g
+            j = j0[:, None] + c
+            live = alive[:, None] & (i < na) & (j < n)
+            at = (bat[:, None], np.minimum(i, na - 1), np.minimum(j, n - 1))
+            kl = np.where(live, k[at], -1)
+            pr, pi = vr[at], vi[at]
+            key = np.where(kl >= 0, kl * cols + c, -1 - lane)
+            kw = key.reshape(grid, -1, 32)
+            same = kw[..., :, None] == kw[..., None, :]
+            rank = (same & lower).sum(-1).reshape(key.shape)
+            for grp in range(groups):
+                for rnd in range(int(rank.max()) + 1):
+                    bi, th = np.nonzero((rank == rnd) & (kl >= 0) &
+                                        (h == grp))
+                    a = _acc_at64(kl[bi, th], c[th], cols)
+                    assert np.unique(np.stack([bi, a]), axis=1).shape[1] \
+                        == a.size
+                    acc[0, bi, a] += pr[bi, th]
+                    acc[1, bi, a] += pi[bi, th]
+        for b in np.nonzero(alive)[0]:
+            ok = j0[b] + cc < n
+            out[:, bat[b], kk[ok], j0[b] + cc[ok]] = acc[:, b, words[ok]]
+        acc[:] = 0.0
+    return out
+
+
+WALK64_CASES = WALK_CASES + [(490, "log-piecewise"), (2000, "log")]
+
+
+@pytest.mark.parametrize("flipud", [False, True])
+@pytest.mark.parametrize("nf, mode", WALK64_CASES)
+def test_lane_walk_model_f64(nf, mode, flipud):
+    """The model of the double kernel's walk, at the plan's columns and
+    row groups for 3 and 4 planes, over three stages of rows (the last
+    ragged) and ragged tiles, gives the float64 row-ordered sum bit for
+    bit, for the 3-plane (B, w given) and 4-plane (B', w formed from Wx
+    and dWx) contracts; the plain versions agree to 1e-12 of max|Tx|."""
+    rows = {p: reassign_cuda._f64_plan(nf, p).rows for p in (3, 4)}
+    (wr, wi, dr, di, const, Sfs), mode, params = _walk_inputs(
+        nf, mode, seed=nf + len(mode), na=2 * max(rows.values()) + 5,
+        dtype=np.float64)
+    T = [torch.as_tensor(a) for a in (wr, wi, dr, di, const, Sfs)]
+    w4 = reassign_cuda.phase_w(*T[:4], T[5], GAMMA, "stft")
+    w3 = torch.where(T[0].abs() > 2.0, torch.full_like(w4, float("inf")),
+                     w4)
+    plain = {
+        3: reassign_cuda.reassign_plain(T[0], T[1], w3, T[4], params, mode,
+                                        flipud, nf),
+        4: reassign_cuda.reassign4_plain(*T, GAMMA, params, mode, flipud, nf,
+                                         "stft")}
+    for planes, w in ((3, w3), (4, w4)):
+        plan = reassign_cuda._f64_plan(nf, planes)
+        k = reassign_cuda.bin_indices(w, mode, params, flipud, nf).numpy()
+        assert (k < 0).any() and (k >= 0).mean() > 0.5
+        vr, vi = wr * const[:, None], wi * const[:, None]
+        ref = _ordered_sum(vr, vi, k, nf)
+        top = np.abs(ref).max()
+        for i in range(2):
+            assert plain[planes][i].dtype == torch.float64
+            assert np.abs(plain[planes][i].numpy() - ref[i]).max() <= \
+                1e-12 * top
+        got = _lanes_model64(vr, vi, k, nf, plan.cols, plan.groups)
+        assert np.array_equal(got, ref), (planes, plan)
+
+
+@pytest.mark.parametrize("shape", sorted(
+    (c, g) for c, gs in reassign_cuda.F64_SHAPES.items() for g in gs))
+def test_lane_walk_model_f64_every_shape(shape):
+    """Every instantiated (columns, row groups) of reassign64.cu walks to
+    the float64 row-ordered sum bit for bit (log-piecewise bins at nf =
+    293 over 2.5 stages of rows, ragged tiles, a batch of two)."""
+    cols, groups = shape
+    (wr, wi, dr, di, const, Sfs), mode, params = _walk_inputs(
+        293, "log-piecewise", seed=cols * 100 + groups,
+        na=40 * groups + 3, n=37, dtype=np.float64)
+    T = [torch.as_tensor(a) for a in (wr, wi, dr, di, const, Sfs)]
+    w = reassign_cuda.phase_w(*T[:4], T[5], GAMMA, "stft")
+    k = reassign_cuda.bin_indices(w, mode, params, True, 293).numpy()
+    vr, vi = wr * const[:, None], wi * const[:, None]
+    got = _lanes_model64(vr, vi, k, 293, cols, groups, grid=2)
+    assert np.array_equal(got, _ordered_sum(vr, vi, k, 293))
+
+
+def test_f64_plans_fit_and_own_every_bin_once():
+    """For every nf the double kernels take (1..3632) and 3 or 4 planes:
+    the plan's accumulator, ring and alignment slack fit a block's 227 KB
+    and its blocks
+    the SM's 228 KB (less 1 KB a block), at least F64_MIN_FLIGHT plane
+    bytes are in flight an SM, 16 to 32 warps an SM, 8 columns (64-byte
+    plane row runs) wherever their accumulator leaves a ring, and the
+    plan takes the instantiated shapes, every one of them. Per shape:
+    the column pairs' row-group barriers fit the block's 15 named ones;
+    every (column, stage row) is one
+    thread's; in each row group a column's lanes lie in one warp (a (bin,
+    column) takes its adds from one warp at a time, the groups in turn);
+    the stage's swizzle (the TMA box's) permutes its words and gives a
+    half-warp's reads 16 bank pairs; the accumulator (the Tx store's TMA
+    box, swizzled alike) gives every (bin, column) its own word within
+    its 1024-byte-rounded plane, and a half-warp's adds (8 bins that
+    differ in their low three bits, in each of its 2 columns) 16 bank
+    pairs."""
+    R = reassign_cuda
+    used = set()
+    for nf in range(1, 3633):
+        for planes in (3, 4):
+            p = R._f64_plan(nf, planes)
+            stage = R._f64_stage(p.cols, p.groups, planes)
+            assert p.groups in R.F64_SHAPES[p.cols], (nf, p)
+            assert p.rows == 16 * p.groups and 2 <= p.stages <= 16
+            assert p.smem == 1024 + R._f64_acc(nf, p.cols) + \
+                p.stages * stage
+            assert p.smem <= R.MAX_SMEM, (nf, p)
+            assert p.blocks * (p.smem + R.BLOCK_RESERVE) <= R.SM_SMEM
+            # the kernel's dispatch finds the blocks an SM from smem
+            assert min(4, R.SM_SMEM // (p.smem + R.BLOCK_RESERVE)) == \
+                p.blocks or p.groups > 2, (nf, p)
+            assert p.flight == p.blocks * (p.stages - 1) * (stage - 8)
+            assert p.flight >= R.F64_MIN_FLIGHT, (nf, p)
+            assert 512 <= p.blocks * 16 * p.cols * p.groups <= 1024
+            st8 = R._f64_stage(8, 4, planes)      # one block at 8 columns
+            need = max(2, 1 + -(-R.F64_MIN_FLIGHT // (st8 - 8)))
+            assert p.cols == 8 or R._f64_smem(nf, 8, 4, planes, need) > \
+                R.MAX_SMEM, (nf, p)                   # 64-byte runs
+            used.add((p.cols, p.groups))
+    with pytest.raises(ValueError, match="1 to 3632"):
+        R._f64_plan(3633)
+    shapes = {(c, g) for c, gs in R.F64_SHAPES.items() for g in gs}
+    assert used == shapes
+    for cols, groups in shapes:
+        assert cols // 2 * (groups - 1) <= 15
+        h, c, g, warp = _lane_map64(cols, groups)
+        assert len(set(zip(c, g))) == c.size == 16 * cols * groups
+        for grp in range(groups):
+            for col in range(cols):
+                assert len(set(warp[(h == grp) & (c == col)])) == 1
+        words = _stage_at64(g, c, cols)
+        assert np.unique(words).size == c.size        # a permutation
+        assert words.max() == c.size - 1
+        for half in range(0, c.size, 16):
+            assert np.unique(words[half:half + 16] % 16).size == 16, \
+                (cols, groups)
+        for nf in (1, 7, 293, 1025, R.MAX_SMEM // (16 * cols)):
+            kk, cc = np.meshgrid(np.arange(nf), np.arange(cols),
+                                 indexing="ij")
+            at = _acc_at64(kk, cc, cols)
+            assert np.unique(at).size == nf * cols
+            assert at.min() == 0 and 8 * (at.max() + 1) <= \
+                R._f64_acc(nf, cols) // 2
+        for m in range(cols // 2):
+            for k0 in (0, 8, 288, 1021):
+                kk = np.arange(k0, k0 + 8)
+                words = np.concatenate([_acc_at64(kk, 2 * m, cols),
+                                        _acc_at64(kk, 2 * m + 1, cols)])
+                assert np.unique(words % 16).size == 16, (cols, m, k0)
+
+
+# -- the bin screen of csrc/reassign64.cu ------------------------------------------
+F32 = np.float32
+
+
+def _screen_cell(qs, eq):
+    """reassign64.cu screen_cell: (m, decided) with [qs - eq, qs + eq]
+    inside (m - 1/2, m + 1/2), in double."""
+    lo, hi = np.floor(qs - eq + 0.5), np.floor(qs + eq + 0.5)
+    ok = (eq < 0.25) & (np.abs(qs) < 1e9) & (lo == hi)
+    return np.where(ok, lo, 0).astype(np.int64), ok
+
+
+def _bin_screen(wf, rel, mode, prm, nf, lf):
+    """reassign64.cu bin_screen in numpy (unflipped bins and whether each
+    is decided) for float32 wf known to rel wf, with lf the float32 log2
+    of wf as given."""
+    top = nf - 1
+    rel = F32(rel)
+    pre = (wf > F32(1e-30)) & (wf < F32(1e30)) & (rel <= F32(9.765625e-4))
+
+    def eq(el, r, qs):
+        return 2.0 * el * abs(r) + 1e-9 + 1e-12 * np.abs(qs)
+
+    if mode == "lin":
+        r1 = 1.0 / prm["dv"]
+        qs = (wf.astype(np.float64) - prm["vmin"]) * r1
+        m, ok = _screen_cell(qs, eq((rel * wf).astype(F32).astype(
+            np.float64), r1, qs))
+        return np.where(m <= 0, 0, np.minimum(m, top)), ok & pre
+    el = (F32(1.1920929e-7) * np.abs(lf) + F32(1.445) * rel).astype(
+        np.float64) + 1e-12 * (np.abs(lf).astype(np.float64) + 1.0)
+    ld = lf.astype(np.float64)
+    if mode == "log":
+        r1 = 1.0 / prm["dvl"]
+        qs = (ld - prm["vlmin"]) * r1
+        m, ok = _screen_cell(qs, eq(el, r1, qs))
+        return np.where(m <= 0, 0, np.minimum(m, top)), ok & pre
+    r2, r3 = 1.0 / prm["dvl0"], 1.0 / prm["dvl1"]
+    side = ld - prm["vlmin1"]
+    sok = np.abs(side) > 2.0 * el + 1e-12
+    qh = side * r3
+    mh, okh = _screen_cell(qh, eq(el, r3, qh))
+    kh = np.minimum(mh + prm["idx1"], float(top)).astype(np.int64)
+    ql = (ld - prm["vlmin0"]) * r2
+    ml, okl = _screen_cell(ql, eq(el, r2, ql))
+    hi = side > 0
+    return (np.where(hi, kh, np.maximum(ml, 0)),
+            pre & sok & np.where(hi, okh, okl))
+
+
+def _near_ties(mode, prm, nf, rng, size):
+    """Phase values whose bin quotient lies 1e-12 .. 1e-2 from a rounding
+    tie (and, log-piecewise, from the split), with random ones."""
+    m = rng.integers(0, nf, size)
+    d = rng.choice([-1.0, 1.0], size) * 10 ** rng.uniform(-12, -2, size)
+    if mode == "lin":
+        w = [prm["vmin"] + (m + 0.5 + d) * prm["dv"]]
+    elif mode == "log":
+        w = [2 ** (prm["vlmin"] + (m + 0.5 + d) * prm["dvl"])]
+    else:
+        w = [2 ** (prm["vlmin0"] + (m + 0.5 + d) * prm["dvl0"]),
+             2 ** (prm["vlmin1"] + (m - prm["idx1"] + 0.5 + d) *
+                   prm["dvl1"]),
+             2 ** (prm["vlmin1"] * (1 + d))]
+    w = np.concatenate(w)
+    return np.concatenate([w[(w > 0) & np.isfinite(w)], np.exp(
+        rng.uniform(np.log(1e-5), np.log(2.0), size))])
+
+
+@pytest.mark.parametrize("nf", [7, 293, 1025, 3632])
+@pytest.mark.parametrize("mode", ["log", "log-piecewise", "lin"])
+def test_bin_screen_model(mode, nf):
+    """The bin screen of the double kernels decides a bin only where it is
+    the exact (double, plain) bin: on phase values at and near every
+    rounding tie and the log-piecewise split, for log2f off by up to an
+    ulp either way and w known in float to 2^-23 (B) or 2^-21 (B'); it
+    decides all but half a percent of random values (the rest take the
+    exact path)."""
+    rng = np.random.default_rng(nf + len(mode))
+    freqs = {"log": np.geomspace(0.003, 0.5, nf),
+             "lin": np.linspace(0.0, 0.5, nf),
+             "log-piecewise": np.hstack([
+                 np.geomspace(0.003, 0.1, int(0.7 * nf), endpoint=False),
+                 np.geomspace(0.1, 0.5, nf - int(0.7 * nf))])}[mode]
+    got, prm = bin_params(freqs, mode != "lin")
+    assert got == mode
+    w = torch.as_tensor(_near_ties(mode, prm, nf, rng, 60_000))
+    exact = reassign_cuda.bin_indices(w, mode, prm, False, nf).numpy()
+    w = w.numpy()
+    wf = w.astype(F32)
+    for rel in (1.1920929e-7, 4.76837158e-7):
+        lf0 = np.log2(wf.astype(np.float64)).astype(F32)
+        for lf in (lf0, np.nextafter(lf0, F32(np.inf)),
+                   np.nextafter(lf0, F32(-np.inf))):
+            k, ok = _bin_screen(wf, rel, mode, prm, nf, lf.astype(F32))
+            assert np.array_equal(k[ok], exact[ok]), (rel, mode, nf)
+        assert ok[-60_000:].mean() > 0.995     # the random values
