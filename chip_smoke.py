@@ -17,7 +17,10 @@ of them (J5-J8) apart; then the component-separation workflow
 (`ssq_cwt` -> `extract_ridges` -> `issq_cwt`) and the reference-name
 kernel layer (`algos`) at the same length; then the float64 routes: the
 drop-in `compat` API at N = 160 000 and `ssq_cwt(dtype='float64')` at the
-headline, through kernels B, B', C and C' in double, and `cache_wavelet`.
+headline, through kernels B, B', C and C' in double, and `cache_wavelet`;
+last the scatter past the bins one launch takes (`ssq_stft` at n_fft =
+8192, `ssq_cwt` with 5000 ssq_freqs) and the sharded `chunked_*`
+transforms of `parallel` on a mesh that lists the card four times.
 Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
@@ -202,10 +205,32 @@ Phases, one line each:
      within 1e-5; Tx column sums 1e-4), their device ms with and without,
      and the cache's device bytes
 
+ 25. (a) past the bins one launch takes (B and B' 3632, I 4096; a call
+     splits nf into ranges, one launch each): ssq_stft(n_fft = 8192) at
+     N = 160 000 (nf = 4097: B' twice) and ssq_cwt with 5000 ssq_freqs
+     (A once, B twice), each Tx bitwise the kernel on its planes and
+     within 1e-5 of max|Tx| of the plain version; B and B' in double at
+     nf = 4097 on the headline float64 planes bitwise the row-ordered
+     sum; I at nf = 5000 on D's planes within 2e-5 (sum-relative) of
+     B'; each bitwise repeated and timed beside its plain version and
+     its bound (each range reads every plane); at nf = 293 the split
+     forced into ranges of 150 through `_launch_ranges` against one
+     launch (B, B', B and B' in double bitwise; I by its bar). (b)
+     chunked_stft, chunked_istft (n_fft = 598), chunked_cwt,
+     chunked_ssq_cwt, chunked_ssq_stft, chunked_icwt and
+     chunked_issq_cwt at N = 160 000 with the headline settings, on a
+     mesh whose 'time' axis lists the card four times and on a (1, 1)
+     mesh, against the unsharded transforms (stft, istft and ssq_stft's
+     Sx bitwise; see `chunked_phases` for the other bars), the kernels'
+     launches counted per shard program, the wall and device ms of each
+     (torch.profiler, and CUDA events around calls queued behind a spin)
+     beside the unsharded transform's
+
 A line "[t]" gives the wall seconds of each part of the script. Any
 failed check raises and exits non-zero. The last three lines are a
 JSON object of the twenty-six kernels' numbers (each with its launches on
-its paths, B's, B''s and B's double's including phase 23's, its time, its
+its paths, including phase 23's and phase 25's end-to-end and sharded
+calls, its time, its
 plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
@@ -751,6 +776,10 @@ def main():
     sep_launches = component_phases(np, torch, dev, card, results, ctx)
     lap("23 component separation")
     f64_kernels = float64_phases(np, torch, dev, card, results, ctx)
+    range_launches = range_phases(np, torch, dev, card, results, ctx)
+    lap("25a bins past one launch")
+    chunk_launches = chunked_phases(np, torch, dev, card, results, ctx)
+    lap("25b chunked transforms")
 
     results["phase_s"] = LAPS
     print("[t] wall seconds by part: " + ", ".join(
@@ -769,9 +798,12 @@ def main():
                      None),
     ] + (stft_kernels + grad_kernels + cwt_kernels + serving_kernels +
          probe_kernels + rate_kernels + f64_kernels)
-    # B and B' (and B in double) also ran on phase 23's paths
+    # B and B' (and B in double) also ran on phase 23's paths, and the
+    # kernels of phase 25's end-to-end and sharded calls on theirs
     for entry in kernels:
-        entry["launches"] += sep_launches.get(entry["name"], 0)
+        entry["launches"] += (sep_launches.get(entry["name"], 0) +
+                              range_launches.get(entry["name"], 0) +
+                              chunk_launches.get(entry["name"], 0))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3718,6 +3750,511 @@ def float64_phases(np, torch, dev, card, results, ctx):
                          K[name]["max_abs_err"], K[name]["ms"],
                          K[name]["plain_ms"], K[name]["bound"], None)
             for name in src]
+
+
+# Phase 25: past the bins a launch takes, and the sharded transforms
+NF_STFT_BIG = 8192      # ssq_stft's n_fft past B''s 3632 bins: nf = 4097
+NF_RANGED = 4097        # B and B' in double, ranged
+NF_MANY = 5000          # ssq_cwt's ssq_freqs and kernel I, ranged
+RANGE_SPLIT = 150       # a forced split of nf = 293 into 150 + 143
+MXU_BAR = 2e-5          # kernel I against B': sum|d| / sum|B'|
+
+
+def launch_counts():
+    """Every kernel launch counter the main paths move, by JSON name."""
+    from ssqueeze_rs_tpu_torch.ops import (fft_cuda, reassign_cuda as R,
+                                           stft_cuda)
+    return dict(stft_cuda.LAUNCHES, cwt_phase=fft_cuda.LAUNCHES,
+                cwt_fused=fft_cuda.LAUNCHES_D,
+                ifft_halfband=fft_cuda.LAUNCHES_E, reassign=R.LAUNCHES,
+                reassign4=R.LAUNCHES4, reassign_mxu=R.LAUNCHES_MXU,
+                reassign_f64=R.LAUNCHES_F64, reassign4_f64=R.LAUNCHES4_F64,
+                reassign_bwd=R.LAUNCHES_BWD, reassign4_bwd=R.LAUNCHES4_BWD)
+
+
+def moved(before):
+    """The launch counters that moved since `before`, by how much."""
+    return {k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+
+
+def range_phases(np, torch, dev, card, results, ctx):
+    """Phase 25 (a): the scatter past the bins one launch takes. ssq_stft
+    at n_fft = 8192 (nf = 4097, B' in two ranges) and ssq_cwt with 5000
+    ssq_freqs (B in two ranges) end to end at N = 160 000, each Tx the
+    same bits as the kernel on its planes and within 1e-5 of max|Tx| of
+    the plain version; B and B' in double at nf = 4097 equal to the
+    row-ordered sum; kernel I at nf = 5000 against B' (MXU_BAR); each
+    bitwise repeated and timed beside its plain version and its bound
+    (each range reads every plane again); at nf = 293 a split forced
+    into ranges of 150 against the one launch. Returns the launches of
+    the two end-to-end calls."""
+    from ssqueeze_rs_tpu_torch import cwt, ssq_cwt, ssq_stft, stft
+    from ssqueeze_rs_tpu_torch.config import EPS32, EPS64
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda as R
+    from ssqueeze_rs_tpu_torch.ops.cwt import cwt_phase_args
+    from ssqueeze_rs_tpu_torch.ops.ssq_stft import make_Sfs
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import bin_params, plan_ssqueeze
+    from ssqueeze_rs_tpu_torch.utils.pad import padsignal
+
+    out, rows, path = {}, [], {}
+    wavelet, scales = ctx["wavelet"], ctx["scales"]
+    x = ctx["requests"]["noise"][0]
+    n = x.shape[-1]
+    sc = scales.squeeze(-1)
+    na = len(sc)
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def off(k, p):
+        """(max|k - p| / max|p|, max|k - p|) over the complex entries."""
+        d = float(torch.hypot(k[0] - p[0], k[1] - p[1]).max())
+        return d / float(torch.hypot(*p).max()), d
+
+    def ranged_bound(planes, vecs, tx, ranges, flops64=False):
+        """Each range reads every plane and row vector once; Tx is written
+        once."""
+        nbytes = ranges * tensor_bytes(planes, vecs) + tensor_bytes(tx)
+        return (bound64 if flops64 else bound)(nbytes, 0.0)
+
+    def row(name, key, nf, fn, plain, args, planes, vecs, ranges,
+            ordered=None, flops64=False):
+        before = launch_counts()
+        k1 = fn(*args)
+        launched = moved(before)
+        rec = dict(nf=nf, ranges=ranges, launches=launched,
+                   repeat=same(k1, fn(*args)))
+        if ordered is not None:
+            rec["row_ordered"] = same(k1, ordered)
+        p1 = plain(*args)
+        rec["tx_rel"], rec["tx_abs"] = off(k1, p1)
+        rec["ms"] = cuda_ms(torch, lambda: fn(*args), warmup=1, iters=5)
+        rec["plain_ms"] = cuda_ms(torch, lambda: plain(*args), warmup=1,
+                                  iters=3)
+        rec["bound_ms"], rec["bound_by"] = ranged_bound(planes, vecs, k1,
+                                                        ranges, flops64)
+        out[key] = rec
+        rows.append(f"{name} nf={nf} in {ranges} ranges (launches "
+                    f"{launched}): Tx rel "
+                    f"{rec['tx_rel']:.2e}, repeat {rec['repeat']}"
+                    + (f", == row-ordered sum {rec['row_ordered']}"
+                       if ordered is not None else "")
+                    + f" | {rec['ms']:.3f} ms vs plain "
+                    f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} "
+                    f"ms ({rec['bound_by']})")
+        check(rec["repeat"], f"{name} at nf={nf} differs between two runs")
+        check(sum(launched.values()) == ranges, f"{name} at nf={nf}: "
+              f"launches {launched}, not one a range ({ranges})")
+        return k1, p1
+
+    # ssq_stft at n_fft = 8192 end to end, then B' on its planes
+    nf = NF_STFT_BIG // 2 + 1
+    before = launch_counts()
+    Tx, Sx, *_ = ssq_stft(x, n_fft=NF_STFT_BIG)
+    torch.cuda.synchronize()
+    path["ssq_stft"] = moved(before)
+    check(path["ssq_stft"] == {"reassign4": 2},
+          f"ssq_stft(n_fft={NF_STFT_BIG}) launches {path['ssq_stft']}")
+    check(Tx.is_cuda and tuple(Tx.shape) == (nf, n) and
+          bool(torch.isfinite(Tx).all()), "ssq_stft(n_fft=8192): Tx")
+    e2e = cuda_ms(torch, lambda: ssq_stft(x, n_fft=NF_STFT_BIG), warmup=1,
+                  iters=3)
+    Sx, dSx = stft(x, n_fft=NF_STFT_BIG, derivative=True)
+    Sfs_np = make_Sfs(Sx, 1.0)
+    _, const_arr, mode, params = plan_ssqueeze(
+        n, nf, Sfs_np, None, maprange="maximal", transform="stft")
+    planes = [p.contiguous() for p in (Sx.real, Sx.imag, dSx.real,
+                                       dSx.imag)]
+    del Sx, dSx
+    vecs = [torch.as_tensor(const_arr, dtype=torch.float32, device=dev),
+            torch.as_tensor(Sfs_np, device=dev)]
+    a4 = (*planes, *vecs, 10 * EPS32, params, mode, False, nf, "stft")
+    k1, p1 = row("B' (ssq_stft planes)", "B'", nf, R.reassign4,
+                 R.reassign4_plain, a4, planes, vecs, 2)
+    out["B'"]["e2e_equal"] = bool(torch.equal(Tx.real, k1[0]) and
+                                  torch.equal(Tx.imag, k1[1]))
+    out["B'"]["e2e_ms"] = e2e
+    check(out["B'"]["e2e_equal"], "ssq_stft(n_fft=8192) Tx differs from B' "
+          "on its planes")
+    bp_rel = out["B'"]["tx_rel"]
+    check(bp_rel <= 1e-5, f"B' at nf={nf}: Tx rel {bp_rel:.2e} > 1e-5")
+    del Tx, k1, p1, planes, a4
+    torch.cuda.empty_cache()
+
+    # ssq_cwt with 5000 ssq_freqs end to end, then B on kernel A's planes
+    freqs, *_ = plan_ssqueeze(n, na, None, scales, fs=1.0, maprange="peak",
+                              wavelet=wavelet)
+    many = np.geomspace(float(freqs.min()), float(freqs.max()), NF_MANY)
+    before = launch_counts()
+    Tx, *_ = ssq_cwt(x, wavelet, scales=scales, fs=1.0, ssq_freqs=many)
+    torch.cuda.synchronize()
+    path["ssq_cwt"] = moved(before)
+    check(path["ssq_cwt"] == {"cwt_phase": 1, "reassign": 2},
+          f"ssq_cwt({NF_MANY} ssq_freqs) launches {path['ssq_cwt']}")
+    check(tuple(Tx.shape) == (NF_MANY, n) and bool(torch.isfinite(Tx).all()),
+          "ssq_cwt(5000 ssq_freqs): Tx")
+    e2e = cuda_ms(torch, lambda: ssq_cwt(x, wavelet, scales=scales, fs=1.0,
+                                         ssq_freqs=many), warmup=1, iters=3)
+    xp, _, n1, _ = padsignal(x, "reflect", get_params=True)
+    kA = fft_cuda.cwt_phase(*cwt_phase_args(xp, sc, 1.0, wavelet),
+                            keep=(n1, n), gamma=10 * EPS32)
+    _, const_arr, mode, params = plan_ssqueeze(n, na, many, scales, fs=1.0,
+                                               maprange="peak",
+                                               wavelet=wavelet)
+    const = torch.as_tensor(const_arr, dtype=torch.float32, device=dev)
+    a3 = (kA[0], kA[1], kA[2], const, params, mode, True, NF_MANY)
+    k1, p1 = row("B (ssq_cwt planes)", "B", NF_MANY, R.reassign,
+                 R.reassign_plain, a3, kA, [const], 2)
+    out["B"]["e2e_equal"] = bool(torch.equal(Tx.real, k1[0]) and
+                                 torch.equal(Tx.imag, k1[1]))
+    out["B"]["e2e_ms"] = e2e
+    check(out["B"]["e2e_equal"], "ssq_cwt(5000 ssq_freqs) Tx differs from "
+          "B on kernel A's planes")
+    check(out["B"]["tx_rel"] <= 1e-5, f"B at nf={NF_MANY}: Tx rel "
+          f"{out['B']['tx_rel']:.2e} > 1e-5")
+    del Tx, k1, p1
+
+    # forced splits at the headline plan (nf = 293): ranges of 150
+    nf0, prm0, mode0 = ctx["nf"], ctx["params"], ctx["mode"]
+    a3h = (kA[0], kA[1], kA[2], ctx["const"], prm0, mode0, True, nf0)
+    split = {}
+    one = R.reassign(*a3h)
+    forced, count = R._launch_ranges(
+        R._entry("ssq_reassign", torch.float32), list(kA), [ctx["const"]],
+        [R.MODES[mode0], 1], R._plan_floats(mode0, prm0), nf0,
+        "reassign kernel", RANGE_SPLIT, lambda r: (R._block_cols(r),))
+    split["B"] = (count, same(one, forced))
+    del kA, a3h, one, forced
+
+    # kernel I against B' at nf = 5000 on D's ssq_cwt planes (4 planes)
+    args = cwt_phase_args(xp, sc, 1.0, wavelet)
+    planes4 = [p.contiguous() for p in
+               fft_cuda.cwt_fused(*args, keep=(n1, n), derivative=True)]
+    del args
+    zeros = torch.zeros(na, dtype=torch.float32, device=dev)
+    a4 = (*planes4, const, zeros, 10 * EPS32, params, mode, True, NF_MANY,
+          "cwt")
+    kB4 = R.reassign4(*a4)
+    old = os.environ.get("SSQ_TPU_REASSIGN_IMPL")
+    os.environ["SSQ_TPU_REASSIGN_IMPL"] = "mxu"
+    try:
+        kI, _ = row("I (ssq_cwt planes)", "I", NF_MANY, R.reassign4,
+                    R.reassign_mxu_plain, a4, planes4, [const, zeros], 2)
+        # the headline plan split at 150 rows: each range has its own
+        # digit split, so held to the one launch by I's bar
+        a4h = (*planes4, ctx["const"], zeros, 10 * EPS32, prm0, mode0, True,
+               nf0, "cwt")
+        oneI = R.reassign4(*a4h)
+        forcedI, countI = R._launch_ranges(
+            lambda lib: lib.ssq_reassign_mxu, planes4, [ctx["const"], zeros],
+            [R.TRANSFORMS["cwt"], R.MODES[mode0], 1],
+            [R._gamma2(10 * EPS32)] + R._plan_floats(mode0, prm0), nf0,
+            "reassign_mxu kernel", RANGE_SPLIT,
+            lambda r: (R._mxu_plan(r).n_tile,))
+        dI = float((torch.hypot(forcedI[0] - oneI[0], forcedI[1] - oneI[1])
+                    .sum() / torch.hypot(*oneI).sum()))
+        split["I"] = (countI, same(oneI, forcedI), dI)
+        del oneI, forcedI
+    finally:
+        if old is None:
+            os.environ.pop("SSQ_TPU_REASSIGN_IMPL", None)
+        else:
+            os.environ["SSQ_TPU_REASSIGN_IMPL"] = old
+    dIB = float(torch.hypot(kI[0] - kB4[0], kI[1] - kB4[1]).sum() /
+                torch.hypot(*kB4).sum())
+    out["I"]["vs_B'"] = dIB
+    rows[-1] += f"; against B' sum|d|/sum|B'| {dIB:.2e}"
+    check(dIB < MXU_BAR, f"kernel I at nf={NF_MANY} vs B': {dIB:.2e}")
+    check(out["I"]["tx_rel"] <= 1e-5, f"kernel I at nf={NF_MANY} vs plain "
+          f"I: {out['I']['tx_rel']:.2e}")
+    del kI, kB4
+    oneB4 = R.reassign4(*a4h)
+    forcedB4, count = R._launch_ranges(
+        R._entry("ssq_reassign4", torch.float32), planes4,
+        [ctx["const"], zeros], [R.TRANSFORMS["cwt"], R.MODES[mode0], 1],
+        [R._gamma2(10 * EPS32)] + R._plan_floats(mode0, prm0), nf0,
+        "reassign4 kernel", RANGE_SPLIT, lambda r: (R._block_cols(r),))
+    split["B'"] = (count, same(oneB4, forcedB4))
+    del planes4, a4, a4h, oneB4, forcedB4
+    torch.cuda.empty_cache()
+
+    # B and B' in double at nf = 4097 on the headline float64 planes
+    f64 = torch.float64
+    Wx, _, dWx = cwt(x.to(f64), wavelet, scales=scales, derivative=True,
+                     dtype="float64")
+    planes = [p.contiguous() for p in (Wx.real, Wx.imag, dWx.real,
+                                       dWx.imag)]
+    del Wx, dWx
+    _, const_arr, _, _ = plan_ssqueeze(n, na, None, scales, fs=1.0,
+                                       maprange="peak", wavelet=wavelet)
+    const64 = torch.as_tensor(const_arr, dtype=f64, device=dev)
+    zeros64 = torch.zeros(na, dtype=f64, device=dev)
+    g64 = 10 * EPS64
+    w = R.phase_w(*planes, zeros64, g64, "cwt")
+    m64, prm64 = bin_params(np.geomspace(float(freqs.min()),
+                                         float(freqs.max()), NF_RANGED), True)
+    ordered = row_ordered(torch, R, planes[0], planes[1], w, const64, prm64,
+                          m64, True, NF_RANGED)
+    a3 = (planes[0], planes[1], w, const64, prm64, m64, True, NF_RANGED)
+    k1, p1 = row("B f64", "B f64", NF_RANGED, R.reassign, R.reassign_plain,
+                 a3, (planes[0], planes[1], w), [const64], 2, ordered, True)
+    del k1, p1
+    a4 = (*planes, const64, zeros64, g64, prm64, m64, True, NF_RANGED, "cwt")
+    k1, p1 = row("B' f64", "B' f64", NF_RANGED, R.reassign4,
+                 R.reassign4_plain, a4, planes, [const64, zeros64], 2,
+                 ordered, True)
+    del k1, p1, ordered
+    for key in ("B f64", "B' f64"):
+        check(out[key]["row_ordered"], f"{key} at nf={NF_RANGED} is not the "
+              "row-ordered sum")
+    # the headline plan (nf = 293) in double, split at 150 rows
+    m0, p0 = mode0, prm0
+    for key, entry, pl, vecs, ints, plan, n_in in (
+            ("B f64", "ssq_reassign", [planes[0], planes[1], w], [const64],
+             [R.MODES[m0], 1], R._plan_floats(m0, p0, f64), 3),
+            ("B' f64", "ssq_reassign4", planes, [const64, zeros64],
+             [R.TRANSFORMS["cwt"], R.MODES[m0], 1],
+             [R._gamma2(g64, f64)] + R._plan_floats(m0, p0, f64), 4)):
+        one = (R.reassign(planes[0], planes[1], w, const64, p0, m0, True,
+                          nf0) if n_in == 3 else
+               R.reassign4(*planes, const64, zeros64, g64, p0, m0, True, nf0,
+                           "cwt"))
+        forced, count = R._launch_ranges(
+            R._entry(entry, f64), pl, vecs, ints, plan, nf0, key,
+            RANGE_SPLIT, lambda r, n_in=n_in: R._f64_shape(f64, r, n_in))
+        split[key] = (count, same(one, forced))
+        del one, forced
+    del planes, w, a3, a4
+    torch.cuda.empty_cache()
+
+    out["split_293"] = {k: list(v) for k, v in split.items()}
+    out["paths"] = path
+    results["ranges"] = out
+    bp = out["B'"]
+    print(f"[25a] bins past one launch at N = {n} ({card}): " +
+          "; ".join(rows) + f". End to end: ssq_stft(n_fft={NF_STFT_BIG}) "
+          f"{bp['e2e_ms']:.2f} ms, launches {path['ssq_stft']}, Tx == "
+          f"B' on its planes {bp['e2e_equal']}; ssq_cwt({NF_MANY} "
+          f"ssq_freqs) {out['B']['e2e_ms']:.2f} ms, launches "
+          f"{path['ssq_cwt']}, Tx == B on A's planes "
+          f"{out['B']['e2e_equal']}. nf = {nf0} forced into ranges of "
+          f"{RANGE_SPLIT}: " + ", ".join(
+              f"{k} {v[0]} launches, == one launch {v[1]}"
+              + (f" (sum|d|/sum|one| {v[2]:.2e})" if len(v) > 2 else "")
+              for k, v in split.items()))
+    for key, v in split.items():
+        check(v[0] == 2, f"{key}: the forced split took {v[0]} launches")
+        if key != "I":
+            check(v[1], f"{key}: the forced split differs from one launch")
+        else:
+            check(v[2] < MXU_BAR, f"I: the forced split is {v[2]:.2e} off "
+                  "one launch")
+    total = {}
+    for counts in path.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def chunked_phases(np, torch, dev, card, results, ctx):
+    """Phase 25 (b): the sharded transforms of `parallel` on the card, on
+    a mesh whose 'time' axis lists it four times and on a (1, 1) mesh, at
+    N = 160 000 with the headline settings: chunked_stft and
+    chunked_istft (n_fft = 598) equal to stft / istft; chunked_cwt within
+    1e-5 of max|Wx| of cwt (the rows of the hybrid's overlap-save run
+    have their kernels' tail mass beyond the halo within 1e-6) on the
+    rows the unsharded cwt computes without wrap-around (their tail mass
+    beyond its own pad within 1e-6) and on the global rows;
+    chunked_ssq_cwt and chunked_ssq_stft against ssq_cwt / ssq_stft
+    (ssq_stft: Sx equal, Tx within 1e-5 of max|Tx|; ssq_cwt: mean
+    column-marginal error < 5e-2 of the mean marginal, the JAX package's
+    bar, and Wx as chunked_cwt's); chunked_icwt and
+    chunked_issq_cwt within 1e-6 of their unsharded results. Every
+    transform's kernels launched once a shard program; the wall and
+    device ms of each, beside the unsharded transform's. Returns the
+    launches of the four-entry mesh's calls."""
+    from ssqueeze_rs_tpu_torch import (cwt, icwt, issq_cwt, istft, ssq_cwt,
+                                       ssq_stft, stft)
+    from ssqueeze_rs_tpu_torch.parallel import (
+        chunked_cwt, chunked_icwt, chunked_istft, chunked_issq_cwt,
+        chunked_ssq_cwt, chunked_ssq_stft, chunked_stft, make_mesh)
+    from ssqueeze_rs_tpu_torch.parallel import chunked as C
+
+    wavelet, scales = ctx["wavelet"], ctx["scales"]
+    x = ctx["requests"]["noise"][0]
+    n = x.shape[-1]
+    meshes = {"4": make_mesh((1, 4), devices=[dev] * 4),
+              "1": make_mesh((1, 1), devices=[dev])}
+    out, lines, path = {}, [], {}
+    kw_cwt = dict(wavelet=wavelet, scales=scales)
+    Sx = stft(x, n_fft=N_FFT)
+    W_ref, _ = cwt(x, wavelet, scales=scales)
+    T_ref = ssq_cwt(x, wavelet, scales=scales, fs=1.0)[0]
+    calls = {
+        "stft": (lambda m: chunked_stft(x, m, n_fft=N_FFT),
+                 lambda: stft(x, n_fft=N_FFT)),
+        "istft": (lambda m: chunked_istft(Sx, m, n_fft=N_FFT),
+                  lambda: istft(Sx, n_fft=N_FFT)),
+        "cwt": (lambda m: chunked_cwt(x, m, **kw_cwt)[0],
+                lambda: cwt(x, wavelet, scales=scales)[0]),
+        "ssq_cwt": (lambda m: chunked_ssq_cwt(x, m, fs=1.0, **kw_cwt)[:2],
+                    lambda: ssq_cwt(x, wavelet, scales=scales, fs=1.0)[:2]),
+        "ssq_stft": (lambda m: chunked_ssq_stft(x, m, n_fft=N_FFT)[:2],
+                     lambda: ssq_stft(x, n_fft=N_FFT)[:2]),
+        "icwt": (lambda m: chunked_icwt(W_ref, m, **kw_cwt),
+                 lambda: icwt(W_ref, wavelet, scales=scales)),
+        "issq_cwt": (lambda m: chunked_issq_cwt(T_ref, m, wavelet=wavelet),
+                     lambda: issq_cwt(T_ref, wavelet)),
+    }
+    # the rows the unsharded cwt computes without wrapping around: their
+    # kernels' tail mass beyond its own pad (n1 of p2up(N)) within 1e-6.
+    # The other rows' edge columns carry the unsharded transform's
+    # circular wrap, which a shard's longer reflected halo does not have
+    # (a one-shard mesh takes rows as far as 1e-6 of their mass beyond
+    # N - 1 samples through the halo), so they are reported, not held
+    wav, sc_arr, *_ = C._plan_cwt((n,), wavelet, scales, 32, None)
+    M_ref, n1_ref, _ = C.pad_params(n)
+    unwrapped = C.overlap_save_tail_mass(wav, sc_arr, n1_ref, M_ref) <= 1e-6
+    # the kernels a shard program launches (the hybrid CWT: D for the
+    # rows of the halo's overlap-save run and D for its block of the
+    # global rows, where either exists)
+    # first match wins: G's and H's kernel names contain F's
+    groups = (K_A, K_D, K_B, ("G", ("ssq_stft_bluestein",)),
+              ("H", ("istft_bluestein", "ola_partials")),
+              ("F", ("stft_bluestein",)), K_FFT)
+
+    def profiled(fn):
+        """device_breakdown, tried up to three times: in a run of many
+        short profiles some sessions saw no device time at all, and some
+        fewer launches than ran (the queued time beside it says)."""
+        for _ in range(3):
+            prof = device_breakdown(torch, fn, groups, calls=2)
+            if prof is not None:
+                return prof
+        return None
+
+    def dev_ms(prof):
+        return f"{prof['device_ms']:.2f}" if prof else "not measured"
+
+    def queued_ms(fn, reps=3, spin=200_000_000):
+        """The card's ms a call (median of `reps`), the calls queued behind
+        one spin of ~0.1 s that outlasts the host's enqueueing of them, so
+        each pair of events holds the card's time alone. A host sync
+        inside a call (istft's upload of its window norm from pageable
+        memory) makes it wait for the card, and adds the host's time
+        after it."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        events = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in events)
+        return times[len(times) // 2]
+    for mname, mesh in meshes.items():
+        shards = mesh.shape["time"]
+        S = n // shards
+        halo = C._clip_halo(C.default_cwt_halo(wav, float(sc_arr.max())), S)
+        g0, g1 = C._exact_rows(wav, sc_arr, halo,
+                               C.pad_params(S + 2 * halo)[0], 1e-6)
+        d_per = int(g1 > g0) + int(g1 - g0 < len(scales))
+        want = {"stft": {"stft_dft": shards},
+                "istft": {"istft_ola": shards},
+                "cwt": {"cwt_fused": d_per * shards},
+                "ssq_cwt": {"cwt_fused": d_per * shards,
+                            "reassign4": shards},
+                "ssq_stft": {"stft_dft": shards, "reassign4": shards},
+                "icwt": {}, "issq_cwt": {}}
+        res = {"rows_local": [int(g0), int(g1)], "halo": halo}
+        for name, (sharded, whole) in calls.items():
+            before = launch_counts()
+            got = sharded(mesh)
+            torch.cuda.synchronize()
+            counts = moved(before)
+            ref = whole()
+            wall = host_ms(torch, lambda: sharded(mesh), n=3)[0]
+            prof = profiled(lambda: sharded(mesh))
+            wall_ref = host_ms(torch, whole, n=3)[0]
+            prof_ref = profiled(whole)
+            queued = queued_ms(lambda: sharded(mesh))
+            queued_ref = queued_ms(whole)
+            rec = dict(launches=counts, wall_ms=wall, profile=prof,
+                       queued_ms=queued, unsharded_wall_ms=wall_ref,
+                       unsharded_profile=prof_ref,
+                       unsharded_queued_ms=queued_ref)
+            if name in ("stft", "istft"):
+                rec["equal"] = bool(torch.equal(got, ref))
+                check(rec["equal"], f"chunked_{name} on mesh {mname} is not "
+                      f"bitwise {name}")
+            elif name in ("cwt", "ssq_cwt"):
+                Wg, Wr = (got, ref) if name == "cwt" else (got[1], ref[1])
+                rows = ((Wg - Wr).abs().amax(-1) /
+                        Wr.abs().max()).cpu().numpy()
+                local = np.zeros(len(rows), bool)
+                local[g0:g1] = True
+                held = unwrapped | ~local
+                rec["rel_held_rows"] = float(rows[held].max())
+                rec["rel_wrapped_rows"] = (float(rows[~held].max())
+                                           if (~held).any() else 0.0)
+                rec["wrapped_rows"] = int((~held).sum())
+                check(rec["rel_held_rows"] < 1e-5, f"chunked_{name} on mesh "
+                      f"{mname}: Wx row error {rec['rel_held_rows']:.2e} of "
+                      "max|Wx|")
+                if name == "ssq_cwt":
+                    Tg, Tr = got[0], ref[0]
+                    cg, cr = Tg.abs().sum(-2), Tr.abs().sum(-2)
+                    rec["col_rel"] = float((cg - cr).abs().mean() / cr.mean())
+                    check(rec["col_rel"] < 5e-2, f"chunked_ssq_cwt on mesh "
+                          f"{mname}: column marginals {rec['col_rel']:.2e}")
+            elif name == "ssq_stft":
+                Tg, Sg = got
+                Tr, Sr = ref
+                rec["sx_equal"] = bool(torch.equal(Sg, Sr))
+                rec["tx_rel"] = rel(torch, Tg, Tr)
+                rec["tx_equal"] = bool(torch.equal(Tg, Tr))
+                check(rec["sx_equal"] and rec["tx_rel"] <= 1e-5,
+                      f"chunked_ssq_stft on mesh {mname}: Sx equal "
+                      f"{rec['sx_equal']}, Tx {rec['tx_rel']:.2e}")
+            else:
+                rec["rel"] = rel(torch, got, ref)
+                rec["equal"] = bool(torch.equal(got, ref))
+                check(rec["rel"] <= 1e-6, f"chunked_{name} on mesh {mname}: "
+                      f"{rec['rel']:.2e}")
+            check(counts == want[name], f"chunked_{name} on mesh {mname}: "
+                  f"launches {counts}, want {want[name]}")
+            if mname == "4":
+                for k, v in counts.items():
+                    path[k] = path.get(k, 0) + v
+            res[name] = rec
+            del got, ref
+        out[mname] = res
+        lines.append(
+            f"mesh {mname} (time x {shards}; cwt halo {halo}, rows "
+            f"{g0}..{g1} by overlap-save): " + "; ".join(
+                f"{k} " + ", ".join(
+                    f"{q} {v:.2e}" if isinstance(v, float) else f"{q} {v}"
+                    for q, v in r.items()
+                    if q in ("equal", "sx_equal", "tx_equal", "tx_rel",
+                             "col_rel", "rel", "rel_held_rows",
+                             "rel_wrapped_rows", "wrapped_rows"))
+                + f", launches {r['launches']}, wall {r['wall_ms']:.2f} ms "
+                f"(unsharded {r['unsharded_wall_ms']:.2f}), device ms "
+                f"{dev_ms(r['profile'])} (unsharded "
+                f"{dev_ms(r['unsharded_profile'])}), queued ms "
+                f"{r['queued_ms']:.2f} (unsharded "
+                f"{r['unsharded_queued_ms']:.2f})"
+                for k, r in res.items() if isinstance(r, dict)))
+    results["chunked"] = out
+    print(f"[25b] chunked transforms at N = {n} ({card}): " +
+          " | ".join(lines))
+    return path
 
 if __name__ == "__main__":
     try:

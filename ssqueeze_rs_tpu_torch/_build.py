@@ -37,12 +37,13 @@ _SIGNATURES = {
     "ssq_cwt_planes": [_P] * 4 + [_F] + [_P] * 4 + [_LL] + [_I] * 6 +
                       [_P, _LL] + [_P] * 5,
     "ssq_ifft_halfband": [_P] * 4 + [_LL] + [_I] * 4 + [_P, _LL] + [_P] * 3,
+    # B, B' and I: the launch-shape int, then the bin range (k0, rows)
     "ssq_reassign": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
-                    [_I, _P, _P, _P],
+                    [_I, _I, _I, _P, _P, _P],
     "ssq_reassign4": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] + _PLAN +
-                     [_I, _P, _P, _P],
+                     [_I, _I, _I, _P, _P, _P],
     "ssq_reassign_mxu": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
-                        _PLAN + [_I, _P, _P, _P],
+                        _PLAN + [_I, _I, _I, _P, _P, _P],
     "ssq_stft_dft": [_P] * 4 + [_I, _LL, _I, _I, _I, _I, _LL, _F, _I, _P,
                                  _P],
     "ssq_stft_fused": [_P] * 4 + [_I, _LL, _I, _I, _I, _LL, _F, _P, _P, _F,
@@ -52,11 +53,12 @@ _SIGNATURES = {
     "ssq_reassign4_bwd": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                          _PLAN + [_P] * 5,
     # B, B', C and C' on float64 planes
-    # (B, B' in double: columns, row groups and stages of _f64_plan)
+    # (B, B' in double: columns, row groups and stages of _f64_plan, then
+    # the bin range)
     "ssq_reassign_f64": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN64 +
-                        [_I, _I, _I, _P, _P, _P],
+                        [_I] * 5 + [_P, _P, _P],
     "ssq_reassign4_f64": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _D] +
-                         _PLAN64 + [_I, _I, _I, _P, _P, _P],
+                         _PLAN64 + [_I] * 5 + [_P, _P, _P],
     "ssq_reassign_bwd_f64": [_P, _P, _I, _I, _LL, _I, _I, _I] + _PLAN64 +
                             [_P] * 5,
     "ssq_reassign4_bwd_f64": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _D] +

@@ -22,10 +22,13 @@
 // atomics, the same bits from run to run, and the same bits as the row
 // walk these kernels ran before (reassign_walk.cuh, probe P4's subject).
 // The block then stores its columns with all its threads. COLS comes from
-// nf (reassign_cuda._block_cols): 32 where the accumulator fits 227 KB
-// (nf <= 908), else 8, so any nf up to 3632 launches (the TPU kernel's
-// (nf, 512) accumulator lives in VMEM and has no such bound). Float64
-// planes take their own kernel, reassign64.cu.
+// the launch's rows (reassign_cuda._block_cols): 32 where the accumulator
+// fits 227 KB (908 rows or fewer), else 8, so one launch takes up to 3632
+// bins; past that the wrapper splits [0, nf) into ranges of at most 3632
+// bins, one launch a range, each reading every plane row and adding the
+// entries whose bin falls in its range (the TPU kernel's (nf, 512)
+// accumulator lives in VMEM and has no such bound). Float64 planes take
+// their own kernel, reassign64.cu.
 //
 // What bounds it on Hopper: the bytes (three or four planes read once,
 // two written once: 0.28 / 0.34 ms at 293 x 160 000 at 3.35 TB/s) once
@@ -53,33 +56,36 @@ namespace {
 template <typename T, int kPlanes>
 int dispatch(int cols, const T* wr, const T* wi, const T* p2, const T* p3,
              const T* cst, const T* sfs, int batch, int na, long long n,
-             const PlanT<T>& P, int transform, T gamma2, T* txr, T* txi,
-             void* stream) {
+             const PlanT<T>& P, int transform, T gamma2, int k0, int nk,
+             T* txr, T* txi, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (cols) {
     case 32: return launch<T, 32, kPlanes>(wr, wi, p2, p3, cst, sfs, batch,
-                                           na, n, P, transform, gamma2, txr,
-                                           txi, s);
+                                           na, n, P, transform, gamma2, k0,
+                                           nk, txr, txi, s);
     case 8: return launch<T, 8, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na,
-                                         n, P, transform, gamma2, txr, txi,
-                                         s);
+                                         n, P, transform, gamma2, k0, nk, txr,
+                                         txi, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Planes are (batch, na, n) and (batch, nf, n), row-major float32; cols
-// (32 or 8) is the columns a block the wrapper chose from nf.
+// Planes are (batch, na, n) and (batch, nf, n), row-major float32; the
+// launch sums bins k0 .. k0 + nk - 1 into those Tx rows (the wrapper splits
+// nf into ranges of at most 3632 rows, reassign_cuda._ranges); cols (32 or
+// 8) is the columns a block it chose from nk.
 // Return cudaGetLastError() after the launch (0 on success).
 extern "C" int ssq_reassign(const float* wr, const float* wi, const float* w,
                             const float* cst, int batch, int na, long long n,
                             int nf, int mode, int flipud, float p0, float p1,
-                            float p2, float p3, float p4, int cols,
-                            float* txr, float* txi, void* stream) {
+                            float p2, float p3, float p4, int cols, int k0,
+                            int nk, float* txr, float* txi, void* stream) {
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
   return dispatch<float, 3>(cols, wr, wi, w, nullptr, cst, nullptr, batch,
-                            na, n, P, ssq::kCwt, 0.f, txr, txi, stream);
+                            na, n, P, ssq::kCwt, 0.f, k0, nk, txr, txi,
+                            stream);
 }
 
 extern "C" int ssq_reassign4(const float* wr, const float* wi,
@@ -88,10 +94,11 @@ extern "C" int ssq_reassign4(const float* wr, const float* wi,
                              int na, long long n, int nf, int transform,
                              int mode, int flipud, float gamma2, float p0,
                              float p1, float p2, float p3, float p4, int cols,
-                             float* txr, float* txi, void* stream) {
+                             int k0, int nk, float* txr, float* txi,
+                             void* stream) {
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
   return dispatch<float, 4>(cols, wr, wi, dr, di, cst, sfs, batch, na, n, P,
-                            transform, gamma2, txr, txi, stream);
+                            transform, gamma2, k0, nk, txr, txi, stream);
 }
 
 extern "C" const char* ssq_error_string(int err) {

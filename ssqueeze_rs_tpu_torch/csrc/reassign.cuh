@@ -3,10 +3,15 @@
 // by that lane.
 //
 // A block owns COLS consecutive columns of one batch item (the batch on
-// blockIdx.y) and has 16 * COLS threads. Lane l of warp w is thread (c, g)
+// blockIdx.y) and has 16 * COLS threads. A launch sums the bins of one
+// range [k0, k0 + nk) of [0, nf): every entry is binned over all nf bins
+// (clamped and flipped as bins.cuh does), and only an entry whose final
+// bin falls in the range is added, at row k - k0; the launch writes Tx
+// rows k0 .. k0 + nk - 1. So a call split into ranges adds each Tx entry's
+// rows in the order one launch would. Lane l of warp w is thread (c, g)
 // with c = 2 * w + l % 2, the block's column, and g = l / 2, its row
 // group: a warp covers 2 columns and 16 rows at a step. The block keeps a
-// (2, nf, COLS) accumulator of the planes' type T (float: reassign.cu
+// (2, nk, COLS) accumulator of the planes' type T (float: reassign.cu
 // instantiates it for float32 planes only; float64 planes run
 // reassign64.cu) in shared memory, the entry of bin k and column c at
 // column c ^ (k mod COLS) of row k (the lanes of one column that add to
@@ -51,10 +56,10 @@ reassign_kernel(const T* __restrict__ wr, const T* __restrict__ wi,
                 const T* __restrict__ p2, const T* __restrict__ p3,
                 const T* __restrict__ cst, const T* __restrict__ sfs,
                 int na, long long n, PlanT<T> P, int transform, T gamma2,
-                T* __restrict__ txr, T* __restrict__ txi) {
+                int k0, int nk, T* __restrict__ txr, T* __restrict__ txi) {
   static_assert(COLS % kWarpCols == 0, "plan");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);  // [2][nf][COLS]
+  T* acc = reinterpret_cast<T*>(smem_raw);  // [2][nk][COLS]
   const int nf = P.nf;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -63,9 +68,9 @@ reassign_kernel(const T* __restrict__ wr, const T* __restrict__ wi,
   const long long j0 = (long long)blockIdx.x * COLS;
   const long long bat = blockIdx.y;
   const bool live = j0 + c < n;
-  T* acc_i = acc + (long long)nf * COLS;
+  T* acc_i = acc + (long long)nk * COLS;
 
-  for (int e = tid; e < 2 * nf * COLS; e += COLS * kLanes) acc[e] = T(0);
+  for (int e = tid; e < 2 * nk * COLS; e += COLS * kLanes) acc[e] = T(0);
   __syncthreads();
 
   const long long base = bat * na * n + j0 + c;
@@ -86,6 +91,7 @@ reassign_kernel(const T* __restrict__ wr, const T* __restrict__ wi,
           ? ssq::phase_w(vr, vi, va, vb, sfs[i], gamma2, transform)
           : va;
       k = ssq::bin_of(w, P);
+      k = k >= k0 && k < k0 + nk ? k - k0 : -1;   // this launch's range
       const T cc = cst[i];
       pr = ssq::mul_rn(vr, cc);
       pi = ssq::mul_rn(vi, cc);
@@ -117,8 +123,8 @@ reassign_kernel(const T* __restrict__ wr, const T* __restrict__ wi,
   __syncthreads();
 
   // every thread stores: a warp writes COLS consecutive entries of Tx rows
-  const long long ob = bat * nf * n + j0;
-  for (int e = tid; e < nf * COLS; e += COLS * kLanes) {
+  const long long ob = bat * nf * n + (long long)k0 * n + j0;
+  for (int e = tid; e < nk * COLS; e += COLS * kLanes) {
     const int kk = e / COLS, cc = e % COLS;
     if (j0 + cc < n) {
       txr[ob + (long long)kk * n + cc] = acc[acc_at<COLS>(kk, cc)];
@@ -127,12 +133,15 @@ reassign_kernel(const T* __restrict__ wr, const T* __restrict__ wi,
   }
 }
 
-// One launch over planes (batch, na, n) into Tx planes (batch, nf, n).
+// One launch over planes (batch, na, n) into rows k0 .. k0 + nk - 1 of Tx
+// planes (batch, nf, n).
 template <typename T, int COLS, int kPlanes>
 int launch(const T* wr, const T* wi, const T* p2, const T* p3, const T* cst,
            const T* sfs, int batch, int na, long long n, const PlanT<T>& P,
-           int transform, T gamma2, T* txr, T* txi, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * P.nf * COLS * sizeof(T);
+           int transform, T gamma2, int k0, int nk, T* txr, T* txi,
+           cudaStream_t stream) {
+  if (k0 < 0 || nk < 1 || k0 + nk > P.nf) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * nk * COLS * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       reassign_kernel<T, COLS, kPlanes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -140,7 +149,8 @@ int launch(const T* wr, const T* wi, const T* p2, const T* p3, const T* cst,
   const dim3 grid((unsigned)((n + COLS - 1) / COLS), (unsigned)batch);
   reassign_kernel<T, COLS, kPlanes>
       <<<grid, COLS * kLanes, smem, stream>>>(wr, wi, p2, p3, cst, sfs, na, n,
-                                              P, transform, gamma2, txr, txi);
+                                              P, transform, gamma2, k0, nk,
+                                              txr, txi);
   return (int)cudaGetLastError();
 }
 

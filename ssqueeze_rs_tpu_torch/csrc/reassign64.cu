@@ -9,6 +9,13 @@
 //      here (phase_w's operations)
 // For each column j and each row i in increasing order:
 //   k = bin(w[i,j]);  Tx[k, j] += (Wxr[i,j] * const[i], Wxi[i,j] * const[i])
+// A launch takes the bins of one range [k0, k0 + nk) of [0, nf): every
+// entry is binned over all nf bins and added, at accumulator row k - k0,
+// only when its final (clamped, flipped) bin falls in the range; Tx rows
+// k0 .. k0 + nk - 1 go out. Past 3632 bins the wrapper splits nf into
+// such ranges (reassign_cuda._ranges), one launch each, every launch
+// reading every plane row, so each Tx entry still takes its rows' adds in
+// increasing row order.
 //
 // Bound: the bytes, each plane read once and Tx written once at 3.35
 // TB/s: 0.560 ms (B) and 0.672 ms (B') at 293 x 160 000 (nf = 293), B'
@@ -169,7 +176,7 @@ reassign_kernel_f64(const double* __restrict__ wr,
                     const double* __restrict__ cst,
                     const double* __restrict__ sfs, int na, long long n,
                     int tiles_row, int tiles, Plan64 P, int transform,
-                    double gamma2, int stages, int vec,
+                    double gamma2, int stages, int vec, int k0, int nk,
                     double* __restrict__ txr, double* __restrict__ txi,
                     const __grid_constant__ CUtensorMap tm0,
                     const __grid_constant__ CUtensorMap tm1,
@@ -187,7 +194,7 @@ reassign_kernel_f64(const double* __restrict__ wr,
   const int nf = P.nf;
   double* acc = reinterpret_cast<double*>(
       smem_raw + ((1024 - (ssq::smem_u32(smem_raw) & 1023)) & 1023));
-  const int accp = acc_plane(nf, COLS);
+  const int accp = acc_plane(nk, COLS);
   double* acc_i = acc + accp;
   double* ring = acc + 2 * accp;                           // [stages][kStage]
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * kStage);
@@ -274,6 +281,7 @@ reassign_kernel_f64(const double* __restrict__ wr,
                              kPlanes == 4 ? sp[3 * kPlane] : 0.0,
                              kPlanes == 4 ? __ldg(sfs + i) : 0.0, gamma2,
                              transform, P, S);
+      k = k >= k0 && k < k0 + nk ? k - k0 : -1;   // this launch's range
       const double cc = __ldg(cst + i);
       pr = __dmul_rn(vr, cc);
       pi = __dmul_rn(vi, cc);
@@ -292,7 +300,8 @@ reassign_kernel_f64(const double* __restrict__ wr,
   // starts at ob
   int tile = blockIdx.x, t = 0;
   long long j0 = (long long)(tile % tiles_row) * COLS;
-  long long ob = (long long)(tile / tiles_row) * nf * n + j0;
+  long long ob = (long long)(tile / tiles_row) * nf * n + (long long)k0 * n +
+                 j0;
   // named barrier pair_bar + h (h >= 1) orders the column pair's row
   // groups h - 1 and h (ids 1 .. COLS / 2 (GROUPS - 1) <= 15)
   const int pair_bar = (warp % kPairs) * (GROUPS - 1);
@@ -341,17 +350,18 @@ reassign_kernel_f64(const double* __restrict__ wr,
     pi = pi2;
     if (++t == T) {
       // the tile's last stage: its Tx columns out, the accumulator
-      // zeroed. vec: thread 0 stores the two planes by TMA, boxes of at
-      // most 256 bins, and waits only until the TMA has read them; else
-      // every thread stores entries in runs of the columns
+      // zeroed. vec: thread 0 stores the two planes by TMA (maps of the
+      // range's rows), boxes of at most 256 bins, and waits only until the
+      // TMA has read them; else every thread stores entries in runs of
+      // the columns
       if (vec) {
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         __syncthreads();
         if (tid == 0) {
           const int bat = (tile / tiles_row);
-          for (int k0 = 0; k0 < nf; k0 += 256) {
-            tma_store(&tmr, acc + k0 * COLS, (int)j0, k0, bat);
-            tma_store(&tmi, acc_i + k0 * COLS, (int)j0, k0, bat);
+          for (int r0 = 0; r0 < nk; r0 += 256) {
+            tma_store(&tmr, acc + r0 * COLS, (int)j0, r0, bat);
+            tma_store(&tmi, acc_i + r0 * COLS, (int)j0, r0, bat);
           }
           asm volatile("cp.async.bulk.commit_group;" ::: "memory");
           asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
@@ -362,7 +372,7 @@ reassign_kernel_f64(const double* __restrict__ wr,
           z[e] = make_double2(0.0, 0.0);
       } else {
         __syncthreads();
-        for (int e = tid; e < nf * COLS; e += kThreads) {
+        for (int e = tid; e < nk * COLS; e += kThreads) {
           const int kk = e / COLS, cc = e % COLS;
           const int a = acc_at<COLS>(kk, cc);
           if (j0 + cc < n) {
@@ -376,7 +386,7 @@ reassign_kernel_f64(const double* __restrict__ wr,
       t = 0;
       tile += G;
       j0 = (long long)(tile % tiles_row) * COLS;
-      ob = (long long)(tile / tiles_row) * nf * n + j0;
+      ob = (long long)(tile / tiles_row) * nf * n + (long long)k0 * n + j0;
     }
   }
   if (vec && tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
@@ -392,11 +402,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // The TMA map of a float64 tensor of `rank` 2 (n columns x rows) or 3
-// (n x rows x items), boxes of `box_rows` rows x `cols` columns (x 1 item)
-// with stage_at's swizzle; false if the driver has no encoder or refuses
-// the map.
+// (n x rows x items, an item every `item_rows` rows), boxes of `box_rows`
+// rows x `cols` columns (x 1 item) with stage_at's swizzle; false if
+// cuTensorMapEncodeTiled is missing or refuses the map.
 bool plane_map(CUtensorMap* tm, const double* p, int rank, long long rows,
-               long long items, long long n, int cols, int box_rows) {
+               long long items, long long n, int cols, int box_rows,
+               long long item_rows) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult found;
@@ -410,7 +421,7 @@ bool plane_map(CUtensorMap* tm, const double* p, int rank, long long rows,
   const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)rows,
                               (cuuint64_t)items};
   const cuuint64_t strides[2] = {(cuuint64_t)n * 8,
-                                 (cuuint64_t)(n * 8 * rows)};
+                                 (cuuint64_t)(n * 8 * item_rows)};
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUtensorMapSwizzle swz = cols == 8   ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -423,25 +434,28 @@ bool plane_map(CUtensorMap* tm, const double* p, int rank, long long rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One launch over planes (batch, na, n) into Tx planes (batch, nf, n):
-// as many persistent blocks as fit on the card, at most one a tile. The
-// planes go in by TMA where n is even and every plane 16-byte aligned,
-// else by 8-byte cp.async.
+// One launch over planes (batch, na, n) into rows k0 .. k0 + nk - 1 of Tx
+// planes (batch, nf, n): as many persistent blocks as fit on the card, at
+// most one a tile. The planes go in by TMA where n is even and every plane
+// 16-byte aligned, else by 8-byte cp.async.
 template <int COLS, int GROUPS, int MINB, int kPlanes>
 int launch(const double* wr, const double* wi, const double* p2,
            const double* p3, const double* cst, const double* sfs, int batch,
            int na, long long n, const Plan64& P, int transform, double gamma2,
-           int stages, double* txr, double* txi, cudaStream_t stream) {
+           int stages, int k0, int nk, double* txr, double* txi,
+           cudaStream_t stream) {
   constexpr int kThreads = kLanes * COLS * GROUPS;
   auto kernel = reassign_kernel_f64<COLS, GROUPS, MINB, kPlanes>;
-  if (stages < 2 || stages > kMaxStages) return (int)cudaErrorInvalidValue;
+  if (stages < 2 || stages > kMaxStages || k0 < 0 || nk < 1 ||
+      k0 + nk > P.nf)
+    return (int)cudaErrorInvalidValue;
   const long long tiles_row = (n + COLS - 1) / COLS;
   const long long tiles = tiles_row * batch;
   if (tiles > 0x7fffffffLL || (long long)batch * na > 0x7fffffffLL ||
       n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (tiles == 0) return 0;
-  const size_t smem = smem_bytes(P.nf, COLS, GROUPS, kPlanes, stages);
+  const size_t smem = smem_bytes(nk, COLS, GROUPS, kPlanes, stages);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -462,17 +476,18 @@ int launch(const double* wr, const double* wi, const double* p2,
   for (int p = 0; p < 4 && vec; ++p)
     vec = aligned(planes[p]) &&
           plane_map(&tm[p], planes[p], 2, (long long)batch * na, 1, n, COLS,
-                    kLanes * GROUPS);
+                    kLanes * GROUPS, (long long)batch * na);
+  const int box = nk < 256 ? nk : 256;
   vec = vec &&
-        plane_map(&tm[4], txr, 3, P.nf, batch, n, COLS, P.nf < 256 ? P.nf
-                                                                   : 256) &&
-        plane_map(&tm[5], txi, 3, P.nf, batch, n, COLS, P.nf < 256 ? P.nf
-                                                                   : 256);
+        plane_map(&tm[4], txr + (long long)k0 * n, 3, nk, batch, n, COLS,
+                  box, P.nf) &&
+        plane_map(&tm[5], txi + (long long)k0 * n, 3, nk, batch, n, COLS,
+                  box, P.nf);
   if (!vec) memset(tm, 0, sizeof(tm));
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       wr, wi, p2, p3, cst, sfs, na, n, (int)tiles_row, (int)tiles, P,
-      transform, gamma2, stages, vec, txr, txi, tm[0], tm[1], tm[2], tm[3],
-      tm[4], tm[5]);
+      transform, gamma2, stages, vec, k0, nk, txr, txi, tm[0], tm[1], tm[2],
+      tm[3], tm[4], tm[5]);
   return (int)cudaGetLastError();
 }
 
@@ -484,16 +499,16 @@ int dispatch(int cols, int groups, const double* wr, const double* wi,
              const double* p2, const double* p3, const double* cst,
              const double* sfs, int batch, int na, long long n,
              const Plan64& P, int transform, double gamma2, int stages,
-             double* txr, double* txi, void* stream) {
+             int k0, int nk, double* txr, double* txi, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int fit = (int)(kSmSmem / (smem_bytes(P.nf, cols, groups, kPlanes,
+  const int fit = (int)(kSmSmem / (smem_bytes(nk, cols, groups, kPlanes,
                                               stages) + kBlockReserve));
   const int blocks = fit < 4 ? fit : 4;
 #define SSQ_F64_CASE(C, G, B)                                              \
   if (cols == C && groups == G && (B == 1 || blocks == B))                 \
     return launch<C, G, B, kPlanes>(wr, wi, p2, p3, cst, sfs, batch, na, n, \
-                                    P, transform, gamma2, stages, txr, txi, \
-                                    s);
+                                    P, transform, gamma2, stages, k0, nk,   \
+                                    txr, txi, s);
   SSQ_F64_CASE(8, 2, 4)
   SSQ_F64_CASE(8, 2, 3)
   SSQ_F64_CASE(8, 2, 2)
@@ -507,19 +522,21 @@ int dispatch(int cols, int groups, const double* wr, const double* wi,
 }  // namespace
 
 // Planes are (batch, na, n) and (batch, nf, n), row-major float64, with
-// the plan constants and gamma^2 in double; cols, groups and stages are
-// reassign_cuda._f64_plan(nf, planes)'s. Return cudaGetLastError() after
+// the plan constants and gamma^2 in double; the launch sums bins k0 .. k0 +
+// nk - 1 into those Tx rows; cols, groups and stages are
+// reassign_cuda._f64_plan(nk, planes)'s. Return cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int ssq_reassign_f64(const double* wr, const double* wi,
                                 const double* w, const double* cst, int batch,
                                 int na, long long n, int nf, int mode,
                                 int flipud, double p0, double p1, double p2,
                                 double p3, double p4, int cols, int groups,
-                                int stages, double* txr, double* txi,
-                                void* stream) {
+                                int stages, int k0, int nk, double* txr,
+                                double* txi, void* stream) {
   const Plan64 P{mode, flipud, nf, p0, p1, p2, p3, p4};
   return dispatch<3>(cols, groups, wr, wi, w, nullptr, cst, nullptr, batch,
-                     na, n, P, ssq::kCwt, 0.0, stages, txr, txi, stream);
+                     na, n, P, ssq::kCwt, 0.0, stages, k0, nk, txr, txi,
+                     stream);
 }
 
 extern "C" int ssq_reassign4_f64(const double* wr, const double* wi,
@@ -529,9 +546,9 @@ extern "C" int ssq_reassign4_f64(const double* wr, const double* wi,
                                  int transform, int mode, int flipud,
                                  double gamma2, double p0, double p1,
                                  double p2, double p3, double p4, int cols,
-                                 int groups, int stages, double* txr,
-                                 double* txi, void* stream) {
+                                 int groups, int stages, int k0, int nk,
+                                 double* txr, double* txi, void* stream) {
   const Plan64 P{mode, flipud, nf, p0, p1, p2, p3, p4};
   return dispatch<4>(cols, groups, wr, wi, dr, di, cst, sfs, batch, na, n,
-                     P, transform, gamma2, stages, txr, txi, stream);
+                     P, transform, gamma2, stages, k0, nk, txr, txi, stream);
 }

@@ -10,6 +10,14 @@
 //
 //   Tx[k, j] += Wx[i, j] * const[i].
 //
+// Bin ranges. A launch sums the bins of one range [k0, k0 + nk) of [0,
+// nf) (one range, the whole of [0, nf), up to 4096 bins; past that the
+// wrapper splits nf into ranges of at most 4096, reassign_cuda._ranges,
+// one launch each): every entry is binned over all nf bins, and one whose
+// final bin k falls in the range enters the product at k - k0; the launch
+// writes Tx rows k0 .. k0 + nk - 1. Below, nf stands for the range's nk
+// wherever it sizes the digit split, the product or the store.
+//
 // The digit split. The bin is k = F0 * khi + klo, F0 = ceil(nf / 64), so
 // khi < 64. Each value v = Wx * const (__fmul_rn) is cut into three bf16
 // parts, v = hi + mid + lo (the TPU kernel's split3; exact for float32's
@@ -237,7 +245,7 @@ reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
                     const float* __restrict__ dr, const float* __restrict__ di,
                     const float* __restrict__ cst, const float* __restrict__ sfs,
                     int na, long long n, Plan P, int transform, float gamma2,
-                    int F0, int vec, float* __restrict__ txr,
+                    int F0, int vec, int k0, int nk, float* __restrict__ txr,
                     float* __restrict__ txi) {
   using S = Shape<N>;
   constexpr int COLS = S::kCols, ROWS = S::kRows, STEPS = S::kSteps;
@@ -331,7 +339,8 @@ reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
       const float A = sp[2 * S::kPlane], B = sp[3 * S::kPlane];
       const float* rv = st + 4 * S::kPlane + (valid ? r : 0);
       const float w = ssq::phase_w(C, D, A, B, rv[0], gamma2, transform);
-      kv[u] = valid ? ssq::bin_of(w, P) : -1;
+      const int k = valid ? ssq::bin_of(w, P) : -1;
+      kv[u] = k >= k0 && k < k0 + nk ? k - k0 : -1;   // this launch's range
       split3(__fmul_rn(C, rv[ROWS]), pv[u][0]);
       split3(__fmul_rn(D, rv[ROWS]), pv[u][1]);
     }
@@ -410,7 +419,8 @@ reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
 
   // Tx[c][f1 * F0 + f0] = (D[3c F0 + f0] + D[(3c + 1) F0 + f0])
   //                       + D[(3c + 2) F0 + f0], at row f1 of D
-  const long long obase = (long long)blockIdx.y * nf * n + j0;
+  const long long obase =
+      (long long)blockIdx.y * nf * n + (long long)k0 * n + j0;
   auto tx = [&](int part, int bin, int c) {
     const int f1 = (int)(((float)bin + 0.5f) * inv_f0), f0 = bin - f1 * F0;
     const float* d = prod + f1 * S::kLdn + (3 * part * F0 + f0) * S::kLd + c;
@@ -419,9 +429,9 @@ reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
   };
   if (vec) {                    // whole float4s of each row (n % 4 == 0)
     constexpr int Q = COLS / 4 > 0 ? COLS / 4 : 1;
-    for (int o = tid; o < 2 * nf * Q; o += kThreads) {
+    for (int o = tid; o < 2 * nk * Q; o += kThreads) {
       const int pb = o / Q, c = (o - pb * Q) * 4;
-      const int part = pb >= nf ? 1 : 0, bin = pb - part * nf;
+      const int part = pb >= nk ? 1 : 0, bin = pb - part * nk;
       if (j0 + c < n)
         *reinterpret_cast<float4*>((part ? txi : txr) + obase +
                                    (long long)bin * n + c) =
@@ -429,9 +439,9 @@ reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
                         tx(part, bin, c + 2), tx(part, bin, c + 3));
     }
   } else {
-    for (int o = tid; o < 2 * nf * COLS; o += kThreads) {
+    for (int o = tid; o < 2 * nk * COLS; o += kThreads) {
       const int pb = o / COLS, c = o - pb * COLS;
-      const int part = pb >= nf ? 1 : 0, bin = pb - part * nf;
+      const int part = pb >= nk ? 1 : 0, bin = pb - part * nk;
       if (j0 + c < n)
         (part ? txi : txr)[obase + (long long)bin * n + c] = tx(part, bin, c);
     }
@@ -441,8 +451,8 @@ reassign_mxu_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
 template <int N>
 int launch(const float* wr, const float* wi, const float* dr, const float* di,
            const float* cst, const float* sfs, int batch, int na, long long n,
-           const Plan& P, int transform, float gamma2, float* txr, float* txi,
-           cudaStream_t stream) {
+           const Plan& P, int transform, float gamma2, int k0, int nk,
+           float* txr, float* txi, cudaStream_t stream) {
   using S = Shape<N>;
   const cudaError_t err = cudaFuncSetAttribute(
       reassign_mxu_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -453,16 +463,18 @@ int launch(const float* wr, const float* wi, const float* dr, const float* di,
                     (uintptr_t)di | (uintptr_t)txr | (uintptr_t)txi) & 15) == 0;
   const dim3 grid((unsigned)((n + S::kCols - 1) / S::kCols), (unsigned)batch);
   reassign_mxu_kernel<N><<<grid, kThreads, S::kSmem, stream>>>(
-      wr, wi, dr, di, cst, sfs, na, n, P, transform, gamma2, f0_for(P.nf),
-      vec, txr, txi);
+      wr, wi, dr, di, cst, sfs, na, n, P, transform, gamma2, f0_for(nk), vec,
+      k0, nk, txr, txi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Planes are (batch, na, n) and (batch, nf, n), row-major float32; nf <=
-// 4096. `n_tile` is the plan's wgmma width N (reassign_cuda._mxu_plan);
-// any other value, or nf out of range, returns cudaErrorInvalidValue.
+// Planes are (batch, na, n) and (batch, nf, n), row-major float32; the
+// launch sums bins k0 .. k0 + nk - 1 (nk <= 4096) into those Tx rows.
+// `n_tile` is the plan's wgmma width N for nk (reassign_cuda._mxu_plan);
+// any other value, or a range out of [0, nf), returns
+// cudaErrorInvalidValue.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ssq_reassign_mxu(const float* wr, const float* wi,
                                 const float* dr, const float* di,
@@ -470,16 +482,17 @@ extern "C" int ssq_reassign_mxu(const float* wr, const float* wi,
                                 int na, long long n, int nf, int transform,
                                 int mode, int flipud, float gamma2, float p0,
                                 float p1, float p2, float p3, float p4,
-                                int n_tile, float* txr, float* txi,
-                                void* stream) {
-  if (nf < 1 || nf > kMaxNf || n_tile != n_tile_for(nf))
+                                int n_tile, int k0, int nk, float* txr,
+                                float* txi, void* stream) {
+  if (nk < 1 || nk > kMaxNf || k0 < 0 || k0 + nk > nf ||
+      n_tile != n_tile_for(nk))
     return (int)cudaErrorInvalidValue;
   const Plan P{mode, flipud, nf, p0, p1, p2, p3, p4};
   cudaStream_t s = (cudaStream_t)stream;
 #define SSQ_MXU_CASE(NT)                                                    \
   case NT:                                                                  \
     return launch<NT>(wr, wi, dr, di, cst, sfs, batch, na, n, P, transform, \
-                      gamma2, txr, txi, s);
+                      gamma2, k0, nk, txr, txi, s);
   switch (n_tile) {
     SSQ_MXU_CASE(8) SSQ_MXU_CASE(16) SSQ_MXU_CASE(24) SSQ_MXU_CASE(32)
     SSQ_MXU_CASE(40) SSQ_MXU_CASE(48) SSQ_MXU_CASE(56) SSQ_MXU_CASE(64)

@@ -138,10 +138,10 @@ def _route(xp, wavelet):
     return "full"
 
 
-def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
-             derivative: bool, l1_norm: bool, N: int, n1: int,
-             rpadded: bool, planar_out: bool = False, phase_gamma=None,
-             filterbank=None):
+def cwt_core(xp, scales, dt, *, wavelet: Wavelet, derivative: bool,
+             l1_norm: bool, N: int, n1: int, rpadded: bool,
+             planar_out: bool = False, engines=None, fb_token=None,
+             phase_gamma=None, keep_align=None, filterbank=None):
     """CWT of an already padded signal xp (..., M); scales: (na,) host
     array. Keeps [n1, n1+N) (or all M with `rpadded`). Returns
     (Wx, dWx or None), complex (..., na, L).
@@ -151,7 +151,10 @@ def cwt_core(xp: torch.Tensor, scales, dt: float, *, wavelet: Wavelet,
     `planar_out` and `derivative`) runs kernel A: the second item is then
     the phase plane w = |Im(dWx/Wx)|/2pi, +inf where |Wx| <= gamma.
     `filterbank`: the planar route's cached (Pw, Nyquist vector)
-    (`cache_filterbank`); the other routes sample psih themselves."""
+    (`cache_filterbank`); the other routes sample psih themselves.
+    `engines`, `fb_token` and `keep_align` belong to the JAX package's TPU
+    routes (its engine choice, its filterbank cache key, its 512-column
+    alignment of the kept width): they are taken and change nothing."""
     M = xp.shape[-1]
     route = _route(xp, wavelet)
     if planar_out and route != "planar":

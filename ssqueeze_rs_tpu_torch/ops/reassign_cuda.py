@@ -26,16 +26,27 @@ The 4-plane contract has a second implementation, kernel I
 (``csrc/reassign_mxu.cu``, plain version `reassign_mxu_plain`;
 counterpart of `_make_mxu_kernel`): the same bins, summed as a
 digit-split one-hot matrix product on the tensor cores (wgmma, one
-pass over the planes for every nf <= 4096, `_mxu_plan`). It has no entry
+pass over the planes a launch, `_mxu_plan`). It has no entry
 of its own: `reassign4` picks B' or I from
 SSQ_TPU_REASSIGN_IMPL at each call ('vpu', the default, or 'mxu'; any
 other value raises), as the JAX package's `reassign_pallas` does; the
 3-plane `reassign` ignores it, and float64 planes take B' under either
 (I is float32 only, as in JAX). Both share the backward C'.
+Any number of frequency rows: a launch of B, B' (either type) or I sums
+the bins of one range [k0, k0 + rows) into those Tx rows, and a call
+splits [0, nf) into consecutive ranges of at most what the kernel's
+accumulator holds (`_ranges`: 3632 bins for B and B' in float32 and in
+double, 4096 for I), each planned on its own rows. Every launch reads
+all the planes and adds only the entries whose final (clamped, flipped)
+bin falls in its range, so each Tx entry takes the same adds in the same
+order as in one launch: Tx does not depend on the split. At nf at or
+under the limit a call is one launch, as before.
+
 `LAUNCHES` (B), `LAUNCHES4` (B'), `LAUNCHES_MXU` (I), `LAUNCHES_BWD` (C)
 and `LAUNCHES4_BWD` (C') count float32 kernel launches, `LAUNCHES_F64`,
 `LAUNCHES4_F64`, `LAUNCHES_BWD_F64` and `LAUNCHES4_BWD_F64` the double
-ones.
+ones. They count launches, not calls: a call split into ranges adds one
+a range.
 """
 from __future__ import annotations
 
@@ -73,13 +84,25 @@ _PARAM_ORDER = {"log": ("vlmin", "dvl"),
                 "lin": ("vmin", "dv")}
 MAX_SMEM = 227 * 1024       # per-block shared memory on Hopper
 _TWO_PI = 6.283185307179586
+F32_MAX_NF = MAX_SMEM // 64  # bins a launch of float32 B, B' (3632)
+F64_MAX_NF = 3632            # bins a launch of B, B' in double
+
+
+def _ranges(nf: int, most: int):
+    """The bin ranges of a call over nf bins whose kernel takes at most
+    `most` bins a launch: consecutive (k0, rows), each `most` rows but the
+    last, covering [0, nf) once."""
+    if nf < 1 or most < 1:
+        raise ValueError(f"nf={nf} frequency rows in ranges of {most}")
+    return [(k0, min(most, nf - k0)) for k0 in range(0, nf, most)]
 
 
 def _block_cols(nf: int) -> int:
     """Columns a block (COLS) of csrc/reassign.cu (float32 planes), whose
-    blocks have 16 lanes a column: 32 where the (2, nf, 32) accumulator
-    fits in shared memory (nf <= 908), else 8 (16 columns were slower at
-    nf = 1025 on the card, PERF.md). Raises beyond nf = 3632."""
+    blocks have 16 lanes a column, for a launch of nf bins: 32 where the
+    (2, nf, 32) accumulator fits in shared memory (nf <= 908), else 8 (16
+    columns were slower at nf = 1025 on the card, PERF.md). Raises beyond
+    nf = 3632 (a call past that is split into ranges, `_ranges`)."""
     for cols in (32, 8):
         if 2 * nf * cols * 4 <= MAX_SMEM:
             return cols
@@ -162,8 +185,9 @@ def _f64_plan(nf: int, planes: int = 4) -> F64Plan:
     bytes in flight an SM; else one block an SM of 512 threads, at the
     most columns (8, 4, 2) whose accumulator leaves such a ring. Then as
     many stages as the block's share of the SM holds, at most 16.
-    Raises beyond nf = 3632."""
-    if not 1 <= nf <= 3632:
+    Raises beyond nf = 3632 (a call past that is split into ranges,
+    `_ranges`)."""
+    if not 1 <= nf <= F64_MAX_NF:
         raise ValueError(f"nf={nf} frequency rows: the double kernels take "
                          "1 to 3632")
     for blocks in (4, 3, 2):
@@ -327,16 +351,17 @@ def reassign4_bwd_plain(wr, wi, dr, di, const, Sfs, gr, gi, gamma,
 
 
 def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
-            per_block=None):
+            per_block=None, out=None):
     """Common launch of the C entry points: planes (..., na, n) and
     per-row vectors in. The forward ones (B, B', I and probe P4's 3-plane
     `full`; `grads` None) take the launch-shape ints `per_block` (float32
     B, B': the columns a block, `_block_cols`, when it is None; double B,
     B': `_f64_plan`'s columns, row groups and stages; I: its wgmma width
-    `_mxu_plan(nf).n_tile`) and write (Txr, Txi), each (..., nf, n); the
-    backward ones (C, C') read the cotangents `grads` = (gr, gi), each
-    (..., nf, n), and write (gWr, gWi), each (..., na, n). Outputs are
-    in the planes' type."""
+    `_mxu_plan(nf).n_tile`; for B, B' and I the bin range after them,
+    `_launch_ranges`) and write (Txr, Txi), each (..., nf, n), into `out`
+    when it is given; the backward ones (C, C') read the cotangents
+    `grads` = (gr, gi), each (..., nf, n), and write (gWr, gWi), each
+    (..., na, n). Outputs are in the planes' type."""
     from .. import _build
     device = planes[0].device
     na, n = planes[0].shape[-2:]
@@ -357,8 +382,9 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
                              ", ".join(str(tuple(g.shape)) for g in grads) +
                              f" are not {batch + (nf, n)}")
         mid, rows = [g.data_ptr() for g in grads], na
-    outs = [torch.empty(batch + (rows, n), dtype=dtype, device=device)
-            for _ in range(2)]
+    outs = (list(out) if out is not None else
+            [torch.empty(batch + (rows, n), dtype=dtype, device=device)
+             for _ in range(2)])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(_build.lib())(
@@ -366,6 +392,19 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
             *plan, *mid, *(o.data_ptr() for o in outs), stream)
     _build.check(err, what)
     return tuple(outs)
+
+
+def _launch_ranges(entry, planes, vecs, ints, plan, nf, what, most, shape):
+    """A forward launch (B, B' or I) over any nf: one launch a bin range of
+    `_ranges(nf, most)`, each with the launch-shape ints `shape(rows)`
+    and its range (k0, rows), all into one (Txr, Txi) pair. Returns
+    ((Txr, Txi), launches)."""
+    ranges = _ranges(nf, most)
+    out = None
+    for k0, rows in ranges:
+        out = _launch(entry, planes, vecs, ints, plan, nf, what,
+                      per_block=list(shape(rows)) + [k0, rows], out=out)
+    return out, len(ranges)
 
 
 def _entry(name, dtype):
@@ -384,6 +423,14 @@ def _f64_shape(dtype, nf, planes):
     return plan.cols, plan.groups, plan.stages
 
 
+def _scatter_shape(dtype, planes):
+    """(most bins a launch, rows -> launch-shape ints) of B or B' on planes
+    of `dtype`, as `_launch_ranges` takes them."""
+    if dtype == torch.float64:
+        return F64_MAX_NF, lambda rows: _f64_shape(dtype, rows, planes)
+    return F32_MAX_NF, lambda rows: (_block_cols(rows),)
+
+
 def _cotangent(g, device, dtype):
     """A Tx cotangent on `device` in the planes' type; a tensor of the
     other real type raises."""
@@ -398,13 +445,14 @@ def _reassign_dispatch(device, wr, wi, w, const, plan_params, mode, flipud,
     global LAUNCHES, LAUNCHES_F64
     if device.type == "cuda":
         plan = _plan_floats(mode, plan_params, w.dtype)
-        out = _launch(_entry("ssq_reassign", w.dtype), [wr, wi, w], [const],
-                      [MODES[mode], int(bool(flipud))], plan, nf,
-                      "reassign kernel", per_block=_f64_shape(w.dtype, nf, 3))
+        out, count = _launch_ranges(
+            _entry("ssq_reassign", w.dtype), [wr, wi, w], [const],
+            [MODES[mode], int(bool(flipud))], plan, nf, "reassign kernel",
+            *_scatter_shape(w.dtype, 3))
         if w.dtype == torch.float64:
-            LAUNCHES_F64 += 1
+            LAUNCHES_F64 += count
         else:
-            LAUNCHES += 1
+            LAUNCHES += count
         return out
     if device.type == "cpu":
         return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
@@ -523,15 +571,14 @@ def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
     if device.type == "cuda":
         plan = ([_gamma2(gamma, dtype)] +
                 _plan_floats(mode, plan_params, dtype))
-        out = _launch(_entry("ssq_reassign4", dtype), [wr, wi, dr, di],
-                      [const, Sfs],
-                      [TRANSFORMS[transform], MODES[mode],
-                       int(bool(flipud))], plan, nf, "reassign4 kernel",
-                      per_block=_f64_shape(dtype, nf, 4))
+        out, count = _launch_ranges(
+            _entry("ssq_reassign4", dtype), [wr, wi, dr, di], [const, Sfs],
+            [TRANSFORMS[transform], MODES[mode], int(bool(flipud))], plan,
+            nf, "reassign4 kernel", *_scatter_shape(dtype, 4))
         if dtype == torch.float64:
-            LAUNCHES4_F64 += 1
+            LAUNCHES4_F64 += count
         else:
-            LAUNCHES4 += 1
+            LAUNCHES4 += count
         return out
     if device.type == "cpu":
         return reassign4_plain(wr, wi, dr, di, const, Sfs, gamma,
@@ -615,7 +662,8 @@ def reassign4(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode, flipud,
 
 
 # -- kernel I: the digit-split tensor-core scatter ------------------------------
-MXU_MAX_NF = 4096        # kernel I's bins: 64 high digits x a low digit <= 64
+MXU_MAX_NF = 4096        # kernel I's bins a launch: 64 high digits x a low
+                         # digit <= 64
 MXU_GROUPS = 4           # warpgroups of a block: each bins and multiplies
 MXU_STAGES = 3           # plane stages in kernel I's shared-memory ring
 _MXU_ACC = 64            # accumulator registers a thread
@@ -664,7 +712,8 @@ def _mxu_plan(nf: int) -> MxuPlan:
     and 16 rows covers every bin; as many columns a warpgroup as keep its
     accumulators within 64 registers a thread (at most 32 a block); the
     most rows a stage (a multiple of 16, at most 128 and two entries a
-    thread) whose shared memory fits. Raises beyond nf = 4096."""
+    thread) whose shared memory fits. Raises beyond nf = 4096 (a call past
+    that is split into ranges, `_ranges`)."""
     if not 1 <= nf <= MXU_MAX_NF:
         raise ValueError(f"nf={nf} frequency rows: kernel I takes 1 to "
                          f"{MXU_MAX_NF}")
@@ -706,7 +755,9 @@ def _split3(v):
 def reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
                        flipud, nf, transform):
     """Plain-torch kernel I, step by step: the bins of `reassign4_plain`,
-    split into digits k = f0 * khi + klo by `_mxu_plan(nf)`, each value
+    taken in kernel I's bin ranges (`_ranges(nf, MXU_MAX_NF)`; a range's
+    bins relative to its start), split into digits k = f0 * khi + klo by
+    `_mxu_plan(rows)`, each value
     cut into its three bfloat16 parts (`_split3`), and per column the
     product of khi's one-hot (rows x 64 high digits) with the parts at
     their low digit (rows x 3 parts x f0), real and imaginary parts side
@@ -715,36 +766,41 @@ def reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma, plan_params, mode,
     each (..., nf, n)."""
     _check_transform(transform)
     _, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const, Sfs)
-    plan = _mxu_plan(nf)
-    f0 = plan.f0
     w = phase_w(wr, wi, dr, di, Sfs, gamma, transform)
-    k = bin_indices(w, mode, plan_params, flipud, nf)
-    mask = k >= 0
+    k_all = bin_indices(w, mode, plan_params, flipud, nf)
     c = const[:, None]
     zero = torch.zeros((), dtype=wr.dtype, device=wr.device)
-    vr, vi = torch.where(mask, wr * c, zero), torch.where(mask, wi * c, zero)
-    khi = torch.where(mask, torch.div(k, f0, rounding_mode="floor"), -1)
-    klo = torch.where(mask, k % f0, 0)
     batch, (na, n) = wr.shape[:-2], wr.shape[-2:]
     f1 = torch.arange(64, device=wr.device)
-    lo = torch.arange(f0, device=wr.device)
-    step = max(1, (1 << 30) // (na * 4 * (64 + 2 * 3 * f0)))
-    khi, klo, vr, vi = (a.reshape(-1, na, n) for a in (khi, klo, vr, vi))
-    out = torch.empty((khi.shape[0], 64 * f0, 2, n), dtype=wr.dtype,
-                      device=wr.device)
-    with _full_f32_matmul():
-        for b in range(khi.shape[0]):
-            for j0 in range(0, n, step):
-                cols = slice(j0, j0 + step)
-                A = (khi[b, :, cols, None] == f1).to(wr.dtype)
-                sel = klo[b, :, cols, None] == lo
-                Bm = torch.stack([torch.stack(
-                    [torch.where(sel, p[..., None], zero)
-                     for p in _split3(v[b, :, cols])], 2)
-                    for v in (vr, vi)], 3)        # (rows, cols, 3, 2, f0)
-                out[b, :, :, cols] = torch.einsum(
-                    "icf,icpzg->fgzc", A, Bm).reshape(64 * f0, 2, -1)
-    return tuple(out[:, :nf, z].reshape(batch + (nf, n)) for z in (0, 1))
+    tx = torch.empty((int(np.prod(batch)) if batch else 1, nf, 2, n),
+                     dtype=wr.dtype, device=wr.device)
+    for k0, rows in _ranges(nf, MXU_MAX_NF):
+        f0 = _mxu_plan(rows).f0
+        mask = (k_all >= k0) & (k_all < k0 + rows)
+        k = k_all - k0
+        vr = torch.where(mask, wr * c, zero)
+        vi = torch.where(mask, wi * c, zero)
+        khi = torch.where(mask, torch.div(k, f0, rounding_mode="floor"), -1)
+        klo = torch.where(mask, k % f0, 0)
+        lo = torch.arange(f0, device=wr.device)
+        step = max(1, (1 << 30) // (na * 4 * (64 + 2 * 3 * f0)))
+        khi, klo, vr, vi = (a.reshape(-1, na, n) for a in (khi, klo, vr, vi))
+        out = torch.empty((khi.shape[0], 64 * f0, 2, n), dtype=wr.dtype,
+                          device=wr.device)
+        with _full_f32_matmul():
+            for b in range(khi.shape[0]):
+                for j0 in range(0, n, step):
+                    cols = slice(j0, j0 + step)
+                    A = (khi[b, :, cols, None] == f1).to(wr.dtype)
+                    sel = klo[b, :, cols, None] == lo
+                    Bm = torch.stack([torch.stack(
+                        [torch.where(sel, p[..., None], zero)
+                         for p in _split3(v[b, :, cols])], 2)
+                        for v in (vr, vi)], 3)    # (rows, cols, 3, 2, f0)
+                    out[b, :, :, cols] = torch.einsum(
+                        "icf,icpzg->fgzc", A, Bm).reshape(64 * f0, 2, -1)
+        tx[:, k0:k0 + rows] = out[:, :rows]
+    return tuple(tx[:, :, z].reshape(batch + (nf, n)) for z in (0, 1))
 
 
 def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
@@ -757,12 +813,12 @@ def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
         if wr.dtype != torch.float32:
             raise ValueError("kernel I takes float32 planes only")
         plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
-        out = _launch(lambda lib: lib.ssq_reassign_mxu, [wr, wi, dr, di],
-                      [const, Sfs], [TRANSFORMS[transform], MODES[mode],
-                                     int(bool(flipud))], plan, nf,
-                      "reassign_mxu kernel",
-                      per_block=_mxu_plan(nf).n_tile)
-        LAUNCHES_MXU += 1
+        out, count = _launch_ranges(
+            lambda lib: lib.ssq_reassign_mxu, [wr, wi, dr, di], [const, Sfs],
+            [TRANSFORMS[transform], MODES[mode], int(bool(flipud))], plan,
+            nf, "reassign_mxu kernel", MXU_MAX_NF,
+            lambda rows: (_mxu_plan(rows).n_tile,))
+        LAUNCHES_MXU += count
         return out
     if device.type == "cpu":
         return reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma,

@@ -5,7 +5,8 @@ The frequency bin of each phase value is computed in closed form per
 scaletype (log / log-piecewise / linear); the ssq frequency grid, the
 per-row normalization constants and the bin constants are host numpy
 planning. The scatter itself is kernel B (`reassign_cuda.reassign`, from
-a phase plane) or B' (`reassign_cuda.reassign4`, from Wx and dWx).
+a phase plane) or B' (`reassign_cuda.reassign4`, from Wx and dWx); the
+JAX package's `reassign` (complex Wx in, complex Tx out) runs either.
 
 Normalization constants:
   CWT log:    const = ln(2)/nv          (per-row array for log-piecewise)
@@ -26,10 +27,10 @@ from ..utils.common import WARN, NOTE, as_signal, assert_is_one_of
 from ..utils.pad import p2up
 from ..wavelets.base import Wavelet
 from ..wavelets.props import center_frequency
-from .reassign_cuda import reassign, reassign4
+from .reassign_cuda import reassign as reassign_planes, reassign4
 
 __all__ = ["bin_params", "plan_reassignment", "plan_ssqueeze", "ssqueeze",
-           "compute_associated_frequencies", "ssq_freqrange",
+           "reassign", "compute_associated_frequencies", "ssq_freqrange",
            "check_ssqueezing_args"]
 
 
@@ -78,6 +79,46 @@ def plan_reassignment(ssq_freqs, na, ssq_logscale, *, transform="cwt",
         np.asarray(const, dtype=np.float64).squeeze(), (na,)).copy()
     mode, params_host = bin_params(ssq_freqs, ssq_logscale)
     return const_arr, mode, params_host
+
+
+# -- the reassignment --------------------------------------------------------------
+def reassign(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
+             fused, transform, nf):
+    """Scatter Wx[i,j] * const[i] into Tx[k(i,j), j], with the JAX
+    package's arguments.
+
+    Wx: complex (..., na, n) tensor or array (`as_signal`'s device rule;
+    the other arrays follow it to its device). Returns complex Tx (...,
+    nf, n), complex128 for a complex128 Wx, else complex64. `params`: the
+    bin constants of `mode` (numbers, or 0-d arrays or tensors). Fused:
+    w_or_dWx is dWx, and kernel B' (or I under SSQ_TPU_REASSIGN_IMPL=mxu)
+    forms the phase of `transform` and skips entries with |Wx|^2 <=
+    gamma^2; else w_or_dWx is the phase w, +inf where masked, and kernel
+    B scatters from it. `Sfs` (na,) is read by the fused 'stft' phase
+    only. Differentiable (kernels C / C')."""
+    Wx = as_signal(Wx)
+    device = Wx.device
+    rdtype = (torch.float64 if Wx.dtype in (torch.complex128, torch.float64)
+              else torch.float32)
+
+    def real(a):
+        return torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a, device=device).to(rdtype)
+
+    prm = {k: float(v) for k, v in params.items()}
+    wr, wi = (t.to(rdtype) for t in _planes(Wx))
+    const = real(const_arr)
+    if fused:
+        d = as_signal(w_or_dWx, device)
+        dr, di = (t.to(rdtype) for t in _planes(d))
+        Sfs = (torch.zeros(wr.shape[-2], dtype=rdtype, device=device)
+               if Sfs is None else real(Sfs))
+        txr, txi = reassign4(wr, wi, dr, di, const, Sfs, float(gamma), prm,
+                             mode, flipud, nf, transform)
+    else:
+        txr, txi = reassign_planes(wr, wi, real(w_or_dWx), const, prm, mode,
+                                   flipud, nf)
+    return torch.complex(txr, txi)
 
 
 # -- associated frequencies (host planning) -------------------------------------
@@ -302,7 +343,8 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
               else _planes(Wx))
     phase = w_plane if w_plane is not None else w
     if phase is not None:
-        txr, txi = reassign(wr, wi, phase, const, params, mode, flipud, nf)
+        txr, txi = reassign_planes(wr, wi, phase, const, params, mode, flipud,
+                                   nf)
     else:
         dr, di = dWx if isinstance(dWx, tuple) else _planes(
             dWx if isinstance(dWx, torch.Tensor) else as_signal(dWx, device))

@@ -89,7 +89,7 @@ def _dft_spec(win_bytes, dwin_bytes, n_fft, modulated):
 
 
 def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
-              derivative, planar_out=False):
+              derivative, planar_out=False, force_fused=None):
     """STFT of an already padded float32 or float64 signal (time = last
     axis).
 
@@ -97,7 +97,9 @@ def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
     None), each (..., n_freqs, n_segs), complex128 for a float64 signal
     and complex64 otherwise; with `planar_out` (the float32
     matrix-product route only), float32 planes (Sxr, Sxi[, dSxr,
-    dSxi])."""
+    dSxi]). `force_fused` pins the JAX package's TPU engine choice; here
+    the route follows dtype and n_fft alone, so it is taken and changes
+    nothing."""
     n_freqs = n_fft // 2 + 1
     use_matmul = xp.dtype == torch.float32 and n_fft <= MATMUL_NFFT_MAX
     if planar_out and not use_matmul:

@@ -227,12 +227,13 @@ def test_reassign_sources():
                   re.findall(r"case (\d+): return launch<", text["reassign.cu"])}
     assert dispatched == {reassign_cuda._block_cols(nf)
                           for nf in range(1, 3633)} == {32, 8}
-    # B 19 and B' 23 parameters (their inputs, the columns a block, the Tx
-    # planes, the stream); P4's 3-plane full B's
-    assert len(_build._SIGNATURES["ssq_reassign"]) == 19
-    assert len(_build._SIGNATURES["ssq_reassign4"]) == 23
-    assert _build._SIGNATURES["ssq_ablate_reassign3"] == \
-        _build._SIGNATURES["ssq_reassign"]
+    # B 21 and B' 25 parameters (their inputs, the columns a block, the
+    # bin range, the Tx planes, the stream); P4's 3-plane full B's without
+    # the bin range
+    assert len(_build._SIGNATURES["ssq_reassign"]) == 21
+    assert len(_build._SIGNATURES["ssq_reassign4"]) == 25
+    sig = _build._SIGNATURES["ssq_reassign"]
+    assert _build._SIGNATURES["ssq_ablate_reassign3"] == sig[:-5] + sig[-3:]
 
 
 def test_reassign64_sources():
@@ -273,10 +274,10 @@ def test_reassign64_sources():
     assert {case[:2] for case in cases} == {
         (c, g) for c, gs in reassign_cuda.F64_SHAPES.items() for g in gs}
     assert "kMaxStages = %d;" % reassign_cuda._F64_MAX_STAGES in text
-    # B 21 and B' 25 parameters: B's and B''s float32 ones, the columns a
+    # B 23 and B' 27 parameters: B's and B''s float32 ones, the columns a
     # block replaced by the plan's columns, row groups and stages
-    assert len(_build._SIGNATURES["ssq_reassign_f64"]) == 21
-    assert len(_build._SIGNATURES["ssq_reassign4_f64"]) == 25
+    assert len(_build._SIGNATURES["ssq_reassign_f64"]) == 23
+    assert len(_build._SIGNATURES["ssq_reassign4_f64"]) == 27
 
 
 def test_missing_nvcc_raises_and_leaves_nothing(src_tree, monkeypatch):

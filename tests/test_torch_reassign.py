@@ -662,3 +662,132 @@ def test_bin_screen_model(mode, nf):
             k, ok = _bin_screen(wf, rel, mode, prm, nf, lf.astype(F32))
             assert np.array_equal(k[ok], exact[ok]), (rel, mode, nf)
         assert ok[-60_000:].mean() > 0.995     # the random values
+
+
+# -- bin ranges: any nf on the card ------------------------------------------------
+@pytest.mark.parametrize("nf", [1, 3632, 3633, 4097, 20000])
+def test_range_plan_covers_nf(nf):
+    """The ranges a call over nf bins splits into cover [0, nf) once, in
+    order, each at most the kernel's bins a launch, every one but the
+    last full; and each range's rows have a plan: `_block_cols` (float32
+    B, B'), `_f64_plan` at 3 and 4 planes (double B, B'), `_mxu_plan`
+    (I)."""
+    R = reassign_cuda
+    for most, plans in ((R.F32_MAX_NF, [R._block_cols]),
+                        (R.F64_MAX_NF, [lambda r: R._f64_plan(r, 3),
+                                        lambda r: R._f64_plan(r, 4)]),
+                        (R.MXU_MAX_NF, [R._mxu_plan])):
+        ranges = R._ranges(nf, most)
+        assert ranges[0][0] == 0 and sum(r for _, r in ranges) == nf
+        assert all(a + r == b for (a, r), (b, _) in zip(ranges, ranges[1:]))
+        assert all(r == most for _, r in ranges[:-1])
+        assert 1 <= ranges[-1][1] <= most
+        assert len(ranges) == -(-nf // most)
+        for _, rows in ranges:
+            for plan in plans:
+                plan(rows)
+    assert R.F32_MAX_NF == R.F64_MAX_NF == 3632 and R.MXU_MAX_NF == 4096
+    with pytest.raises(ValueError):
+        R._ranges(0, 3632)
+
+
+@pytest.mark.parametrize("dtype, planes, impl", [
+    (torch.float32, 3, "vpu"), (torch.float32, 4, "vpu"),
+    (torch.float64, 3, "vpu"), (torch.float64, 4, "vpu"),
+    (torch.float32, 4, "mxu")])
+def test_range_launches_plumbing(monkeypatch, dtype, planes, impl):
+    """On the CUDA route a call past the bins one launch takes makes one
+    launch a range, each with its range's launch shape and (k0, rows)
+    after it, all into one Tx pair, and its counter moves by the ranges
+    (launches stand in for the kernel here)."""
+    R = reassign_cuda
+    calls = []
+
+    def fake(entry, pl, vecs, ints, plan, nf, what, grads=None,
+             per_block=None, out=None):
+        calls.append(list(per_block))
+        shape = pl[0].shape[:-2] + (nf, pl[0].shape[-1])
+        return out or (torch.zeros(shape, dtype=dtype),
+                       torch.zeros(shape, dtype=dtype))
+
+    monkeypatch.setattr(R, "_launch", fake)
+    monkeypatch.setenv("SSQ_TPU_REASSIGN_IMPL", impl)
+    nf, na, n = 5000, 6, 16
+    mode, params = bin_params(np.geomspace(0.05, 50.0, nf), True)
+    p = [torch.ones(na, n, dtype=dtype) for _ in range(4)]
+    const = torch.ones(na, dtype=dtype)
+    cuda = torch.device("cuda")
+    counters = ("LAUNCHES", "LAUNCHES4", "LAUNCHES_MXU", "LAUNCHES_F64",
+                "LAUNCHES4_F64")
+    before = {c: getattr(R, c) for c in counters}
+    if planes == 3:
+        out = R._reassign_dispatch(cuda, p[0], p[1], p[2], const, params,
+                                   mode, True, nf)
+    else:
+        out = R._reassign4_dispatch(cuda, *p, const, const, 1e-6, params,
+                                    mode, True, nf, "cwt")
+    assert out[0].shape == (nf, n)
+    most = (R.MXU_MAX_NF if impl == "mxu" else
+            R.F64_MAX_NF if dtype == torch.float64 else R.F32_MAX_NF)
+
+    def shape(rows):
+        if impl == "mxu":
+            return [R._mxu_plan(rows).n_tile]
+        if dtype == torch.float64:
+            return list(R._f64_shape(dtype, rows, planes))
+        return [R._block_cols(rows)]
+
+    assert calls == [shape(r) + [k0, r] for k0, r in R._ranges(nf, most)]
+    name = ("LAUNCHES_MXU" if impl == "mxu" else
+            "LAUNCHES" + ("4" if planes == 4 else "") +
+            ("_F64" if dtype == torch.float64 else ""))
+    moved = {c: getattr(R, c) - before[c] for c in counters}
+    assert moved == {c: (2 if c == name else 0) for c in counters}
+
+
+def test_mxu_plain_ranges_match_b_prime(planes):
+    """Plain I past 4096 bins, in kernel I's ranges (each its own digit
+    split), against plain B': the JAX package's bar for I."""
+    C, D, w, const, A, B = planes
+    nf = 4500
+    mode, params = bin_params(np.geomspace(0.05, 50.0, nf), True)
+    zeros = np.zeros(C.shape[0], np.float32)
+    args = (C, D, A, B, const, zeros, GAMMA, params, mode, True, nf, "cwt")
+    ti = torch.complex(*reassign_cuda.reassign_mxu_plain(*args))
+    tb = torch.complex(*reassign_cuda.reassign4_plain(*args))
+    assert ti.shape == (nf, C.shape[1])
+    assert float((ti - tb).abs().sum() / tb.abs().sum()) < 2e-5
+    assert torch.equal(ti != 0, tb != 0) or \
+        float(((ti != 0) == (tb != 0)).float().mean()) >= 0.9999
+
+
+# -- ops.ssqueeze.reassign: the JAX package's arguments ------------------------------
+@pytest.mark.parametrize("nf", [200, 4000])
+@pytest.mark.parametrize("fused", [False, True])
+def test_ops_reassign_matches_jax(planes, fused, nf):
+    """`ops.ssqueeze.reassign` (complex Wx in, complex Tx out) against the
+    JAX package's XLA `reassign`, on the same planes and float32 plan
+    constants: fused (B' forms the phase from dWx) and from the w plane
+    (B), at 200 bins and past the 3632 one launch takes (the plain
+    version here). Tolerances as for B' above."""
+    from ssqueeze_rs_tpu.ops.ssqueeze import reassign as j_reassign
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import reassign
+    C, D, w, const, A, B = planes
+    mode, params = bin_params(np.geomspace(0.05, 50.0, nf), True)
+    prm = {k: np.float32(v) for k, v in params.items()}
+    Wx = (C + 1j * D).astype(np.complex64)
+    other = (A + 1j * B).astype(np.complex64) if fused else w
+    Sfs = np.zeros(C.shape[0], np.float32)
+    kw = dict(mode=mode, flipud=True, fused=fused, transform="cwt", nf=nf)
+    tx = reassign(torch.as_tensor(Wx), torch.as_tensor(other), const,
+                  GAMMA, Sfs, prm, **kw)
+    assert tx.dtype == torch.complex64 and tx.shape == (nf, C.shape[1])
+    tj = np.asarray(j_reassign(
+        jnp.asarray(Wx), jnp.asarray(other), jnp.asarray(const),
+        jnp.asarray(GAMMA, jnp.float32), jnp.asarray(Sfs),
+        {k: jnp.asarray(v) for k, v in prm.items()}, **kw))
+    tx = tx.numpy()
+    top = np.abs(tj).max()
+    assert (np.abs(tx - tj) <= 1e-6 * top).mean() >= 0.9999
+    cs, cs_j = tx.sum(0), tj.sum(0)
+    assert np.abs(cs - cs_j).max() <= 1e-6 * np.abs(cs_j).max()

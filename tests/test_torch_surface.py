@@ -9,6 +9,7 @@ JAX package.
 Tolerances: `morsefreq` is host float64 scipy in both packages, computed
 in the same order, so equal.
 """
+import importlib
 import inspect
 import json
 import os
@@ -77,6 +78,49 @@ def test_exported_with_the_jax_signature(name):
                 else ours == theirs)
         return
     assert _same_signature(ours, theirs)
+
+
+# port-only keyword arguments a signature may add after the JAX ones: the
+# device of the port's entry points, and cwt_core's cached filterbank
+PORT_ONLY = {"device", "filterbank"}
+J_OPS = importlib.import_module("ssqueeze_rs_tpu.ops")
+T_OPS = importlib.import_module("ssqueeze_rs_tpu_torch.ops")
+J_PAR = importlib.import_module("ssqueeze_rs_tpu.parallel")
+T_PAR = importlib.import_module("ssqueeze_rs_tpu_torch.parallel")
+
+
+def _same_but_port_only(ours, theirs):
+    sig = inspect.signature(ours)
+    params = [p for p in sig.parameters.values() if p.name not in PORT_ONLY]
+    return sig.replace(parameters=params) == inspect.signature(theirs)
+
+
+def test_ops_and_parallel_names_match_jax():
+    """The `ops` and `parallel` subpackages export the JAX package's names,
+    in its order."""
+    assert T_OPS.__all__ == J_OPS.__all__
+    assert T_PAR.__all__ == J_PAR.__all__
+
+
+@pytest.mark.parametrize("name", J_OPS.__all__)
+def test_ops_signature_matches_jax(name):
+    assert _same_but_port_only(getattr(T_OPS, name), getattr(J_OPS, name))
+
+
+def test_ops_ssqueeze_reassign_is_the_jax_one():
+    """ops.ssqueeze.reassign takes complex Wx (the JAX signature), not the
+    planes of the kernel wrapper `reassign_cuda.reassign`."""
+    ours = importlib.import_module("ssqueeze_rs_tpu_torch.ops.ssqueeze")
+    theirs = importlib.import_module("ssqueeze_rs_tpu.ops.ssqueeze")
+    assert "reassign" in ours.__all__
+    assert inspect.signature(ours.reassign) == \
+        inspect.signature(theirs.reassign)
+    assert ours.reassign is T_OPS.reassign
+
+
+@pytest.mark.parametrize("name", J_PAR.__all__)
+def test_parallel_signature_matches_jax(name):
+    assert _same_signature(getattr(T_PAR, name), getattr(J_PAR, name))
 
 
 def test_every_public_name_but_the_later_items():
