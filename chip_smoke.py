@@ -20,7 +20,9 @@ drop-in `compat` API at N = 160 000 and `ssq_cwt(dtype='float64')` at the
 headline, through kernels B, B', C and C' in double, and `cache_wavelet`;
 last the scatter past the bins one launch takes (`ssq_stft` at n_fft =
 8192, `ssq_cwt` with 5000 ssq_freqs) and the sharded `chunked_*`
-transforms of `parallel` on a mesh that lists the card four times.
+transforms of `parallel` on a mesh that lists the card four times; and
+then `process_recording` from a raw file through the native host
+runtime (`native`: the memory-mapped reader and its C++ prefetch ring).
 Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi); no CUDA -> exit 1
@@ -225,12 +227,29 @@ Phases, one line each:
      launches counted per shard program, the wall and device ms of each
      (torch.profiler, and CUDA events around calls queued behind a spin)
      beside the unsharded transform's
+ 26. the native host runtime: (a) the library built from
+     native/ssq_native.cpp with native/Makefile's flags into _build/
+     (seconds on its own line; it must load); (b) phase 20's recording (64
+     x 600 000 float32) as a channel-major raw file: read_chunk at the
+     first and last chunk with halos of 250 000 bitwise the reflect gather
+     of the array, the prefetch ring (depth 3) bitwise iter_chunks; (c)
+     process_recording(ssq_cwt) from that file with prefetch on and off,
+     out='energy' in chunks of 250 000 and out='numpy' on its first 8 x
+     60 000 in chunks of 20 000: each bitwise phase 20's array-source
+     result, with phase 20's launches of A and B (3 x 64 for the energy),
+     its wall time, MSamples/s, peak memory and (one more call, the
+     device traced) device idle share, beside the array source run again
+     warm (also bitwise); (d) tkeo_cpu / tkeo_modified_cpu on 4 x 160 000
+     against numpy's formulas (each output numpy's, or numpy's with one
+     product fused: g++ -march=native contracts a*b - c*d to an FMA), and
+     reassign_cpu on the float64 planes of a 2048-sample cwt within 1e-12
+     of max|Tx| of the port's plain float64 reassign
 
 A line "[t]" gives the wall seconds of each part of the script. Any
 failed check raises and exits non-zero. The last three lines are a
 JSON object of the twenty-six kernels' numbers (each with its launches on
 its paths, including phase 23's and phase 25's end-to-end and sharded
-calls, its time, its
+calls and phase 26's pipelines, its time, its
 plain version's, its bound from the bytes it must
 move and the operations it must do at the card's published rates, and
 the time of one PyTorch call computing the same function where there is
@@ -411,20 +430,22 @@ def entry_metrics(torch, Tk, Tp):
             col, float(d.max()))
 
 
-def device_breakdown(torch, fn, groups, calls=3, warm=False):
+def device_breakdown(torch, fn, groups, calls=3, warm=False, cpu=True):
     """Where the device time of fn() goes: torch.profiler over `calls`
     steady calls (after one more, unless the caller has just made it:
     `warm`), the CUDA kernels' self time summed by
     the first of `groups` (name, substrings) whose substring is in the
     kernel's name ("other" for the rest), per call in ms, with the wall
     time per call and the device's idle share. None if the profiler sees
-    no device time."""
+    no device time. `cpu=False` traces the device only (a call of tens
+    of thousands of host ops otherwise takes the profiler ~20 s to
+    gather)."""
     from torch.profiler import ProfilerActivity, profile
     if not warm:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu +
+                 [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -780,6 +801,8 @@ def main():
     lap("25a bins past one launch")
     chunk_launches = chunked_phases(np, torch, dev, card, results, ctx)
     lap("25b chunked transforms")
+    native_launches = native_pipeline_phases(np, torch, dev, card, results,
+                                             ctx)
 
     results["phase_s"] = LAPS
     print("[t] wall seconds by part: " + ", ".join(
@@ -798,12 +821,14 @@ def main():
                      None),
     ] + (stft_kernels + grad_kernels + cwt_kernels + serving_kernels +
          probe_kernels + rate_kernels + f64_kernels)
-    # B and B' (and B in double) also ran on phase 23's paths, and the
-    # kernels of phase 25's end-to-end and sharded calls on theirs
+    # B and B' (and B in double) also ran on phase 23's paths, the
+    # kernels of phase 25's end-to-end and sharded calls on theirs, and A
+    # and B on phase 26's pipelines from a raw file
     for entry in kernels:
         entry["launches"] += (sep_launches.get(entry["name"], 0) +
                               range_launches.get(entry["name"], 0) +
-                              chunk_launches.get(entry["name"], 0))
+                              chunk_launches.get(entry["name"], 0) +
+                              native_launches.get(entry["name"], 0))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2325,7 +2350,10 @@ def serving_phases(np, torch, dev, card, results, ctx):
           f"pipeline energy: launches {moved}")
     check(tone_err < 0.03, f"pipeline energy: tone rows off by {tone_err:.3f}")
     check(e_sub < 1e-5, f"pipeline energy: channel sub-batches {e_sub:.2e}")
-    del en, en0
+    # phase 26 reads the same recording from a raw file
+    ctx["pipeline20"] = dict(rec=rec, fs=fs, chunk=250_000, en=en,
+                             en_launches=moved, en_s=wall, en_peak_gb=peak)
+    del en0
     lap("20 pipeline energy")
 
     # out='numpy': 8 channels x 60 000 in chunks of 20 000, against the
@@ -2356,6 +2384,8 @@ def serving_phases(np, torch, dev, card, results, ctx):
           f"pipeline numpy: {out8.shape}")
     check(max(cols) < 2e-3 and peak_err < 0.03, f"pipeline numpy against "
           f"offline: column marginals {max(cols):.2e}, tones {peak_err:.3f}")
+    ctx["pipeline20"].update(out8=out8, chunk8=20_000, out8_launches=moved,
+                             out8_s=wall)
     launches20 = counts()
     lap("20 pipeline numpy")
     # the pipelines' shapes have just run (warm): one profiled call each
@@ -4255,6 +4285,221 @@ def chunked_phases(np, torch, dev, card, results, ctx):
     print(f"[25b] chunked transforms at N = {n} ({card}): " +
           " | ".join(lines))
     return path
+
+
+# phase 26: the native host runtime under process_recording
+def _fused_candidates(np, a, b, c, d):
+    """The float32 results a*b - c*d may take: numpy's (both products
+    rounded), and each with one product fused into the subtraction (as
+    g++ -march=native contracts it to an FMA), the fused one exact in long
+    double before the one rounding to float32."""
+    ld = np.longdouble
+    ab, cd = a * b, c * d
+    return (ab - cd,
+            (a.astype(ld) * b - cd.astype(ld)).astype(np.float32),
+            (ab.astype(ld) - c.astype(ld) * d).astype(np.float32))
+
+
+def native_pipeline_phases(np, torch, dev, card, results, ctx):
+    """Phase 26: the native library built from native/ssq_native.cpp; its
+    memory-mapped reader and prefetch ring on phase 20's recording written
+    as a raw file; process_recording from that file (prefetch on and off)
+    bitwise phase 20's array-source results, with A's and B's launches;
+    the host kernels (TKEO, the float64 reassignment). Returns phase 26's
+    launches by kernel name."""
+    import tempfile
+    from ssqueeze_rs_tpu_torch import cwt, native
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
+    from ssqueeze_rs_tpu_torch.ops.ssqueeze import bin_params, reassign
+    from ssqueeze_rs_tpu_torch.parallel import process_recording
+    from ssqueeze_rs_tpu_torch.utils.pad import _reflect_indices
+
+    K_D2H = ("D2H", ("Memcpy DtoH",))
+    K_H2D = ("H2D", ("Memcpy HtoD",))
+    P = ctx["pipeline20"]
+    rec, fs = P["rec"], P["fs"]
+    C, NR = rec.shape
+    S26 = {}
+
+    def counts():
+        return dict(cwt_phase=fft_cuda.LAUNCHES,
+                    reassign=reassign_cuda.LAUNCHES)
+
+    # (a) the library
+    t0 = time.perf_counter()
+    native.build_library()
+    S26["build_s"] = time.perf_counter() - t0
+    check(native.available(), "native library did not load")
+    print(f"[26a] native library: {S26['build_s']:.1f} s "
+          f"({'compiled' if native.BUILD_LOG else 'cached'}) -> "
+          f"{os.path.relpath(native.library_path(), HERE)}")
+
+    launches = dict(cwt_phase=0, reassign=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the reader on the recording as a channel-major raw file
+        path = os.path.join(tmp, "rec.f32")
+        rec.tofile(path)
+        C8, _, N8 = P["out8"].shape
+        path8 = os.path.join(tmp, "rec8.f32")
+        np.ascontiguousarray(rec[:C8, :N8]).tofile(path8)
+        H = CL = P["chunk"]
+        with native.MappedRecording(path, n_channels=C) as mr:
+            check(mr.n_samples == NR, f"reader: {mr.n_samples} samples")
+            last = (NR - 1) // CL * CL
+            for start in (0, last):
+                cl = min(CL, NR - start)
+                got = mr.read_chunk(start, cl, H, H)
+                want = rec[:, _reflect_indices(start - H, start + cl + H,
+                                               NR)]
+                check(np.array_equal(got, want),
+                      f"read_chunk at {start}: not the reflect gather")
+            direct = list(mr.iter_chunks(CL, H))
+            ring = list(mr.iter_chunks_prefetch(CL, H, depth=3))
+            check([s for s, _ in direct] == [s for s, _ in ring] ==
+                  list(range(0, NR, CL)), "prefetch: chunk starts")
+            check(all(np.array_equal(a, b) for (_, a), (_, b) in
+                      zip(direct, ring)), "prefetch: chunks not bitwise "
+                  "iter_chunks")
+            del direct, ring, got, want
+        lap("26b native reader")
+
+        # (c) the slice: process_recording from the file, A and B a chunk
+        runs = [("energy", path, rec, C, NR,
+                 dict(chunk_len=CL, out="energy"), P["en"],
+                 P["en_launches"]),
+                ("numpy", path8, np.ascontiguousarray(rec[:C8, :N8]), C8,
+                 N8, dict(chunk_len=P["chunk8"]), P["out8"],
+                 P["out8_launches"])]
+        for name, src, arr, nc, ns, kw, want, want_moved in runs:
+            if name == "energy":
+                check(want_moved == {"cwt_phase": 3 * C, "reassign": 3 * C},
+                      f"phase 20 energy: launches {want_moved}")
+            # the yardstick: the array source again, warm (phase 20's run
+            # was the first at its shapes: host planning, cuFFT plans)
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = process_recording(arr, transform="ssq_cwt", fs=fs, **kw)
+            wall = time.perf_counter() - t0
+            moved = {k: v - before[k] for k, v in counts().items()}
+            for k in launches:
+                launches[k] += moved[k]
+            check(np.array_equal(got, want) and moved == want_moved,
+                  f"pipeline {name} from the array again: bitwise "
+                  f"{np.array_equal(got, want)}, launches {moved}")
+            S26[f"{name} {nc} x {ns} array source, warm"] = dict(
+                s=wall, msamples_s=nc * ns / wall / 1e6, launches=moved)
+            del got
+            for prefetch in (True, False):
+                def call():
+                    return process_recording(
+                        src, n_channels=nc, transform="ssq_cwt", fs=fs,
+                        prefetch=prefetch, **kw)
+
+                before = counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                got, _ = call()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                moved = {k: v - before[k] for k, v in counts().items()}
+                for k in launches:
+                    launches[k] += moved[k]
+                check(got.shape == want.shape and np.array_equal(got, want),
+                      f"pipeline {name} from a raw file (prefetch "
+                      f"{prefetch}): not bitwise the array source")
+                check(moved == want_moved, f"pipeline {name} (prefetch "
+                      f"{prefetch}): launches {moved}, phase 20 "
+                      f"{want_moved}")
+                del got
+                # the device's idle share: one more call, profiled
+                before = counts()
+                prof = device_breakdown(
+                    torch, call, (K_A, K_B, K_FFT, K_CPLX, K_D2H, K_H2D),
+                    calls=1, warm=True, cpu=False)
+                moved_p = {k: v - before[k] for k, v in counts().items()}
+                check(moved_p == want_moved, f"pipeline {name} profiled: "
+                      f"launches {moved_p}")
+                for k in launches:
+                    launches[k] += moved_p[k]
+                S26[f"{name} {nc} x {ns} prefetch {prefetch}"] = dict(
+                    s=wall, msamples_s=nc * ns / wall / 1e6, peak_gb=peak,
+                    launches=moved, bitwise_array_source=True,
+                    profile=prof)
+            lap(f"26c pipeline {name} from a raw file")
+    S26["array source (phase 20)"] = dict(
+        energy_s=P["en_s"], energy_msamples_s=C * NR / P["en_s"] / 1e6,
+        energy_peak_gb=P["en_peak_gb"], numpy_s=P["out8_s"])
+
+    # (d) the host kernels: the TKEO against numpy's formulas, the float64
+    # reassignment against the port's plain float64 reassign
+    x = np.random.default_rng(26).standard_normal((4, 160_000)).astype(
+        np.float32)
+    tk = native.tkeo_cpu(x)
+    tkm = native.tkeo_modified_cpu(x)
+    tkeo = {}
+    for nm, out, (a, b, c, d) in (
+            ("tkeo", tk, (x[:, 1:-1], x[:, 1:-1], x[:, :-2], x[:, 2:])),
+            ("tkeo_modified", tkm, (x[:, 2:-1], x[:, 1:-2], x[:, 3:],
+                                    x[:, :-3]))):
+        plain, fa, fb = _fused_candidates(np, a, b, c, d)
+        check(out.shape == plain.shape, f"{nm}: shape {out.shape}")
+        same = out == plain
+        check(bool((same | (out == fa) | (out == fb)).all()),
+              f"{nm}: an output is neither numpy's formula nor it with one "
+              "product fused")
+        tkeo[nm] = dict(numpy_share=float(same.mean()),
+                        fused_a_share=float((out == fa).mean()),
+                        fused_b_share=float((out == fb).mean()))
+    S26["tkeo"] = tkeo
+    n = 2048
+    t = np.linspace(0, 10, n, endpoint=False)
+    xs = np.cos(2 * np.pi * 3 * np.exp(t / 3))
+    Wx, _, dWx = cwt(torch.as_tensor(xs, device=dev), ("gmw", {"beta": 8.0}),
+                     scales="log", fs=n / 10, derivative=True,
+                     dtype="float64")
+    Wx, dWx = Wx.cpu(), dWx.cpu()
+    check(Wx.dtype == torch.complex128, f"cwt float64: {Wx.dtype}")
+    ssq_freqs = np.geomspace(0.05, 25.0, 180)
+    const = np.full(Wx.shape[0], 0.0217)
+    t0 = time.perf_counter()
+    Tx = native.reassign_cpu(Wx, dWx, ssq_freqs, const, 1e-8, "log",
+                             flipud=True)
+    host_s = time.perf_counter() - t0
+    mode, params = bin_params(ssq_freqs, True)
+    ref = cpu_ref(torch, lambda: reassign(
+        Wx, dWx, torch.as_tensor(const), 1e-8, torch.zeros(Wx.shape[0],
+                                                          dtype=torch.float64),
+        params, mode=mode, flipud=True, fused=True, transform="cwt",
+        nf=len(ssq_freqs))).numpy()
+    d_tx = float(np.abs(Tx - ref).max() / np.abs(ref).max())
+    S26["reassign_cpu"] = dict(rel_vs_plain=d_tx, ms=host_s * 1e3,
+                               shape=list(Tx.shape))
+    check(Tx.dtype == np.complex128 and d_tx <= 1e-12,
+          f"reassign_cpu against the plain float64 reassign: {d_tx:.2e}")
+    lap("26d host kernels")
+
+    results["native"] = S26
+    runs = "; ".join(
+        f"{k}: {v['s']:.2f} s = {v['msamples_s']:.2f} MSamples/s, " +
+        (f"peak {v['peak_gb']:.2f} GB, launches {v['launches']}, profile "
+         f"{breakdown_line(v['profile'])}" if "profile" in v else
+         f"launches {v['launches']}")
+        for k, v in S26.items() if isinstance(v, dict) and "s" in v)
+    a20 = S26["array source (phase 20)"]
+    print(f"[26] native pipeline ({card}): reader bitwise the reflect "
+          f"gather (halo {H}), prefetch ring bitwise iter_chunks; from a "
+          f"raw file, bitwise the array source: {runs}; array source "
+          f"(phase 20, the first call at its shapes) energy "
+          f"{a20['energy_s']:.2f} s = {a20['energy_msamples_s']:.2f} "
+          f"MSamples/s, peak {a20['energy_peak_gb']:.2f} GB, numpy "
+          f"{a20['numpy_s']:.2f} s; tkeo " + ", ".join(
+              f"{k} numpy's formula on {v['numpy_share']:.1%} (one product "
+              f"fused on the rest)" for k, v in tkeo.items()) +
+          f"; reassign_cpu {S26['reassign_cpu']['ms']:.1f} ms, "
+          f"{d_tx:.1e} of max|Tx| off the plain float64 reassign")
+    return launches
 
 if __name__ == "__main__":
     try:

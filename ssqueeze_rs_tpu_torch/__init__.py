@@ -10,14 +10,19 @@ their host planning, the streaming transforms (`StreamingSTFT`,
 (`parallel.process_recording`), the wavelet builders (`morlet`, `gmw`,
 `morsewave`, ...), ridge extraction (`extract_ridges`), the TKEO, the
 test signals, `toolkit`, `experimental`, the reference's kernel-layer
-names (`algos`) and the drop-in `_rs` API (`compat`). Every transform
+names (`algos`), the drop-in `_rs` API (`compat`), the native host
+runtime (`native`: the memory-mapped reader and its prefetch ring),
+parquet recordings (`io`), plots (`visuals`, matplotlib imported at the
+first plot) and the console entry point (`cli`). Every transform
 takes `dtype="float64"` as the JAX package's does. Array input runs on the CUDA device unless
 `device="cpu"` is given; a tensor runs on its own device. On a CUDA
 tensor the hand-written Hopper kernels run (``csrc/*.cu``, built with nvcc
-at first use); on a CPU tensor their plain-torch versions run. ROADMAP.md
-lists what is still to be ported.
+at first use); on a CPU tensor their plain-torch versions run.
 """
 from .config import DEFAULTS, EPS32, EPS64, pi
+
+__version__ = "0.1.0"
+
 from .ops import (cwt, icwt, ssq_cwt, issq_cwt, ssq_stft, issq_stft,
                   ssqueeze, stft, istft, phase_cwt, phase_cwt_num, phase_stft)
 from .ops.cwt import cwt_higher_order
@@ -43,8 +48,9 @@ from .experimental import scale_to_freq, freq_to_scale
 from .serve import TransformServer
 from .streaming import (StreamingSTFT, StreamingSSQSTFT, StreamingCWT,
                         StreamingSSQCWT)
-from . import (algos, compat, experimental, parallel, ridge, signals,
-               toolkit)
+from .io import ParquetRecording, parquet_to_raw
+from . import (algos, compat, experimental, io, parallel, ridge, signals,
+               toolkit, visuals)
 
 
 def wavs():
@@ -71,4 +77,4 @@ __all__ = ["cwt", "icwt", "ssq_cwt", "issq_cwt", "ssq_stft", "issq_stft",
            "afftshift_idx", "window_resolution", "tkeo", "tkeo_modified",
            "extract_ridges", "ridge", "TestSignals", "signals", "toolkit",
            "experimental", "scale_to_freq", "freq_to_scale", "algos",
-           "compat"]
+           "compat", "io", "ParquetRecording", "parquet_to_raw", "visuals"]

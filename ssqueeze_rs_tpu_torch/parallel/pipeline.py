@@ -4,21 +4,21 @@ read in halo-overlapped chunks, each chunk's channels are transformed
 together on the device (in sub-batches that fit the memory budget), the
 halos are trimmed, and the chunks' outputs are joined along time.
 
-Sources: a (n_channels, n_samples) array, or a raw channel-major float32
-file read through `np.memmap` into the same halo chunks. The JAX
-package's C++ prefetching reader (`native.py`) and its parquet reader
-(`io.py`, which needs pyarrow) are not ported (ROADMAP Queue 1 item 7):
-`prefetch` and `prefetch_depth` are accepted and change nothing, and a
-parquet source raises.
+Sources: a raw channel-major float32 file, read through the native
+memory-mapped reader (`native.MappedRecording`), with its C++ prefetch
+ring reading the next chunks while the device works on this one
+(`prefetch`); a parquet file or `io.ParquetRecording`; or a
+(n_channels, n_samples) array.
 """
 from __future__ import annotations
 
 import os
+from contextlib import closing
 
 import numpy as np
 import torch
 
-from ..utils.common import array_device, assert_is_one_of, unported, WARN
+from ..utils.common import array_device, assert_is_one_of, WARN
 from ..utils.pad import p2up, _reflect_indices
 
 __all__ = ["process_recording", "process_stft", "process_cwt",
@@ -38,14 +38,16 @@ def _chunk_iter_array(x, chunk_len, halo):
 
 
 def _raw_recording(path, n_channels):
-    """A raw channel-major float32 file as a read-only (C, N) memmap."""
+    """A raw channel-major float32 file as a `native.MappedRecording`;
+    a file whose samples do not split into `n_channels` raises."""
+    from ..native import MappedRecording
     if n_channels is None:
         raise ValueError("n_channels required for file sources")
-    mm = np.memmap(path, dtype=np.float32, mode="r")
-    if mm.size % n_channels:
-        raise ValueError(f"{path}: {mm.size} float32 samples do not split "
+    size = os.path.getsize(path) // 4
+    if size % n_channels:
+        raise ValueError(f"{path}: {size} float32 samples do not split "
                          f"into {n_channels} channels")
-    return mm.reshape(n_channels, mm.size // n_channels)
+    return MappedRecording(path, n_channels=n_channels, dtype="float32")
 
 
 def process_recording(source, transform="ssq_cwt", fs=1.0, n_channels=None,
@@ -55,11 +57,12 @@ def process_recording(source, transform="ssq_cwt", fs=1.0, n_channels=None,
                       prefetch_depth=3, columns=None, device=None, **kw):
     """Stream a long multichannel recording through a TF transform.
 
-    `source`: a (n_channels, n_samples) array, or the path of a raw
-    channel-major float32 file (`n_channels` required). `columns` and the
-    prefetch options belong to the JAX package's readers and change
-    nothing here. `device`: where the transforms run (the CUDA device by
-    default, `utils.common.array_device`).
+    `source`: the path of a raw channel-major float32 file (`n_channels`
+    required), read by the native reader, through its prefetch ring of
+    `prefetch_depth` chunks when `prefetch`; a `.parquet`/`.pq` path or
+    an `io.ParquetRecording` (`columns` selects the channel columns); or
+    a (n_channels, n_samples) array. `device`: where the transforms run
+    (the CUDA device by default, `utils.common.array_device`).
 
     `out`: 'numpy' (default) returns the full TF array; 'energy' reduces
     each chunk on the device to the per-(channel, row) energy
@@ -77,14 +80,20 @@ def process_recording(source, transform="ssq_cwt", fs=1.0, n_channels=None,
     from ..ops.ssq_stft import ssq_stft
     from ..scales import process_scales
     from ..wavelets.base import Wavelet
+    from ..io import ParquetRecording
 
     is_path = (isinstance(source, (str, bytes)) or
                hasattr(source, "__fspath__"))
-    if is_path and os.fspath(source).endswith((".parquet", ".pq")):
-        unported("parquet sources (io.py needs pyarrow)", "Queue 1 item 7")
-    x = (_raw_recording(source, n_channels) if is_path
-         else np.atleast_2d(np.asarray(source)))
-    N = x.shape[-1]
+    x = rec = None
+    if isinstance(source, ParquetRecording) or (
+            is_path and os.fspath(source).endswith((".parquet", ".pq"))):
+        rec = (source if isinstance(source, ParquetRecording) else
+               ParquetRecording(source, columns=columns))
+    elif is_path:
+        rec = _raw_recording(source, n_channels)
+    else:
+        x = np.atleast_2d(np.asarray(source))
+    N = x.shape[-1] if rec is None else rec.n_samples
     dev = array_device(device)
 
     # halo: n_fft for the STFT paths, the wavelet's support for the CWT
@@ -191,8 +200,27 @@ def process_recording(source, transform="ssq_cwt", fs=1.0, n_channels=None,
             parts.append(o.cpu().numpy())
         return np.concatenate(parts, axis=0)
 
-    outs = [run(chunk, cl) for _, cl, chunk in
-            _chunk_iter_array(x, chunk_len, halo_eff)]
+    def chunks():
+        """(start, chunk length, halo chunk) from the source; the reader's
+        generator is closed (the prefetch ring stopped) before the
+        recording it reads is."""
+        if rec is None:
+            yield from _chunk_iter_array(x, chunk_len, halo_eff)
+            return
+        it = (rec.iter_chunks_prefetch(chunk_len, halo_eff,
+                                       depth=prefetch_depth)
+              if prefetch and not isinstance(rec, ParquetRecording)
+              else rec.iter_chunks(chunk_len, halo_eff))
+        with closing(it):
+            for start, chunk in it:
+                yield start, chunk.shape[-1] - 2 * halo_eff, chunk
+
+    try:
+        with closing(chunks()) as it:
+            outs = [run(chunk, cl) for _, cl, chunk in it]
+    finally:
+        if rec is not None and rec is not source:
+            rec.close()
     if out == "energy":
         return np.sum(np.stack(outs), axis=0), meta
     return np.concatenate(outs, axis=-1), meta

@@ -2,15 +2,17 @@
 ``ssqueeze_rs_tpu/signals.py``). Signals return (x, t). All chirp laws
 use exact closed-form phase integrals; `fmax` defaults to the anti-alias
 bound N/2 over unit duration. The methods that plot (`demo`,
-`test_transforms`, `wavcomp`, `cwt_vs_stft`, `ridgecomp`) wait for
-`visuals` (ROADMAP Queue 1 item 9) and raise.
+`test_transforms`, `wavcomp`, `cwt_vs_stft`, `ridgecomp`) draw through
+`visuals`; those that transform run the port's transforms by their
+device rule (array input on the CUDA device unless `device` says
+otherwise).
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.signal as sig
 
-from .utils.common import WARN, unported
+from .utils.common import WARN, _host
 
 pi = np.pi
 
@@ -317,25 +319,124 @@ class TestSignals:
         return f"{name} | N={N}" + (f" | {fp}" if fp else "")
 
     def demo(self, signals="all", N=None, dft=None):
-        """Plot signal waveforms, optionally with their DFTs."""
-        unported("TestSignals.demo (plots)", "Queue 1 item 9")
+        """Plot signal waveforms, optionally with their DFTs ('rows' or
+        'cols')."""
+        from . import visuals
+        if dft not in (None, "rows", "cols"):
+            raise ValueError(f"`dft` must be 'rows', 'cols', or None "
+                             f"(got {dft})")
+        data = self.make_signals(signals, N, get_params=True)
+        for name, (x, t, (fparams, aparams)) in data.items():
+            title = self._title(name, len(x), fparams, aparams)
+            visuals.plot(t, x, title=title, show=True)
+            if dft:
+                axrf = np.abs(np.fft.rfft(np.asarray(x)))
+                visuals.plot(axrf, title=f"rDFT({name})", show=True)
 
     def test_transforms(self, fn, signals="all", N=None):
-        """Run `fn` over the signal bank and plot the transforms."""
-        unported("TestSignals.test_transforms (plots)", "Queue 1 item 9")
+        """Run `fn(x, t, (name, fparams, aparams))` over the signal bank
+        and imshow the (Tf, imshow kwargs) it returns (Tf one transform
+        or a list of them; None plots nothing)."""
+        from . import visuals
+        data = self.make_signals(signals, N, get_params=True)
+        for name, (x, t, (fparams, aparams)) in data.items():
+            out = fn(x, t, (name, fparams, aparams))
+            if out is None:
+                continue
+            Tf, pkw = out
+            pkw = dict(pkw)
+            pkw.setdefault("abs", True)
+            pkw.setdefault("show", True)
+            pkw.setdefault("title", self._title(name, len(x), fparams,
+                                                aparams))
+            for o in (Tf if isinstance(Tf, (tuple, list)) else [Tf]):
+                visuals.imshow(o, **pkw)
 
     def wavcomp(self, wavelets, signals="all", N=None, w=1.2, h=None,
-                tight_kw=None):
-        """Plot |CWT| and |SSQ_CWT| of each signal for several wavelets."""
-        unported("TestSignals.wavcomp (plots)", "Queue 1 item 9")
+                tight_kw=None, device=None):
+        """Plot |CWT| and |SSQ_CWT| of each signal for several wavelets
+        side by side. `w`/`h` scale the panels; `tight_kw` is accepted
+        for the JAX signature (each panel is its own figure)."""
+        from .ops.ssq_cwt import ssq_cwt
+        from .wavelets.base import Wavelet
+        if not isinstance(wavelets, (list, tuple)):
+            wavelets = [wavelets]
+        wavs = [Wavelet.build(wv) for wv in wavelets]
+        h = h or 0.45 * len(wavs)
+
+        def fn(x, t, params):
+            outs = []
+            for wv in wavs:
+                Tx, Wx, *_ = ssq_cwt(x, wv, t=t, device=device)
+                outs += [np.abs(_host(Wx)), np.abs(_host(Tx))]
+            return outs, dict(w=w, h=h)
+
+        self.test_transforms(fn, signals=signals, N=N)
 
     def cwt_vs_stft(self, wavelet, window, signals="all", N=None,
                     win_len=None, n_fft=None, window_name=None,
-                    config_str="", w=1.2, h=0.9, tight_kw=None):
-        """Plot |CWT| / |SSQ_CWT| and |STFT| / |SSQ_STFT| of each signal."""
-        unported("TestSignals.cwt_vs_stft (plots)", "Queue 1 item 9")
+                    config_str="", w=1.2, h=0.9, tight_kw=None,
+                    device=None):
+        """Plot |CWT| / |SSQ_CWT| and |STFT| / |SSQ_STFT| of each signal.
+        `window_name`/`config_str` label the STFT panels; `w`/`h` scale
+        the panels; `tight_kw` is accepted for the JAX signature."""
+        from . import visuals
+        from .ops.ssq_cwt import ssq_cwt
+        from .ops.ssq_stft import ssq_stft
+
+        data = self.make_signals(signals, N, get_params=True)
+        for name, (x, t, (fparams, aparams)) in data.items():
+            Txc, Wx, *_ = ssq_cwt(x, wavelet, t=t, device=device)
+            Txs, Sx, *_ = ssq_stft(x, window=window, win_len=win_len,
+                                   n_fft=n_fft, t=t, device=device)
+            base = self._title(name, len(x), fparams, aparams)
+            twin = "{} window | win_len={}, n_fft={} {}".format(
+                window_name or "", win_len, n_fft, config_str).strip()
+            for A, ttl in [(Wx, "abs(CWT)"), (Txc, "abs(SSQ_CWT)"),
+                           (Sx, f"abs(STFT) | {twin}"),
+                           (Txs, "abs(SSQ_STFT)")]:
+                visuals.imshow(np.abs(_host(A)), abs=True, show=True,
+                               w=w, h=h, title=base + "\n" + ttl)
 
     def ridgecomp(self, signals="all", N=None, penalty=20, n_ridges=2,
                   bw=None, transform="cwt", w=1.2, h=0.4, **transform_kw):
-        """Plot extracted ridges over the transform and its squeeze."""
-        unported("TestSignals.ridgecomp (plots)", "Queue 1 item 9")
+        """Plot the ridges extracted from each signal's transform and from
+        its synchrosqueezing over the two. `transform_kw` goes to
+        ssq_cwt / ssq_stft (`device` among them)."""
+        from . import visuals
+        from .ops.ssq_cwt import ssq_cwt
+        from .ops.ssq_stft import ssq_stft
+        from .ridge import extract_ridges
+
+        if bw is None:
+            tf_bw, ssq_bw = 10, 2
+        elif isinstance(bw, tuple):
+            tf_bw, ssq_bw = bw
+        else:
+            tf_bw = ssq_bw = bw
+
+        data = self.make_signals(signals, N, get_params=True)
+        tfn = ssq_cwt if transform == "cwt" else ssq_stft
+        for name, (x, t, (fparams, aparams)) in data.items():
+            Tfs, Tf, ssq_freqs, scales, *_ = tfn(x, t=t, **transform_kw)
+            rkw = dict(penalty=penalty, n_ridges=n_ridges,
+                       transform=transform)
+            ridges = _host(extract_ridges(Tf, scales, bw=tf_bw, **rkw))
+            ssq_ridges = _host(extract_ridges(Tfs, ssq_freqs, bw=ssq_bw,
+                                              **rkw))
+            Tf, Tfs = _host(Tf), _host(Tfs)
+            if transform == "cwt":       # display: low frequencies down
+                Tf = np.flipud(Tf)
+                ridges = len(Tf) - ridges
+            base = self._title(name, len(x), fparams, aparams)
+            sub = (f" ridges | penalty={penalty}, n_ridges={n_ridges}, "
+                   f"bw=({tf_bw},{ssq_bw})")
+            for A, R, ttl in [(Tf, ridges, f"abs({transform.upper()})"),
+                              (Tfs, ssq_ridges,
+                               f"abs(SSQ_{transform.upper()})")]:
+                plt = visuals._plt()
+                visuals.imshow(np.abs(A), abs=True, show=False, w=w, h=h,
+                               title=base + "\n" + ttl + sub)
+                for r in range(R.shape[-1]):
+                    plt.plot(np.arange(R.shape[0]), R[:, r], "k--", lw=1)
+                plt.show()

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .utils.common import _host, mad_rms, unported  # noqa: F401 (mad_rms)
+from .utils.common import _host, mad_rms  # noqa: F401 (mad_rms)
 
 __all__ = ["lin_band", "cos_f", "sin_f", "mad_rms", "where_amax"]
 
@@ -16,15 +16,19 @@ def _t(tmin, tmax, N, endpoint=False):
 def lin_band(Tx, slope, offset, bw=0.025, viz=False, **kw):
     """Linear curve band (centres and widths, int32 numpy) over the TF
     plane, for component inversion. Reads only Tx's shape, so a tensor on
-    the card is not fetched. `viz=True` waits for `visuals` (ROADMAP
-    Queue 1 item 9) and raises."""
-    if viz:
-        unported("lin_band(viz=True)", "Queue 1 item 9")
+    the card is not fetched unless `viz=True` plots |Tx| with the band's
+    edges (`visuals`; `kw` goes to its imshow)."""
     na, N = Tx.shape[-2:]
     tcs = np.linspace(0, 1, N)
     Cs = slope * (tcs + offset) * na
     freqband = bw * na * np.ones(N)
-    return Cs.astype("int32"), freqband.astype("int32")
+    Cs, freqband = Cs.astype("int32"), freqband.astype("int32")
+    if viz:
+        from .visuals import imshow, plot
+        imshow(Tx, abs=1, aspect="auto", show=0, **kw)
+        plot(Cs + freqband, color="r")
+        plot(Cs - freqband, color="r", show=1)
+    return Cs, freqband
 
 
 def cos_f(freqs, N=128, phi=0, endpoint=False):

@@ -27,13 +27,6 @@ def assert_is_one_of(x, name, supported, e=ValueError):
         raise e(f"`{name}` must be one of: {', '.join(map(str, supported))} (got {x})")
 
 
-def unported(what, item):
-    """Refuse an option the port does not have yet, naming the ROADMAP
-    item that ports it."""
-    raise NotImplementedError(f"{what} is not ported to the torch package "
-                              f"yet (ROADMAP {item})")
-
-
 def array_device(device=None) -> torch.device:
     """The device array input runs on: `device` if given, else the CUDA
     device; with no CUDA device and no `device`, raises."""

@@ -355,6 +355,33 @@ class Wavelet:
     def std_f_d(self, scale=None, N=1024):
         return self.std_w_d(scale, N) / (2 * np.pi)
 
+    VISUALS = ("heatmap", "waveforms", "filterbank", "harea", "std_t",
+               "std_w", "time-frequency", "anim:time-frequency")
+
+    def viz(self, name="overview", **kw):
+        """Plot one of `Wavelet.VISUALS` (`visuals`' wavelet views);
+        'overview' plots the heatmap, harea sweep, filterbank and
+        time-frequency views."""
+        from .. import visuals
+        if name == "overview":
+            for nm in ("heatmap", "harea", "filterbank", "time-frequency"):
+                self.viz(nm, **kw)
+            return
+        if name not in Wavelet.VISUALS:
+            raise ValueError(f"visual '{name}' not supported; must be one "
+                             "of: " + ", ".join(Wavelet.VISUALS))
+        fn = {
+            "heatmap": visuals.wavelet_heatmap,
+            "waveforms": visuals.wavelet_waveforms,
+            "filterbank": visuals.wavelet_filterbank,
+            "harea": visuals.sweep_harea,
+            "std_t": visuals.sweep_std_t,
+            "std_w": visuals.sweep_std_w,
+            "time-frequency": visuals.wavelet_tf,
+            "anim:time-frequency": visuals.wavelet_tf_anim,
+        }[name]
+        fn(self, **kw)
+
     def info(self, nondim=True, N=1024):
         """Print a time & frequency resolution summary."""
         if nondim:

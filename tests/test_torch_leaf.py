@@ -50,19 +50,30 @@ def test_signal_bank_bitwise(name):
 
 def test_signal_bank_specs_and_plots():
     """(name, kwargs) specs and 'carrier:am' compositions as in the JAX
-    package; the plotting methods wait for `visuals`."""
+    package; the plotting methods draw, headless (tests/test_torch_visuals.py
+    holds what they draw to the JAX package's)."""
     specs = [("lchirp", dict(fmin=5, fmax=50)), "cosine:am-cosine",
              ("sine", dict(f=7)), "par-lchirp"]
     for ours, theirs in zip(T.TestSignals(512).make_signals(specs),
                             J.TestSignals(512).make_signals(specs)):
         assert np.array_equal(ours, theirs)
-    ts = T.TestSignals(64)
-    for call in (lambda: ts.demo(), lambda: ts.test_transforms(None),
-                 lambda: ts.wavcomp("gmw"),
-                 lambda: ts.cwt_vs_stft("gmw", None),
-                 lambda: ts.ridgecomp()):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    import warnings
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    ts = T.TestSignals(256)
+    for call in (lambda: ts.demo("cosine"),
+                 lambda: ts.test_transforms(
+                     lambda x, t, p: (np.outer(x, x), {}), "cosine"),
+                 lambda: ts.wavcomp("gmw", "cosine", device="cpu"),
+                 lambda: ts.cwt_vs_stft("gmw", None, "cosine", device="cpu"),
+                 lambda: ts.ridgecomp("lchirp", device="cpu")):
+        plt.close("all")
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*non-interactive.*")
             call()
+        assert plt.get_fignums()
+    plt.close("all")
 
 
 def test_toolkit_bitwise():
@@ -75,8 +86,18 @@ def test_toolkit_bitwise():
         assert a.dtype == b.dtype and np.array_equal(a, b)
     for a, b in zip(ttk.where_amax(torch.as_tensor(Tx)), jtk.where_amax(Tx)):
         assert np.array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttk.lin_band(Tx, 0.2, 0.1, viz=True)
+    # viz=True plots |Tx| and the band (tests/test_torch_visuals.py)
+    import warnings
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*non-interactive.*")
+        band = ttk.lin_band(torch.as_tensor(Tx), 0.2, 0.1, viz=True)
+    assert plt.get_fignums() and all(
+        np.array_equal(a, b) for a, b in zip(band, jtk.lin_band(Tx, 0.2,
+                                                                0.1)))
+    plt.close("all")
 
 
 @pytest.mark.parametrize("shape", [(64,), (3, 2, 101)])

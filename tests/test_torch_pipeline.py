@@ -1,8 +1,10 @@
 """The port's `parallel.process_recording` against the JAX package's
 (`ssqueeze_rs_tpu.parallel.pipeline`) and its own offline transforms,
-float32 on the CPU (tests/test_pipeline.py's contract): array and raw-file
+float32 on the CPU (tests/test_pipeline.py's contract): array, raw-file
+(the native reader, with and without its prefetch ring) and parquet
 sources, energy mode, one ssq frequency grid for a short final chunk, a
-hop-misaligned chunk_len, the refusals.
+hop-misaligned chunk_len, the refusals. A file source reads the same
+halo chunks as the array source, so its output is bitwise the array's.
 
 Tolerances: STFT chunks against JAX's and against the offline transform
 within 2e-5 of max|Sx| (the halo covers every frame, float32 sums in other
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from ssqueeze_rs_tpu.parallel.pipeline import process_recording as jax_pr
+from ssqueeze_rs_tpu.io import ParquetRecording as JParquetRecording
 import ssqueeze_rs_tpu_torch as T
 from ssqueeze_rs_tpu_torch.parallel import (process_recording, process_stft,
                                             process_ssq_cwt)
@@ -133,8 +136,10 @@ def test_refusals_and_reflect_indices(monkeypatch):
     x = np.zeros((1, 1024), np.float32)
     with pytest.raises(ValueError, match="derivative"):
         process_recording(x, transform="cwt", derivative=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        process_recording("rec.parquet", device="cpu")
+    # a parquet path goes to io.ParquetRecording (pyarrow) and is opened
+    with pytest.raises(FileNotFoundError if T.io.have_pyarrow()
+                       else ImportError):
+        process_recording("missing.parquet", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         process_recording(x, transform="stft", n_fft=64)
@@ -144,3 +149,56 @@ def test_refusals_and_reflect_indices(monkeypatch):
         padded = np.pad(sig, (max(0, -lo), max(0, hi - 5)), mode="reflect")
         want = padded[lo + max(0, -lo):hi + max(0, -lo)]
         assert np.array_equal(sig[_reflect_indices(lo, hi, 5)], want)
+
+
+@pytest.mark.parametrize("transform, kw, bar", [
+    ("stft", dict(n_fft=128, hop_len=2), "rel"),
+    ("ssq_cwt", dict(scales="log", nv=8, halo=400), "col"),
+    ("ssq_cwt", dict(scales="log", nv=8, halo=400, out="energy"), "en")])
+def test_raw_file_and_parquet_sources(tmp_path, transform, kw, bar):
+    """A raw file through the native reader, with the prefetch ring (depth
+    2 and 3) and without, and a parquet file (by path, and as a
+    ParquetRecording with columns chosen): bitwise the array source, and
+    within this file's bars of the JAX pipeline on the same file (three
+    tones in a little noise; their energy rows within 1e-3 of the
+    largest)."""
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+
+    t = np.arange(5000) / 1000.0
+    x = (np.cos(2 * np.pi * np.array([[50.0], [120.0], [210.0]]) * t) +
+         0.01 * np.random.default_rng(11).standard_normal((3, 5000))
+         ).astype(np.float32)
+    kw = dict(kw, transform=transform, fs=1000.0, chunk_len=1800,
+              device="cpu")
+    want, meta = process_recording(x, **kw)
+    raw = tmp_path / "rec.f32"
+    x.tofile(raw)
+    for prefetch, depth in ((True, 3), (True, 2), (False, 3)):
+        got, m = process_recording(raw, n_channels=3, prefetch=prefetch,
+                                   prefetch_depth=depth, **kw)
+        assert np.array_equal(got, want), (prefetch, depth)
+        assert all(np.array_equal(m[k], meta[k]) for k in meta)
+    path = tmp_path / "rec.parquet"
+    pq.write_table(pa.table({f"ch{c}": x[c] for c in range(3)}), path,
+                   row_group_size=700)
+    got, _ = process_recording(str(path), **kw)
+    assert np.array_equal(got, want)
+    sub, _ = process_recording(x[[2, 0]], **kw)
+    rec = T.io.ParquetRecording(path, columns=["ch2", "ch0"])
+    assert np.array_equal(process_recording(rec, **kw)[0], sub)
+    assert np.array_equal(
+        process_recording(str(path), columns=["ch2", "ch0"], **kw)[0], sub)
+    rec.close()
+
+    jkw = {k: v for k, v in kw.items() if k != "device"}
+    for src, extra in ((raw, dict(n_channels=3)),
+                       (JParquetRecording(str(path)), {})):
+        ref, _ = jax_pr(src, **jkw, **extra)
+        assert ref.shape == want.shape
+        if bar == "rel":
+            assert _rel(want, ref) < 2e-5
+        elif bar == "col":
+            assert max(_col_rel(want[c], ref[c]) for c in range(3)) < 1e-3
+        else:
+            assert _rel(want, ref) < 1e-3

@@ -139,3 +139,25 @@ def test_filterbank_and_admissibility(wavelet):
     scale = np.abs(pw_64).max()
     assert np.abs(pw_t.numpy() - np.asarray(pw_j)).max() < 2e-5 * scale
     assert np.abs(pw_t.numpy() - pw_64).max() < 1e-5 * scale
+
+
+@pytest.mark.parametrize("wavelet", ["gmw", ("gmw", {"beta": 8.0}),
+                                     ("gmw", {"order": 2})])
+def test_gmw_filterbank_does_not_depend_on_threads(wavelet):
+    """The float32 GMW filterbank of `test_filterbank_and_admissibility`,
+    sampled by torch on the CPU 20 times on one intra-op thread and 20
+    times on six: every sample bitwise the same (a thread's share of the
+    grid must not change its bits)."""
+    jw, tw = _both(wavelet)
+    sc = j_process_scales("log-piecewise", 9000, jw, nv=4).squeeze(-1)
+    w = (torch.as_tensor(sc.astype(np.float32))[:, None, None] *
+         torch.as_tensor(_xi_grid_np(2 ** 14))[None])
+    before = torch.get_num_threads()
+    try:
+        runs = []
+        for threads in (1, 6):
+            torch.set_num_threads(threads)
+            runs += [tw.psih(w, torch).to(torch.float32) for _ in range(20)]
+    finally:
+        torch.set_num_threads(before)
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])

@@ -1,8 +1,8 @@
 """The port's public surface against the JAX package's, on the CPU: the
 names the port exports with the JAX signatures (apart from `device`;
 for a module, its `__all__` and the signature of each name in it), the
-`Wavelet` members with their kinds and signatures (all but `viz` and
-`VISUALS`, which wait for `visuals`), `morsefreq` with every `n_out`, and
+`Wavelet` members with their kinds and signatures, `morsefreq` with every
+`n_out`, and
 a guard that no module of the port, nor chip_smoke.py, imports JAX or the
 JAX package.
 
@@ -39,12 +39,11 @@ EXPORTED = ["DEFAULTS", "EPS32", "EPS64", "mad", "WARN", "NOTE", "p2up",
             "afftshift_idx", "window_resolution", "tkeo", "tkeo_modified",
             "extract_ridges", "ridge", "TestSignals", "signals", "toolkit",
             "experimental", "scale_to_freq", "freq_to_scale", "algos",
-            "compat"]
+            "compat", "io", "ParquetRecording", "parquet_to_raw", "visuals"]
 
-# the JAX package's public names the port leaves to later items (ROADMAP
-# Queue 1 items 7 and 9)
-NOT_YET = {"io", "ParquetRecording", "parquet_to_raw", "visuals"}
-WAVELET_NOT_YET = {"viz", "VISUALS"}
+# the JAX package's public names the port does not have: none
+NOT_YET = set()
+WAVELET_NOT_YET = set()
 
 
 def _same_signature(ours, theirs):
@@ -142,8 +141,7 @@ def test_every_public_name_but_the_later_items():
 
 
 def test_wavelet_members_match_jax():
-    """Every public member of the JAX `Wavelet` but viz/VISUALS, of the
-    same kind (property, cached property, method, static method, value)
+    """Every public member of the JAX `Wavelet`, of the same kind (property, cached property, method, static method, value)
     and, for callables, the same signature apart from `device`."""
     names = {m for m in dir(J.Wavelet) if not m.startswith("_")}
     assert names - WAVELET_NOT_YET <= set(dir(T.Wavelet))
