@@ -163,8 +163,12 @@ Phases, one line each:
      grid_slope_probe), each main() run as a user would, K = 5, the launch
      counts read around each; then every kernel against its plain version
      at the probes' shapes: J8, the copy, J7 copies and J6's element
-     questions exact; the dots (every shape and precision), the chains
-     and J6's dots within RATE_BAR of max|out|; J7 dots and both within
+     questions exact; the dots (every shape and precision, and an edge
+     shape off every tile and box, (200, 72, 136), at GRID and at an odd
+     grid, which runs unclustered), the chains and J6's dots within
+     RATE_BAR of max|out|; J5's operand pre-pass bitwise its plain model,
+     and timed alone; J5 at an odd grid (unclustered) timed beside the
+     clustered rows; J7 dots and both within
      1e-3 of max|out| at R = 1, 1e-2 at 3, 0.1 at 64 (there finite and
      of order 1), bitwise with b a scaled permutation at R = 3 and 64
      (each product exact); every kernel bitwise repeated; the plain versions timed
@@ -2636,6 +2640,8 @@ def probe_phases(np, torch, dev, card, results):
 # as a share of max|out| (the plain versions sum in float32 in another
 # order, and the tensor cores' float32 accumulation truncates)
 RATE_BAR = 1e-5
+# J5's edge shape: no multiple of an output tile or of a TMA box along k
+J5_EDGE = (200, 72, 136)
 
 
 def rate_probe_phases(np, torch, dev, card, results):
@@ -2753,6 +2759,28 @@ def rate_probe_phases(np, torch, dev, card, results):
                 torch.backends.cuda.matmul.allow_tf32 = False
             lib["f32"] = qms(lambda: torch.matmul(Acat, Brep))
             del Acat, Brep, a16, b16
+    # an edge shape that is no multiple of a tile (128 rows, 128 columns)
+    # or a TMA box along k (64 bf16, 32 float), at GRID (clusters of two
+    # copies) and at an odd grid (unclustered); the pre-pass bitwise its
+    # plain model
+    me, ke, ne = J5_EDGE
+    A = torch.randn((2 * me, ke), generator=g, device=dev)
+    B = torch.randn((ke, ne), generator=g, device=dev)
+    for p in mrp.PRECISIONS:
+        pl = mrp.dot_probe_plain(A, B, me, p)
+        for grid in (mrp.GRID, 3):
+            key = f"dot {p} ({me},{ke},{ne}) grid {grid}"
+            k1 = mrp.dot_probe(A, B, me, p, grid=grid)
+            e, d = err(k1, pl)
+            J5[key] = dict(rel=e, abs=d, repeat=equal(
+                k1, mrp.dot_probe(A, B, me, p, grid=grid)))
+            check(e < RATE_BAR and J5[key]["repeat"],
+                  f"J5 {key}: rel {e:.3e}, repeat {J5[key]['repeat']}")
+        got = mrp.prepass(A, B, me, p)
+        want = mrp.prepass_plain(A, B, me, p)
+        J5[f"prepass {p} ({me},{ke},{ne})"] = ok = all(
+            (x is None and y is None) or equal(x, y) for x, y in zip(got, want))
+        check(ok, f"J5 pre-pass {p} ({me},{ke},{ne}) is not its plain model")
     for (mm, nn) in mrp.COPY_SHAPES:
         A = torch.randn((2 * mm, nn), generator=g, device=dev)
         k1 = mrp.copy_probe(A, mm)
@@ -2778,6 +2806,11 @@ def rate_probe_phases(np, torch, dev, card, results):
             check(e < RATE_BAR and J5[key]["repeat"],
                   f"J5 {key}: rel {e:.3e}, repeat {J5[key]['repeat']}")
             if (mm, kk, nn, C) == (m, k, n, C8):
+                got = mrp.prepass(A, B, m, "bf16", C8)
+                J5[f"prepass chains C={C8} ({m},{k},{n})"] = ok = all(
+                    (x is None and y is None) or equal(x, y) for x, y in
+                    zip(got, mrp.prepass_plain(A, B, m, "bf16", C8)))
+                check(ok, f"J5 chains pre-pass C={C8} is not its plain model")
                 chains_plain_ms = qms(lambda: [mrp.dot_probe_chains_plain(
                     A, B, m, C8) for _ in range(mrp.GRID)])
                 Acat = torch.stack([torch.cat(
@@ -2787,6 +2820,17 @@ def rate_probe_phases(np, torch, dev, card, results):
                 b16 = B.repeat(mrp.R, 1).to(torch.bfloat16)
                 chains_lib_ms = qms(lambda: torch.matmul(a16, b16))
                 del Acat, a16, b16
+    # an even GRID runs the two copies of a tile as a cluster of two
+    # blocks; an odd one runs unclustered: the same work a copy at GRID - 1
+    # copies, scaled to GRID, against the probes' rows
+    odd = mrp.GRID - 1
+    A = torch.randn((2 * m, k), generator=g, device=dev)
+    B = torch.randn((k, n), generator=g, device=dev)
+    unclustered = {p: qms(lambda: mrp.dot_probe(A, B, m, p, grid=odd)) *
+                   mrp.GRID / odd for p in mrp.PRECISIONS}
+    A = torch.randn(((C8 + 1) * m, k), generator=g, device=dev)
+    unclustered["chains"] = qms(lambda: mrp.dot_probe_chains(
+        A, B, m, C8, grid=odd)) * mrp.GRID / odd
     del A, B
     lap("22 J5, J8 against their plain versions")
 
@@ -2885,6 +2929,7 @@ def rate_probe_phases(np, torch, dev, card, results):
 
     results["rate_probes"] = dict(
         launches=launches, moved=moved, J5=J5, J6=J6, J7=J7, J8=J8,
+        j5_unclustered_ms=unclustered,
         library=dict(dot=lib, copy=copy_lib_ms, chains=chains_lib_ms,
                      grid=grid_lib_ms, j6=lib6),
         rows={k: list(v.values()) for k, v in rows.items()},
@@ -2894,14 +2939,26 @@ def rate_probe_phases(np, torch, dev, card, results):
                     if key.startswith(f"dot {p} ")) for p in mrp.PRECISIONS}
     chains = rows["rate_chains"]
     print("[22] rate probes: J5 (1024,512,512) " + ", ".join(
-        f"{p} {rr[f'dot {p} ({m},{k},{n})']['ms']:.3f} ms "
+        f"{p} {rr[f'dot {p} ({m},{k},{n})']['ms']:.4f} ms "
         f"({rr[f'dot {p} ({m},{k},{n})']['tflop_s']:.1f} TFLOP/s, "
+        f"pre-pass {rr[f'dot {p} ({m},{k},{n})']['prep_ms']:.4f} ms, "
+        f"operands {rr[f'dot {p} ({m},{k},{n})']['operand_tb_s']:.1f} TB/s "
+        "into shared memory, "
         f"worst rel {worst[p]:.1e})" for p in mrp.PRECISIONS) +
         f"; copy (1024,4096) {rr['copy f32 (1024,4096)']['ms']:.3f} ms "
         f"({rr['copy f32 (1024,4096)']['smem_tb_s']:.1f} TB/s on chip); "
         "chains (1024,512,512) us a dot " + ", ".join(
-            f"C={C} {chains[f'chains C={C} ({m},{k},{n})']['us_per_dot']:.2f}"
-            for C in mrp.CHAINS) + "; J6 " + ", ".join(
+            f"C={C} {chains[f'chains C={C} ({m},{k},{n})']['us_per_dot']:.3f}"
+            for C in mrp.CHAINS) + f" (C={C8} "
+        f"{chains[f'chains C={C8} ({m},{k},{n})']['ms']:.4f} ms, pre-pass "
+        f"{chains[f'chains C={C8} ({m},{k},{n})']['prep_ms']:.4f} ms, "
+        f"operands {chains[f'chains C={C8} ({m},{k},{n})']['operand_tb_s']:.1f}"
+        " TB/s); "
+        f"edge ({J5_EDGE[0]},{J5_EDGE[1]},{J5_EDGE[2]}) worst rel " + "{:.1e}".format(
+            max(v["rel"] for key, v in J5.items() if " grid " in key)) +
+        "; unclustered (GRID - 1 copies, scaled to GRID) " + ", ".join(
+            f"{key} {v:.4f}" for key, v in unclustered.items()) + " ms" +
+        "; J6 " + ", ".join(
             f"{q} {rows['mxu_probe'][q]['ms']:.3f}" for q in mp.QUESTIONS) +
         " / " + ", ".join(f"{q} {rows['mxu_probe2'][q]['ms']:.3f}"
                           for q in mp2.QUESTIONS) +
@@ -2921,18 +2978,23 @@ def rate_probe_phases(np, torch, dev, card, results):
     ov = rows["dma_overlap"]["both"]
     gs = rows["grid_slope"][f"tiny const g={g_last}"]
     bnd = lambda r: (r["bound_ms"], r["bound_by"])
+    # the operand pre-pass is the first of a dot's two launches: its time
+    # alone is in the entries beside the call's
     return [
-        kernel_entry("rate_dot", "rate_probe.cu", "mxu_rate_probe.py:47",
-                     launches["rate_dot"],
-                     J5[f"dot bf16 ({m},{k},{n})"]["abs"], rd["ms"],
-                     dot_plain_ms, bnd(rd), lib["bf16"], root=tools),
+        dict(kernel_entry("rate_dot", "rate_probe.cu", "mxu_rate_probe.py:47",
+                          launches["rate_dot"],
+                          J5[f"dot bf16 ({m},{k},{n})"]["abs"], rd["ms"],
+                          dot_plain_ms, bnd(rd), lib["bf16"], root=tools),
+             prepass_ms=rd["prep_ms"]),
         kernel_entry("rate_copy", "rate_probe.cu", "mxu_rate_probe.py:70",
                      launches["rate_copy"], 0.0, rc["ms"], copy_plain_ms,
                      bnd(rc), copy_lib_ms, root=tools),
-        kernel_entry("rate_chains", "rate_probe.cu", "mxu_rate_probe.py:153",
-                     launches["rate_chains"],
-                     J5[f"chains C={C8} ({m},{k},{n})"]["abs"], rch["ms"],
-                     chains_plain_ms, bnd(rch), chains_lib_ms, root=tools),
+        dict(kernel_entry("rate_chains", "rate_probe.cu",
+                          "mxu_rate_probe.py:153", launches["rate_chains"],
+                          J5[f"chains C={C8} ({m},{k},{n})"]["abs"],
+                          rch["ms"], chains_plain_ms, bnd(rch), chains_lib_ms,
+                          root=tools),
+             prepass_ms=rch["prep_ms"]),
         kernel_entry("mxu_probe", "mxu_probe.cu", "mxu_probe.py:56",
                      moved["mxu_probe"]["mxu_probe"], J6["a q_dots"]["abs"],
                      q1["ms"], J6["a plain_ms"], bnd(q1), lib6["a q_dots"],

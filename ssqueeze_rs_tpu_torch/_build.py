@@ -74,7 +74,9 @@ _SIGNATURES = {
     "ssq_ablate_reassign3": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
                             [_I, _P, _P, _P],
     "ssq_grid_slope": [_P, _P, _LL, _I, _I, _P],
-    "ssq_rate_dot": [_P, _P, _P] + [_I] * 7 + [_P],
+    # A, B, the operand scratch, out; m, k, n, R, grid, precision, chains
+    "ssq_rate_dot": [_P] * 4 + [_I] * 7 + [_P],
+    "ssq_rate_prep": [_P] * 3 + [_I] * 5 + [_P],
     "ssq_rate_copy": [_P, _P] + [_I] * 4 + [_P],
     "ssq_dma_overlap": [_P] * 4 + [_I, _I, _I, _LL, _I, _P],
     "ssq_mxu_dots": [_P, _P, _P] + [_I] * 6 + [_P],

@@ -74,9 +74,13 @@
 #include <string.h>
 
 #include "reassign64.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 using ssq::Plan64;
+using ssq::tma_expect;
+using ssq::tma_load;
+using ssq::tma_store;
 
 namespace {
 
@@ -128,37 +132,6 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                    ssq::smem_u32(dst)),
                "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void tma_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   ssq::smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// The TMA box of the 2-D plane map tm at column x, row y into dst,
-// completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(ssq::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(x), "r"(y),
-      "r"(ssq::smem_u32(bar))
-      : "memory");
-}
-
-// The (nf, n) Tx box of the 3-D map tm (columns, bins, batch items) at
-// column x, bin y, item z from shared memory, in this thread's bulk group.
-__device__ __forceinline__ void tma_store(const CUtensorMap* tm,
-                                          const void* src, int x, int y,
-                                          int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2, %3}], [%4];" ::"l"(reinterpret_cast<uint64_t>(tm)),
-      "r"(x), "r"(y), "r"(z), "r"(ssq::smem_u32(src))
-      : "memory");
 }
 
 // kPlanes = 3: p2 is the w plane (+inf where masked); kPlanes = 4: p2, p3
@@ -392,15 +365,6 @@ reassign_kernel_f64(const double* __restrict__ wr,
   if (vec && tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 // The TMA map of a float64 tensor of `rank` 2 (n columns x rows) or 3
 // (n x rows x items, an item every `item_rows` rows), boxes of `box_rows`
 // rows x `cols` columns (x 1 item) with stage_at's swizzle; false if
@@ -408,16 +372,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 bool plane_map(CUtensorMap* tm, const double* p, int rank, long long rows,
                long long items, long long n, int cols, int box_rows,
                long long item_rows) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || !fn)
-      return false;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const ssq::EncodeTiled encode = ssq::tensor_map_encoder();
+  if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)rows,
                               (cuuint64_t)items};
   const cuuint64_t strides[2] = {(cuuint64_t)n * 8,

@@ -1,26 +1,36 @@
 // Hopper's warpgroup tensor-core product (wgmma, sm_90a only) and the
 // asynchronous copies and barriers that feed it, for kernel I
-// (reassign_mxu.cu).
+// (reassign_mxu.cu) and probe J5's products (rate_probe.cu).
 //
-// WgmmaSS<N>::mma(d, a, b) issues one
+// WgmmaSS<N>::mma(d, a, b, scale_d) issues one
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16
-// with A (64 x 16 bf16) and B (16 x N bf16) both from shared memory
-// through the descriptors a and b, accumulating into d (float32) with
-// scale-d = 1. All 128 threads of the warpgroup issue it together; it
-// runs asynchronously until a wgmma_wait<> covers its commit group.
+// with A (64 x 16 bf16) and B (16 x N bf16) both K-major from shared
+// memory through the descriptors a and b (the transpose bits cleared),
+// accumulating into d (float32); scale_d = 0 overwrites d instead (the
+// first k-step of a fresh product). All 128 threads of the warpgroup
+// execute it together; it runs asynchronously until a wgmma_wait<> covers
+// its commit group. WgmmaTF32<N> is the TF32 form, k8.
 //
 // Accumulator fragment (PTX ISA, wgmma .m64nNk16), for warp w of the
 // warpgroup (w = warp % 4), g = lane / 4, q = lane % 4:
 //   d[4t + e] = row 16w + g + 8 * (e >> 1), column 8t + 2q + (e & 1)
 //
-// Both operands are K-major without swizzle: core matrices of 8 rows (M
-// or N) x 16 bytes (8 k), element (k, row) at byte (row % 8) * 16
-// + (k % 8) * 2 + (k / 8) * LBO + (row / 8) * SBO; desc_kmajor takes
-// LBO = 128 (the second half of k right after the first) and SBO = 256
-// (the next 8 rows), so one k16 tile of R rows is 32 * R contiguous
-// bytes (A: 2048).
+// Two operand layouts, both K-major:
+//  - desc_kmajor (kernel I): no swizzle; core matrices of 8 rows (M or N)
+//    x 16 bytes (8 bf16 k), element (k, row) at byte (row % 8) * 16
+//    + (k % 8) * 2 + (k / 8) * LBO + (row / 8) * SBO with LBO = 128 (the
+//    second half of k right after the first) and SBO = 256 (the next 8
+//    rows), so one k16 tile of R rows is 32 * R contiguous bytes (A: 2048).
+//  - desc_sw128 (probe J5): the 128-byte swizzle that a TMA box of
+//    128-byte rows (64 bf16 or 32 float32 along k) lands in with
+//    CU_TENSOR_MAP_SWIZZLE_128B: row r at byte 128 r, its 16-byte chunk c
+//    at chunk c ^ (r % 8); 8 rows make a 1024-byte atom (SBO = 1024), and
+//    the box must start on a 1024-byte boundary. The k-steps of one row
+//    (32 bytes each: k16 bf16 or k8 TF32) are the descriptor's start
+//    advanced by 32 bytes (desc + 2), as the swizzle is taken from the
+//    address bits.
 //
-// The specializations below differ only in N and the number of
+// The bf16 specializations below differ only in N and the number of
 // accumulator registers (N / 2 a thread); they follow one pattern, N =
 // 8, 16, ..., 128.
 
@@ -40,6 +50,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+
+// Descriptor of a K-major operand in the 128-byte swizzle at p (shared
+// memory below 256 KB, on a 1024-byte boundary): SBO = 1024 bytes, LBO
+// unused (1), layout type 1 (B128) in bits 62-63.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -91,6 +109,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// One arrival on bar (release at block scope).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // cp.async of 16 bytes (both addresses 16-byte aligned) or 4 bytes from
 // device memory into shared memory.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -119,7 +143,8 @@ struct WgmmaSS;
 
 template <> struct WgmmaSS<8> {
   __device__ __forceinline__ static void mma(float (&d)[4], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
@@ -127,13 +152,14 @@ template <> struct WgmmaSS<8> {
         "%0, %1, %2, %3"
         "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<16> {
   __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -142,13 +168,14 @@ template <> struct WgmmaSS<16> {
         "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<24> {
   __device__ __forceinline__ static void mma(float (&d)[12], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
@@ -159,13 +186,14 @@ template <> struct WgmmaSS<24> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<32> {
   __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -177,13 +205,14 @@ template <> struct WgmmaSS<32> {
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<40> {
   __device__ __forceinline__ static void mma(float (&d)[20], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
@@ -197,13 +226,14 @@ template <> struct WgmmaSS<40> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<48> {
   __device__ __forceinline__ static void mma(float (&d)[24], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -218,13 +248,14 @@ template <> struct WgmmaSS<48> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<56> {
   __device__ __forceinline__ static void mma(float (&d)[28], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
@@ -241,13 +272,14 @@ template <> struct WgmmaSS<56> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<64> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -265,13 +297,14 @@ template <> struct WgmmaSS<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<72> {
   __device__ __forceinline__ static void mma(float (&d)[36], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
@@ -291,13 +324,14 @@ template <> struct WgmmaSS<72> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<80> {
   __device__ __forceinline__ static void mma(float (&d)[40], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
@@ -318,13 +352,14 @@ template <> struct WgmmaSS<80> {
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<88> {
   __device__ __forceinline__ static void mma(float (&d)[44], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
@@ -347,13 +382,14 @@ template <> struct WgmmaSS<88> {
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<96> {
   __device__ __forceinline__ static void mma(float (&d)[48], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
@@ -377,13 +413,14 @@ template <> struct WgmmaSS<96> {
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
           "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<104> {
   __device__ __forceinline__ static void mma(float (&d)[52], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
@@ -409,13 +446,14 @@ template <> struct WgmmaSS<104> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
           "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<112> {
   __device__ __forceinline__ static void mma(float (&d)[56], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
@@ -442,13 +480,14 @@ template <> struct WgmmaSS<112> {
           "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<120> {
   __device__ __forceinline__ static void mma(float (&d)[60], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %62, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 "
@@ -477,13 +516,14 @@ template <> struct WgmmaSS<120> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaSS<128> {
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -513,7 +553,76 @@ template <> struct WgmmaSS<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// WgmmaTF32<N>::mma(d, a, b, scale_d) issues one
+//   wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32
+// with A (64 x 8) and B (8 x N) TF32 (float32 words, low 13 bits unused)
+// both K-major from shared memory (TF32 takes no transpose), into d
+// (float32; scale-d 0 overwrites d). The accumulator fragment is that of
+// the bf16 forms.
+template <int N>
+struct WgmmaTF32;
+
+template <> struct WgmmaTF32<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTF32<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 

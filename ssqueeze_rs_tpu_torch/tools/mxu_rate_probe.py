@@ -14,7 +14,7 @@ float32 out):
                     product on the tensor cores; the TPU probe's 'f32')
   copy_probe        out = sum_{i<R} A_{i % 2}, through shared memory
   dot_probe_chains  out_c = sum_{i<R} A_{(i + c) % (C + 1)} @ B for c < C,
-                    bf16: C independent accumulators in each warp
+                    bf16: the chains in pairs, one a warpgroup
 
 The TPU ran GRID sequential steps, each computing the whole output again;
 here they are GRID copies of the grid, each writing the same values, so
@@ -25,7 +25,15 @@ R * 3 * m * n * 4 bytes over it). The shapes are the TPU probe's: nine
 
 Each row has the device time (CUDA events, median of K after a warm-up)
 and the host wall time a call over K back-to-back calls ended by one
-synchronize (what the TPU probe timed), with the rate reached.
+synchronize (what the TPU probe timed), with the rate reached; the dots
+and chains also the time of their operand pre-pass alone (`prep_ms`, in
+the call's time too).
+
+On the card a dot or chains call is two launches: the pre-pass
+(`prepass`, modelled by `prepass_plain`) writes A's slices and B
+transposed, K-major and rounded to the precision, k padded with zeros to
+`_prep_layout`'s kp, into scratch the wrapper allocates; the products
+then read them through TMA (`csrc/rate_probe.cu`).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (`*_plain`). `LAUNCHES_DOT`,
@@ -39,9 +47,11 @@ from ..ops import fft_cuda
 from . import _common
 
 __all__ = ["PRECISIONS", "CHAINS", "SHAPES", "COPY_SHAPES", "CHAIN_SHAPES",
-           "round_tf32", "dot_probe", "dot_probe_plain", "copy_probe",
+           "round_tf32", "prepass", "prepass_plain", "dot_probe",
+           "dot_probe_plain", "copy_probe",
            "copy_probe_plain", "dot_probe_chains", "dot_probe_chains_plain",
-           "dot_cost", "copy_cost", "chains_cost", "run", "run_chains",
+           "dot_cost", "copy_cost", "chains_cost", "operand_bytes", "run",
+           "run_chains",
            "main", "LAUNCHES_DOT", "LAUNCHES_COPY", "LAUNCHES_CHAINS"]
 
 LAUNCHES_DOT = 0
@@ -132,18 +142,93 @@ def dot_probe_chains_plain(A, B, m, C, R=R):
     return torch.stack([_sum_slices(prods, R, c) for c in range(C)])
 
 
+def _prep_layout(m, k, n, precision, C=1):
+    """(slices, kp, bytes) of the products' operands: A's slices (slices,
+    m, kp) and B^T (n, kp), bf16 or float32, k padded to kp, a multiple of
+    the TMA box (one 128-byte line: 64 bf16 or 32 float); 3xtf32 keeps hi
+    and lo of both. The scratch holds A hi, B hi, A lo, B lo in turn."""
+    slices = 2 if C == 1 else C + 1
+    size = 2 if precision == "bf16" else 4
+    kp = -(-k // (128 // size)) * (128 // size)
+    parts = 2 if precision == "3xtf32" else 1
+    return slices, kp, parts * (slices * m + n) * kp * size
+
+
+def _split_scratch(scratch, m, k, n, precision, C):
+    """The views (A hi, B hi, A lo, B lo) of a pre-pass's scratch (the lo
+    ones None but for 3xtf32)."""
+    slices, kp, _ = _prep_layout(m, k, n, precision, C)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    size = 2 if precision == "bf16" else 4
+    views, at = [], 0
+    for shape in ((slices, m, kp), (n, kp)) * (1 + (precision == "3xtf32")):
+        nbytes = size * shape[0] * shape[1] * (kp if len(shape) == 3 else 1)
+        views.append(scratch[at:at + nbytes].view(dtype).view(shape))
+        at += nbytes
+    return tuple(views + [None, None])[:4]
+
+
+def prepass_plain(A, B, m, precision="bf16", C=1):
+    """Plain-torch model of the products' operand pre-pass: (A hi, B hi,
+    A lo, B lo), A's (slices, m, kp), B's transposed (n, kp), k padded
+    with zeros to `_prep_layout`'s kp; bf16 by `.to(torch.bfloat16)`,
+    tf32 by `round_tf32`, 3xtf32 as hi = round_tf32(v) and lo =
+    round_tf32(v - hi) (lo None otherwise)."""
+    slices, kp, _ = _prep_layout(m, B.shape[0], B.shape[1], precision, C)
+    _check(A, B, m, slices, precision)
+    pad = lambda t: torch.nn.functional.pad(t.to(torch.float32),
+                                            (0, kp - t.shape[-1]))
+    a, b = pad(A).view(slices, m, kp), pad(B.t())
+    if precision == "bf16":
+        return a.to(torch.bfloat16), b.to(torch.bfloat16), None, None
+    ah, bh = round_tf32(a), round_tf32(b)
+    if precision == "tf32":
+        return ah, bh, None, None
+    return ah, bh, round_tf32(a - ah), round_tf32(b - bh)
+
+
 # -- the kernels ---------------------------------------------------------------
-def _dot_cuda(A, B, m, R, grid, precision, C):
-    from .. import _build
+def _operands(A, B, m, precision, C):
+    """A and B as contiguous float32, and the scratch the pre-pass writes
+    the products' operands into."""
     A = A.to(torch.float32).contiguous()
     B = B.to(torch.float32).contiguous()
+    scratch = torch.empty(_prep_layout(m, *B.shape, precision, C)[2],
+                          dtype=torch.uint8, device=A.device)
+    return A, B, scratch
+
+
+def _dot_cuda(A, B, m, R, grid, precision, C):
+    from .. import _build
+    A, B, scratch = _operands(A, B, m, precision, C)
     k, n = B.shape
     out = torch.empty((C, m, n), dtype=torch.float32, device=A.device)
     err = _build.lib().ssq_rate_dot(
-        A.data_ptr(), B.data_ptr(), out.data_ptr(), m, k, n, int(R), int(grid),
-        PRECISIONS.index(precision), C, fft_cuda._stream(A.device))
+        A.data_ptr(), B.data_ptr(), scratch.data_ptr(), out.data_ptr(), m, k,
+        n, int(R), int(grid), PRECISIONS.index(precision), C,
+        fft_cuda._stream(A.device))
     _build.check(err, f"rate_dot kernel ({precision}, C={C})")
     return out
+
+
+def prepass(A, B, m, precision="bf16", C=1):
+    """The products' operand pre-pass alone (its own launch, not counted
+    as a dot): (A hi, B hi, A lo, B lo) as `prepass_plain` gives them. A
+    CUDA tensor launches the kernel, a CPU tensor runs `prepass_plain`."""
+    if C not in CHAINS or (C > 1 and precision != "bf16"):
+        raise ValueError(f"C must be one of {CHAINS}, chains in bf16 (got "
+                         f"C={C}, {precision!r})")
+    _check(A, B, m, 2 if C == 1 else C + 1, precision)
+    if A.device.type == "cpu":
+        return prepass_plain(A, B, m, precision, C)
+    from .. import _build
+    A, B, scratch = _operands(A, B, m, precision, C)
+    k, n = B.shape
+    err = _build.lib().ssq_rate_prep(
+        A.data_ptr(), B.data_ptr(), scratch.data_ptr(), m, k, n,
+        PRECISIONS.index(precision), C, fft_cuda._stream(A.device))
+    _build.check(err, f"rate_dot pre-pass ({precision}, C={C})")
+    return _split_scratch(scratch, m, k, n, precision, C)
 
 
 def dot_probe(A, B, m, precision="bf16", R=R, grid=GRID):
@@ -208,6 +293,22 @@ def dot_cost(m, k, n, precision, grid=GRID, R=R, C=1):
     return nbytes, float(grid * R * C * 2 * m * k * n * per), _RATE[precision]
 
 
+def operand_bytes(m, k, n, precision, C=1, grid=GRID, R=R):
+    """Bytes the product kernel's blocks read into shared memory in one
+    call (not the bound's: every block reads its own). A block takes a
+    128 x 128 output tile of the dot (128 x 64 in 3xtf32) or a 64 x 128
+    tile of a chain pair; at each of its R steps it reads two 64-row A
+    boxes and the B box over kp (hi and lo in 3xtf32), for every tile,
+    chain pair and copy."""
+    kp = _prep_layout(m, k, n, precision, C)[1]
+    size = 2 if precision == "bf16" else 4
+    parts = 2 if precision == "3xtf32" else 1
+    bn = 64 if precision == "3xtf32" else 128
+    bm = 128 if C == 1 else 64
+    blocks = -(-m // bm) * -(-n // bn) * (1 if C == 1 else C // 2) * grid
+    return blocks * R * (128 + bn) * kp * size * parts
+
+
 def copy_cost(m, n, grid=GRID, R=R):
     """(bytes, float32 operations): A and out once; one add an element a
     pass of each copy."""
@@ -227,6 +328,18 @@ def _note(device, text):
 def _timed(fn, device, reps):
     return _common.time_ms(fn, device, reps), _common.wall_ms(fn, device,
                                                                 reps)
+
+
+def _prep_ms(A, B, m, precision, C, device, reps, ms, grid, R):
+    """The pre-pass's own time in a dot or chains call, and the rate the
+    product blocks read their operands at (a device run only)."""
+    if device.type != "cuda":
+        return {}
+    k, n = B.shape
+    return dict(prep_ms=_common.time_ms(
+        lambda: prepass(A, B, m, precision, C), device, reps),
+        operand_tb_s=operand_bytes(m, k, n, precision, C, grid, R) / ms /
+        1e9)
 
 
 def run(device, reps=5, shapes=None, copy_shapes=None, grid=None, R=R,
@@ -252,6 +365,7 @@ def run(device, reps=5, shapes=None, copy_shapes=None, grid=None, R=R,
                 f"dot {p} ({m},{k},{n})", ms, nbytes, flops, rate,
                 wall_ms=wall, tflop_s=tf,
                 us_per_dot=ms * 1e3 / (grid * R),
+                **_prep_ms(A, B, m, p, 1, device, reps, ms, grid, R),
                 **_note(device, f"{tf:.1f} TFLOP/s")))
     for m, n in copy_shapes:
         A = _common.randn(g, 2 * m, n)
@@ -286,6 +400,7 @@ def run_chains(device, reps=5, shapes=None, chains=None, grid=None, R=R,
                 f"chains C={C} ({m},{k},{n})", ms, nbytes, flops, rate,
                 wall_ms=wall, tflop_s=tf,
                 us_per_dot=ms * 1e3 / (grid * R * C),
+                **_prep_ms(A, B, m, "bf16", C, device, reps, ms, grid, R),
                 **_note(device, f"{ms * 1e3 / (grid * R * C):.3f} us a dot, "
                                 f"{tf:.1f} TFLOP/s")))
     return rows

@@ -42,7 +42,8 @@ def test_library_name_follows_source_content(src_tree):
                                   "dma_overlap.cu", "mxu_probe.cu",
                                   "fft_radix.cuh", "planes.cuh",
                                   "reassign_walk.cuh", "wgmma.cuh",
-                                  "reassign64.cu", "reassign64.cuh"])
+                                  "reassign64.cu", "reassign64.cuh",
+                                  "tma.cuh"])
 def test_library_name_covers_every_source(src_tree, name):
     first = _build.library_path()
     src = src_tree / name
@@ -110,22 +111,36 @@ def test_reassign_argtypes_follow_the_c_types(name):
 
 
 def test_tensor_core_helpers_are_shared():
-    """The probes' tensor-core kernels take their mma.sync tiles and
-    roundings from one header, which defines them once; kernel I takes
-    its wgmma products, async copies and barriers from another
-    (wgmma.cuh), and writes none of that PTX itself."""
-    for name in ("rate_probe.cu", "dma_overlap.cu", "mxu_probe.cu"):
+    """The probes' mma.sync kernels take their tiles and roundings from one
+    header, which defines them once; kernel I and probe J5's products take
+    their wgmma products, async copies and barriers from another
+    (wgmma.cuh), J5 and the double B/B' their TMA copies, clusters and the
+    tensor-map encoder from a third (tma.cuh), the only file that defines
+    tma_load; none of them writes that PTX itself."""
+    def read(name):
         with open(os.path.join(_build.CSRC, name)) as f:
-            text = f.read()
+            return f.read()
+    for name in ("dma_overlap.cu", "mxu_probe.cu"):
+        text = read(name)
         assert '#include "mma.cuh"' in text, name
         assert '"mma.sync' not in text and '"cvt.rna' not in text, name
-    with open(os.path.join(_build.CSRC, "reassign_mxu.cu")) as f:
-        text = f.read()
+    text = read("rate_probe.cu")
+    assert '#include "wgmma.cuh"' in text and '#include "tma.cuh"' in text
+    for ptx in ("wgmma.mma_async", "cp.async.bulk", "mma.sync", '"cvt.rna',
+                "asm"):
+        assert ptx not in text, ptx
+    text = read("reassign_mxu.cu")
     assert '#include "wgmma.cuh"' in text
     assert "asm" not in text
-    with open(os.path.join(_build.CSRC, "wgmma.cuh")) as f:
-        header = f.read()
-    assert header.count("\"wgmma.mma_async.sync.aligned.m64n") == 16
+    assert '#include "tma.cuh"' in read("reassign64.cu")
+    defines = [os.path.basename(p) for p in _build._sources()
+               if "void tma_load(" in open(p).read()]
+    assert defines == ["tma.cuh"]
+    assert "cudaGetDriverEntryPoint" not in read("reassign64.cu")
+    assert "cudaGetDriverEntryPoint" in read("tma.cuh")
+    header = read("wgmma.cuh")
+    assert header.count("\"wgmma.mma_async.sync.aligned.m64n") == 18
+    assert header.count(".f32.tf32.tf32 ") == 2
 
 
 def test_cwt_kernels_share_the_four_step_header():
@@ -239,7 +254,7 @@ def test_reassign_sources():
 def test_reassign64_sources():
     """B and B' in double (reassign64.cu) bin through bins.cuh, stage
     the planes by TMA (8-byte cp.async where n is odd) on mbarriers
-    (wgmma.cuh's helpers) and store Tx by TMA, add in rounds by row with
+    (wgmma.cuh's and tma.cuh's helpers) and store Tx by TMA, add in rounds by row with
     no atomics, dispatch exactly the (columns, row groups, blocks an SM)
     the plan takes over nf = 1..3632, and their entries take the plan's
     columns, row groups and stages; reassign.cu has no double
@@ -253,7 +268,7 @@ def test_reassign64_sources():
     with open(os.path.join(_build.CSRC, "reassign64.cuh")) as f:
         bins = f.read()
     assert set(re.findall(r'#include "([\w.]+)"', text)) == {
-        "reassign64.cuh", "wgmma.cuh"}
+        "reassign64.cuh", "tma.cuh", "wgmma.cuh"}
     assert set(re.findall(r'#include "([\w.]+)"', bins)) == {"bins.cuh"}
     assert "atomicAdd" not in bins and "__noinline__" in bins
     # the SASS count of an entry's path instantiates the same entry_bin
@@ -262,8 +277,12 @@ def test_reassign64_sources():
     with open(tool) as f:
         assert '#include "../csrc/reassign64.cuh"' in f.read()
     assert "atomicAdd" not in text and "__shfl_up_sync" in text
-    assert "cp.async.bulk.tensor.2d" in text and "mbar_wait" in text
-    assert "cp.async.bulk.tensor.3d.global.shared" in text
+    assert "tma_load(" in text and "mbar_wait" in text
+    assert "tma_store(" in text
+    with open(os.path.join(_build.CSRC, "tma.cuh")) as f:
+        tma = f.read()
+    assert "cp.async.bulk.tensor.2d" in tma
+    assert "cp.async.bulk.tensor.3d.global.shared" in tma
     assert "double" not in old and "_f64" not in old
     cases = {tuple(int(x) for x in case) for case in
              re.findall(r"SSQ_F64_CASE\((\d+), (\d+), (\d+)\)\n", text)}

@@ -185,6 +185,100 @@ def test_chains_match_jax(C):
         assert _rel(got[c].numpy(), outs[c]) < 1e-5
 
 
+# the products' operand pre-pass (csrc/rate_probe.cu rate_prep_kernel) as
+# its plain model gives it: rounding, B transposed, k padded with zeros to
+# a whole 128-byte line, the hi/lo split, and the scratch layout
+PREP_CASES = [(p, shape) for p in mrp.PRECISIONS
+              for shape in ((16, 32, 16, 1), (5, 72, 7, 1), (4, 129, 33, 1))
+              ] + [("bf16", (3, 40, 9, 2)), ("bf16", (4, 129, 33, 4))]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+@pytest.mark.parametrize("precision, shape", PREP_CASES,
+                         ids=[f"{p}-{'x'.join(map(str, s))}"
+                              for p, s in PREP_CASES])
+def test_prepass_model(precision, shape):
+    m, k, n, C = shape
+    slices, kp, nbytes = mrp._prep_layout(m, k, n, precision, C)
+    size = 2 if precision == "bf16" else 4
+    assert slices == (2 if C == 1 else C + 1)
+    assert kp % (128 // size) == 0 and k <= kp < k + 128 // size
+    g = torch.Generator().manual_seed(m * k + n)
+    A = torch.randn(slices * m, k, generator=g)
+    B = torch.randn(k, n, generator=g)
+    ah, bh, al, bl = mrp.prepass(A, B, m, precision, C)
+    assert ah.shape == (slices, m, kp) and bh.shape == (n, kp)
+    if precision == "bf16":
+        rnd = lambda t: t.to(torch.bfloat16)
+    else:
+        rnd = mrp.round_tf32
+    assert ah.dtype == bh.dtype == (torch.bfloat16 if precision == "bf16"
+                                    else torch.float32)
+    a3 = A.view(slices, m, k)
+    assert torch.equal(_bits(ah[..., :k]), _bits(rnd(a3)))
+    assert torch.equal(_bits(bh[:, :k]), _bits(rnd(B.t())))
+    assert not ah[..., k:].any() and not bh[:, k:].any()
+    if precision == "3xtf32":
+        assert torch.equal(_bits(al[..., :k]),
+                           _bits(mrp.round_tf32(a3 - ah[..., :k])))
+        assert torch.equal(_bits(bl[:, :k]),
+                           _bits(mrp.round_tf32(B.t() - bh[:, :k])))
+        assert not al[..., k:].any() and not bl[:, k:].any()
+        assert float((ah[..., :k] + al[..., :k] - a3).abs().max()) < 1e-5
+    else:
+        assert al is None and bl is None
+    # the scratch holds A hi, B hi (then A lo, B lo) in turn, nbytes in all
+    parts = [t for t in (ah, bh, al, bl) if t is not None]
+    flat = torch.cat([t.contiguous().view(torch.uint8).flatten()
+                      for t in parts])
+    assert flat.numel() == nbytes
+    for got, want in zip(mrp._split_scratch(flat, m, k, n, precision, C),
+                         (ah, bh, al, bl)):
+        assert (got is None and want is None) or torch.equal(got, want)
+    # the products on the padded operands are the plain version's
+    f = lambda t: t.to(torch.float32)
+    prods = []
+    for s_ in range(slices):
+        p = f(ah[s_]) @ f(bh).t()
+        if precision == "3xtf32":
+            p = f(ah[s_]) @ f(bl).t() + f(al[s_]) @ f(bh).t() + p
+        prods.append(p)
+    if C == 1:
+        want = mrp.dot_probe_plain(A, B, m, precision, R=3)
+        got = mrp._sum_slices(prods, 3)
+    else:
+        want = mrp.dot_probe_chains_plain(A, B, m, C, R=3)
+        got = torch.stack([mrp._sum_slices(prods, 3, c) for c in range(C)])
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want.numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(precision="f32"), "precision"), (dict(m=3), "rows"),
+    (dict(B=torch.zeros(5, 3)), "columns"),
+    (dict(C=2, precision="bf16"), "rows"), (dict(C=3), "C must")])
+def test_prepass_refuses_what_dot_probe_refuses(bad, match):
+    """The pre-pass takes the dot's arguments and refuses what dot_probe
+    refuses, with the same message."""
+    args = dict(A=torch.zeros(8, 4), B=torch.zeros(4, 3), m=4,
+                precision="bf16", C=1)
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        mrp.prepass(args["A"], args["B"], args["m"], args["precision"],
+                    args["C"])
+    if args["C"] == 1:
+        with pytest.raises(ValueError, match=match):
+            mrp.dot_probe(args["A"], args["B"], args["m"],
+                          args["precision"])
+    else:
+        with pytest.raises(ValueError, match=match):
+            mrp.dot_probe_chains(args["A"], args["B"], args["m"], args["C"])
+
+
 def test_round_tf32_is_rna():
     """Ties go away from zero, the low 13 bits are cleared, and the
     result has at most 11 significant bits."""
@@ -454,6 +548,23 @@ def test_bounds_take_the_unit_rate():
                                        "bytes")
     nb, fl, _ = dop.variant_cost("copies", 64, 4096, 3, 512)
     assert nb >= 64 * 4096 * 512 * 4 and fl == 0
+
+
+@pytest.mark.parametrize("precision, C, per_step", [
+    ("bf16", 1, 256 * 1024), ("tf32", 1, 512 * 1024),
+    ("3xtf32", 1, 768 * 1024), ("bf16", 8, 256 * 1024)])
+def test_operand_bytes_count_every_block(precision, C, per_step):
+    """The product blocks' operand reads: at (1024,512,512) a block step
+    reads 256 KiB in bf16 (two 64-row A boxes and a 128-row B box over
+    k = 512), twice that in float, three times in 3xtf32 (hi and lo at
+    128 x 64); the blocks are tiles x chain pairs x copies, and their
+    reads are far above the bound's bytes (each input once)."""
+    tiles = (1024 // 128) * (512 // (64 if precision == "3xtf32" else 128))
+    if C > 1:
+        tiles = (1024 // 64) * (512 // 128) * (C // 2)
+    got = mrp.operand_bytes(1024, 512, 512, precision, C, grid=32, R=8)
+    assert got == tiles * 32 * 8 * per_step
+    assert got > 100 * mrp.dot_cost(1024, 512, 512, precision, C=C)[0]
 
 
 def test_time_ms_queues_the_runs_behind_a_spin(monkeypatch):
