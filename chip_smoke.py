@@ -171,10 +171,15 @@ Phases, one line each:
      clustered rows; J7 dots and both within
      1e-3 of max|out| at R = 1, 1e-2 at 3, 0.1 at 64 (there finite and
      of order 1), bitwise with b a scaled permutation at R = 3 and 64
-     (each product exact); every kernel bitwise repeated; the plain versions timed
-     over the kernels' GRID copies (J6: every step's product); the
-     library yardsticks (torch.matmul of the same total product in bf16,
-     TF32 and float32, torch.bmm, .t().contiguous(), torch.add)
+     (each product exact); every kernel bitwise repeated; J6's dots: the
+     kernel's unit plan equal to its mirror (mxu_probe.dots_plan), q_dots
+     bitwise the float32 sum of one-step dots in step order (3 steps and
+     each headline's GRID NG), five edge shapes (J6_EDGES) within
+     RATE_BAR, units, warpgroups an SM and TFLOP/s printed; the plain
+     versions timed over the kernels' GRID copies (J6: every step's
+     product); the library yardsticks of the same work (torch.matmul of
+     the same total product in bf16, TF32 and float32, J5's copy weights
+     over its GRID copies, torch.bmm, .t().contiguous(), torch.add)
  23. examples/component_separation.py at N = 160 000: a TestSignals sine
      plus a linear chirp at the example's fractions of the band, ssq_cwt
      with ('gmw', beta 6) (A and B once), extract_ridges (penalty 2, two
@@ -2642,6 +2647,15 @@ def probe_phases(np, torch, dev, card, results):
 RATE_BAR = 1e-5
 # J5's edge shape: no multiple of an output tile or of a TMA box along k
 J5_EDGE = (200, 72, 136)
+# J6's dots at edge shapes, (name, (batch, M, K, N, steps, accumulate),
+# route): M, K and N off the unit (16 rows, a 64-column slab) and the box
+# (64 along k), one for each operand mode, then K or N not a multiple of 8
+# (no 16-byte loads, no TMA map: the operands loaded element by element)
+J6_EDGES = (("accumulate", (1, 200, 72, 136, 3, True), "resident"),
+            ("batch", (3, 33, 40, 24, 3, False), "resident"),
+            ("streamed", (1, 200, 1000, 136, 3, True), "streamed"),
+            ("resident, K and N odd", (2, 33, 45, 30, 3, False), "resident"),
+            ("streamed, K odd", (1, 70, 333, 50, 2, True), "streamed"))
 
 
 def rate_probe_phases(np, torch, dev, card, results):
@@ -2791,8 +2805,12 @@ def rate_probe_phases(np, torch, dev, card, results):
               J5[f"copy ({mm},{nn})"]["repeat"], f"J5 copy ({mm},{nn})")
     copy_plain_ms = qms(lambda: [mrp.copy_probe_plain(A, mm)
                                  for _ in range(mrp.GRID)])
+    # the library call over the kernel's GRID copies, as its plain version
+    # is timed (one call forms the output once; the kernel's copies each
+    # form it again)
     w = torch.full((1, 2), mrp.R / 2, device=dev)
-    copy_lib_ms = qms(lambda: torch.matmul(w, A.view(2, -1)))
+    copy_lib_ms = qms(lambda: [torch.matmul(w, A.view(2, -1))
+                               for _ in range(mrp.GRID)])
     C8 = 8
     for (mm, kk, nn) in mrp.CHAIN_SHAPES:
         B = torch.randn((kk, nn), generator=g, device=dev)
@@ -2880,10 +2898,12 @@ def rate_probe_phases(np, torch, dev, card, results):
     J7["verdict"] = dict(sum=s_, max=m_, word=word,
                          hidden=(s_ - ms["both"]) / ms["copies"])
 
-    # J6: every question against its plain version at the headline
+    # J6: every question against its plain version at the headline; the
+    # dots' unit plan on the card against its mirror (`dots_plan`)
     J6 = {}
     lib6 = {}
-    for tag, mod in (("a", mp), ("b", mp2)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, mod, key in (("a", mp, "mxu_probe"), ("b", mp2, "mxu_probe2")):
         size = mod.HEADLINE
         inp = mod.make_inputs(dev, size)
         for q in mod.QUESTIONS:
@@ -2897,7 +2917,29 @@ def rate_probe_phases(np, torch, dev, card, results):
             check(J6[f"{tag} {q}"]["repeat"] and
                   (e < RATE_BAR if dots else J6[f"{tag} {q}"]
                    ["exact"]), f"J6{tag} {q}: {J6[f'{tag} {q}']}")
+            if dots:
+                shape = mp.dots_shape(q, size)
+                plan = mp.dots_kernel_plan(*shape)
+                mirror = mp.dots_plan(*shape, sms=sms)
+                check(all(plan[k_] == v_ for k_, v_ in mirror.items()),
+                      f"J6{tag} {q}: the kernel's plan {plan} is not its "
+                      f"mirror {mirror}")
+                r = rows[key][q]
+                J6[f"{tag} {q}"].update(
+                    route=plan["route"], width=plan["width"],
+                    units=plan["units"], per_sm=plan["per_sm"],
+                    tflop_s=r["flops"] / r["ms"] / 1e9)
         steps = size["GRID"] * size["NG"]
+        # the running sum in step order: bitwise the float32 sum of one-step
+        # dots taken in order, at 3 steps and at the headline's GRID NG
+        for S in (3, steps):
+            k1 = mp.dots(inp["A"], inp["B"], S)
+            acc = torch.zeros_like(k1)
+            for _ in range(S):
+                acc = acc + mp.dots(inp["A"], inp["B"], 1)
+            J6[f"{tag} order S={S}"] = ok = equal(k1, acc)
+            check(ok, f"J6{tag} q_dots at {S} steps is not the float32 sum "
+                  f"of {S} one-step dots in step order")
         Af, Bf = (t.to(torch.float32) for t in (inp["A"], inp["B"]))
 
         def every_step():
@@ -2925,6 +2967,22 @@ def rate_probe_phases(np, torch, dev, card, results):
             del A2, Ab, Bb
         lib6[f"{tag} q_trans"] = qms(lambda: inp["K32"].t().contiguous())
         del inp
+    # the edge shapes, one for each operand mode and the element loads
+    for name, shape, route in J6_EDGES:
+        b_, M_, K_, N_, S_, acc_ = shape
+        A = torch.randn((b_, M_, K_), generator=g, device=dev)
+        B = torch.randn((b_, K_, N_), generator=g, device=dev)
+        if b_ == 1:
+            A, B = A[0], B[0]
+        k1, k2 = mp.dots(A, B, S_, acc_), mp.dots(A, B, S_, acc_)
+        e, d = err(k1, mp.dots_plain(A, B, S_, acc_))
+        plan = mp.dots_kernel_plan(*shape)
+        J6[f"edge {name}"] = dict(shape=shape, rel=e, abs=d,
+                                  repeat=equal(k1, k2), route=plan["route"],
+                                  units=plan["units"])
+        check(e < RATE_BAR and equal(k1, k2) and plan["route"] == route,
+              f"J6 edge {name} {shape}: {J6[f'edge {name}']}")
+    del A, B
     lap("22 J6, J7 against their plain versions")
 
     results["rate_probes"] = dict(
@@ -2962,7 +3020,16 @@ def rate_probe_phases(np, torch, dev, card, results):
             f"{q} {rows['mxu_probe'][q]['ms']:.3f}" for q in mp.QUESTIONS) +
         " / " + ", ".join(f"{q} {rows['mxu_probe2'][q]['ms']:.3f}"
                           for q in mp2.QUESTIONS) +
-        f" ms; J7 copies {ms['copies']:.3f}, dots {ms['dots']:.3f}, both "
+        " ms; J6 dots (route, units, warpgroups an SM, TFLOP/s) " + ", ".join(
+            f"{key} {v['route']} {v['units']} {v['per_sm']} "
+            f"{v['tflop_s']:.1f}" for key, v in J6.items()
+            if isinstance(v, dict) and "tflop_s" in v) +
+        "; order bitwise at " + ", ".join(
+            key.replace(" order S=", " ") for key, v in J6.items()
+            if " order S=" in key and v) +
+        " steps; edges worst rel {:.1e}".format(max(
+            v["rel"] for key, v in J6.items() if key.startswith("edge "))) +
+        f"; J7 copies {ms['copies']:.3f}, dots {ms['dots']:.3f}, both "
         f"{ms['both']:.3f} ms -> {word} (copies hidden "
         f"{J7['verdict']['hidden']:.0%}); J8 per block (events/wall us) " +
         ", ".join(f"{k} " + "/".join(f"{u:.4f}" for u in v)

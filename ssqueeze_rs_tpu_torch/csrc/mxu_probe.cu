@@ -7,19 +7,74 @@
 // steps each did the work again; those with a VMEM accumulator carried it
 // over every step (left unset at the start there; zeroed here). Here the
 // steps are a loop inside every block (and, for the accumulators, the
-// NG groups a loop inside it): each block does its share of the output at
-// every step. A runtime stride that is always 0 offsets each step's
-// addresses, so the compiler cannot fold the steps into one.
+// NG groups a loop inside it). A runtime stride that is always 0 offsets
+// each step's operands, so no step can be folded into another.
 //
-// Dots (ssq_mxu_dots: q_dots, q_dots4, q_bigdot, q_batch): bf16 operands,
-// float32 accumulation, mma.sync m16n8k16. A block (4 warps) owns a 32 x 64
-// tile of the output and stages its rows of A and columns of B (padded to
-// whole mma tiles, zero-filled) in shared memory: once, when they fit
-// (K = 296: the operands stay on chip, as in VMEM), else 64 of K at a time
-// at every step (q_bigdot, K = 18 944). With `accumulate` the sum runs on
-// over the steps (q_dots: GRID * NG products of the same A @ B); without,
-// each step recomputes the product (q_bigdot, q_batch: the last step's
-// product is the output).
+// Dots (ssq_mxu_dots: q_dots, q_dots4, q_bigdot, q_batch), bf16 operands,
+// float32 sums:
+//   accumulate   out = sum over s < steps of bf16(A) @ bf16(B), each
+//                step's product fresh over k, then run = run + product
+//                (__fadd_rn) in the order of s
+//   otherwise    out[b] = bf16(A[b]) @ bf16(B[b]), recomputed at every step
+// Each step's product is the same matrix P, so out is the float32
+// sequential sum of P taken `steps` times: the sum stays in step order
+// for every output element (no split of the steps across blocks, no sum
+// carried through the tensor cores across steps, whose float32
+// accumulation truncates), and results are bitwise run to run (no
+// atomics). The card is filled by output tiles; without `accumulate`
+// the steps are independent recomputations, so they are also spread
+// over `copies` of each tile, each copy writing the same values.
+//
+// Orientation: the transposed product, out^T (N x M) = B^T A^T, one
+// warpgroup's unit an m64 slab of out's columns (n0 .. n0 + 63) by a
+// chunk of out's rows as the wgmma N. At the TPU probe's M = 152 an m64
+// tile over M would compute 192 rows (26 % waste); over N = 768 (q_dots;
+// 512 for q_dots4) it takes 12 (8) whole slabs, and M = 19 x 8 needs no
+// padding along the wgmma N. A (M, K) row-major is the K-major B operand
+// of that product as it lies; B (K, N) row-major is the MN-major A.
+//
+// Resident route (K <= kResidentK = 304: q_dots, q_dots4, q_batch), one
+// warpgroup a block: the unit's operands are loaded once (16-byte
+// cp.async where K and N are multiples of 8, else element by element,
+// zeros past K, M and N) into shared memory: B's slab (304 x 64) and A's
+// chunk (width rows x 304) in desc_kmajor's core-matrix layout. B's slab
+// then moves into registers as the fixed A operand of every step (19 k16
+// tiles x 4 registers: 76 a thread), so each wgmma (WgmmaRS, m64nWk16)
+// reads only A's chunk from shared memory (32 W bytes) where the
+// shared-memory form would read 2 KB of the fixed operand too. Every
+// step runs all 19 k16 tiles, the tiles past K zeros (the probe's K =
+// 296 needs 19; a smaller K pays for the zeros). Units: chunks of
+// kUnitN = 16 rows, the last 8 wide where M % 16 is 1..8.
+// The wgmma latency is hidden without reordering the sum: the products of
+// kChains = 4 steps are issued back to back, each into its own fresh
+// accumulator set, then one wait, then their adds into the running sum in
+// the order of s (4 x 8 + 8 accumulator registers at n16). Adding step s
+// while step s + 1 runs (two sets, a wait<1> between them) made ptxas
+// serialize every wgmma (C7514: an accumulator read while another set's
+// products were in flight). tools/mxu_dots_variants.py builds and times
+// these choices (pipelined, 1, 2 or 8 sets, n8 units). What holds the
+// route then: an m64nNk16 wgmma occupies an SM's tensor cores for about
+// as long at N = 8 as at N = 16, so narrow units run at about half an
+// SM's bf16 peak, and wider units would fill fewer SMs.
+// Unit plan (mxu_probe.dots_plan mirrors it): q_dots 12 slabs x 10 chunks
+// (nine n16, one n8) = 120 units, q_dots4 8 x 10 = 80, q_batch 8 entries
+// x 2 x 2 = 32 tiles x 4 copies of 4 steps = 128: one warpgroup an SM of
+// the 132.
+//
+// Streamed route (K > 304: q_bigdot, K = 18 944): the operands do not fit
+// on chip, so each step re-streams them. Persistent blocks of one
+// producer warp and one consumer warpgroup, two blocks an SM: the
+// producer keeps TMA loads of k boxes of 64 in flight into a ring of
+// stages (kRing bytes), each stage B's 64 x 64 box (MN-major, the
+// 128-byte swizzle) and A's NS x 64 box (K-major, the same swizzle), TMA
+// filling zeros past the edges; the consumer runs WgmmaSS<NS>::mma<1>
+// (A transposed) over the stage's four k16 steps into a fresh product and
+// adds it into its running sum after the last box. Within one step's
+// product the order over k is free, as for the plain @. NS: M in
+// ceil(M / 128) chunks, each rounded up to 16 rows (q_bigdot: two of 80,
+// 12 slabs, 24 tiles x 11 copies = 264 units). Where K or N is not a
+// multiple of 8 (no TMA map), the producer warp writes the boxes itself
+// in the same swizzle.
 //
 // Element questions (ssq_mxu_elem), one output element a thread (q_bbuild:
 // one column pair of six), its accumulator in a register:
@@ -42,113 +97,384 @@
 // float32 operations for the element questions (the steps multiply the
 // operations, not the bytes: inputs read once, outputs written once).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include <type_traits>
+
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using ssq::mma_bf16;
-
-constexpr int kDotThreads = 128;  // 4 warps: 2 along m, 2 along n
-constexpr int kTM = 32, kTN = 64;  // the block's tile; a warp's 16 x 32
-constexpr int kKC = 64;            // k a chunk when the operands stream
-constexpr int kMaxResident = 100 * 1024;
+constexpr int kSlab = 64;          // out's columns a unit: one m64 slab
+constexpr int kUnitN = 16;        // out's rows a resident unit
+constexpr int kMaxKT = 19;         // k16 tiles of the fixed operand held
+constexpr int kResidentK = 16 * kMaxKT;  // in registers: K <= 304
+constexpr int kChains = 4;         // steps in flight before one wait
+constexpr int kStreamMaxN = 128;   // out's rows a streamed unit, at most
+constexpr int kBox = 64;           // k a streamed box: 128 bytes of bf16
+constexpr int kRing = 96 * 1024;   // a streamed block's ring of stages
+constexpr int kStreamBlocks = 2;   // streamed blocks an SM (the ring)
+constexpr int kWG = 128;           // a warpgroup
+constexpr int kStreamThreads = kWG + 32;  // and the producer warp
 constexpr int kThreads = 256;
+
+static_assert(kUnitN == 8 || kUnitN == 16, "WgmmaRS has n8 and n16");
 
 enum Question {
   kTrans = 0, kRepeat, kBcast, kSlice128, kABuild, kStrided, kBBuild
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Unit u of a dots launch: batch entry, first column n0 (a slab of 64),
+// first row m0 and rows (the last chunk's rounded up to 8) of out, and
+// its copy; units run copy-fastest, then chunk, slab, entry.
+struct Unit {
+  int bat, n0, m0, width, copy;
+};
+
+__device__ __forceinline__ Unit unit_at(long long u, int slabs, int chunks,
+                                        int copies, int W, int M) {
+  const int copy = (int)(u % copies);
+  u /= copies;
+  const int chunk = (int)(u % chunks);
+  u /= chunks;
+  const int m0 = chunk * W, rest = M - m0;
+  return {(int)(u / slabs), (int)(u % slabs) * kSlab, m0,
+          rest >= W ? W : (rest + 7) / 8 * 8, copy};
 }
 
-__global__ void __launch_bounds__(kDotThreads)
-dots_kernel(const __nv_bfloat16* __restrict__ A,
-            const __nv_bfloat16* __restrict__ B, float* __restrict__ out,
-            int M, int K, int N, int steps, int accumulate, int kc,
-            long long zero) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LD = kc + 8;  // padded rows: conflict-free fragment loads
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTM][LD]
-  __nv_bfloat16* sB = sA + kTM * LD;  // [kTN][LD]: B transposed
+// The steps copy c of `copies` runs: c, c + copies, ...
+__device__ __forceinline__ int steps_of(int steps, int copy, int copies) {
+  return steps > copy ? (steps - copy + copies - 1) / copies : 0;
+}
 
-  const long long bat = blockIdx.z;
-  A += bat * M * K;
-  B += bat * K * N;
-  out += bat * M * N;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// out[m][n] of a unit's tile from the accumulator fragment: d[4t + e] is
+// row 16 wq + g + 8 (e >> 1) of the slab (out's column), column 8t + 2q +
+// (e & 1) of the chunk (out's row)
+template <int W>
+__device__ __forceinline__ void store_tile(const float (&run)[W / 2],
+                                           float* o, int M, int N, int n0,
+                                           int m0) {
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, q = lane & 3;
-  const int row0 = blockIdx.y * kTM, col0 = blockIdx.x * kTN;
-  const int wr = (warp >> 1) * 16, wc = (warp & 1) * 32;
-  const bool resident = kc >= K;
-
-  auto stage = [&](const __nv_bfloat16* a, const __nv_bfloat16* b, int k0) {
-    const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
-    for (int e = tid; e < kTM * kc; e += kDotThreads) {
-      const int kk = e % kc, r = e / kc;
-      const int gk = k0 + kk, gr = row0 + r;
-      sA[r * LD + kk] = gk < K && gr < M ? a[(long long)gr * K + gk] : z;
+#pragma unroll
+  for (int t = 0; t < W / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + 16 * wq + g + 8 * (e >> 1);
+      const int m = m0 + 8 * t + 2 * q + (e & 1);
+      if (m < M && n < N) o[(long long)m * N + n] = run[4 * t + e];
     }
-    for (int e = tid; e < kTN * kc; e += kDotThreads) {
-      const int c = e % kTN, kk = e / kTN;
-      const int gk = k0 + kk, gc = col0 + c;
-      sB[c * LD + kk] = gk < K && gc < N ? b[(long long)gk * N + gc] : z;
+}
+
+// -- resident route -----------------------------------------------------------
+// One step's product into acc: kMaxKT k16 wgmmas (zeros past K), A (the
+// slab) from registers, B (the chunk) from shared memory at desc, tile kt
+// 32 W bytes on (the descriptor counts 16-byte units). The operands'
+// registers and the accumulator are fenced so that no other instruction
+// touches them while the products are in flight.
+template <int W>
+__device__ __forceinline__ void issue(float (&acc)[W / 2],
+                                      uint32_t (&fa)[kMaxKT][4],
+                                      uint64_t desc) {
+  auto fence = [&]() {
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) ssq::fence_operand(acc[e]);
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ssq::fence_operand(fa[kt][j]);
+  };
+  fence();
+  ssq::wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < kMaxKT; ++kt)
+    ssq::WgmmaRS<W>::mma(acc, fa[kt], desc + (uint64_t)(2 * W * kt), kt);
+  ssq::wgmma_commit();
+  fence();
+}
+
+// The unit's ns products and its running sum, then its tile out: the
+// products of kChains steps are issued back to back, each into its own
+// fresh accumulator set, then one wait, then their adds into the sum in
+// step order. An accumulator is read only after the wait that covers
+// every product in flight: reading one while another's products run
+// (a wait<1> between two sets) made ptxas serialize every wgmma.
+template <int W>
+__device__ __forceinline__ void resident_unit(uint32_t (&fa)[kMaxKT][4],
+                                              uint64_t desc, int ns,
+                                              int accumulate, long long zero,
+                                              float* o, int M, int N, int n0,
+                                              int m0) {
+  constexpr int NR = W / 2;
+  float run[NR], acc[kChains][NR];
+#pragma unroll
+  for (int e = 0; e < NR; ++e) run[e] = 0.f;
+  // step i's operand: the resident chunk at i * zero (always 0) bytes on
+  auto at = [&](int i) { return desc + (uint64_t)(i * zero); };
+  auto take = [&](float (&a)[NR]) {   // after the wait that covers a
+#pragma unroll
+    for (int e = 0; e < NR; ++e) {
+      ssq::fence_operand(a[e]);
+      run[e] = accumulate ? __fadd_rn(run[e], a[e]) : a[e];
+    }
+  };
+  int i = 0;
+  for (; i + kChains <= ns; i += kChains) {
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) issue<W>(acc[c], fa, at(i + c));
+    ssq::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) take(acc[c]);
+  }
+  for (; i < ns; ++i) {   // the last ns % kChains steps, one at a time
+    issue<W>(acc[0], fa, at(i));
+    ssq::wgmma_wait<0>();
+    take(acc[0]);
+  }
+  store_tile<W>(run, o, M, N, n0, m0);
+}
+
+// Shared memory: B's slab [kp][64] (bf16 bits, 128-byte rows), A's chunk
+// (kMaxKT tiles of 32 * width bytes), then the loads' mbarrier; kp =
+// kResidentK whatever K, zeros past it.
+__global__ void __launch_bounds__(kWG)
+dots_resident(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
+              float* __restrict__ out, int M, int K, int N, int steps,
+              int accumulate, int slabs, int chunks, int copies,
+              long long units, int vec_a, int vec_b, long long zero) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kp = kResidentK;
+  uint16_t* sB = reinterpret_cast<uint16_t*>(smem_raw);
+  unsigned char* sA = smem_raw + kp * kSlab * 2;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sA + kMaxKT * 32 * kUnitN);
+  const int tid = threadIdx.x, lane = tid & 31, wq = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  if (tid == 0) {
+    ssq::mbar_init(bar, kWG);
+    ssq::mbar_init_fence();
+  }
+  __syncthreads();
+  uint32_t phase = 0;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit U = unit_at(u, slabs, chunks, copies, kUnitN, M);
+    const uint16_t* a = A + (long long)U.bat * M * K;
+    const uint16_t* b = B + (long long)U.bat * K * N;
+    // 1. the unit's operands into shared memory, once
+    if (vec_b) {
+      for (int e = tid; e < kp * 8; e += kWG) {
+        const int k = e >> 3, n = U.n0 + 8 * (e & 7);
+        uint16_t* dst = sB + k * kSlab + 8 * (e & 7);
+        if (k < K && n < N)
+          ssq::cp_async16(dst, b + (long long)k * N + n);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      for (int e = tid; e < kp * kSlab; e += kWG) {
+        const int k = e / kSlab, n = U.n0 + e % kSlab;
+        sB[e] = k < K && n < N ? b[(long long)k * N + n] : 0;
+      }
+    }
+    const int W = U.width;
+    if (vec_a) {
+      const int kc = kp / 8;   // 16-byte pieces of a row
+      for (int e = tid; e < W * kc; e += kWG) {
+        const int r = e / kc, c = e % kc, m = U.m0 + r;
+        unsigned char* dst = sA + (c >> 1) * 32 * W + (c & 1) * 128 +
+                             (r >> 3) * 256 + (r & 7) * 16;
+        if (m < M && 8 * c < K)
+          ssq::cp_async16(dst, a + (long long)m * K + 8 * c);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      for (int e = tid; e < W * kp; e += kWG) {
+        const int r = e / kp, k = e % kp, m = U.m0 + r;
+        uint16_t* dst = reinterpret_cast<uint16_t*>(
+                            sA + (k >> 4) * 32 * W + ((k >> 3) & 1) * 128 +
+                            (r >> 3) * 256 + (r & 7) * 16) +
+                        (k & 7);
+        *dst = m < M && k < K ? a[(long long)m * K + k] : 0;
+      }
+    }
+    ssq::cp_async_arrive(bar);
+    ssq::mbar_wait(bar, phase);
+    phase ^= 1;
+    ssq::fence_proxy_async();   // the generic zeros, before wgmma reads
+    __syncthreads();
+    // 2. B's slab into registers: the fixed A operand of every step
+    uint32_t fa[kMaxKT][4];
+    auto pair = [&](int k, int n) {   // (k, n) and (k + 1, n), low k low
+      return (uint32_t)sB[k * kSlab + n] |
+             ((uint32_t)sB[(k + 1) * kSlab + n] << 16);
+    };
+#pragma unroll
+    for (int kt = 0; kt < kMaxKT; ++kt) {
+      const int k = 16 * kt + 2 * q, n = 16 * wq + g;
+      fa[kt][0] = pair(k, n);
+      fa[kt][1] = pair(k, n + 8);
+      fa[kt][2] = pair(k + 8, n);
+      fa[kt][3] = pair(k + 8, n + 8);
+    }
+    // 3. the unit's steps (a tail chunk of 8 rows: its own instantiation)
+    const int ns = steps_of(steps, U.copy, copies);
+    float* o = out + (long long)U.bat * M * N;
+    if (W == kUnitN)
+      resident_unit<kUnitN>(fa, ssq::desc_kmajor(sA), ns, accumulate, zero,
+                            o, M, N, U.n0, U.m0);
+    else
+      resident_unit<8>(fa, ssq::desc_kmajor(sA), ns, accumulate, zero, o, M,
+                       N, U.n0, U.m0);
+    __syncthreads();   // every product read the operands before the next unit
+  }
+}
+
+// -- streamed route -----------------------------------------------------------
+template <int NS>
+struct Stream {
+  static constexpr int B_BOX = kBox * kSlab * 2;  // B: 64 k x 64 columns
+  static constexpr int A_BOX = NS * kBox * 2;     // A: NS rows x 64 k
+  static constexpr int STAGE = B_BOX + A_BOX;
+  static constexpr int STAGES = kRing / STAGE;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+// A box of `rows` 128-byte rows in the 128-byte swizzle, written by the
+// producer warp where there is no TMA map: element (r, c) of the source
+// at(r, c), zero where !in(r, c).
+template <typename At>
+__device__ __forceinline__ void fill_box(uint16_t* box, int rows, At at) {
+  for (int e = threadIdx.x & 31; e < rows * 64; e += 32) {
+    const int r = e >> 6, c = e & 63;
+    box[r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)] = at(r, c);
+  }
+}
+
+// ta: A (K, M, batch), boxes 64 x NS; tb: B (N, K, batch), boxes 64 x 64.
+template <int NS>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+dots_streamed(const __grid_constant__ CUtensorMap ta,
+              const __grid_constant__ CUtensorMap tb,
+              const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
+              float* __restrict__ out, int M, int K, int N, int steps,
+              int accumulate, int slabs, int chunks, int copies,
+              long long units, int tma, long long zero) {
+  using S = Stream<NS>;
+  constexpr int NR = NS / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (ssq::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::STAGES * S::STAGE);
+  uint64_t* empty = full + S::STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      ssq::mbar_init(&full[s], 1);
+      ssq::mbar_init(&empty[s], 1);
+    }
+    ssq::mbar_init_fence();
+  }
+  __syncthreads();
+  const int kboxes = (K + kBox - 1) / kBox;
+  int stage = 0;
+  uint32_t phase = 0;
+  auto next = [&]() {
+    if (++stage == S::STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   };
 
-  // run: the output (with `accumulate` the float32 sum over the steps, in
-  // order: the TPU kernel's acc + dot); acc: the step's product, fresh
-  // each step (the tensor cores' accumulation truncates, so a sum carried
-  // through all the steps inside them would drift)
-  float run[4][4], acc[4][4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) run[t][e] = 0.f;
-  if (resident) {
-    stage(A, B, 0);
-    __syncthreads();
-  }
-  for (int s = 0; s < steps; ++s) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kc) {
-      if (!resident) {
-        __syncthreads();
-        stage(A + s * zero, B + s * zero, k0);
-        __syncthreads();
-      }
-      for (int kb = 0; kb < kc && k0 + kb < K; kb += 16) {
-        const __nv_bfloat16* p = sA + (wr + g) * LD + kb + 2 * q;
-        const uint32_t a[4] = {ld32(p), ld32(p + 8 * LD), ld32(p + 8),
-                               ld32(p + 8 * LD + 8)};
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const __nv_bfloat16* pb = sB + (wc + t * 8 + g) * LD + kb + 2 * q;
-          mma_bf16(acc[t], a, ld32(pb), ld32(pb + 8));
+  if (warp == 4) {
+    // the producer: every box of every step of every unit of this block,
+    // in the consumer's order
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit U = unit_at(u, slabs, chunks, copies, NS, M);
+      const int ns = steps_of(steps, U.copy, copies);
+      const uint16_t* a = A + (long long)U.bat * M * K;
+      const uint16_t* b = B + (long long)U.bat * K * N;
+      for (int i = 0; i < ns; ++i) {
+        // step i's boxes at k + (its step) * zero: always k
+        const int off = (int)((U.copy + (long long)i * copies) * zero);
+        for (int kb = 0; kb < kboxes; ++kb) {
+          ssq::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * S::STAGE;
+          const int k0 = kb * kBox + off;
+          if (tma) {
+            if (lane == 0) {
+              ssq::tma_expect(&full[stage], S::STAGE);
+              ssq::tma_load(st, &tb, U.n0, k0, U.bat, &full[stage]);
+              ssq::tma_load(st + S::B_BOX, &ta, k0, U.m0, U.bat,
+                            &full[stage]);
+            }
+          } else {
+            fill_box(reinterpret_cast<uint16_t*>(st), kBox,
+                     [&](int r, int c) -> uint16_t {
+                       const int k = k0 + r, n = U.n0 + c;
+                       return k < K && n < N ? b[(long long)k * N + n] : 0;
+                     });
+            fill_box(reinterpret_cast<uint16_t*>(st + S::B_BOX), NS,
+                     [&](int r, int c) -> uint16_t {
+                       const int m = U.m0 + r, k = k0 + c;
+                       return m < M && k < K ? a[(long long)m * K + k] : 0;
+                     });
+            ssq::fence_proxy_async();
+            __syncwarp();
+            if (lane == 0) ssq::mbar_arrive(&full[stage]);
+          }
+          next();
         }
       }
     }
+  } else {
+    // the consumer warpgroup
+    const bool signals = threadIdx.x == 0;
+    float acc[NR], run[NR];
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit U = unit_at(u, slabs, chunks, copies, NS, M);
+      const int ns = steps_of(steps, U.copy, copies);
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
+      for (int e = 0; e < NR; ++e) run[e] = 0.f;
+      for (int i = 0; i < ns; ++i) {
+        int held = 0;
+        for (int kb = 0; kb < kboxes; ++kb) {
+          ssq::mbar_wait(&full[stage], phase);
+          const unsigned char* st = ring + stage * S::STAGE;
+          const uint64_t da = ssq::desc_sw128(st);
+          const uint64_t db = ssq::desc_sw128(st + S::B_BOX);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        run[t][e] = accumulate ? __fadd_rn(run[t][e], acc[t][e]) : acc[t][e];
-  }
+          for (int e = 0; e < NR; ++e) ssq::fence_operand(acc[e]);
+          ssq::wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+          for (int j = 0; j < kBox / 16; ++j)
+            ssq::WgmmaSS<NS>::template mma<1>(acc, da + 128 * j, db + 2 * j,
+                                              (kb | j) != 0);
+          ssq::wgmma_commit();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row0 + wr + g + (e >= 2 ? 8 : 0);
-      const int c = col0 + wc + t * 8 + 2 * q + (e & 1);
-      if (r < M && c < N) out[(long long)r * N + c] = run[t][e];
+          for (int e = 0; e < NR; ++e) ssq::fence_operand(acc[e]);
+          if (kb > 0) {
+            ssq::wgmma_wait<1>();   // the previous stage's products are done
+            if (signals) ssq::mbar_arrive(&empty[held]);
+          }
+          held = stage;
+          next();
+        }
+        ssq::wgmma_wait<0>();
+        if (signals) ssq::mbar_arrive(&empty[held]);
+#pragma unroll
+        for (int e = 0; e < NR; ++e) {
+          ssq::fence_operand(acc[e]);
+          run[e] = accumulate ? __fadd_rn(run[e], acc[e]) : acc[e];
+        }
+      }
+      store_tile<NS>(run, out + (long long)U.bat * M * N, M, N, U.n0, U.m0);
     }
+  }
 }
 
 __global__ void trans_kernel(const int* __restrict__ in, float* __restrict__ out,
@@ -294,6 +620,133 @@ __global__ void bbuild_kernel(const int* __restrict__ klr,
   for (int p = 0; p < 6; ++p) out[i * 768 + p * 128 + c] = acc[p];
 }
 
+
+// -- the dots' plan and launches ----------------------------------------------
+// mxu_probe.dots_plan mirrors it.
+struct Plan {
+  int route;    // 0 resident, 1 streamed
+  int width;    // out's rows a unit (the wgmma N; a resident tail 8)
+  int slabs, chunks, copies;
+  long long tiles, units;
+};
+
+Plan plan_dots(int batch, int M, int K, int N, int steps, int accumulate,
+               int sms) {
+  Plan P;
+  P.route = (K + 15) / 16 * 16 <= kResidentK ? 0 : 1;
+  if (P.route == 0) {
+    P.width = kUnitN;
+  } else {
+    const int parts = (M + kStreamMaxN - 1) / kStreamMaxN;
+    P.width = ((M + parts - 1) / parts + 15) / 16 * 16;
+  }
+  P.chunks = (M + P.width - 1) / P.width;
+  P.slabs = (N + kSlab - 1) / kSlab;
+  P.tiles = (long long)batch * P.slabs * P.chunks;
+  // without `accumulate` the steps are independent: copies of each tile
+  // take them in turn, as many as fill the card's slots once
+  long long copies = 1;
+  if (!accumulate && steps > 1) {
+    copies = (long long)sms * (P.route ? kStreamBlocks : 1) / P.tiles;
+    if (copies < 1) copies = 1;
+    if (copies > steps) copies = steps;
+  }
+  P.copies = (int)copies;
+  P.units = P.tiles * P.copies;
+  return P;
+}
+
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+int device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+// Calls f(std::integral_constant<int, NS>{}) for the streamed width NS
+// (16, 32, ..., kStreamMaxN) and returns what it returns.
+template <typename F>
+int with_width(int width, F&& f) {
+  switch (width) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch of a plan: its kernel, block size and shared memory, and
+// the blocks that fit on the card (each walks units u, u + blocks, ...).
+struct Launch {
+  const void* kernel;
+  int threads, smem, blocks, per_sm;
+};
+
+int launch_of(const Plan& P, int sms, Launch* L) {
+  if (P.route == 0) {
+    *L = {reinterpret_cast<const void*>(dots_resident), kWG,
+          kResidentK * kSlab * 2 + kMaxKT * 32 * kUnitN + 8, 0, 0};
+  } else if (int err = with_width(P.width, [&](auto ns) {
+               constexpr int NS = decltype(ns)::value;
+               *L = {reinterpret_cast<const void*>(dots_streamed<NS>),
+                     kStreamThreads, Stream<NS>::SMEM, 0, 0};
+               return 0;
+             })) {
+    return err;
+  }
+  if (int err = allow_smem(L->kernel, L->smem)) return err;
+  int fit = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &fit, L->kernel, L->threads, L->smem);
+  if (err != cudaSuccess) return (int)err;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  long long blocks = (long long)fit * sms;
+  if (P.units < blocks) blocks = P.units;
+  if (blocks < 1) blocks = 1;
+  L->blocks = (int)blocks;
+  L->per_sm = (int)((blocks + sms - 1) / sms);
+  return 0;
+}
+
+bool bad_dots(int batch, int M, int K, int N, int steps) {
+  return batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 || steps < 0;
+}
+
+// The map of a row-major bf16 operand p (items x rows x cols), boxes of
+// box_rows rows x 64 columns in the 128-byte swizzle, zeros past the
+// edges.
+bool operand_map(CUtensorMap* tm, const void* p, int cols, int rows,
+                 int items, int box_rows) {
+  const ssq::EncodeTiled encode = ssq::tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)items};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)cols * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(p), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -304,23 +757,53 @@ unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads);
 extern "C" int ssq_mxu_dots(const void* A, const void* B, float* out,
                             int batch, int M, int K, int N, int steps,
                             int accumulate, void* stream) {
-  if (batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 || steps < 0)
-    return (int)cudaErrorInvalidValue;
-  const int kp = (K + 15) / 16 * 16;
-  int kc = kp;
-  if ((kTM + kTN) * (kp + 8) * 2 > kMaxResident) kc = kKC;
-  const int smem = (kTM + kTN) * (kc + 8) * 2;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+  if (bad_dots(batch, M, K, N, steps)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int err = device_sms(&sms)) return err;
+  const Plan P = plan_dots(batch, M, K, N, steps, accumulate, sms);
+  Launch L;
+  if (int err = launch_of(P, sms, &L)) return err;
+  const uint16_t* a = reinterpret_cast<const uint16_t*>(A);
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (P.route == 0) {
+    dots_resident<<<L.blocks, L.threads, L.smem, s>>>(
+        a, b, out, M, K, N, steps, accumulate, P.slabs, P.chunks, P.copies,
+        P.units, K % 8 == 0 && aligned16(A), N % 8 == 0 && aligned16(B),
+        0LL);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM, batch);
-  dots_kernel<<<grid, kDotThreads, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(A),
-      reinterpret_cast<const __nv_bfloat16*>(B), out, M, K, N, steps,
-      accumulate, kc, 0LL);
-  return (int)cudaGetLastError();
+  CUtensorMap tm[2] = {};
+  const int tma = K % 8 == 0 && N % 8 == 0 && aligned16(A) &&
+                  aligned16(B) &&
+                  operand_map(&tm[0], A, K, M, batch, P.width) &&
+                  operand_map(&tm[1], B, N, K, batch, kBox);
+  return with_width(P.width, [&](auto ns) {
+    constexpr int NS = decltype(ns)::value;
+    dots_streamed<NS><<<L.blocks, L.threads, L.smem, s>>>(
+        tm[0], tm[1], a, b, out, M, K, N, steps, accumulate, P.slabs,
+        P.chunks, P.copies, P.units, tma, 0LL);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The plan ssq_mxu_dots takes for these shapes on the current device,
+// into plan[8]: route (0 resident, 1 streamed), width (out's rows a
+// unit), slabs, chunks, copies, units, blocks launched, warpgroups an SM.
+// Returns a CUDA error code (0 on success).
+extern "C" int ssq_mxu_dots_plan(int batch, int M, int K, int N, int steps,
+                                 int accumulate, int* plan) {
+  if (bad_dots(batch, M, K, N, steps)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int err = device_sms(&sms)) return err;
+  const Plan P = plan_dots(batch, M, K, N, steps, accumulate, sms);
+  Launch L;
+  if (int err = launch_of(P, sms, &L)) return err;
+  const long long units = P.units < INT_MAX ? P.units : INT_MAX;
+  const int v[8] = {P.route, P.width, P.slabs, P.chunks, P.copies,
+                    (int)units, L.blocks, L.per_sm};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return 0;
 }
 
 // One element question (see above for d0..d3 and the layouts); int32

@@ -1,22 +1,27 @@
 // Hopper's warpgroup tensor-core product (wgmma, sm_90a only) and the
 // asynchronous copies and barriers that feed it, for kernel I
-// (reassign_mxu.cu) and probe J5's products (rate_probe.cu).
+// (reassign_mxu.cu), probe J5's products (rate_probe.cu) and probe J6's
+// dots (mxu_probe.cu).
 //
 // WgmmaSS<N>::mma(d, a, b, scale_d) issues one
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16
-// with A (64 x 16 bf16) and B (16 x N bf16) both K-major from shared
-// memory through the descriptors a and b (the transpose bits cleared),
-// accumulating into d (float32); scale_d = 0 overwrites d instead (the
-// first k-step of a fresh product). All 128 threads of the warpgroup
-// execute it together; it runs asynchronously until a wgmma_wait<> covers
-// its commit group. WgmmaTF32<N> is the TF32 form, k8.
+// with A (64 x 16 bf16) and B (16 x N bf16) both from shared memory
+// through the descriptors a and b, B K-major, A K-major or, with
+// mma<1>, MN-major (the transpose-A bit: 64 rows contiguous along M, as
+// a TMA box of 128-byte rows of M at successive k lands), accumulating
+// into d (float32); scale_d = 0 overwrites d instead (the first k-step of
+// a fresh product). All 128 threads of the warpgroup execute it together;
+// it runs asynchronously until a wgmma_wait<> covers its commit group.
+// WgmmaRS<N> takes A from registers (below). WgmmaTF32<N> is the TF32
+// form, k8.
 //
 // Accumulator fragment (PTX ISA, wgmma .m64nNk16), for warp w of the
 // warpgroup (w = warp % 4), g = lane / 4, q = lane % 4:
 //   d[4t + e] = row 16w + g + 8 * (e >> 1), column 8t + 2q + (e & 1)
 //
-// Two operand layouts, both K-major:
-//  - desc_kmajor (kernel I): no swizzle; core matrices of 8 rows (M or N)
+// Two operand layouts:
+//  - desc_kmajor (kernel I, probe J6's resident dots), K-major: no
+//    swizzle; core matrices of 8 rows (M or N)
 //    x 16 bytes (8 bf16 k), element (k, row) at byte (row % 8) * 16
 //    + (k % 8) * 2 + (k / 8) * LBO + (row / 8) * SBO with LBO = 128 (the
 //    second half of k right after the first) and SBO = 256 (the next 8
@@ -28,11 +33,15 @@
 //    the box must start on a 1024-byte boundary. The k-steps of one row
 //    (32 bytes each: k16 bf16 or k8 TF32) are the descriptor's start
 //    advanced by 32 bytes (desc + 2), as the swizzle is taken from the
-//    address bits.
+//    address bits. The same descriptor serves an MN-major A of 64 rows
+//    (probe J6's streamed dots, mma<1>): a box of 64 bf16 along M a
+//    128-byte row, one row a k, 8 k a 1024-byte atom (SBO = 1024; with
+//    64 rows of M no second atom along M, so LBO is unused); its k16
+//    steps are two atoms, the start advanced by 2048 bytes (desc + 128).
 //
 // The bf16 specializations below differ only in N and the number of
 // accumulator registers (N / 2 a thread); they follow one pattern, N =
-// 8, 16, ..., 128.
+// 8, 16, ..., 128 (WgmmaSS), the N that probe J6 uses (WgmmaRS).
 
 #pragma once
 
@@ -73,10 +82,15 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
 }
 
-// Keeps the compiler from moving accesses of an accumulator register
-// across the asynchronous products (CUTLASS's warpgroup_fence_operand).
+// Keeps the compiler from moving accesses of an accumulator register, or
+// of a register A operand, across the asynchronous products (CUTLASS's
+// warpgroup_fence_operand).
 __device__ __forceinline__ void fence_operand(float& x) {
   asm volatile("" : "+f"(x)::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
 }
 
 // Orders this thread's earlier generic shared-memory writes before later
@@ -142,6 +156,7 @@ template <int N>
 struct WgmmaSS;
 
 template <> struct WgmmaSS<8> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[4], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -150,13 +165,15 @@ template <> struct WgmmaSS<8> {
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{"
         "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<16> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -165,14 +182,16 @@ template <> struct WgmmaSS<16> {
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        "}, %8, %9, p, 1, 1, %11, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<24> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[12], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -182,15 +201,17 @@ template <> struct WgmmaSS<24> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11"
-        "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+        "}, %12, %13, p, 1, 1, %15, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<32> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -200,16 +221,18 @@ template <> struct WgmmaSS<32> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<40> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[20], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -220,17 +243,19 @@ template <> struct WgmmaSS<40> {
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19"
-        "}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+        "}, %20, %21, p, 1, 1, %23, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<48> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[24], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -241,18 +266,20 @@ template <> struct WgmmaSS<48> {
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        "}, %24, %25, p, 1, 1, %27, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<56> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[28], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -264,7 +291,7 @@ template <> struct WgmmaSS<56> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27"
-        "}, %28, %29, p, 1, 1, 0, 0;\n}\n"
+        "}, %28, %29, p, 1, 1, %31, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -272,11 +299,13 @@ template <> struct WgmmaSS<56> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<64> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -288,7 +317,7 @@ template <> struct WgmmaSS<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -297,11 +326,13 @@ template <> struct WgmmaSS<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<72> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[36], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -314,7 +345,7 @@ template <> struct WgmmaSS<72> {
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35"
-        "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+        "}, %36, %37, p, 1, 1, %39, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -324,11 +355,13 @@ template <> struct WgmmaSS<72> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<80> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[40], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -341,7 +374,7 @@ template <> struct WgmmaSS<80> {
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+        "}, %40, %41, p, 1, 1, %43, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -352,11 +385,13 @@ template <> struct WgmmaSS<80> {
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<88> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[44], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -370,7 +405,7 @@ template <> struct WgmmaSS<88> {
         "%24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43"
-        "}, %44, %45, p, 1, 1, 0, 0;\n}\n"
+        "}, %44, %45, p, 1, 1, %47, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -382,11 +417,13 @@ template <> struct WgmmaSS<88> {
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<96> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[48], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -400,7 +437,7 @@ template <> struct WgmmaSS<96> {
         "%24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43, %44, %45, %46, %47"
-        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        "}, %48, %49, p, 1, 1, %51, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -413,11 +450,13 @@ template <> struct WgmmaSS<96> {
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
           "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<104> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[52], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -432,7 +471,7 @@ template <> struct WgmmaSS<104> {
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51"
-        "}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+        "}, %52, %53, p, 1, 1, %55, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -446,11 +485,13 @@ template <> struct WgmmaSS<104> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
           "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<112> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[56], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -465,7 +506,7 @@ template <> struct WgmmaSS<112> {
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+        "}, %56, %57, p, 1, 1, %59, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -480,11 +521,13 @@ template <> struct WgmmaSS<112> {
           "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<120> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[60], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -500,7 +543,7 @@ template <> struct WgmmaSS<120> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59"
-        "}, %60, %61, p, 1, 1, 0, 0;\n}\n"
+        "}, %60, %61, p, 1, 1, %63, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -516,11 +559,13 @@ template <> struct WgmmaSS<120> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
   }
 };
 
 template <> struct WgmmaSS<128> {
+  template <int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
                                              uint64_t b,
                                              int scale_d = 1) {
@@ -536,7 +581,7 @@ template <> struct WgmmaSS<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -553,7 +598,55 @@ template <> struct WgmmaSS<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d),
+          "n"(TA));
+  }
+};
+
+// WgmmaRS<N>::mma(d, a, b, scale_d) issues one
+//   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16
+// with A (64 x 16 bf16) from registers and B (16 x N bf16) K-major from
+// shared memory through the descriptor b, into d (float32; scale_d = 0
+// overwrites d). A's fragment (PTX ISA, wgmma register A of .m64nNk16),
+// for warp w of the warpgroup, g = lane / 4, q = lane % 4, two bf16 a
+// register, the lower k in the low half:
+//   a[0] = row 16w + g,     k 2q, 2q + 1    a[2] = row 16w + g,     k 2q + 8, 2q + 9
+//   a[1] = row 16w + g + 8, k 2q, 2q + 1    a[3] = row 16w + g + 8, k 2q + 8, 2q + 9
+// Every register of a must keep its value until a wgmma_wait<> covers the
+// product. Forms: N = 8, 16.
+template <int N>
+struct WgmmaRS;
+
+template <> struct WgmmaRS<8> {
+  __device__ __forceinline__ static void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaRS<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
   }
 };
 

@@ -40,6 +40,7 @@ __all__ = ["QUESTIONS", "HEADLINE", "SMALL", "dots", "dots_plain", "trans",
            "slice128", "slice128_plain", "abuild", "abuild_plain", "strided",
            "strided_plain", "bbuild", "bbuild_plain", "make_inputs",
            "question", "cost", "run_questions", "run", "main",
+           "dots_plan", "dots_units", "dots_shape", "dots_kernel_plan",
            "LAUNCHES"]
 
 LAUNCHES = 0
@@ -119,6 +120,94 @@ def dots(A, B, steps, accumulate=True):
     _build.check(err, "mxu_probe dots kernel")
     LAUNCHES += 1
     return out
+
+
+# The dots' unit plan (csrc/mxu_probe.cu `plan_dots`), mirrored: the
+# transposed product out^T = B^T A^T, each unit one warpgroup's m64 slab
+# of out's columns by a chunk of out's rows (the wgmma N); operands
+# resident (the slab in registers) while K fits in DOT_MAX_KT k16 tiles,
+# else streamed through a TMA ring; without `accumulate` copies of every
+# tile take the independent steps in turn.
+DOT_SLAB = 64            # out's columns a unit
+DOT_UNIT_N = 16          # out's rows a resident unit (the last 8 or 16)
+DOT_MAX_KT = 19          # k16 tiles held in registers: K <= 304 resident
+DOT_STREAM_MAX_N = 128   # out's rows a streamed unit, at most
+DOT_STREAM_BLOCKS = 2    # streamed blocks an SM (their rings)
+DOT_SMS = 132            # SMs of an NVIDIA H100 SXM
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def dots_plan(batch, M, K, N, steps, accumulate=True, sms=DOT_SMS):
+    """The kernel's plan for `dots` at these shapes on a card of `sms`
+    SMs: route ('resident' or 'streamed'), width (a unit's rows of out,
+    its wgmma N), slabs (of 64 columns), chunks (of `width` rows), tiles
+    (batch x slabs x chunks), copies and units (tiles x copies)."""
+    route = ("resident" if _ceil(K, 16) <= DOT_MAX_KT else "streamed")
+    if route == "resident":
+        width = DOT_UNIT_N
+    else:
+        width = _ceil(_ceil(M, _ceil(M, DOT_STREAM_MAX_N)), 16) * 16
+    chunks, slabs = _ceil(M, width), _ceil(N, DOT_SLAB)
+    tiles = batch * slabs * chunks
+    copies = 1
+    if not accumulate and steps > 1:
+        slots = sms * (DOT_STREAM_BLOCKS if route == "streamed" else 1)
+        copies = min(max(slots // tiles, 1), steps)
+    return dict(route=route, width=width, slabs=slabs, chunks=chunks,
+                tiles=tiles, copies=copies, units=tiles * copies)
+
+
+def dots_units(batch, M, K, N, steps, accumulate=True, sms=DOT_SMS):
+    """Every unit of `dots_plan` in launch order, as (entry, first column,
+    first row, rows it computes (its wgmma N), copy, its steps): a
+    resident tail chunk rounded up to 8 rows, a streamed one computed at
+    the full width (the rows past M are TMA's zeros)."""
+    P = dots_plan(batch, M, K, N, steps, accumulate, sms)
+    W, copies = P["width"], P["copies"]
+    for u in range(P["units"]):
+        copy, t = u % copies, u // copies
+        chunk, t = t % P["chunks"], t // P["chunks"]
+        m0 = chunk * W
+        width = W
+        if P["route"] == "resident" and M - m0 < W:
+            width = _ceil(M - m0, 8) * 8
+        yield (t // P["slabs"], (t % P["slabs"]) * DOT_SLAB, m0, width, copy,
+               range(copy, steps, copies))
+
+
+def dots_shape(name, size):
+    """(batch, M, K, N, steps, accumulate) of dot question `name` at `size`
+    (HEADLINE's keys): what `question` hands `dots`."""
+    NA, NG, G, NL, grid = (size[k] for k in ("NA", "NG", "G", "NL", "GRID"))
+    M = size["F1"] * G
+    shapes = {"q_dots": (1, M, NA, NL, grid * NG, True),
+              "q_dots4": (1, M, NA, 512, grid * NG, True),
+              "q_bigdot": (1, M, NA * NG, NL, grid, False),
+              "q_batch": (G, 32, NA, 128, grid, False)}
+    if name not in shapes:
+        raise ValueError(f"{name!r} is not a dot question")
+    return shapes[name]
+
+
+def dots_kernel_plan(batch, M, K, N, steps, accumulate=True):
+    """The plan the kernel takes on the current CUDA device
+    (`ssq_mxu_dots_plan`): `dots_plan`'s keys from the card, with the
+    blocks launched and the warpgroups an SM (`per_sm`)."""
+    import ctypes
+    from .. import _build
+    v = (ctypes.c_int * 8)()
+    _build.check(_build.lib().ssq_mxu_dots_plan(batch, M, K, N, int(steps),
+                                                int(bool(accumulate)), v),
+                 "mxu_probe dots plan")
+    keys = ("route", "width", "slabs", "chunks", "copies", "units",
+            "blocks", "per_sm")
+    plan = dict(zip(keys, list(v)))
+    plan["route"] = ("resident", "streamed")[plan["route"]]
+    plan["tiles"] = plan["units"] // plan["copies"]
+    return plan
 
 
 # -- the element questions -----------------------------------------------------

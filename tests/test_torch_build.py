@@ -111,24 +111,28 @@ def test_reassign_argtypes_follow_the_c_types(name):
 
 
 def test_tensor_core_helpers_are_shared():
-    """The probes' mma.sync kernels take their tiles and roundings from one
-    header, which defines them once; kernel I and probe J5's products take
-    their wgmma products, async copies and barriers from another
-    (wgmma.cuh), J5 and the double B/B' their TMA copies, clusters and the
-    tensor-map encoder from a third (tma.cuh), the only file that defines
-    tma_load; none of them writes that PTX itself."""
+    """The probe's mma.sync kernel (J7) takes its tiles and roundings from
+    one header, which defines them once; kernel I and probes J5's products
+    and J6's dots take their wgmma products (J6 its register-A forms),
+    async copies and barriers from another (wgmma.cuh), J5, J6 and the
+    double B/B' their TMA copies and the tensor-map encoder from a third
+    (tma.cuh), the only file that defines tma_load; none of them writes
+    that PTX itself."""
     def read(name):
         with open(os.path.join(_build.CSRC, name)) as f:
             return f.read()
-    for name in ("dma_overlap.cu", "mxu_probe.cu"):
+    text = read("dma_overlap.cu")
+    assert '#include "mma.cuh"' in text
+    assert '"mma.sync' not in text and '"cvt.rna' not in text
+    for name in ("rate_probe.cu", "mxu_probe.cu"):
         text = read(name)
-        assert '#include "mma.cuh"' in text, name
-        assert '"mma.sync' not in text and '"cvt.rna' not in text, name
-    text = read("rate_probe.cu")
-    assert '#include "wgmma.cuh"' in text and '#include "tma.cuh"' in text
-    for ptx in ("wgmma.mma_async", "cp.async.bulk", "mma.sync", '"cvt.rna',
-                "asm"):
-        assert ptx not in text, ptx
+        assert '#include "wgmma.cuh"' in text, name
+        assert '#include "tma.cuh"' in text, name
+        for ptx in ("wgmma.mma_async", "cp.async.bulk", "mma.sync",
+                    '"cvt.rna', "asm"):
+            assert ptx not in text, (name, ptx)
+    text = read("mxu_probe.cu")
+    assert '#include "mma.cuh"' not in text and "WgmmaRS<" in text
     text = read("reassign_mxu.cu")
     assert '#include "wgmma.cuh"' in text
     assert "asm" not in text
@@ -139,8 +143,9 @@ def test_tensor_core_helpers_are_shared():
     assert "cudaGetDriverEntryPoint" not in read("reassign64.cu")
     assert "cudaGetDriverEntryPoint" in read("tma.cuh")
     header = read("wgmma.cuh")
-    assert header.count("\"wgmma.mma_async.sync.aligned.m64n") == 18
+    assert header.count("\"wgmma.mma_async.sync.aligned.m64n") == 20
     assert header.count(".f32.tf32.tf32 ") == 2
+    assert header.count("struct WgmmaRS<") == 2
 
 
 def test_cwt_kernels_share_the_four_step_header():

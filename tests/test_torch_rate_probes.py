@@ -17,6 +17,11 @@ whose `pallas_call` records every kernel's inputs and output, and their
                                                    ~3 digits)
   J7 `dots` / `both` (R = 3, b scaled by 1e3 /     1e-2 of max|out| (bf16
   sqrt(M) so that x stays of order 1)              re-rounds every product)
+
+J6's dots also have a unit plan (`mxu_probe.dots_plan`, the mirror of the
+kernel's `plan_dots`), held here to cover every output element once; the
+variants tool's source edits (`mxu_dots_variants`) are applied to the
+source as it stands.
 """
 import contextlib
 import importlib.util
@@ -32,6 +37,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ssqueeze_rs_tpu_torch.tools import (_common, dma_overlap_probe as dop,
                                          grid_slope_probe as gsp,
+                                         mxu_dots_variants as mdv,
                                          mxu_probe as mp, mxu_probe2 as mp2,
                                          mxu_rate_probe as mrp)
 
@@ -454,6 +460,139 @@ def test_question_helpers_match_the_wrappers():
     for q in mp2.QUESTIONS:
         assert torch.equal(mp2.question(q, inp, size),
                            mp2.question(q, inp, size, plain=True)), q
+
+
+# -- J6's dots: the kernel's unit plan -------------------------------------------
+DOT_CASES = {
+    **{f"{q} {name}": mp.dots_shape(q, size)
+       for name, size in (("headline", mp.HEADLINE), ("small", mp.SMALL))
+       for q in ("q_dots", "q_bigdot", "q_batch")},
+    **{f"{q} {name}": mp.dots_shape(q, size)
+       for name, size in (("headline", mp2.HEADLINE), ("small", mp2.SMALL))
+       for q in ("q_dots", "q_dots4")},
+    # chip_smoke.py's edge shapes (J6_EDGES) and one output element
+    "edge accumulate": (1, 200, 72, 136, 3, True),
+    "edge batch": (3, 33, 40, 24, 3, False),
+    "edge streamed": (1, 200, 1000, 136, 3, True),
+    "edge resident, K and N odd": (2, 33, 45, 30, 3, False),
+    "edge streamed, K odd": (1, 70, 333, 50, 2, True),
+    "one element": (1, 1, 1, 1, 1, True),
+}
+
+
+@pytest.mark.parametrize("shape", list(DOT_CASES.values()),
+                         ids=list(DOT_CASES))
+def test_dots_units_cover_every_output_once(shape):
+    """Each copy's units cover every output element of every batch entry
+    exactly once, each unit's wgmma N a multiple of 8 (a resident one at
+    most 16, padded past M by fewer than 8 rows; a streamed one at most
+    128), and a tile's copies take every step once."""
+    batch, M, K, N, steps, accumulate = shape
+    P = mp.dots_plan(*shape)
+    units = list(mp.dots_units(*shape))
+    assert len(units) == P["units"] == P["tiles"] * P["copies"]
+    resident = P["route"] == "resident"
+    assert resident == (K <= 16 * mp.DOT_MAX_KT)
+    hits = np.zeros((P["copies"], batch, M, N), np.int32)
+    taken = {}
+    for bat, n0, m0, width, copy, ss in units:
+        assert width % 8 == 0 and n0 < N and m0 < M
+        if resident:
+            assert width <= mp.DOT_UNIT_N and m0 + width - M < 8
+        else:
+            assert width == P["width"] <= mp.DOT_STREAM_MAX_N
+        hits[copy, bat, m0:m0 + width, n0:n0 + mp.DOT_SLAB] += 1
+        taken.setdefault((bat, n0, m0), []).extend(ss)
+    assert (hits == 1).all()
+    assert len(taken) == P["tiles"]
+    assert all(sorted(s) == list(range(steps)) for s in taken.values())
+    if accumulate:
+        assert P["copies"] == 1
+
+
+def test_dots_plan_at_the_headline():
+    """The plans the kernel's header names: q_dots 12 slabs x 10 chunks
+    (nine n16, one n8), q_dots4 8 x 10, q_batch 32 tiles x 4 copies,
+    q_bigdot streamed in two chunks of 80 rows, 24 tiles x 11 copies."""
+    plan = lambda q, size: mp.dots_plan(*mp.dots_shape(q, size))
+    assert plan("q_dots", mp.HEADLINE) == dict(
+        route="resident", width=16, slabs=12, chunks=10, tiles=120, copies=1,
+        units=120)
+    assert plan("q_dots", mp2.HEADLINE)["units"] == 120
+    assert plan("q_dots4", mp2.HEADLINE)["units"] == 80
+    assert plan("q_batch", mp.HEADLINE) == dict(
+        route="resident", width=16, slabs=2, chunks=2, tiles=32, copies=4,
+        units=128)
+    assert plan("q_bigdot", mp.HEADLINE) == dict(
+        route="streamed", width=80, slabs=12, chunks=2, tiles=24, copies=11,
+        units=264)
+    assert [u[3] for u in mp.dots_units(*mp.dots_shape(
+        "q_dots", mp.HEADLINE))][-1:] == [8]
+
+
+def test_dots_plan_mirrors_the_kernel():
+    """The mirror's constants are the kernel's."""
+    import re
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                             _mxu_probe_source()))
+    assert {k: int(consts[k]) for k in ("kSlab", "kUnitN", "kMaxKT",
+                                        "kStreamMaxN", "kStreamBlocks")} == \
+        dict(kSlab=mp.DOT_SLAB, kUnitN=mp.DOT_UNIT_N, kMaxKT=mp.DOT_MAX_KT,
+             kStreamMaxN=mp.DOT_STREAM_MAX_N,
+             kStreamBlocks=mp.DOT_STREAM_BLOCKS)
+
+
+@pytest.mark.parametrize("mod", [mp, mp2], ids=["mxu_probe", "mxu_probe2"])
+def test_dots_shape_is_what_question_hands_dots(mod, monkeypatch):
+    got = {}
+
+    def record(A, B, steps, accumulate=True):
+        got[name] = ((A.shape[0] if A.dim() == 3 else 1,) +
+                     tuple(A.shape[-2:]) + (B.shape[-1], steps, accumulate))
+        return mp.dots_plain(A, B, steps, accumulate)
+    monkeypatch.setattr(mod, "dots", record)
+    size = mod.SMALL
+    inp = mod.make_inputs(torch.device("cpu"), size)
+    names = [q for q in mod.QUESTIONS if q in DOTS]
+    for name in names:
+        mod.question(name, inp, size)
+        assert got[name] == mp.dots_shape(name, size), name
+    with pytest.raises(ValueError, match="not a dot question"):
+        mp.dots_shape("q_trans", size)
+
+
+def _mxu_probe_source():
+    with open(os.path.join(os.path.dirname(mp.__file__), os.pardir, "csrc",
+                           "mxu_probe.cu")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", list(mdv.VARIANTS))
+def test_dots_variants_apply_to_the_source(name):
+    """tools/mxu_dots_variants.py edits mxu_probe.cu at anchors that are in
+    the source once each, and each variant changes it."""
+    text = _mxu_probe_source()
+    for anchor, _ in mdv.VARIANTS[name]:
+        assert text.count(anchor) == 1, anchor[:60]
+    assert mdv.variant_source(text, name) != text
+    with pytest.raises(ValueError, match="anchor"):
+        mdv.variant_source(text.replace(mdv.VARIANTS[name][0][0], ""), name)
+
+
+def test_dots_variants_read_ptxas_and_need_the_card(monkeypatch):
+    fn = "_ZN3_GLOBAL__N_113dots_residentEv"
+    report = (f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+              f"ptxas info    : Function properties for {fn}\n"
+              "    0 bytes stack frame, 0 bytes spill stores\n"
+              "ptxas info    : Used 160 registers, used 1 barriers\n"
+              "ptxas info    : (C7514) Potential Performance Loss: wgmma."
+              f"mma_async instructions are serialized in the function '{fn}'\n")
+    assert mdv.ptxas_notes(report) == (160, ["C7514"])
+    with pytest.raises(RuntimeError, match="no CPU mode"):
+        mdv.main(["1", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mdv.main(["1"])
 
 
 # -- the entry points ------------------------------------------------------------
