@@ -147,14 +147,17 @@ Phases, one line each:
      sub-batches consistent, MSamples/s, peak memory) and over 8 x 60 000
      in chunks of 20 000 (out='numpy', against offline ssq_cwt per channel)
  21. the TPU probes' entry points (ssqueeze_rs_tpu_torch.tools: the
-     ablation of kernel D, probes P1-P3; the coarse split of D; the
-     ablation of kernel B', P4; B' over batches of 4 and 8 in three grid
-     modes), each main() run as a user would, K = 5, with the launch
+     ablation of kernel D's launch pair, probes P1-P3; the coarse split of
+     D; the ablation of kernel B', P4; B' over batches of 4 and 8 in three
+     grid modes), each main() run as a user would, K = 5, with the launch
      counts of P1-P4 read around them; then every variant against its
      plain twin at the headline: planes within 1e-5 of their largest
-     value, the copy and zero variants exact, P1's full and P3 (D's earlier
-     radix-2 design) bitwise equal and within 1e-5 of D's plain version per
-     plane, P4's full (the row walk B' ran before) at 32, 16 and 8
+     value, the copy and zero variants exact, P1's full bitwise D
+     (cwt_fused with the derivative) and timed beside it (within 5 %),
+     nochunk and P3 (TMA-fed launch 1, its blocks an SM and registers
+     read) bitwise P1 full and within 1e-5 of D's plain version per
+     plane, each P1 variant's and P3's two launches timed by
+     torch.profiler, P4's full (the row walk B' ran before) at 32, 16 and 8
      columns a block bitwise B' (reassign4 under 'vpu'), the three grid
      modes bitwise equal on a batch of 4, every kernel bitwise repeated;
      B' timed beside the row walk at the headline
@@ -2437,7 +2440,8 @@ def probe_phases(np, torch, dev, card, results):
     kernel against its plain twin. Returns the four kernels' entries of
     the JSON line."""
     from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
-    from ssqueeze_rs_tpu_torch.tools import (ablate_cwt_kernel as acw,
+    from ssqueeze_rs_tpu_torch.tools import (_common,
+                                             ablate_cwt_kernel as acw,
                                              ablate_reassign as ar,
                                              bench_reassign_batch as brb,
                                              cwt_kernel_probe as ckp)
@@ -2476,8 +2480,9 @@ def probe_phases(np, torch, dev, card, results):
                                         for a, b in zip(x, y))
 
     # P1, P3: every variant against its plain twin, each bitwise
-    # repeated; P1 full and P3 staged (both D's earlier radix-2 design)
-    # bitwise to each other and within 1e-5 of D's plain
+    # repeated; P1 full bitwise D (fft_cuda.cwt_fused with the
+    # derivative: the same launches), nochunk and P3 staged bitwise P1
+    # full, all within 1e-5 of D's plain
     P = {}
     args, keep = acw.make_inputs(dev, **{k: acw.HEADLINE[k]
                                          for k in ("na", "M", "L")})
@@ -2492,14 +2497,21 @@ def probe_phases(np, torch, dev, card, results):
         check(err < 1e-5, f"P1 {v}: rel error {err:.3e} >= 1e-5")
         if v == "full":
             full = k1
+        elif v == "nochunk":
+            P[v]["bitwise_full"] = equal(k1, full)
+            check(P[v]["bitwise_full"], "P1 nochunk is not full bit for bit")
         del k1, k2, p
+    D = fft_cuda.cwt_fused(*args, keep=keep, derivative=True)
+    P["full"]["bitwise_D"] = equal(full, D)
+    check(P["full"]["bitwise_D"], "P1 full is not D's planes bit for bit")
     s1, s2 = acw.cwt_staged(*args, keep), acw.cwt_staged(*args, keep)
     D_plain = fft_cuda.cwt_fused_plain(*args, keep=keep, derivative=True)
     full_rel = planes_err(full, D_plain)[0]
     P["staged"] = dict(bitwise_full=equal(s1, full), repeat=equal(s1, s2),
                        rel_D_plain=planes_err(s1, D_plain)[0],
                        ms=rows_cwt["staged"]["ms"],
-                       bound_ms=rows_cwt["staged"]["bound_ms"])
+                       bound_ms=rows_cwt["staged"]["bound_ms"],
+                       plan=acw.staged_plan())
     P["full"]["rel_D_plain"] = full_rel
     check(P["staged"]["bitwise_full"] and P["staged"]["repeat"],
           f"P3 staged: bitwise P1 full {P['staged']['bitwise_full']}, "
@@ -2507,7 +2519,21 @@ def probe_phases(np, torch, dev, card, results):
     check(full_rel < 1e-5 and P["staged"]["rel_D_plain"] < 1e-5,
           f"P1 full / P3 staged vs D's plain: {full_rel:.3e} / "
           f"{P['staged']['rel_D_plain']:.3e}")
-    del s1, s2, full, D_plain
+    del s1, s2, full, D, D_plain
+    # D itself timed as P1 full is (the same launches: within 5 %), and
+    # each launch of every P1 variant and of P3 in torch.profiler
+    D_ms = _common.time_ms(lambda: fft_cuda.cwt_fused(
+        *args, keep=keep, derivative=True), dev, reps)
+    check(abs(rows_cwt["full"]["ms"] / D_ms - 1) <= 0.05,
+          f"P1 full {rows_cwt['full']['ms']:.4f} ms is not within 5 % of "
+          f"D's {D_ms:.4f} ms")
+    launch_groups = [("launch 1", ("cwt_d_stage1", "staged_stage1")),
+                     ("launch 2", ("cwt_d_stage2",))]
+    for v in acw.VARIANTS + ("staged",):
+        fn = ((lambda: acw.cwt_staged(*args, keep)) if v == "staged" else
+              (lambda: acw.ablate_cwt(*args, keep, v)))
+        prof = device_breakdown(torch, fn, launch_groups, cpu=False)
+        P[v]["launch_ms"] = None if prof is None else prof["split_ms"]
     plain_full_ms = cuda_ms(torch, lambda: acw.ablate_cwt_plain(*args, keep),
                             warmup=1, iters=reps)
     Pw, xr, xi, xig, inv_dt, nw, nd = args
@@ -2594,18 +2620,32 @@ def probe_phases(np, torch, dev, card, results):
                              plain_ms=dict(full=plain_full_ms,
                                            copy=copy_plain_ms,
                                            reassign=reassign_plain_ms),
-                             ifft_ms=ifft_ms,
+                             ifft_ms=ifft_ms, D_ms=D_ms,
                              copy_ms=rows_cwt["copy_"]["ms"])
-    print("[21] probes: P1 " + ", ".join(
-        f"{v} {P[v]['ms']:.3f}/{P[v]['bound_ms']:.3f}"
-        for v in acw.VARIANTS) + "; P2 " + ", ".join(
-        f"{v} {P[v]['ms']:.3f}/{P[v]['bound_ms']:.3f}"
-        for v in acw.COPY_VARIANTS) +
-        f" (copy_ {rows_cwt['copy_']['ms']:.3f}); P3 staged "
-        f"{P['staged']['ms']:.3f} (ms/bound ms); P1 worst rel "
-        f"{max(P[v]['rel'] for v in acw.VARIANTS):.2e}, full and staged "
-        f"bitwise equal, vs D's plain {P['full']['rel_D_plain']:.2e} / "
-        f"{P['staged']['rel_D_plain']:.2e}; P4 " + ", ".join(
+
+    def by_launch(v):
+        t = P[v]["launch_ms"]
+        return ("" if t is None else
+                f" ({t['launch 1']:.3f} + {t['launch 2']:.3f})")
+
+    plan = P["staged"]["plan"]
+    print("[21] probes: P1 (ms/bound ms, launch 1 + launch 2 by the "
+          "profiler) " + ", ".join(
+              f"{v} {P[v]['ms']:.4f}/{P[v]['bound_ms']:.3f}{by_launch(v)}"
+              for v in acw.VARIANTS) +
+          f"; D (cwt_fused) {D_ms:.4f}, torch.fft.ifft {ifft_ms:.4f}; P2 " +
+          ", ".join(f"{v} {P[v]['ms']:.3f}/{P[v]['bound_ms']:.3f}"
+                    for v in acw.COPY_VARIANTS) +
+          f" (copy_ {rows_cwt['copy_']['ms']:.3f}); P3 staged "
+          f"{P['staged']['ms']:.4f}{by_launch('staged')} ({plan['blocks_per_sm']}"
+          f" block(s) an SM of {plan['threads']} threads, "
+          f"{plan['registers']} registers a thread, {plan['smem_bytes']} "
+          f"bytes, {plan['stages']} slots of {plan['box_cols']}-column "
+          f"boxes); P1 worst rel "
+          f"{max(P[v]['rel'] for v in acw.VARIANTS):.2e}, full bitwise D, "
+          f"nochunk and staged bitwise full, vs D's plain "
+          f"{P['full']['rel_D_plain']:.2e} / "
+          f"{P['staged']['rel_D_plain']:.2e}; P4 " + ", ".join(
             f"{k} {rows_re[k]['ms']:.3f}/{rows_re[k]['bound_ms']:.3f}"
             for k in rows_re) + f", worst rel "
         f"{max(R[v]['rel'] for v in ar.VARIANTS):.2e}, full bitwise B'; "
@@ -2734,10 +2774,19 @@ def rate_probe_phases(np, torch, dev, card, results):
     # their kernels: the runs queued ahead of the card (`_common.time_ms`),
     # so a call shorter than the host's launch work is not timed by it
     qms = lambda fn: _common.time_ms(fn, dev, reps)
+    # the entry's case, `tiny vary` at the largest grid: the kernel's work
+    # is the grid's copies of the tile, and so is that of the plain version
+    # and of the library call, whose output is the kernel's bit for bit
     x = torch.randn((8, 128), generator=g, device=dev)
-    g_last = gsp.CONFIGS[0][4][-1]
-    grid_plain_ms = qms(lambda: gsp.grid_slope_plain(x, g_last, False))
-    grid_lib_ms = qms(lambda: torch.add(x, 1))
+    g_last = gsp.CONFIGS[1][4][-1]
+    grid_plain_ms = qms(lambda: gsp.grid_slope_plain(x, g_last, True))
+    grid_lib = lambda: torch.add(x.expand(g_last, *x.shape), 1)
+    J8["library equal"] = dict(exact=equal(
+        grid_lib().reshape(-1, x.shape[1]), gsp.grid_slope(x, g_last, True)),
+        repeat=True)
+    check(J8["library equal"]["exact"],
+          "J8: torch.add over the grid's copies is not the kernel's output")
+    grid_lib_ms = qms(grid_lib)
 
     # J5: every shape and precision, the copies exact, the chains
     J5 = {}
@@ -3043,7 +3092,7 @@ def rate_probe_phases(np, torch, dev, card, results):
     rch = rows["rate_chains"][f"chains C={C8} ({m},{k},{n})"]
     q1, q2 = rows["mxu_probe"]["q_dots"], rows["mxu_probe2"]["q_dots"]
     ov = rows["dma_overlap"]["both"]
-    gs = rows["grid_slope"][f"tiny const g={g_last}"]
+    gs = rows["grid_slope"][f"tiny vary g={g_last}"]
     bnd = lambda r: (r["bound_ms"], r["bound_by"])
     # the operand pre-pass is the first of a dot's two launches: its time
     # alone is in the entries beside the call's

@@ -69,6 +69,7 @@ _SIGNATURES = {
     "ssq_cwt_copy_floor": [_P, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
     "ssq_cwt_staged": [_P] * 4 + [_F] + [_P] * 4 + [_LL] + [_I] * 5 +
                       [_P, _LL] + [_P] * 5,
+    "ssq_cwt_staged_plan": [_P],
     "ssq_ablate_reassign": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                            _PLAN + [_I, _I, _I, _P, _P, _P],
     "ssq_ablate_reassign3": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +

@@ -65,6 +65,24 @@ namespace fftr {
 
 constexpr int kThreads = 256;
 
+// Flags of the core (`fft`'s V; 0, the default, is the design above and
+// what every path kernel runs). The probes of csrc/ablate_cwt.cu set them:
+//   kNoExch   every pass reads its butterflies' inputs from the lane's own
+//             registers (point b + r P/R at slot g + r G, as the first pass
+//             does) and writes its outputs back there in place (as the
+//             last pass does): the shared-memory exchanges are skipped,
+//             the barriers kept. The result is a different linear map of
+//             the column, which depends on the lane order and the passes'
+//             radices and strides.
+//   kGroupBar the barrier between passes is the named barrier of the
+//             thread's group of kThreads threads (1 + threadIdx.x /
+//             kThreads) in place of __syncthreads, so that several groups
+//             (and a producer warp) can share a block.
+enum Flags : unsigned {
+  kNoExch = 1u << 0,
+  kGroupBar = 1u << 1,
+};
+
 // index i with one float2 of padding after every 2^le points
 __host__ __device__ constexpr int pad_by(int i, int le) {
   return i + (i >> le);
@@ -269,7 +287,18 @@ __device__ __forceinline__ void dft(float2* v, bool half) {
   }
 }
 
-template <int LOGP, int SIGN, int FLIP, int PASS, bool PAIR>
+// The barrier between two passes (kGroupBar: the group's own).
+template <unsigned V>
+__device__ __forceinline__ void pass_barrier() {
+  if constexpr ((V & kGroupBar) != 0)
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + (int)threadIdx.x / kThreads),
+                 "n"(kThreads)
+                 : "memory");
+  else
+    __syncthreads();
+}
+
+template <int LOGP, int SIGN, int FLIP, int PASS, bool PAIR, unsigned V>
 __device__ __forceinline__ void pass(
     float2 (&v)[Shape<LOGP, PAIR>::U][Shape<LOGP>::E],
     const int (&col)[Shape<LOGP, PAIR>::U],
@@ -283,6 +312,9 @@ __device__ __forceinline__ void pass(
   constexpr int PR = P / R;
   constexpr unsigned NS = 1u << (S::LE * PASS);  // the earlier radices
   constexpr bool FIRST = PASS == 0, LAST = PASS == S::NPASS - 1;
+  // without the exchanges every pass reads as the first and writes as the
+  // last
+  constexpr bool NOEXCH = (V & kNoExch) != 0;
   const float2* src = bufs[(PASS - 1 + FLIP) & 1];
   float2* dst = bufs[(PASS + FLIP) & 1];
 #pragma unroll
@@ -297,7 +329,7 @@ __device__ __forceinline__ void pass(
       const int rd = col[u] * LD + S::pad(b);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if constexpr (FIRST)
+        if constexpr (FIRST || NOEXCH)
           t[g * R + r] = v[u][g + r * G];
         else if constexpr (PR % E == 0)
           t[g * R + r] = src[rd + (E + 1) * (r * PR / E)];
@@ -321,7 +353,7 @@ __device__ __forceinline__ void pass(
       const int wr = col[u] * LD + S::pad(w0);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if constexpr (LAST)
+        if constexpr (LAST || NOEXCH)
           v[u][g + r * G] = t[g * R + r];
         else if constexpr (NS % E == 0 || (NS == 1 && R == E))
           dst[wr + (NS == 1 ? r : (E + 1) * (r * (int)NS / E))] =
@@ -332,9 +364,9 @@ __device__ __forceinline__ void pass(
     }
   }
   if constexpr (!LAST) {
-    __syncthreads();
-    pass<LOGP, SIGN, FLIP, PASS + 1, PAIR>(v, col, lane, bufs, tw, half_in,
-                                           lo, hi);
+    pass_barrier<V>();
+    pass<LOGP, SIGN, FLIP, PASS + 1, PAIR, V>(v, col, lane, bufs, tw,
+                                              half_in, lo, hi);
   }
 }
 
@@ -357,16 +389,19 @@ __device__ __forceinline__ void units(int (&col)[Shape<LOGP, PAIR>::U],
 }
 
 // The transform of every unit's column, in place in v (lane order in and
-// out). All threads of the block call it together; bufs: two buffers of
-// NCOL * LD float2 each; tw: the tables of fill_twiddles<LOGP>.
-template <int LOGP, int SIGN, int FLIP = 0, bool PAIR = false>
+// out). All threads of the block (kGroupBar: of the group) call it
+// together; bufs: two buffers of NCOL * LD float2 each; tw: the tables of
+// fill_twiddles<LOGP>; V: the flags above (0: the design in full).
+template <int LOGP, int SIGN, int FLIP = 0, bool PAIR = false,
+          unsigned V = 0>
 __device__ __forceinline__ void fft(
     float2 (&v)[Shape<LOGP, PAIR>::U][Shape<LOGP>::E],
     const int (&col)[Shape<LOGP, PAIR>::U],
     const int (&lane)[Shape<LOGP, PAIR>::U],
     float2* const (&bufs)[2], const float2* tw, bool half_in, int lo,
     int hi) {
-  pass<LOGP, SIGN, FLIP, 0, PAIR>(v, col, lane, bufs, tw, half_in, lo, hi);
+  pass<LOGP, SIGN, FLIP, 0, PAIR, V>(v, col, lane, bufs, tw, half_in, lo,
+                                     hi);
 }
 
 }  // namespace fftr

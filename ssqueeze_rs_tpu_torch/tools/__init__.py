@@ -2,9 +2,8 @@
 this card what the Pallas probes asked the TPU.
 
   ablate_cwt_kernel     probes P1-P3 (``csrc/ablate_cwt.cu``): kernel D's
-                        radix-2 design with parts taken out, its copy floor,
-                        and its first launch with explicit asynchronous
-                        staging
+                        launch pair with parts taken out, its copy floor,
+                        and its first launch fed by TMA
   cwt_kernel_probe      the coarse split of D (dma / glue / full) as
                         modes of P1
   ablate_reassign       probe P4 (``csrc/ablate_reassign.cu``): kernel B'
@@ -21,6 +20,8 @@ this card what the Pallas probes asked the TPU.
                         serial bf16 chain
   grid_slope_probe      J8 (``csrc/grid_slope.cu``): the cost per block
                         and per launch of a trivial kernel
+  sass_compare          the path kernels' machine code built from two
+                        source trees, function by function (no card)
 
 Each runs as ``python -m ssqueeze_rs_tpu_torch.tools.<name> [K]
 [--device cpu]``: on the CUDA device by default (no device raises), one

@@ -1,8 +1,9 @@
-"""The coarse split of kernel D's time in its earlier radix-2 design (the
-launches of ``csrc/cwt_planes.cuh``; D runs on the register-radix core
-``fft_radix.cuh``): the counterpart of the TPU probe
-``tools/cwt_kernel_probe.py`` (its `make_kernel(mode, R, off)`), as modes
-of probe P1 (`ablate_cwt_kernel.ablate_cwt`, ``csrc/ablate_cwt.cu``).
+"""The coarse split of kernel D's time (its launch pair
+``cwt_d_stage1`` / ``cwt_d_stage2`` of ``csrc/cwt_pair.cuh`` on the
+register-radix core, the intermediate Y in L2): the counterpart of the
+TPU probe ``tools/cwt_kernel_probe.py`` (its `make_kernel(mode, R, off)`),
+as modes of probe P1 (`ablate_cwt_kernel.ablate_cwt`,
+``csrc/ablate_cwt.cu``).
 
     python -m ssqueeze_rs_tpu_torch.tools.cwt_kernel_probe [K] [--device cpu]
 
@@ -10,13 +11,13 @@ At the cwt headline with the derivative (293 rows, M = 2^18, 160 000
 kept columns):
 
   dma    P1 `yonly`: the two launches' loads and stores with no compute
-  glue   P1 `nofft`: everything but the butterflies (the Z build, the
-         scatters, the twiddle, the epilogue)
-  full   P1 `full`: the radix-2 design of kernel D
+  glue   P1 `nofft`: everything but the radix passes (the Z build, the
+         twiddle tables and multiply, the Y round trip, the epilogue)
+  full   P1 `full`: kernel D
 
-glue - dma is the arithmetic around the butterflies, full - glue the
-butterflies. The TPU's `dots4` times its single-bf16 dots, which the
-port does not have (ROADMAP, North star): no counterpart.
+glue - dma is the arithmetic around the passes, full - glue the passes.
+The TPU's `dots4` times its single-bf16 dots, which the port does not
+have (ROADMAP, North star): no counterpart.
 """
 from __future__ import annotations
 

@@ -33,9 +33,9 @@ def test_library_name_follows_source_content(src_tree):
 
 @pytest.mark.parametrize("name", ["bins.cuh", "bluestein.cuh", "stft_dft.cu",
                                   "ssq_stft.cu", "istft_ola.cu",
-                                  "reassign_bwd.cu", "fft4.cuh",
+                                  "reassign_bwd.cu", "cwt_pair.cuh",
                                   "reassign.cu", "cwt_planes.cu",
-                                  "reassign_mxu.cu", "cwt_planes.cuh",
+                                  "reassign_mxu.cu",
                                   "reassign.cuh", "ablate_cwt.cu",
                                   "ablate_reassign.cu", "mma.cuh",
                                   "grid_slope.cu", "rate_probe.cu",
@@ -149,53 +149,53 @@ def test_tensor_core_helpers_are_shared():
 
 
 def test_cwt_kernels_share_the_four_step_header():
-    """Kernels A, D and E (cwt_planes.cu, one pair of launches whose first
-    takes a loader and whose second takes a store), F (stft_dft.cu), G
-    (ssq_stft.cu) and H (istft_ola.cu) run on the register-radix core
-    (fft_radix.cuh); F and G share its chirp-z frame routine
-    (bluestein.cuh), and G has no dense DFT tile and no atomics; only the
-    probes P1-P3 (ablate_cwt.cu, through cwt_planes.cuh) keep the radix-2
-    four-step header fft4.cuh. The second launches' output planes
-    (planes.cuh) are shared by cwt_planes.cu and cwt_planes.cuh. The build
-    hashes every header with the sources; B and B' (reassign.cu) run
-    reassign.cuh, and their probe P4 the row walk they ran before
-    (reassign_walk.cuh)."""
+    """Kernels A, D and E run one launch pair (cwt_pair.cuh: launch 1
+    takes a loader, launch 2 a store), included by their entry points
+    (cwt_planes.cu) and by the probes P1-P3 (ablate_cwt.cu), which
+    instantiate the same kernels with ablation flags; all of them, F
+    (stft_dft.cu), G (ssq_stft.cu) and H (istft_ola.cu) run on the
+    register-radix core (fft_radix.cuh); F and G share its chirp-z frame
+    routine (bluestein.cuh), and G has no dense DFT tile and no atomics.
+    The radix-2 four-step design (fft4.cuh, cwt_planes.cuh) is gone. The
+    second launches' output planes (planes.cuh) come through
+    cwt_pair.cuh. The build hashes every header with the sources; B and B'
+    (reassign.cu) run reassign.cuh, and their probe P4 the row walk they
+    ran before (reassign_walk.cuh)."""
     import re
     sources = [os.path.basename(p) for p in _build._sources()]
-    assert {"fft4.cuh", "fft_radix.cuh", "cwt_planes.cuh", "planes.cuh",
-            "reassign.cuh", "reassign_walk.cuh",
-            "bluestein.cuh"} <= set(sources)
-    assert not {"cwt_phase.cu", "dft_tile.cuh"} & set(sources)
-    for name, header in (("cwt_planes.cuh", "fft4.cuh"),
-                         ("cwt_planes.cuh", "planes.cuh"),
-                         ("cwt_planes.cu", "planes.cuh"),
-                         ("cwt_planes.cu", "fft_radix.cuh"),
+    assert {"cwt_pair.cuh", "fft_radix.cuh", "planes.cuh", "reassign.cuh",
+            "reassign_walk.cuh", "bluestein.cuh"} <= set(sources)
+    assert not {"cwt_phase.cu", "dft_tile.cuh", "fft4.cuh",
+                "cwt_planes.cuh"} & set(sources)
+    for name, header in (("cwt_pair.cuh", "fft_radix.cuh"),
+                         ("cwt_pair.cuh", "planes.cuh"),
+                         ("cwt_planes.cu", "cwt_pair.cuh"),
+                         ("ablate_cwt.cu", "cwt_pair.cuh"),
+                         ("ablate_cwt.cu", "tma.cuh"),
                          ("stft_dft.cu", "bluestein.cuh"),
                          ("ssq_stft.cu", "bluestein.cuh"),
                          ("ssq_stft.cu", "bins.cuh"),
                          ("bluestein.cuh", "fft_radix.cuh"),
                          ("istft_ola.cu", "fft_radix.cuh"),
-                         ("ablate_cwt.cu", "cwt_planes.cuh"),
                          ("reassign.cu", "reassign.cuh"),
                          ("ablate_reassign.cu", "reassign_walk.cuh")):
         with open(os.path.join(_build.CSRC, name)) as f:
             assert f'#include "{header}"' in f.read(), name
-    for name in ("ablate_cwt.cu", "cwt_planes.cuh"):
-        with open(os.path.join(_build.CSRC, name)) as f:
-            assert '#include "fft_radix.cuh"' not in f.read(), name
     for name in sources:
-        if name in ("fft4.cuh", "cwt_planes.cuh", "ablate_cwt.cu"):
-            continue
         with open(os.path.join(_build.CSRC, name)) as f:
-            assert '#include "fft4.cuh"' not in f.read(), name
+            text = f.read()
+        for header in ("fft4.cuh", "cwt_planes.cuh"):
+            assert f'#include "{header}"' not in text, name
+    # A and E have no stage kernel of their own: the pair's kernels are D's,
+    # and A's entry point runs them with its loader and store; the entry
+    # points' file has no kernel
+    kernel = r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\("
+    with open(os.path.join(_build.CSRC, "cwt_pair.cuh")) as f:
+        assert re.findall(kernel, f.read()) == ["cwt_d_stage1",
+                                                 "cwt_d_stage2"]
     with open(os.path.join(_build.CSRC, "cwt_planes.cu")) as f:
         text = f.read()
-    for header in ("cwt_planes.cuh", "fft4.cuh"):
-        assert f'#include "{header}"' not in text
-    # A and E have no stage kernel of their own: the file's kernels are D's
-    # pair, and A's entry point runs them with its loader and store
-    kernel = r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\("
-    assert re.findall(kernel, text) == ["cwt_d_stage1", "cwt_d_stage2"]
+    assert re.findall(kernel, text) == []
     assert 'extern "C" int ssq_cwt_phase(' in text
     assert "run_planes<2>(load, ps," in text
     for name in ("stft_dft.cu", "ssq_stft.cu", "istft_ola.cu"):
@@ -352,3 +352,30 @@ def test_build_with_a_stand_in_compiler(src_tree, monkeypatch, tmp_path):
                   if line.startswith("$ ")) == sources
     assert set(os.listdir(_build.BUILD_DIR)) == {
         os.path.basename(path), os.path.basename(_build.report_path(path))}
+
+
+def test_sass_compare_masks_only_the_namespace_hash():
+    """tools/sass_compare reads `cuobjdump -sass` output function by
+    function and masks the hash nvcc puts into anonymous-namespace names,
+    and nothing else: two builds that differ only there compare equal,
+    an instruction or an encoding that differs does not."""
+    from ssqueeze_rs_tpu_torch.tools import sass_compare as sc
+
+    def dump(hash_, instr="FFMA R4, R2, R3, R4 ;", enc="0x000fe20000000f00"):
+        return (
+            "\tcode for sm_90a\n"
+            f"\t\tFunction : _ZN46_GLOBAL__N__{hash_}_13_cwt_planes_cu_"
+            "0002529412cwt_d_stage1ILi9ELi2ENS_5DLoadEEEvT1_iP6float2xx\n"
+            "\t.headerflags\t@\"EF_CUDA_SM90\"\n"
+            f"        /*0000*/  {instr}   /* 0x00000a00ff017b82 */\n"
+            f"                                   /* {enc} */\n"
+            "\t\tFunction : _Z4plainv\n"
+            "        /*0000*/  EXIT ;   /* 0x000000000000794d */\n")
+
+    a = sc.functions(dump("7c6e1227"))
+    assert len(a) == 2 and all(len(v) == 3 for k, v in a.items()
+                               if "cwt_d_stage1" in k)
+    assert a == sc.functions(dump("0a1b2c3d"))
+    assert a != sc.functions(dump("7c6e1227", instr="FMUL R4, R2, R3 ;"))
+    assert a != sc.functions(dump("7c6e1227", enc="0x000fe20000000f01"))
+    assert "0x00000a00ff017b82" in next(v for v in a.values())[1]

@@ -749,7 +749,7 @@ def model_launch1(Z):
     columns of the half spectrum Z (..., K1, M2), k1 < M1/2 and the rest
     zero, through the core's schedule `model_fft` (sign +, only the first
     M1/2 inputs read), times the twiddle e^(2 pi i n1 k2 / M): the
-    intermediate Y (..., n1, k2) (csrc/cwt_planes.cu cwt_d_stage1)."""
+    intermediate Y (..., n1, k2) (csrc/cwt_pair.cuh cwt_d_stage1)."""
     K1, M2 = Z.shape[-2:]
     M1 = 2 * K1
     cols = np.zeros(Z.shape[:-2] + (M2, M1), complex)
@@ -766,7 +766,7 @@ def model_e_route(Zr, Zi, nr, ni, keep):
     `model_launch1`); D's launch 2 over the n1 rows of Y, `model_fft`
     wanting only the n2 in [r0, r1) that cover the keep window, and the
     store j = n1 + M1 n2 - start of (v + nyq (-1)^n1) / M
-    (csrc/cwt_planes.cu cwt_d_stage2 with PlanesStore). Returns (rows, L)
+    (csrc/cwt_pair.cuh cwt_d_stage2 with PlanesStore). Returns (rows, L)
     complex."""
     B, K1, M2 = Zr.shape
     M1 = 2 * K1

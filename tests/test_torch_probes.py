@@ -8,9 +8,13 @@ property. Inputs are seeded numpy arrays handed to both packages.
                   its smallest M = 2^14) within 1e-5 of max|Wx|, as
                   tests/test_torch_cwt.py holds D; against the port's
                   `cwt_fused_plain` within 1e-6 (two float32 FFT orders)
-  P1 variants     against a float64 numpy model of fft4.cuh's two stages
-                  with the variant's parts, within 1e-5 of the largest
-                  value (M = 2^12 and the unequal split 2^13 = 64 x 128)
+  P1 variants     against a float64 numpy model of D's two launches on the
+                  register-radix core with the variant's parts, within
+                  1e-5 of the largest value (M = 2^12 and the unequal
+                  split 2^13 = 64 x 128); noexch's passes through a numpy
+                  mirror of the core's lanes and registers, which also
+                  holds the plain version's `noexch_columns` at every P;
+                  nochunk equal to full
   P2              exact: Pw rows copied, zeros elsewhere
   P4 full, grids  against the JAX scatter (`reassign_pallas` in interpret
                   mode) on a (3, na, n) batch at the bars of
@@ -82,22 +86,68 @@ def test_full_and_staged_plain_match_jax_fused_cwt():
 
 
 # -- P1 variants against a float64 model ----------------------------------------
-def _bitrev(P):
-    bits = P.bit_length() - 1
-    return np.array([int(format(i, f"0{bits}b")[::-1], 2) for i in range(P)])
+def _lane_schedule(P):
+    """(E, TPC, [(R, Ns), ...]) of csrc/fft_radix.cuh's Shape for P
+    points: E points a lane (16 where radix-16 passes take fewer passes
+    than radix 8, else min(8, P)), TPC = P / E lanes, passes of radix E
+    then one of what is left."""
+    log = P.bit_length() - 1
+    le = 4 if -(-log // 4) < -(-log // 3) else min(3, log)
+    E = 1 << le
+    plan, ns = [], 1
+    for R in [E] * (log // le) + ([1 << (log % le)] if log % le else []):
+        plan.append((R, ns))
+        ns *= R
+    return E, P // E, plan
+
+
+def _noexch_lanes(x, sign=1):
+    """float64 mirror of the core's passes under fftr::kNoExch, lane by
+    lane: lane l holds v[q] = point l + q TPC of each column (..., P); in
+    every pass its butterfly g (b = l + g TPC) takes t[g R + r] = v[g + r
+    G] (G = E / R), multiplies input r > 0 by the table entry
+    e^{sign 2 pi i (b % Ns) r / (Ns R)} (Ns > 1), runs the radix-R DFT and
+    puts output r back at v[g + r G]; then points are read back in lane
+    order."""
+    x = np.asarray(x, np.complex128)
+    P = x.shape[-1]
+    E, tpc, plan = _lane_schedule(P)
+    regs = [[x[..., l + q * tpc] for q in range(E)] for l in range(tpc)]
+    for R, ns in plan:
+        G = E // R
+        k = np.arange(R)
+        dft = np.exp(sign * 2j * np.pi * np.outer(k, k) / R)
+        for l in range(tpc):
+            v = regs[l]
+            t = [None] * E
+            for g in range(G):
+                b = l + g * tpc
+                for r in range(R):
+                    w = (np.exp(sign * 2j * np.pi * (b % ns) * r / (ns * R))
+                         if ns > 1 else 1.0)
+                    t[g * R + r] = v[g + r * G] * w
+            for g in range(G):
+                outs = np.stack(t[g * R:(g + 1) * R], -1) @ dft
+                for r in range(R):
+                    v[g + r * G] = outs[..., r]
+    out = np.empty_like(x)
+    for l in range(tpc):
+        for q in range(E):
+            out[..., l + q * tpc] = regs[l][q]
+    return out
 
 
 def _model(args, keep, variant):
-    """float64 numpy model of the two stages of fft4.cuh. Stage 1 places
-    the half-band column k1 at bitrev(k1) (natural order without the
-    reversal), runs the length-M1 inverse DFT of the column read back in
-    bit-reversed order (or nothing), multiplies by e^{2 pi i n1 k2 / M};
-    stage 2 likewise over k2; output n = n1 + M1 n2 scaled by 1/M, plus
-    the Nyquist value times (-1)^n / M."""
+    """float64 numpy model of D's launch pair with the variant's parts.
+    Launch 1 transforms the half-band column k1 of each k2 (the inverse
+    DFT; `_noexch_lanes` without the exchanges; nothing without its
+    passes) and multiplies by e^{2 pi i n1 k2 / M}; launch 2 transforms
+    each n1 row over k2 likewise; output n = n1 + M1 n2 scaled by 1/M,
+    plus the Nyquist value times (-1)^n / M."""
     Pw, xr, xi, xig, inv_dt, (nwr, nwi), (ndr, ndi) = args
     na, K1, M2 = Pw.shape
     M1, M = 2 * K1, 2 * K1 * M2
-    fft1, fft2, twiddle, rev = acw._PARTS[variant]
+    fft1, fft2, twiddle, exch = acw._PARTS[variant]
     P = Pw.astype(np.float64)
     if variant == "overlap":
         P = np.broadcast_to(P[:, :1, :1], P.shape)
@@ -105,15 +155,16 @@ def _model(args, keep, variant):
     Z = np.concatenate([Z, 1j * Z * (xig * np.float64(inv_dt))])
     A = np.zeros((2 * na, M1, M2), complex)
     A[:, :K1] = Z
-    b1, b2 = _bitrev(M1), _bitrev(M2)
-    B = A[:, b1] if rev else A
-    if fft1:
-        B = np.fft.ifft(B[:, b1], axis=1) * M1
+
+    def columns(a, axis):
+        if exch:
+            return np.fft.ifft(a, axis=axis) * a.shape[axis]
+        return np.moveaxis(_noexch_lanes(np.moveaxis(a, axis, -1)), -1, axis)
+
+    B = columns(A, 1) if fft1 else A
     if twiddle:
         B = B * np.exp(2j * np.pi * np.outer(np.arange(M1), np.arange(M2)) / M)
-    C = B[:, :, b2] if rev else B
-    if fft2:
-        C = np.fft.ifft(C[:, :, b2], axis=2) * M2
+    C = columns(B, 2) if fft2 else B
     V = C.transpose(0, 2, 1).reshape(2 * na, M)
     start, L = keep
     L = 1 if variant == "noout" else L
@@ -136,9 +187,11 @@ def test_variant_plain_matches_its_model(variant, M):
 
 
 def test_nofft_is_the_twiddled_transposed_spectrum():
-    """nofft: Y = bit-reversed spectrum columns times the twiddles; the
-    planes read Y's rows n1 at bit-reversed n2, i.e. the (M1, M2) grid
-    transposed into n = n1 + M1 n2."""
+    """nofft: launch 1 stores Y[n1][k2] = Z[k1 = n1][k2] (zero for n1 >=
+    M1/2) times the twiddle; launch 2 hands each n1 row of Y to the
+    planes in lane order, so output n = n1 + M1 n2 is Y[n1][n2]: the
+    (M1, M2) grid transposed, in natural order (the register-radix core
+    sorts itself: no bit reversal anywhere)."""
     args, keep = _cwt_inputs(2, 1 << 12, 4096, seed=3)
     Pw, xr, xi = args[:3]
     K1, M2 = Pw.shape[1:]
@@ -146,12 +199,36 @@ def test_nofft_is_the_twiddled_transposed_spectrum():
     Wr, Wi = acw.ablate_cwt(*args, keep, "nofft")[:2]
     Z = np.zeros((2, M1, M2), complex)
     Z[:, :K1] = Pw * (xr[0] + 1j * xi[0])
-    b1, b2 = _bitrev(M1), _bitrev(M2)
     n1, n2 = np.meshgrid(np.arange(M1), np.arange(M2), indexing="ij")
-    Y = Z[:, b1[n1], b2[n2]] * np.exp(2j * np.pi * n1 * b2[n2] / M)
+    Y = Z * np.exp(2j * np.pi * n1 * n2 / M)
     W = Y.transpose(0, 2, 1).reshape(2, M) / M
     W += (args[5][0] + 1j * args[5][1])[:, None] * (-1.0) ** np.arange(M) / M
     assert _rel(Wr.numpy(), W.real) < 1e-6 and _rel(Wi.numpy(), W.imag) < 1e-6
+
+
+@pytest.mark.parametrize("P", [2, 4, 8, 16, 32, 64, 128, 512, 2048])
+def test_noexch_plain_matches_lane_mirror(P):
+    """`noexch_columns`, the plain version's model of the core without its
+    exchanges, equals the lane-by-lane mirror `_noexch_lanes` at every
+    pass schedule (one pass, radix 8 and 16 with and without a smaller
+    last pass) within 1e-5 of the largest value, in both signs; and with
+    one pass it is the DFT itself."""
+    rng = np.random.default_rng(P)
+    x = rng.standard_normal((3, P)) + 1j * rng.standard_normal((3, P))
+    for sign in (1, -1):
+        got = acw.noexch_columns(torch.as_tensor(x.astype(np.complex64)),
+                                 sign).numpy()
+        assert _rel(got, _noexch_lanes(x, sign)) < 1e-5
+    if len(_lane_schedule(P)[2]) == 1:
+        assert _rel(got, np.fft.fft(x)) < 1e-5
+
+
+def test_nochunk_equals_full():
+    """nochunk is full over one chunk of all rows: the same planes."""
+    args, keep = _cwt_inputs(3, 1 << 12, 3000, seed=6)
+    for a, b in zip(acw.ablate_cwt(*args, keep, "nochunk"),
+                    acw.ablate_cwt(*args, keep)):
+        assert torch.equal(a, b)
 
 
 def test_noout_and_overlap():
