@@ -39,7 +39,7 @@ Phases, one line each:
   4. kernel B (reassign) against its plain version on the same w plane:
      every Tx entry (so every bin) and the column sums, plus bitwise
      equality of two kernel runs and with the row walk B ran before (probe
-     P4's full at 3 planes); timed the same way beside the row walk, the
+     P4's walk at 3 planes); timed the same way beside the row walk, the
      median and spread of five such medians, with its columns a block
   5. three requests through ssq_cwt (white noise, a 100 Hz sine at
      fs = 1000, a linear chirp): each kernel launched once per request,
@@ -49,7 +49,7 @@ Phases, one line each:
   6. kernels B and B' at nf = 1025 (STFT planes at n_fft = 2048,
      N = 20 000; 8 columns x 16 lanes a block) against their plain
      versions: every entry within 1e-5 max|Tx|, bitwise repeat, bitwise
-     the row walk (P4's full at 3 and 4 planes), timed beside it
+     the row walk (P4's walk at 3 and 4 planes), timed beside it
   7. kernel F (stft_dft, the Bluestein transform on the register-radix
      core) against plain F at the STFT width, derivative off (600 rows)
      and on (1200 rows): max|dS| / max|S| < 2e-6, bitwise repeat, both
@@ -58,7 +58,7 @@ Phases, one line each:
      n_fft = 599 (a prime)
   8. kernel B' (reassign4, lin bins, nf = 300) on F's planes against plain
      B': every entry within 1e-5 max|Tx|, column sums within 1e-5,
-     bitwise repeat and bitwise the row walk (P4's full); timed beside it
+     bitwise repeat and bitwise the row walk (P4's walk); timed beside it
   9. kernel G (ssq_stft: F's chirp-z frame routine, the phase, the bins
      and an ordered squeeze in one kernel): a call without its DftSpec
      raises; Sx bitwise F's with two windows; Tx bitwise kernel B' on F's
@@ -157,10 +157,15 @@ Phases, one line each:
      nochunk and P3 (TMA-fed launch 1, its blocks an SM and registers
      read) bitwise P1 full and within 1e-5 of D's plain version per
      plane, each P1 variant's and P3's two launches timed by
-     torch.profiler, P4's full (the row walk B' ran before) at 32, 16 and 8
-     columns a block bitwise B' (reassign4 under 'vpu'), the three grid
-     modes bitwise equal on a batch of 4, every kernel bitwise repeated;
-     B' timed beside the row walk at the headline
+     torch.profiler; P2 (TMA bulk copies) equal to its plain version,
+     timed beside `copy_` at the same bytes and the same function as one
+     PyTorch call (`F.pad`, the kernels line's library time); P4 (B''s
+     scatter under ablation flags): full at 32, 16 and 8 columns a block
+     bitwise B' (reassign4 under 'vpu') and its 3-plane full bitwise B
+     (reassign), serial, noprefetch and walk bitwise full, dmaonly and
+     dmarows zero, every variant within 1e-5 of its plain version and
+     bitwise repeated, the three grid modes bitwise equal and bitwise B'
+     on a batch of 4; B' timed beside the row walk at the headline
  22. the last TPU probes' entry points (J5 mxu_rate_probe and its
      --chains, J6 mxu_probe and mxu_probe2, J7 dma_overlap_probe, J8
      grid_slope_probe), each main() run as a user would, K = 5, the launch
@@ -678,14 +683,15 @@ def main():
     # that) shows as a whole entry's difference
     relB = absB / float(Tp.abs().max())
     same = float((Tk == Tp).float().mean())
-    # the design B had before (the row walk: P4's full at 3 planes) gives
+    # the design B had before (the row walk: P4's walk at 3 planes) gives
     # the same bits
-    kW = ar.ablate_reassign3(*bargs)
+    kW = ar.ablate_reassign3(*bargs, variant="walk")
     walk_equal = all(torch.equal(a, b) for a, b in zip(kB, kW))
     del kW
     msB, *spreadB = spread_ms(torch, lambda: reassign_cuda.reassign(*bargs))
     msB_walk, *spreadW = spread_ms(torch,
-                                   lambda: ar.ablate_reassign3(*bargs))
+                                   lambda: ar.ablate_reassign3(
+                                       *bargs, variant="walk"))
     msB_plain = cuda_ms(torch, lambda: reassign_cuda.reassign_plain(*bargs))
     colsB = reassign_cuda._block_cols(nf)
     boundB = bound(tensor_bytes(bargs, kB), BIN_FLOPS * kA[0].numel())
@@ -697,12 +703,12 @@ def main():
                         bound_ms=boundB[0], bound_by=boundB[1])
     print(f"[4] kernel B: nf={nf} mode={mode} Tx rel={relB:.3e} column-sum "
           f"rel={errB:.3e} Tx equal={same:.6f} bitwise-repeat={bitwise} "
-          f"== row walk (P4 full, 3 planes) {walk_equal} | {colsB}x16 "
+          f"== row walk (P4 walk, 3 planes) {walk_equal} | {colsB}x16 "
           f"{msB:.3f} ms ({spreadB[0]:.3f}-{spreadB[1]:.3f}) vs row walk "
           f"{msB_walk:.3f} ms ({spreadW[0]:.3f}-{spreadW[1]:.3f}), plain "
           f"{msB_plain:.3f} ms, bound {boundB[0]:.3f} ms ({card})")
     check(bitwise, "kernel B differs between two runs")
-    check(walk_equal, "kernel B differs from the row walk (P4 full)")
+    check(walk_equal, "kernel B differs from the row walk (P4 walk)")
     check(errB < 1e-5, f"kernel B column-sum rel error {errB:.3e} >= 1e-5")
     check(relB <= 1e-5, f"kernel B Tx rel error {relB:.3e} > 1e-5: "
           "entries in other bins than the plain version's")
@@ -874,7 +880,7 @@ def stft_phases(np, torch, dev, card, results):
                 mode, params)
 
     # 6. kernels B and B' at nf = 1025 against their plain versions and
-    # bitwise the row walk (P4's full at 3 and 4 planes)
+    # bitwise the row walk (P4's walk at 3 and 4 planes)
     from ssqueeze_rs_tpu_torch.tools import ablate_reassign as ar
     x20 = torch.as_tensor(rng.standard_normal(N_SMALL), dtype=torch.float32,
                           device=dev)
@@ -889,9 +895,9 @@ def stft_phases(np, torch, dev, card, results):
     line = []
     for name, fn, plain, walk, args in (
             ("B", reassign_cuda.reassign, reassign_cuda.reassign_plain,
-             ar.ablate_reassign3, a3),
+             lambda *a: ar.ablate_reassign3(*a, variant="walk"), a3),
             ("B'", reassign_cuda.reassign4, reassign_cuda.reassign4_plain,
-             ar.ablate_reassign, a4)):
+             lambda *a: ar.ablate_reassign(*a, "walk"), a4)):
         k1, k2, p = fn(*args), fn(*args), plain(*args)
         kw = walk(*args)
         torch.cuda.synchronize()
@@ -909,7 +915,7 @@ def stft_phases(np, torch, dev, card, results):
                     f"{ms6:.3f} ms vs row walk {ms6_walk:.3f} ms")
         check(bitwise, f"kernel {name} at nf={nf6} differs between two runs")
         check(walk_equal, f"kernel {name} at nf={nf6} differs from the row "
-              "walk (P4 full)")
+              "walk (P4 walk)")
         check(r6 <= 1e-5, f"kernel {name} at nf={nf6}: Tx rel {r6:.3e}")
         del k1, k2, p, kw
     cols = reassign_cuda._block_cols(nf6)
@@ -993,12 +999,13 @@ def stft_phases(np, torch, dev, card, results):
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
     walk_equal = all(torch.equal(a, b) for a, b in
-                     zip(k1, ar.ablate_reassign(*a4)))
+                     zip(k1, ar.ablate_reassign(*a4, "walk")))
     Tb = torch.complex(*k1)
     rel4, _, col4, abs4 = entry_metrics(torch, Tb, torch.complex(*p4))
     ms4, *spread4 = spread_ms(torch,
                               lambda: reassign_cuda.reassign4(*a4))
-    ms4_walk, *spread4w = spread_ms(torch, lambda: ar.ablate_reassign(*a4))
+    ms4_walk, *spread4w = spread_ms(torch,
+                                    lambda: ar.ablate_reassign(*a4, "walk"))
     ms4_plain = cuda_ms(torch, lambda: reassign_cuda.reassign4_plain(*a4))
     bound4 = bound(tensor_bytes(a4, k1), BIN4_FLOPS * sr.numel())
     cols4 = reassign_cuda._block_cols(nf)
@@ -1014,7 +1021,7 @@ def stft_phases(np, torch, dev, card, results):
           f"({spread4w[0]:.3f}-{spread4w[1]:.3f}), plain {ms4_plain:.3f} ms "
           f"({card})")
     check(bitwise, "kernel B' differs between two runs")
-    check(walk_equal, "kernel B' differs from the row walk (P4 full)")
+    check(walk_equal, "kernel B' differs from the row walk (P4 walk)")
     check(rel4 <= 1e-5 and col4 < 1e-5,
           f"kernel B' Tx rel {rel4:.3e}, column sums {col4:.3e}")
     del p4, k2
@@ -2548,42 +2555,65 @@ def probe_phases(np, torch, dev, card, results):
                       iters=reps)
     del spec
 
-    # P2: exact against the plain copy, repeated
+    # P2: exact against the plain copy, repeated; the same function as
+    # one PyTorch call (F.pad of Pw, 4-fold expanded for dmaonly) exact too
     L = keep[1]
     for v in acw.COPY_VARIANTS:
         k1, k2 = acw.copy_floor(Pw, L, v), acw.copy_floor(Pw, L, v)
-        exact = equal(k1, acw.copy_floor_plain(Pw, L, v))
+        want = acw.copy_floor_plain(Pw, L, v)
+        exact = equal(k1, want)
         P[v] = dict(exact=exact, repeat=equal(k1, k2), ms=rows_cwt[v]["ms"],
                     bound_ms=rows_cwt[v]["bound_ms"])
         check(exact and P[v]["repeat"], f"P2 {v}: exact {exact}, repeat "
               f"{P[v]['repeat']}")
-        del k1, k2
+        if f"F.pad ({v})" in rows_cwt:
+            P[v]["library_exact"] = equal(acw.copy_floor_library(Pw, L, v),
+                                          want)
+            P[v]["library_ms"] = rows_cwt[f"F.pad ({v})"]["ms"]
+            check(P[v]["library_exact"], f"P2 {v}: F.pad differs from "
+                  "the plain version")
+        del k1, k2, want
     copy_plain_ms = cuda_ms(torch, lambda: acw.copy_floor_plain(Pw, L),
                             warmup=1, iters=reps)
     del args, Pw, xr, xi, xig
     lap("21 P1-P3 against their plain twins")
 
-    # P4: full bitwise B' at each column count, every variant against its
-    # plain twin, repeated; the grid modes on a batch of 4
+    # P4 (B''s scatter under ablation flags): full bitwise B' and the
+    # 3-plane full bitwise B at each column count; serial, noprefetch and
+    # walk bitwise full; every variant against its plain twin, repeated;
+    # the grid modes on a batch of 4
     R = {}
     na, nf, n = (ar.HEADLINE[k] for k in ("na", "nf", "n"))
     planes = ar.make_planes(dev, None, na, n)
     rest = (ar.GAMMA, ar.PARAMS, ar.MODE, True, nf, "cwt")
+    w3 = reassign_cuda.phase_w(*planes[:4], planes[5], ar.GAMMA, "cwt")
+    a3 = (planes[0], planes[1], w3, planes[4], ar.PARAMS, ar.MODE, True, nf)
     with scatter_impl("vpu"):
         b4 = reassign_cuda.reassign4(*planes, *rest)
         # B' beside the row walk at the headline, both timed here
         R["B'"] = dict(
             ms=cuda_ms(torch, lambda: reassign_cuda.reassign4(*planes, *rest)),
-            walk_ms=cuda_ms(torch, lambda: ar.ablate_reassign(*planes, *rest)),
+            walk_ms=cuda_ms(torch, lambda: ar.ablate_reassign(
+                *planes, *rest, "walk")),
             cols=reassign_cuda._block_cols(nf))
+    b3 = reassign_cuda.reassign(*a3)
+    R["B"] = dict(ms=cuda_ms(torch, lambda: reassign_cuda.reassign(*a3)),
+                  walk_equal=equal(ar.ablate_reassign3(*a3, variant="walk"),
+                                   b3))
+    check(R["B"]["walk_equal"], "P4 walk at 3 planes is not B bit for bit")
     for c in (32, 16, 8):
         k1 = ar.ablate_reassign(*planes, *rest, "full", c)
+        k3 = ar.ablate_reassign3(*a3, cols=c)
         R[f"full/{c}"] = dict(bitwise_b4=equal(k1, b4),
+                              bitwise_b3=equal(k3, b3),
                               ms=rows_re[f"full/{c}"]["ms"],
                               bound_ms=rows_re[f"full/{c}"]["bound_ms"])
         check(R[f"full/{c}"]["bitwise_b4"],
               f"P4 full at {c} columns a block is not B' bit for bit")
-        del k1
+        check(R[f"full/{c}"]["bitwise_b3"],
+              f"P4 3-plane full at {c} columns a block is not B bit for bit")
+        del k1, k3
+    del w3, a3, b3
     for v in ar.VARIANTS:
         k1, k2 = (ar.ablate_reassign(*planes, *rest, v) for _ in range(2))
         p = ar.ablate_reassign_plain(*planes, *rest, v)
@@ -2593,8 +2623,12 @@ def probe_phases(np, torch, dev, card, results):
                                    ms=rows_re.get(v, rows_re["full/32"])["ms"])
         check(R[v]["repeat"], f"P4 {v} differs between two runs")
         check(err <= 1e-5, f"P4 {v}: rel error {err:.3e} > 1e-5")
+        if v in ("serial", "noprefetch", "walk"):
+            R[v]["bitwise_full"] = equal(k1, b4)
+            check(R[v]["bitwise_full"], f"P4 {v} is not full bit for bit")
         del k1, k2, p
-    check(R["dmaonly"]["exact"], "P4 dmaonly: Tx planes not zero")
+    check(R["dmaonly"]["exact"] and R["dmarows"]["exact"],
+          "P4 dmaonly / dmarows: Tx planes not zero")
     reassign_plain_ms = cuda_ms(torch, lambda: ar.ablate_reassign_plain(
         *planes, *rest), warmup=1, iters=reps)
     del planes, b4
@@ -2621,7 +2655,9 @@ def probe_phases(np, torch, dev, card, results):
                                            copy=copy_plain_ms,
                                            reassign=reassign_plain_ms),
                              ifft_ms=ifft_ms, D_ms=D_ms,
-                             copy_ms=rows_cwt["copy_"]["ms"])
+                             copy_ms=rows_cwt["copy_"]["ms"],
+                             pad_ms={v: P[v]["library_ms"]
+                                     for v in ("dmaonly", "dma1")})
 
     def by_launch(v):
         t = P[v]["launch_ms"]
@@ -2636,7 +2672,9 @@ def probe_phases(np, torch, dev, card, results):
           f"; D (cwt_fused) {D_ms:.4f}, torch.fft.ifft {ifft_ms:.4f}; P2 " +
           ", ".join(f"{v} {P[v]['ms']:.3f}/{P[v]['bound_ms']:.3f}"
                     for v in acw.COPY_VARIANTS) +
-          f" (copy_ {rows_cwt['copy_']['ms']:.3f}); P3 staged "
+          f" (library: F.pad (dmaonly) {P['dmaonly']['library_ms']:.3f}, "
+          f"F.pad (dma1) {P['dma1']['library_ms']:.3f}; copy_ "
+          f"{rows_cwt['copy_']['ms']:.3f} at dmaonly's bytes); P3 staged "
           f"{P['staged']['ms']:.4f}{by_launch('staged')} ({plan['blocks_per_sm']}"
           f" block(s) an SM of {plan['threads']} threads, "
           f"{plan['registers']} registers a thread, {plan['smem_bytes']} "
@@ -2648,7 +2686,9 @@ def probe_phases(np, torch, dev, card, results):
           f"{P['staged']['rel_D_plain']:.2e}; P4 " + ", ".join(
             f"{k} {rows_re[k]['ms']:.3f}/{rows_re[k]['bound_ms']:.3f}"
             for k in rows_re) + f", worst rel "
-        f"{max(R[v]['rel'] for v in ar.VARIANTS):.2e}, full bitwise B'; "
+        f"{max(R[v]['rel'] for v in ar.VARIANTS):.2e}, full bitwise B' "
+        "and 3-plane full bitwise B at 32/16/8 columns, serial, noprefetch "
+        f"and walk bitwise full; B {R['B']['ms']:.3f} ms; "
         "batches (ms a transform): " + ", ".join(
             f"{k} {r['per_transform_ms']:.3f}"
             for k, r in R["batch"].items()) +
@@ -2669,7 +2709,7 @@ def probe_phases(np, torch, dev, card, results):
                      "ablate_cwt_kernel.py:404", launches["cwt_copy_floor"],
                      0.0, cp["ms"], copy_plain_ms,
                      (cp["bound_ms"], cp["bound_by"]),
-                     rows_cwt["copy_"]["ms"], root=tools),
+                     P["dmaonly"]["library_ms"], root=tools),
         kernel_entry("cwt_staged", "ablate_cwt.cu",
                      "ablate_cwt_kernel.py:311", launches["cwt_staged"],
                      P["full"]["abs"], st["ms"], plain_full_ms,

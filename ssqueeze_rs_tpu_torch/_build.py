@@ -73,7 +73,7 @@ _SIGNATURES = {
     "ssq_ablate_reassign": [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _I, _F] +
                            _PLAN + [_I, _I, _I, _P, _P, _P],
     "ssq_ablate_reassign3": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
-                            [_I, _P, _P, _P],
+                            [_I, _I, _P, _P, _P],
     "ssq_grid_slope": [_P, _P, _LL, _I, _I, _P],
     # A, B, the operand scratch, out; m, k, n, R, grid, precision, chains
     "ssq_rate_dot": [_P] * 4 + [_I] * 7 + [_P],

@@ -35,7 +35,14 @@
 //   any one-pass design at these bytes: every Pw row read once and written
 //   to the first K columns of 4 (dmaonly) or 1 (dma1) planes of (rows, L),
 //   the rest zero; dmanoin writes zero planes and reads nothing; dmarb8
-//   gives each block 8 rows instead of 1.
+//   takes 8 rows a work item instead of 1. A persistent kernel, one block
+//   an SM, whose one issuing thread moves every byte by TMA bulk copies:
+//   a work item is RB rows of one kCopyTile-float column chunk; each row's
+//   part of Pw goes by cp.async.bulk into a ring of kCopySlots slots (on
+//   an mbarrier each) and from there by bulk stores to the planes, the
+//   zero part by bulk stores from a zeroed tile. A slot is loaded again
+//   only after the stores from it have read it (wait_group.read), so
+//   kCopySlots - 1 loads stay in flight behind the stores.
 // P3 (ssq_cwt_staged; _make_manual_kernel :195, :311): D's launch 1 as a
 //   persistent kernel fed by TMA. One producer warp keeps a ring of
 //   kStages slots in flight on mbarriers; a slot holds one work item's
@@ -151,44 +158,118 @@ int ablate_run(int variant, const DLoad& d, const PlanesStore& pl,
 }
 
 // -- P2 -------------------------------------------------------------------
-constexpr int kCopyVec = 4;     // float4 per thread per row
+constexpr int kCopyTile = 8192;     // floats a column chunk and slot: 32 KB
+constexpr int kCopySlots = 6;       // slots of the ring
+constexpr int kCopyThreads = 128;   // all zero the zero tile; one issues
+// the ring, the zero tile, the slots' mbarriers
+constexpr size_t kCopySmem =
+    (size_t)(kCopySlots + 1) * kCopyTile * sizeof(float) +
+    kCopySlots * sizeof(uint64_t);
+
+// One row's part of a work item: the floats of Pw it copies (nload, from
+// column c0) and the zeros after them (nzero); both 0 past the last row.
+struct CopyUnit {
+  long long row, c0;
+  int nload, nzero;
+};
+
+template <int RB, bool kRead>
+__device__ __forceinline__ CopyUnit copy_unit(int q, long long K, int rows,
+                                              long long L, long long groups) {
+  // work items chunk-major: consecutive items (blocks) take the same
+  // column chunk of consecutive row groups
+  const long long it = blockIdx.x + (long long)(q / RB) * gridDim.x;
+  const long long row = it % groups * RB + q % RB;
+  const long long c0 = it / groups * kCopyTile;
+  CopyUnit u{row, c0, 0, 0};
+  if (row < rows) {
+    const long long w = L - c0 < kCopyTile ? L - c0 : kCopyTile;
+    const long long in = kRead ? (K < c0 + w ? K - c0 : w) : 0;
+    u.nload = in > 0 ? (int)in : 0;
+    u.nzero = (int)w - u.nload;
+  }
+  return u;
+}
 
 template <int NP, int RB, bool kRead>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCopyThreads, 1)
 copy_floor(const float* __restrict__ Pw, long long K, int rows, long long L,
-           Planes pl) {
-  const long long L4 = L / 4, K4 = K / 4;
-  const long long j0 = (long long)blockIdx.x * (kThreads * kCopyVec) +
-                       threadIdx.x;
-  for (int r = 0; r < RB; ++r) {
-    const long long row = (long long)blockIdx.y * RB + r;
-    if (row >= rows) return;
-    const float4* src = reinterpret_cast<const float4*>(Pw + row * K);
-    float4 v[kCopyVec];
-#pragma unroll
-    for (int u = 0; u < kCopyVec; ++u) {
-      const long long j = j0 + u * kThreads;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kRead && j < K4 && j < L4) v[u] = src[j];
+           Planes pl, long long chunks) {
+  const long long groups = (rows + RB - 1) / RB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [kCopySlots][tile]
+  float* zero = ring + (size_t)kCopySlots * kCopyTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(zero + kCopyTile);
+  float4* z4 = reinterpret_cast<float4*>(zero);
+  for (int e = threadIdx.x; e < kCopyTile / 4; e += kCopyThreads)
+    z4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kCopySlots; ++s) ssq::mbar_init(&full[s], 1);
+    ssq::mbar_init_fence();
+  }
+  ssq::fence_proxy_async();    // the zeros before the bulk stores read them
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  const long long items = groups * chunks;
+  const int units =
+      (int)((items - blockIdx.x + gridDim.x - 1) / gridDim.x) * RB;
+  auto issue = [&](int q) {
+    const CopyUnit u = copy_unit<RB, kRead>(q, K, rows, L, groups);
+    uint64_t* bar = &full[q % kCopySlots];
+    if (u.nload) {
+      ssq::tma_expect(bar, (uint32_t)u.nload * 4);
+      ssq::bulk_load(ring + (size_t)(q % kCopySlots) * kCopyTile,
+                     Pw + u.row * K + u.c0, (uint32_t)u.nload * 4, bar);
+    } else {
+      ssq::mbar_arrive(bar);
     }
+  };
+  for (int q = 0; q < units && q < kCopySlots; ++q) issue(q);
+  for (int q = 0; q < units; ++q) {
+    const int s = q % kCopySlots;
+    const CopyUnit u = copy_unit<RB, kRead>(q, K, rows, L, groups);
+    ssq::mbar_wait(&full[s], (uint32_t)(q / kCopySlots) & 1u);
+    ssq::fence_proxy_async();
 #pragma unroll
-    for (int u = 0; u < kCopyVec; ++u) {
-      const long long j = j0 + u * kThreads;
-      if (j >= L4) break;
-#pragma unroll
-      for (int p = 0; p < NP; ++p)
-        reinterpret_cast<float4*>(pl.o[p] + row * L)[j] = v[u];
+    for (int p = 0; p < NP; ++p) {
+      float* dst = pl.o[p] + u.row * L + u.c0;
+      if (u.nload)
+        ssq::bulk_store(dst, ring + (size_t)s * kCopyTile,
+                        (uint32_t)u.nload * 4);
+      if (u.nzero)
+        ssq::bulk_store(dst + u.nload, zero, (uint32_t)u.nzero * 4);
+    }
+    ssq::bulk_commit();
+    // the slot of unit q - 1 is read once its group (all but the newest)
+    // is done reading: it takes the unit kCopySlots past it
+    const int next = q - 1 + kCopySlots;
+    if (q >= 1 && next < units) {
+      ssq::bulk_wait_read<1>();
+      issue(next);
     }
   }
+  ssq::bulk_wait<0>();
 }
 
 template <int NP, int RB, bool kRead>
 int copy_run(const float* Pw, long long K, int rows, long long L, Planes pl,
              cudaStream_t st) {
-  const long long cols = kThreads * kCopyVec * 4;
-  const dim3 grid((unsigned)((L + cols - 1) / cols),
-                  (unsigned)((rows + RB - 1) / RB));
-  copy_floor<NP, RB, kRead><<<grid, kThreads, 0, st>>>(Pw, K, rows, L, pl);
+  const long long chunks = (L + kCopyTile - 1) / kCopyTile;
+  const long long items = (rows + RB - 1) / RB * chunks;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(copy_floor<NP, RB, kRead>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kCopySmem);
+  if (err != cudaSuccess) return (int)err;
+  if (items < 1) return 0;
+  const unsigned grid = (unsigned)(items < sms ? items : sms);
+  copy_floor<NP, RB, kRead><<<grid, kCopyThreads, kCopySmem, st>>>(
+      Pw, K, rows, L, pl, chunks);
   return (int)cudaGetLastError();
 }
 
@@ -441,9 +522,10 @@ extern "C" int ssq_ablate_cwt(const float* Pw, const float* xr,
                        (float2*)Y, ychunk, (cudaStream_t)stream);
 }
 
-// P2. Pw: (rows, K); planes (rows, L); K and L multiples of 4. (nplanes,
-// rb, read): dmaonly (4, 1, 1), dma1 (1, 1, 1), dmanoin (4, 1, 0), dmarb8
-// (4, 8, 1); planes past nplanes are not written (may be null).
+// P2. Pw: (rows, K); planes (rows, L); K and L multiples of 4 (16-byte
+// rows for the bulk copies). (nplanes, rb, read): dmaonly (4, 1, 1), dma1
+// (1, 1, 1), dmanoin (4, 1, 0), dmarb8 (4, 8, 1); planes past nplanes are
+// not written (may be null).
 extern "C" int ssq_cwt_copy_floor(const float* Pw, long long K, int rows,
                                   long long L, int nplanes, int rb, int read,
                                   float* o0, float* o1, float* o2, float* o3,

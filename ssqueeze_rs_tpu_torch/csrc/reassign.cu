@@ -20,7 +20,10 @@
 // __match_any_sync and add in rounds by row, one __syncwarp apart, so
 // every (bin, column) sum takes its adds in row order from zero: no
 // atomics, the same bits from run to run, and the same bits as the row
-// walk these kernels ran before (reassign_walk.cuh, probe P4's subject).
+// walk these kernels ran before (reassign_walk.cuh, probe P4's `walk`).
+// Probe P4 (ablate_reassign.cu) instantiates the same scatter
+// (reassign.cuh reassign_block) under ablation flags; the kernels here
+// run it with none.
 // The block then stores its columns with all its threads. COLS comes from
 // the launch's rows (reassign_cuda._block_cols): 32 where the accumulator
 // fits 227 KB (908 rows or fewer), else 8, so one launch takes up to 3632

@@ -1,5 +1,6 @@
 // The Tensor Memory Accelerator (TMA), shared by the double kernels B and
-// B' (reassign64.cu) and probe J5's products (rate_probe.cu), for sm_90a.
+// B' (reassign64.cu), probe J5's products (rate_probe.cu) and probes P2
+// and P3 (ablate_cwt.cu), for sm_90a.
 //
 // A TMA load copies one box of a tensor map from device memory into
 // shared memory, issued by one thread, and completes on an mbarrier by
@@ -61,6 +62,49 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* tm,
       " [%0, {%1, %2, %3}], [%4];" ::"l"(reinterpret_cast<uint64_t>(tm)),
       "r"(x), "r"(y), "r"(z), "r"(smem_u32(src))
       : "memory");
+}
+
+// 1-D bulk copies (cp.async.bulk: no tensor map). `bytes` is a multiple of
+// 16 and both addresses are 16-byte aligned.
+//
+// `bytes` from device memory at src into shared memory at dst, completing
+// on bar (armed by tma_expect).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` from shared memory at src to device memory at dst, in this
+// thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// Closes this thread's bulk group of the stores issued since the last one.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's newest bulk groups still read
+// their shared memory (their slots may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's newest bulk groups are pending.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // cuTensorMapEncodeTiled's signature, looked up through the runtime (no

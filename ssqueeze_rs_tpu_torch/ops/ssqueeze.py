@@ -87,9 +87,11 @@ def reassign(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
     """Scatter Wx[i,j] * const[i] into Tx[k(i,j), j], with the JAX
     package's arguments.
 
-    Wx: complex (..., na, n) tensor or array (`as_signal`'s device rule;
-    the other arrays follow it to its device). Returns complex Tx (...,
-    nf, n), complex128 for a complex128 Wx, else complex64. `params`: the
+    Wx: complex or real (..., na, n) tensor or array (`as_signal`'s
+    device rule; the other arrays follow it to its device). Returns Tx
+    (..., nf, n) in Wx's type, as the JAX package's scatter does: complex
+    (complex128 for a complex128 Wx, else complex64) for a complex Wx,
+    real (float64 or float32) for a real one. `params`: the
     bin constants of `mode` (numbers, or 0-d arrays or tensors). Fused:
     w_or_dWx is dWx, and kernel B' (or I under SSQ_TPU_REASSIGN_IMPL=mxu)
     forms the phase of `transform` and skips entries with |Wx|^2 <=
@@ -118,7 +120,7 @@ def reassign(Wx, w_or_dWx, const_arr, gamma, Sfs, params, *, mode, flipud,
     else:
         txr, txi = reassign_planes(wr, wi, real(w_or_dWx), const, prm, mode,
                                    flipud, nf)
-    return torch.complex(txr, txi)
+    return torch.complex(txr, txi) if Wx.is_complex() else txr
 
 
 # -- associated frequencies (host planning) -------------------------------------
@@ -293,7 +295,10 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
              gamma=None, was_padded=True, flipud=False, dWx=None,
              transform="cwt", wx_planes=None, w_plane=None, device=None):
     """Synchrosqueeze a CWT or STFT. Returns (Tx (..., nf, n), ssq_freqs):
-    Tx complex128 for a complex128 (or float64) Wx, else complex64.
+    Tx in the squeezed Wx's type, as the JAX package's scatter gives it:
+    complex128 for a complex128 Wx, else complex64, and float64 or
+    float32 where the squeezing (a real-valued callable) or the caller
+    makes Wx real.
 
     Wx: complex (..., na, n) tensor or array; the scatter runs on its
     device (`utils.common.as_signal`: array input goes to the CUDA device
@@ -356,4 +361,5 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     # `scales` go high -> low: the CWT frequency grid is reported reversed
     if (transform == "cwt" and not flipud) or flipud:
         ssq_freqs = ssq_freqs[::-1]
-    return torch.complex(txr, txi), ssq_freqs
+    Tx = torch.complex(txr, txi) if Wx.is_complex() else txr
+    return Tx, ssq_freqs

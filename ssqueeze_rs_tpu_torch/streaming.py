@@ -60,8 +60,11 @@ __all__ = ["StreamingSTFT", "StreamingSSQSTFT", "StreamingCWT",
 
 
 def _planes(z):
-    """(real, imag) of a complex tensor; a plane tuple as it is."""
-    return z if isinstance(z, tuple) else (z.real, z.imag)
+    """(real, imag) of a complex tensor, (z, zeros) of a real one; a plane
+    tuple as it is."""
+    if isinstance(z, tuple):
+        return z
+    return (z.real, z.imag) if z.is_complex() else (z, torch.zeros_like(z))
 
 
 class _SqueezeMixin:
@@ -87,7 +90,8 @@ class _SqueezeMixin:
                                     device=self.device)
 
     def _squeezed(self, W):
-        """(planes of the squeezed W, W as complex)."""
+        """(the squeezed W: its planes, or itself where a real-valued
+        callable made it real; W as complex)."""
         Wc = torch.complex(*W) if isinstance(W, tuple) else W
         if isinstance(self.squeezing, FunctionType):
             Wq = self.squeezing(Wc)
@@ -97,15 +101,17 @@ class _SqueezeMixin:
             Wq = Wc.abs().to(Wc.dtype)
         else:
             return _planes(W), Wc
-        return _planes(Wq), Wc
+        return (_planes(Wq) if Wq.is_complex() else Wq), Wc
 
     def _reassign_cols(self, Wq, dW):
-        """Tx of the block's columns from the planes of the squeezed W and
-        of dW (B' or I on the card, their plain versions on the CPU)."""
+        """Tx of the block's columns from the squeezed W (planes, or a
+        real tensor) and dW (B' or I on the card, their plain versions on
+        the CPU): complex, or real for a real W as the JAX package's
+        scatter gives it."""
         txr, txi = reassign_cuda.reassign4(
-            *Wq, *_planes(dW), self._const, self._Sfs, self._gamma,
+            *_planes(Wq), *_planes(dW), self._const, self._Sfs, self._gamma,
             self._params, self._mode, self.flipud, self.nf, self._transform)
-        return torch.complex(txr, txi)
+        return txr if isinstance(Wq, torch.Tensor) else torch.complex(txr, txi)
 
 
 class _StreamerBase:

@@ -2,12 +2,13 @@
 this card what the Pallas probes asked the TPU.
 
   ablate_cwt_kernel     probes P1-P3 (``csrc/ablate_cwt.cu``): kernel D's
-                        launch pair with parts taken out, its copy floor,
-                        and its first launch fed by TMA
+                        launch pair with parts taken out, its copy floor
+                        (TMA bulk copies), and its first launch fed by TMA
   cwt_kernel_probe      the coarse split of D (dma / glue / full) as
                         modes of P1
-  ablate_reassign       probe P4 (``csrc/ablate_reassign.cu``): kernel B'
-                        with parts taken out
+  ablate_reassign       probe P4 (``csrc/ablate_reassign.cu``): kernels B
+                        and B' (their own scatter) under ablation flags,
+                        and the row walk they ran before
   bench_reassign_batch  B' over a batch: batch grid, 1-D grid, or one
                         flat call (P4's grid modes)
   mxu_rate_probe        J5 (``csrc/rate_probe.cu``): the tensor-core rate

@@ -33,8 +33,13 @@ variant) is the cost of what it removed:
   P2 `copy_floor` (the TPU `run_dma`): every Pw row read once into the
   first K columns of 4 (`dmaonly`) or 1 (`dma1`) planes of (rows, L), the
   rest zero; `dmanoin` writes zero planes and reads nothing; `dmarb8`
-  gives each block 8 rows. Beside it `copy_`, one `torch.Tensor.copy_`
-  moving the same bytes (half read, half written).
+  takes 8 rows a work item. A persistent kernel moves every byte by TMA
+  bulk copies (Pw rows into a shared-memory ring, bulk stores to the
+  planes, the zero tails from a zeroed tile). Beside it `copy_`, one
+  `torch.Tensor.copy_` moving the same bytes (half read, half written),
+  and `copy_floor_library`, one PyTorch call of the same function:
+  `F.pad` of Pw viewed (rows, K) to width L (`dma1`), of its 4-fold
+  `expand` (`dmaonly`).
   P3 `cwt_staged` (the TPU `_make_manual_kernel`): D's launch 1 as a
   persistent kernel fed by TMA (a producer warp, a ring of two slots of
   8-column boxes of Pw, xr, xi and xig, two consumer groups running D's
@@ -65,7 +70,8 @@ from ..ops import fft_cuda
 from . import _common
 
 __all__ = ["VARIANTS", "COPY_VARIANTS", "ablate_cwt", "ablate_cwt_plain",
-           "copy_floor", "copy_floor_plain", "cwt_staged", "cwt_staged_plain",
+           "copy_floor", "copy_floor_plain", "copy_floor_library",
+           "cwt_staged", "cwt_staged_plain",
            "staged_plan", "noexch_columns", "make_inputs", "run", "main",
            "LAUNCHES", "LAUNCHES_COPY", "LAUNCHES_STAGED"]
 
@@ -232,6 +238,22 @@ def copy_floor_plain(Pw, L, variant="dmaonly"):
         w = min(K, L)
         out[:, :w] = Pw.reshape(rows, K)[:, :w]
     return tuple(out.clone() for _ in range(nplanes))
+
+
+def copy_floor_library(Pw, L, variant="dmaonly"):
+    """P2's function as one PyTorch call (the library yardstick, used
+    nowhere in the port): `torch.nn.functional.pad` of Pw viewed (rows,
+    K), 4-fold expanded but for 'dma1', to width L ('dmanoin': one
+    `torch.zeros` of the planes). Returns the planes as
+    `copy_floor_plain` does, views of one (nplanes, rows, L) tensor."""
+    nplanes, _, read = _copy_variant(variant)
+    Pw = _copy_input(Pw)
+    rows, K = Pw.shape[0], Pw[0].numel()
+    if not read:
+        return tuple(torch.zeros((nplanes, rows, L), dtype=torch.float32,
+                                 device=Pw.device))
+    src = Pw.reshape(1, rows, K).expand(nplanes, rows, K)
+    return tuple(torch.nn.functional.pad(src[..., :L], (0, max(L - K, 0))))
 
 
 # -- the kernels ----------------------------------------------------------------
@@ -403,9 +425,10 @@ def copy_cost(variant, rows, K, L):
 
 
 def run(device, reps=5, size=None, seed=0):
-    """Time every P1 variant, P2 variant, `copy_` and P3 on `device`
-    (the headline on CUDA, `SMALL` on the CPU unless `size` is given):
-    a list of rows (name, ms, bytes, flops, bound_ms, bound_by)."""
+    """Time every P1 variant, P2 variant, `copy_`, the library's P2
+    (`F.pad`, for dmaonly and dma1) and P3 on `device` (the headline on
+    CUDA, `SMALL` on the CPU unless `size` is given): a list of rows
+    (name, ms, bytes, flops, bound_ms, bound_by)."""
     size = size or (HEADLINE if device.type == "cuda" else SMALL)
     args, keep = make_inputs(device, size["na"], size["M"], size["L"], seed)
     rows = []
@@ -423,6 +446,11 @@ def run(device, reps=5, size=None, seed=0):
     ms = _common.time_ms(lambda: dst.copy_(src), device, reps)
     rows.append(_common.row("copy_", ms, nbytes, 0.0))
     del src, dst
+    for v in ("dmaonly", "dma1"):
+        ms = _common.time_ms(lambda: copy_floor_library(Pw, L, v), device,
+                             reps)
+        rows.append(_common.row(f"F.pad ({v})", ms,
+                                *copy_cost(v, na, K, L)))
     ms = _common.time_ms(lambda: cwt_staged(*args, keep), device, reps)
     rows.append(_common.row("staged", ms, *variant_cost("full", args, keep)))
     return rows

@@ -4,7 +4,8 @@ probe P4 (`ablate_reassign.ablate_reassign`, ``csrc/ablate_reassign.cu``).
 
     python -m ssqueeze_rs_tpu_torch.tools.bench_reassign_batch [K] [--device cpu]
 
-Kernel B' over a (B, na, n) batch at na = nf = 293, n = 160 000 and
+Kernel B''s scatter (P4's `full`, B' bit for bit) over a (B, na, n)
+batch at na = nf = 293, n = 160 000 and
 B = 4 and 8, random planes from a seed, the TPU probe's log plan
 (vlmin = -9, dvl = 0.035), gamma 1e-8, transform 'cwt', flipud:
 

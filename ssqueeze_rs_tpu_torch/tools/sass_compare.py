@@ -3,7 +3,7 @@ source trees: the check that a change to a shared header leaves the
 kernels the package runs as they were.
 
     python -m ssqueeze_rs_tpu_torch.tools.sass_compare OLD_CSRC [NEW_CSRC]
-        [--sources cwt_planes.cu,stft_dft.cu,ssq_stft.cu,istft_ola.cu]
+        [--sources cwt_planes.cu,stft_dft.cu,ssq_stft.cu,istft_ola.cu,reassign.cu]
 
 Each source is compiled in both trees with the library's own flags
 (`_build.NVCC_FLAGS`) to a cubin (all compiles at once), and every
@@ -12,7 +12,9 @@ are the same where their instructions and encodings are equal line for
 line once the hash that nvcc puts into the names of anonymous-namespace
 symbols is masked. NEW_CSRC defaults to this package's `csrc/`. The
 default sources hold kernels D, E and A (cwt_planes.cu, on cwt_pair.cuh),
-F (stft_dft.cu), G (ssq_stft.cu) and H (istft_ola.cu). Prints a line a
+F (stft_dft.cu), G (ssq_stft.cu), H (istft_ola.cu) and B and B'
+(reassign.cu, on reassign.cuh, whose scatter probe P4 instantiates with
+ablation flags). Prints a line a
 source and one JSON line; exits 1 where a function differs or is in one
 tree alone. Needs nvcc and cuobjdump (the CUDA toolkit), no card.
 """
@@ -29,7 +31,8 @@ import tempfile
 
 from .. import _build
 
-SOURCES = ("cwt_planes.cu", "stft_dft.cu", "ssq_stft.cu", "istft_ola.cu")
+SOURCES = ("cwt_planes.cu", "stft_dft.cu", "ssq_stft.cu", "istft_ola.cu",
+           "reassign.cu")
 # the hash nvcc puts into the names of anonymous-namespace symbols, inside
 # an identifier
 _HASH = re.compile(r"(?<=_)[0-9a-f]{8,}(?=_)")

@@ -4,6 +4,7 @@ library name follows the content of every source the build compiles
 signature, and a missing compiler raises a clear error and leaves nothing
 behind. (The build itself runs only where nvcc and a GPU are, through
 chip_smoke.py.)"""
+import ctypes
 import os
 import shutil
 
@@ -222,10 +223,11 @@ def test_cwt_kernels_share_the_four_step_header():
 
 def test_reassign_sources():
     """Kernels B and B' (reassign.cu) run the lanes kernel of reassign.cuh;
-    probe P4 (ablate_reassign.cu) runs the row walk of reassign_walk.cuh;
-    both headers bin through bins.cuh; no reassignment source uses
-    atomics; the columns a block the entry points dispatch are the
-    planner's, and the ctypes rows carry the one launch-shape int."""
+    probe P4 (ablate_reassign.cu) runs that scatter under its ablation
+    flags and the row walk of reassign_walk.cuh; both headers bin through
+    bins.cuh; no reassignment source uses atomics; the columns a block the
+    entry points dispatch are the planner's, and the ctypes rows carry the
+    one launch-shape int."""
     import re
     from ssqueeze_rs_tpu_torch.ops import reassign_cuda
     text = {}
@@ -238,7 +240,7 @@ def test_reassign_sources():
     inc = {n: set(re.findall(r'#include "([\w.]+)"', t))
            for n, t in text.items()}
     assert inc["reassign.cu"] == {"reassign.cuh"}
-    assert inc["ablate_reassign.cu"] == {"reassign_walk.cuh"}
+    assert inc["ablate_reassign.cu"] == {"reassign.cuh", "reassign_walk.cuh"}
     assert "bins.cuh" in inc["reassign.cuh"] & inc["reassign_walk.cuh"]
     assert "__match_any_sync" in text["reassign.cuh"]
     assert "constexpr int kLanes = 16;" in text["reassign.cuh"]
@@ -248,12 +250,13 @@ def test_reassign_sources():
     assert dispatched == {reassign_cuda._block_cols(nf)
                           for nf in range(1, 3633)} == {32, 8}
     # B 21 and B' 25 parameters (their inputs, the columns a block, the
-    # bin range, the Tx planes, the stream); P4's 3-plane full B's without
-    # the bin range
+    # bin range, the Tx planes, the stream); P4's 3-plane entry B's with
+    # its variant (full or walk) in place of the bin range
     assert len(_build._SIGNATURES["ssq_reassign"]) == 21
     assert len(_build._SIGNATURES["ssq_reassign4"]) == 25
     sig = _build._SIGNATURES["ssq_reassign"]
-    assert _build._SIGNATURES["ssq_ablate_reassign3"] == sig[:-5] + sig[-3:]
+    assert _build._SIGNATURES["ssq_ablate_reassign3"] == (
+        sig[:-5] + [ctypes.c_int] + sig[-3:])
 
 
 def test_reassign64_sources():

@@ -15,7 +15,8 @@ property. Inputs are seeded numpy arrays handed to both packages.
                   mirror of the core's lanes and registers, which also
                   holds the plain version's `noexch_columns` at every P;
                   nochunk equal to full
-  P2              exact: Pw rows copied, zeros elsewhere
+  P2              exact: Pw rows copied, zeros elsewhere; the library's
+                  same function (`F.pad`) equal to the plain version
   P4 full, grids  against the JAX scatter (`reassign_pallas` in interpret
                   mode) on a (3, na, n) batch at the bars of
                   tests/test_torch_reassign_mxu.py: >= 99.99 % of entries
@@ -23,7 +24,9 @@ property. Inputs are seeded numpy arrays handed to both packages.
                   three grid modes' plain twins bitwise equal
   P4 variants     exact (zeros, bin sums and counts, row sums at i % nf)
                   or, for chains2, within 1e-6 of full's max (two partial
-                  sums added)
+                  sums added); serial, noprefetch and walk equal to
+                  full, dmarows zero as dmaonly
+                  (B''s plain version), nostore full's every cols-th column
 """
 import numpy as np
 import pytest
@@ -260,6 +263,21 @@ def test_copy_floor_plain(variant):
                                                          [:, :1000])
 
 
+@pytest.mark.parametrize("variant", list(acw.COPY_VARIANTS))
+def test_copy_floor_library_equals_plain(variant):
+    """The bulk-copy wrapper's plain version (CPU) and the same function as
+    one PyTorch call (`F.pad` of Pw viewed (rows, K), expanded 4-fold but
+    for dma1) equal `copy_floor_plain`, at L past K and short of it."""
+    rng = np.random.default_rng(6)
+    Pw = torch.as_tensor(rng.standard_normal((7, 16, 64)).astype(np.float32))
+    for L in (1500, 800):
+        want = acw.copy_floor_plain(Pw, L, variant)
+        for out in (acw.copy_floor(Pw, L, variant),
+                    acw.copy_floor_library(Pw, L, variant)):
+            assert len(out) == len(want)
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
 def test_cpu_runs_count_no_launch():
     args, keep = _cwt_inputs(2, 1 << 12, 3000)
     before = (acw.LAUNCHES, acw.LAUNCHES_COPY, acw.LAUNCHES_STAGED,
@@ -370,8 +388,9 @@ def test_reassign_variants_plain(batch):
     C, D, A, B, const, Sfs, gamma, params, mode, flipud, nf, tr = batch
     na, n = C.shape[1:]
     full = ar.ablate_reassign(*batch)
-    z = ar.ablate_reassign(*batch, "dmaonly")
-    assert all(t.shape == (3, nf, n) and not t.any() for t in z)
+    for v in ("dmaonly", "dmarows"):
+        z = ar.ablate_reassign(*batch, v)
+        assert all(t.shape == (3, nf, n) and not t.any() for t in z)
     kb, cnt = ar.ablate_reassign(*batch, "binonly")
     assert kb.shape == cnt.shape == (3, 1, n)
     mask = (C.astype(np.float64) ** 2 + D.astype(np.float64) ** 2 >
@@ -394,9 +413,49 @@ def test_reassign_variants_plain(batch):
         assert (a - b).abs().max() <= 1e-6 * b.abs().max()
 
 
+@pytest.mark.parametrize("variant", ["serial", "noprefetch", "walk"])
+def test_bitwise_variants_plain_equal_full(batch, variant):
+    """serial (rounds without the match), noprefetch (late loads) and walk
+    (the row walk) add the same entries in the same order as full: their
+    plain versions are full's (B''s plain version) exactly."""
+    full = ar.ablate_reassign_plain(*batch)
+    ref = reassign_cuda.reassign4_plain(*batch)
+    out = ar.ablate_reassign(*batch, variant)
+    for a, b, c in zip(out, full, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("cols", [32, 16, 8])
+def test_nostore_plain_is_every_cols_th_column(batch, cols):
+    """nostore stores one column of each block's tile: full's Tx[...,
+    ::cols], (3, nf, ceil(n / cols))."""
+    n, nf = batch[0].shape[-1], batch[10]
+    full = ar.ablate_reassign(*batch)
+    out = ar.ablate_reassign(*batch, "nostore", cols)
+    assert all(o.shape == (3, nf, -(-n // cols)) for o in out)
+    assert all(torch.equal(o, f[..., ::cols]) for o, f in zip(out, full))
+    assert ar.variant_cost("nostore", 3, 4, nf, n, cols)[0] == (
+        4 * 3 * 4 * n * 4 + 2 * 4 * 4 + 2 * 3 * nf * -(-n // cols) * 4)
+
+
+def test_full3_walk_plain():
+    """ablate_reassign3's walk (the row walk at 3 planes) is B's plain
+    version on the CPU, as its full is; an unknown variant raises."""
+    planes = ar.make_planes(torch.device("cpu"), 2, 8, 64)
+    w = reassign_cuda.phase_w(*planes[:4], planes[5], ar.GAMMA, "cwt")
+    args3 = (planes[0], planes[1], w, planes[4], ar.PARAMS, ar.MODE, True, 8)
+    ref = reassign_cuda.reassign_plain(*args3)
+    for v in ar.VARIANTS3:
+        assert all(torch.equal(a, b) for a, b in zip(
+            ar.ablate_reassign3(*args3, variant=v), ref))
+    with pytest.raises(ValueError, match="variant"):
+        ar.ablate_reassign3(*args3, variant="serial")
+
+
 # -- the entry points -----------------------------------------------------------
 @pytest.mark.parametrize("mod, names", [
-    (acw, list(acw.VARIANTS) + list(acw.COPY_VARIANTS) + ["copy_", "staged"]),
+    (acw, list(acw.VARIANTS) + list(acw.COPY_VARIANTS) +
+     ["copy_", "F.pad (dmaonly)", "F.pad (dma1)", "staged"]),
     (ckp, [f"{m} ({v})" for m, v in ckp.MODES.items()]),
     (ar, ["full/32", "full/16", "full/8"] + list(ar.VARIANTS[1:])),
     (brb, [f"{g} B={b}" for b in brb.BATCHES
