@@ -176,11 +176,18 @@ Phases, one line each:
      grid, which runs unclustered), the chains and J6's dots within
      RATE_BAR of max|out|; J5's operand pre-pass bitwise its plain model,
      and timed alone; J5 at an odd grid (unclustered) timed beside the
-     clustered rows; J7 dots and both within
-     1e-3 of max|out| at R = 1, 1e-2 at 3, 0.1 at 64 (there finite and
-     of order 1), bitwise with b a scaled permutation at R = 3 and 64
-     (each product exact); every kernel bitwise repeated; J6's dots: the
-     kernel's unit plan equal to its mirror (mxu_probe.dots_plan), q_dots
+     clustered rows; the copy at (1024, 4096), by its device time in
+     torch.profiler: at GRID 32 at least 1.8x its time at GRID 16, both
+     past its time at R = 0, and each copy between them no faster than
+     the lanes add (its copies are not folded); J7 dots and both
+     within 1e-3 of max|out| at R = 1, 1e-2 at 3, 0.1 at 64 (there finite
+     and of order 1), bitwise with b a scaled permutation at R = 3 and 64
+     (each product exact); J7's launch plan on the card equal to its
+     mirror (dma_overlap_probe.plan) and its three variants checked as
+     above and timed at both cluster sizes (8 and 16 blocks a group of
+     rows, with the clusters the card holds at once); every kernel
+     bitwise repeated; J6's dots: the kernel's unit plan equal to its
+     mirror (mxu_probe.dots_plan), q_dots
      bitwise the float32 sum of one-step dots in step order (3 steps and
      each headline's GRID NG), five edge shapes (J6_EDGES) within
      RATE_BAR, units, warpgroups an SM and TFLOP/s printed; the plain
@@ -405,6 +412,33 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": library_ms}
+
+
+def kernel_device_ms(torch, fns, name, calls=7, tries=3):
+    """{key: median device time in ms} of the CUDA kernel whose name holds
+    `name`, over `calls` calls of each of `fns` (after one more) traced by
+    torch.profiler: the kernel's own run, without the launch and event
+    work around it. The profiler has at times recorded none of a session's
+    kernels: a session that does not record one a call is traced again, up
+    to `tries` times, and then the check fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(key, fn):
+        fn()
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            times = sorted(e.device_time for e in prof.events()
+                           if name in e.name)
+            if len(times) == calls:
+                return times[calls // 2] / 1e3
+        check(False, f"torch.profiler recorded {len(times)} of {calls} "
+              f"launches of {name} ({key}) in each of {tries} sessions")
+
+    return {key: traced(key, fn) for key, fn in fns.items()}
 
 
 def cpu_ref(torch, fn):
@@ -2892,6 +2926,34 @@ def rate_probe_phases(np, torch, dev, card, results):
             repeat=equal(k1, mrp.copy_probe(A, mm)))
         check(J5[f"copy ({mm},{nn})"]["exact"] and
               J5[f"copy ({mm},{nn})"]["repeat"], f"J5 copy ({mm},{nn})")
+    # A is the last of COPY_SHAPES, (1024, 4096). The copy's GRID copies run
+    # in registers on operands loaded once, so they must not fold into
+    # fewer: past its time at R = 0 (the loads, the stores, the launch and
+    # the copy loop without its adds), GRID 32 must take at least 1.8x the
+    # time of GRID 16, and each of the 16 copies between them no less than
+    # its R m n adds take at one `__fadd_rn` a lane a clock (half the
+    # card's float32 rate, which counts an FMA as two). The kernel's own
+    # device time: the ~5 us of launch and event work around one timed
+    # call would stand for a sixth of the GRID 16 call
+    half = mrp.GRID // 2
+    runs = {"R = 0": dict(R=0), f"GRID {half}": dict(grid=half),
+            f"GRID {mrp.GRID}": {}}
+    copy_grid_ms = kernel_device_ms(
+        torch, {key: (lambda kw=kw: mrp.copy_probe(A, mm, **kw))
+                for key, kw in runs.items()}, "rate_copy_kernel")
+    t0, t_half, t_grid = copy_grid_ms.values()
+    net = (t_grid - t0) / (t_half - t0) if t_half > t0 else 0.0
+    copy_us = (t_grid - t_half) / half * 1e3
+    lanes_us = mrp.R * mm * nn / (F32_FLOP_S / 2) * 1e6
+    # (no " grid " in these keys: that marks the dots' edge cases)
+    J5["copy kernel ms (1024,4096)"] = copy_grid_ms
+    J5["copy GRID ratio past R = 0"] = net
+    J5["copy us a copy (lanes' floor)"] = (copy_us, lanes_us)
+    check(net >= 1.8, f"J5 copy at GRID {mrp.GRID} is not 1.8x its time at "
+          f"GRID {half} past its time at R = 0: {copy_grid_ms} ms")
+    check(copy_us >= lanes_us, f"J5 copy: {copy_us:.3f} us a copy between "
+          f"GRID {half} and {mrp.GRID}, under the {lanes_us:.3f} us its adds "
+          "take at the lanes' rate: copies were folded")
     copy_plain_ms = qms(lambda: [mrp.copy_probe_plain(A, mm)
                                  for _ in range(mrp.GRID)])
     # the library call over the kernel's GRID copies, as its plain version
@@ -2941,47 +3003,80 @@ def rate_probe_phases(np, torch, dev, card, results):
     del A, B
     lap("22 J5, J8 against their plain versions")
 
-    # J7 against the plain loop: within 1e-3 of max|out| at R = 1, 1e-2 at
-    # R = 3 and 0.1 at R = 64 (the bf16 re-rounding of each product's input
-    # parts the two chains: 2.9e-3 after 9 products, 1.5e-2 after 192),
-    # there finite, of order 1 and repeated; `copies` exact throughout.
-    # With b = 1000 P (P a random permutation) each product is one exact
-    # term, so kernel and plain round alike: bitwise equal at R = 3 and 64,
-    # which holds the state carried from one iteration to the next
-    J7 = {}
+    # J7 against the plain loop, at each cluster size: within 1e-3 of
+    # max|out| at R = 1, 1e-2 at R = 3 and 0.1 at R = 64 (the bf16
+    # re-rounding of each product's input parts the two chains: 2.9e-3
+    # after 9 products, 1.5e-2 after 192), there finite, of order 1 and
+    # repeated; `copies` exact throughout. With b = 1000 P (P a random
+    # permutation) each product is one exact term, so kernel and plain
+    # round alike: bitwise equal at R = 3 and 64, which holds the state
+    # carried from one iteration to the next
     H = dop.HEADLINE
     src, a, b = dop.make_inputs(dev, H["R"], H["CH"], H["M"])
     run7 = dict(CH=H["CH"], D=H["D"])
     bp = torch.zeros_like(b)
     bp[torch.randperm(H["M"], generator=g, device=dev),
        torch.arange(H["M"], device=dev)] = 1000.0
-    for v in dop.VARIANTS:
-        for R_, bar in ((1, 1e-3), (3, 1e-2)):
-            e_, d_ = err(dop.dma_overlap(src, a, b, v, R_, **run7),
-                         dop.dma_overlap_plain(src, a, b, v, R_, **run7))
-            J7.setdefault(v, {}).update({f"rel_r{R_}": e_, f"abs_r{R_}": d_})
-            check(e_ == 0 if v == "copies" else e_ < bar,
-                  f"J7 {v} at R = {R_}: rel {e_:.3e}")
-        for R_ in (3, H["R"]):
-            k1 = dop.dma_overlap(src, a, bp, v, R_, **run7)
-            J7[v][f"exact_perm_r{R_}"] = equal(
-                k1, dop.dma_overlap_plain(src, a, bp, v, R_, **run7))
-            check(J7[v][f"exact_perm_r{R_}"] and 0.1 < float(
-                k1.abs().max()) < 100, f"J7 {v}, b = 1000 P, at R = {R_}: "
-                f"{J7[v]}")
-        k1, k2 = (dop.dma_overlap(src, a, b, v, H["R"], **run7)
-                  for _ in range(2))
-        p = dop.dma_overlap_plain(src, a, b, v, H["R"], **run7)
-        e, d = err(k1, p)
-        top = float(k1.abs().max())
-        J7[v].update(rel=e, abs=d, max=top, repeat=equal(k1, k2),
-                     finite=bool(torch.isfinite(k1).all()))
-        check(J7[v]["repeat"] and J7[v]["finite"] and 1e-3 < top < 1e3 and
-              (e == 0 if v == "copies" else e < 0.1),
-              f"J7 {v} at R = 64: {J7[v]}")
+    bT, bpT = dop.b_operand(b), dop.b_operand(bp)
+    plain7 = {(v, R_, perm): dop.dma_overlap_plain(src, a, bp if perm else b,
+                                                   v, R_, **run7)
+              for v in dop.VARIANTS for R_, perm in
+              ((1, False), (3, False), (H["R"], False), (3, True),
+               (H["R"], True))}
+
+    def j7_checks(cl):
+        """{variant: every J7 check's reading} in clusters of `cl`"""
+        out7 = {}
+        for v in dop.VARIANTS:
+            run = lambda perm, R_: dop.dma_overlap(
+                src, a, bp if perm else b, v, R_, bT=bpT if perm else bT,
+                cluster=cl, **run7)
+            r7 = out7[v] = {}
+            for R_, bar in ((1, 1e-3), (3, 1e-2)):
+                e_, d_ = err(run(False, R_), plain7[v, R_, False])
+                r7.update({f"rel_r{R_}": e_, f"abs_r{R_}": d_})
+                check(e_ == 0 if v == "copies" else e_ < bar,
+                      f"J7 {v} in clusters of {cl} at R = {R_}: rel "
+                      f"{e_:.3e}")
+            for R_ in (3, H["R"]):
+                k1 = run(True, R_)
+                r7[f"exact_perm_r{R_}"] = equal(k1, plain7[v, R_, True])
+                check(r7[f"exact_perm_r{R_}"] and 0.1 < float(
+                    k1.abs().max()) < 100, f"J7 {v} in clusters of {cl}, "
+                    f"b = 1000 P, at R = {R_}: {r7}")
+            k1, k2 = run(False, H["R"]), run(False, H["R"])
+            e, d = err(k1, plain7[v, H["R"], False])
+            top = float(k1.abs().max())
+            r7.update(rel=e, abs=d, max=top, repeat=equal(k1, k2),
+                      finite=bool(torch.isfinite(k1).all()))
+            check(r7["repeat"] and r7["finite"] and 1e-3 < top < 1e3 and
+                  (e == 0 if v == "copies" else e < 0.1),
+                  f"J7 {v} in clusters of {cl} at R = 64: {r7}")
+        return out7
+
+    J7 = j7_checks(dop.CLUSTER)
     overlap_plain_ms = qms(lambda: dop.dma_overlap_plain(
         src, a, b, "both", H["R"], **run7))
-    del src, a, b
+    # the kernel's plan on the card against its mirror, and the three
+    # variants at both cluster sizes, each size held to every check above
+    # (the entry's times are main()'s, at the default)
+    J7["clusters"] = {}
+    for cl in dop.CLUSTERS:
+        kp = dop.kernel_plan(H["M"], cl)
+        mirror = dop.plan(H["M"], H["CH"], cl)
+        check(all(kp[k] == mirror[k] for k in ("cluster", "n", "blocks",
+                                                "slots", "smem")),
+              f"J7 plan at cluster {cl}: kernel {kp}, mirror {mirror}")
+        entry = J7["clusters"][cl] = dict(plan=kp)
+        if cl != dop.CLUSTER:                  # the default's are J7's own
+            entry["checks"] = j7_checks(cl)
+        cms = {v: qms(lambda: dop.dma_overlap(src, a, b, v, H["R"], bT=bT,
+                                              cluster=cl, **run7))
+               for v in dop.VARIANTS}
+        cs, cm, cw = dop.verdict(cms)
+        entry.update(ms=cms, word=cw,
+                     hidden=(cs - cms["both"]) / cms["copies"])
+    del src, a, b, bT, bpT, plain7
     ms = {v: rows["dma_overlap"][v]["ms"] for v in dop.VARIANTS}
     s_, m_, word = dop.verdict(ms)
     J7["verdict"] = dict(sum=s_, max=m_, word=word,
@@ -3092,8 +3187,12 @@ def rate_probe_phases(np, torch, dev, card, results):
         f"operands {rr[f'dot {p} ({m},{k},{n})']['operand_tb_s']:.1f} TB/s "
         "into shared memory, "
         f"worst rel {worst[p]:.1e})" for p in mrp.PRECISIONS) +
-        f"; copy (1024,4096) {rr['copy f32 (1024,4096)']['ms']:.3f} ms "
-        f"({rr['copy f32 (1024,4096)']['smem_tb_s']:.1f} TB/s on chip); "
+        f"; copy (1024,4096) {rr['copy f32 (1024,4096)']['ms']:.4f} ms "
+        f"({rr['copy f32 (1024,4096)']['smem_tb_s']:.1f} TB/s on chip; "
+        "kernel " + ", ".join(
+            f"{k} {v:.4f}" for k, v in copy_grid_ms.items()) +
+        f" ms, {net:.2f}x past R = 0, {copy_us:.3f} us a copy against "
+        f"the lanes' {lanes_us:.3f}); "
         "chains (1024,512,512) us a dot " + ", ".join(
             f"C={C} {chains[f'chains C={C} ({m},{k},{n})']['us_per_dot']:.3f}"
             for C in mrp.CHAINS) + f" (C={C8} "
@@ -3120,7 +3219,12 @@ def rate_probe_phases(np, torch, dev, card, results):
             v["rel"] for key, v in J6.items() if key.startswith("edge "))) +
         f"; J7 copies {ms['copies']:.3f}, dots {ms['dots']:.3f}, both "
         f"{ms['both']:.3f} ms -> {word} (copies hidden "
-        f"{J7['verdict']['hidden']:.0%}); J8 per block (events/wall us) " +
+        f"{J7['verdict']['hidden']:.0%}; by cluster size " + ", ".join(
+            f"{cl}: " + "/".join(f"{c['ms'][v]:.4f}" for v in dop.VARIANTS) +
+            f" ms {c['word']} hidden {c['hidden']:.0%}, "
+            f"{c['plan']['blocks']} blocks, {c['plan']['fit']} clusters at "
+            "once" for cl, c in J7["clusters"].items()) +
+        "); J8 per block (events/wall us) " +
         ", ".join(f"{k} " + "/".join(f"{u:.4f}" for u in v)
                   for k, v in results["rate_probes"]["slopes"].items()) +
         f"; element questions, copies and J8 exact; launches {launches} "

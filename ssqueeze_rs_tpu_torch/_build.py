@@ -80,6 +80,9 @@ _SIGNATURES = {
     "ssq_rate_prep": [_P] * 3 + [_I] * 5 + [_P],
     "ssq_rate_copy": [_P, _P] + [_I] * 4 + [_P],
     "ssq_dma_overlap": [_P] * 4 + [_I, _I, _I, _LL, _I, _P],
+    # ... variant, cluster, stream; M, cluster, the plan's six ints
+    "ssq_dma_overlap_cluster": [_P] * 4 + [_I, _I, _I, _LL, _I, _I, _P],
+    "ssq_dma_overlap_plan": [_I, _I, _P],
     "ssq_mxu_dots": [_P, _P, _P] + [_I] * 6 + [_P],
     # batch, M, K, N, steps, accumulate, the plan's eight ints
     "ssq_mxu_dots_plan": [_I] * 6 + [_P],

@@ -63,16 +63,31 @@
 //     freed only when both blocks are done with it, and the operand feed
 //     it halves was not the limit. An odd GRID runs unclustered.
 //
-// Copy: a block stages its 4096-float tile of both slices in shared memory
-// once, then makes R passes of acc = acc + slice through shared memory
-// (a barrier between passes): the shared-memory rate is GRID * R * 3 *
-// m * n * 4 bytes over the time.
+// Copy: as on the TPU, whose GRID steps reran the sum on slices resident
+// in VMEM, each tile of A is loaded once and the GRID copies are a loop
+// over operands resident in registers. Persistent blocks (two an SM) walk
+// the output tiles of 2048 floats (block b: tiles b, b + blocks, ...).
+// Thread 0 keeps three tiles' two slices in flight ahead of the one in
+// use, by TMA bulk copies into a ring of four stages (8 KB a slice), each
+// completing on its stage's mbarrier. Each thread takes its 8 floats of
+// each slice into registers (a barrier frees the stage) and runs every
+// copy there: R adds of the slices in turn from +0 (__fadd_rn, the plain
+// order). The copies must not fold into one: each copy starts from the
+// bits of the last copy's sums ANDed with a kernel argument that is 0,
+// which no compiler can see through, so each copy depends on the one
+// before and none can be merged, hoisted or dropped. (fence_operand, an
+// empty inline statement, emits no instruction: with fences in its place
+// and the copy loop unrolled by two, the kernel ran its copies faster
+// than the lanes can add, so copies had been merged.) The last copy's
+// sums are stored once.
 //
 // What bounds them: the tensor cores' rate of the precision for the dots
-// (989 TFLOP/s bf16, 495 TF32, 3xTF32 a third of that), the bytes of A,
-// B and out for the copy. A 128 x 128 tile reads 64 flop a byte of
-// operands into shared memory (32 in TF32) from L2, and its wgmma read
-// A and B back from shared memory for every product.
+// (989 TFLOP/s bf16, 495 TF32, 3xTF32 a third of that); for the copy,
+// the adds (GRID * R * m * n, one lane's __fadd_rn a clock: 33.5 T adds/s
+// at 132 SMs x 128 lanes x 1.98 GHz) over the bytes of A and out. A 128 x
+// 128 tile reads 64 flop a byte of operands into shared memory (32 in
+// TF32) from L2, and its wgmma read A and B back from shared memory for
+// every product.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -82,7 +97,6 @@
 
 #include <type_traits>
 
-#include "mma.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -91,7 +105,10 @@ namespace {
 enum Precision { kBF16 = 0, kTF32 = 1, k3xTF32 = 2 };
 
 constexpr int kCopyThreads = 256;
-constexpr int kCopyTile = 4096;
+constexpr int kCopyPer = 8;                          // floats a thread a slice
+constexpr int kCopyTile = kCopyThreads * kCopyPer;  // floats a tile a slice
+constexpr int kCopyStages = 4;
+constexpr int kCopyBlocksPerSM = 2;
 
 constexpr int kConsumers = 2;                  // warpgroups a block
 constexpr int kDotThreads = 128 * kConsumers + 32;   // and a producer warp
@@ -364,38 +381,86 @@ rate_prep_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// Block b's k-th tile starts at element (b + k * blocks) * kCopyTile of
+// each slice; thread t takes the float4s t and t + 256 of it. zero: 0.
 __global__ void __launch_bounds__(kCopyThreads)
 rate_copy_kernel(const float* __restrict__ A, float* __restrict__ out,
-                 long long mn, int R) {
+                 long long mn, int R, int grid, int tiles, int zero) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float4* s0 = reinterpret_cast<float4*>(smem_raw);  // A's two slices
-  float4* s1 = s0 + kCopyTile / 4;                     // and the sum,
-  float4* acc = s1 + kCopyTile / 4;                    // the block's tile
-  const long long base = (long long)blockIdx.x * kCopyTile;
-  const int n4 = (int)(min((long long)kCopyTile, mn - base) / 4);
-  const float4* a0 = reinterpret_cast<const float4*>(A + base);
-  const float4* a1 = reinterpret_cast<const float4*>(A + mn + base);
-  for (int e = threadIdx.x; e < n4; e += kCopyThreads) {
-    s0[e] = a0[e];
-    s1[e] = a1[e];
-    acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [stage][slice][tile]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kCopyStages * 2 * kCopyTile);
+  constexpr int V = kCopyPer / 4;  // float4s a thread a slice
+  const int tid = threadIdx.x;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                   (int)gridDim.x;  // this block's tiles
+  auto base = [&](int k) {
+    return ((long long)blockIdx.x + (long long)k * gridDim.x) * kCopyTile;
+  };
+  auto issue = [&](int k) {  // tile k's two slices into stage k % stages
+    const long long b = base(k);
+    const uint32_t bytes =
+        (uint32_t)(4 * min((long long)kCopyTile, mn - b));
+    float* st = ring + (k % kCopyStages) * 2 * kCopyTile;
+    uint64_t* bar = &full[k % kCopyStages];
+    ssq::tma_expect(bar, 2 * bytes);
+    ssq::bulk_load(st, A + b, bytes, bar);
+    ssq::bulk_load(st + kCopyTile, A + mn + b, bytes, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kCopyStages; ++s) ssq::mbar_init(&full[s], 1);
+    ssq::mbar_init_fence();
+    for (int k = 0; k < kCopyStages - 1 && k < mine; ++k) issue(k);
   }
   __syncthreads();
-  for (int i = 0; i < R; ++i) {
-    const float4* s = (i & 1) ? s1 : s0;
-    for (int e = threadIdx.x; e < n4; e += kCopyThreads) {
-      float4 v = acc[e];
-      const float4 w = s[e];
-      v.x = __fadd_rn(v.x, w.x);
-      v.y = __fadd_rn(v.y, w.y);
-      v.z = __fadd_rn(v.z, w.z);
-      v.w = __fadd_rn(v.w, w.w);
-      acc[e] = v;
+  for (int k = 0; k < mine; ++k) {
+    // stage (k + stages - 1) % stages was last read at tile k - 1, before
+    // that tile's barrier
+    if (tid == 0 && k + kCopyStages - 1 < mine) issue(k + kCopyStages - 1);
+    ssq::mbar_wait(&full[k % kCopyStages], (uint32_t)((k / kCopyStages) & 1));
+    const long long b = base(k);
+    const int n4 = (int)(min((long long)kCopyTile, mn - b) / 4);
+    const float4* st = reinterpret_cast<const float4*>(
+        ring + (k % kCopyStages) * 2 * kCopyTile);
+    // the thread's floats of the two slices (zeros past the tile's end)
+    alignas(16) float a0[kCopyPer] = {}, a1[kCopyPer] = {};
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int e = tid + v * kCopyThreads;
+      if (e < n4) {
+        *reinterpret_cast<float4*>(&a0[4 * v]) = st[e];
+        *reinterpret_cast<float4*>(&a1[4 * v]) = st[kCopyTile / 4 + e];
+      }
     }
-    __syncthreads();  // the pass is in shared memory before the next reads
+    __syncthreads();  // the stage is in registers: it may be loaded again
+    alignas(16) float acc[kCopyPer] = {};
+    for (int c = 0; c < grid; ++c) {
+      // the copy starts from the bits of the last copy's sums and `zero`:
+      // +0.0f, but no compiler can know it, so every copy is its own work
+#pragma unroll
+      for (int e = 0; e < kCopyPer; ++e)
+        acc[e] = __int_as_float(__float_as_int(acc[e]) & zero);
+      int i = 0;
+      for (; i + 1 < R; i += 2) {
+#pragma unroll
+        for (int e = 0; e < kCopyPer; ++e) {
+          acc[e] = __fadd_rn(acc[e], a0[e]);
+          acc[e] = __fadd_rn(acc[e], a1[e]);
+        }
+      }
+      if (i < R) {
+#pragma unroll
+        for (int e = 0; e < kCopyPer; ++e) acc[e] = __fadd_rn(acc[e], a0[e]);
+      }
+    }
+    float4* o = reinterpret_cast<float4*>(out + b);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int e = tid + v * kCopyThreads;
+      if (e < n4)
+        o[e] = *reinterpret_cast<const float4*>(&acc[4 * v]);
+    }
   }
-  float4* o = reinterpret_cast<float4*>(out + base);
-  for (int e = threadIdx.x; e < n4; e += kCopyThreads) o[e] = acc[e];
 }
 
 template <typename K>
@@ -546,6 +611,22 @@ int dispatch(const float* A, const float* B, void* scratch, float* out, int m,
   }
 }
 
+// The copy's walk (mxu_rate_probe.copy_walk mirrors it): tiles of
+// kCopyTile floats, kCopyBlocksPerSM persistent blocks an SM over them.
+int copy_blocks(long long mn, int* tiles, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long t = (mn + kCopyTile - 1) / kCopyTile;
+  if (t > INT_MAX) return (int)cudaErrorInvalidValue;
+  *tiles = (int)t;
+  const long long most = (long long)kCopyBlocksPerSM * sms;
+  *blocks = (int)(t < most ? t : most);
+  return 0;
+}
+
 }  // namespace
 
 // A (2m, k) for chains == 1, else ((chains + 1) m, k); B (k, n); out
@@ -571,17 +652,20 @@ extern "C" int ssq_rate_prep(const float* A, const float* B, void* scratch,
                   false, stream);
 }
 
-// A (2m, n), out (m, n), float32, row-major, m * n a multiple of 4 (16-byte
-// aligned tiles). Returns cudaGetLastError() after the launch.
+// A (2m, n), out (m, n), float32, row-major, 16-byte aligned, m * n a
+// multiple of 4. Returns cudaGetLastError() after the launch.
 extern "C" int ssq_rate_copy(const float* A, float* out, int m, int n, int R,
                              int grid, void* stream) {
   const long long mn = (long long)m * n;
-  if (m < 1 || n < 1 || (mn & 3) || R < 0 || grid < 1 || grid > 65535)
+  if (m < 1 || n < 1 || (mn & 3) || R < 0 || grid < 1 || grid > 65535 ||
+      (reinterpret_cast<uintptr_t>(A) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
-  const int smem = 3 * kCopyTile * (int)sizeof(float);
+  const int smem = kCopyStages * (2 * kCopyTile * (int)sizeof(float) + 8);
   if (int err = allow_smem(rate_copy_kernel, smem)) return err;
-  const int tiles = (int)((mn + kCopyTile - 1) / kCopyTile);
-  rate_copy_kernel<<<dim3(tiles, grid), kCopyThreads, smem,
-                     (cudaStream_t)stream>>>(A, out, mn, R);
+  int tiles = 0, blocks = 0;
+  if (int err = copy_blocks(mn, &tiles, &blocks)) return err;
+  rate_copy_kernel<<<blocks, kCopyThreads, smem, (cudaStream_t)stream>>>(
+      A, out, mn, R, grid, tiles, 0);
   return (int)cudaGetLastError();
 }

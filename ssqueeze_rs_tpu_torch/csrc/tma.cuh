@@ -1,6 +1,6 @@
 // The Tensor Memory Accelerator (TMA), shared by the double kernels B and
-// B' (reassign64.cu), probe J5's products (rate_probe.cu) and probes P2
-// and P3 (ablate_cwt.cu), for sm_90a.
+// B' (reassign64.cu), probe J5 (rate_probe.cu), probe J7 (dma_overlap.cu)
+// and probes P2 and P3 (ablate_cwt.cu), for sm_90a.
 //
 // A TMA load copies one box of a tensor map from device memory into
 // shared memory, issued by one thread, and completes on an mbarrier by
@@ -75,6 +75,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` of this block's shared memory at p into the same place in the
+// shared memory of the cluster's block `rank`, completing there on that
+// block's barrier at the place of bar (armed by its own tma_expect; the
+// bytes may land before it is armed).
+__device__ __forceinline__ void bulk_copy_peer(const void* p, int rank,
+                                               uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(cluster_addr(p, rank)),
+      "r"(smem_u32(p)), "r"(bytes), "r"(cluster_addr(bar, rank))
       : "memory");
 }
 

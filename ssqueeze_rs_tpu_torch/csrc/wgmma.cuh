@@ -1,7 +1,8 @@
-// Hopper's warpgroup tensor-core product (wgmma, sm_90a only) and the
-// asynchronous copies and barriers that feed it, for kernel I
-// (reassign_mxu.cu), probe J5's products (rate_probe.cu) and probe J6's
-// dots (mxu_probe.cu).
+// Hopper's warpgroup tensor-core product (wgmma, sm_90a only), the
+// roundings that feed it, and the asynchronous copies and barriers
+// (within a block and across a thread-block cluster) around it, for kernel
+// I (reassign_mxu.cu), probe J5's products (rate_probe.cu), probe J6's
+// dots (mxu_probe.cu) and probe J7's chain (dma_overlap.cu).
 //
 // WgmmaSS<N>::mma(d, a, b, scale_d) issues one
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16
@@ -26,6 +27,9 @@
 //    + (k % 8) * 2 + (k / 8) * LBO + (row / 8) * SBO with LBO = 128 (the
 //    second half of k right after the first) and SBO = 256 (the next 8
 //    rows), so one k16 tile of R rows is 32 * R contiguous bytes (A: 2048).
+//    desc_kmajor(p, lbo, sbo) takes other strides: probe J7 keeps each 8
+//    k of its 64 rows as one 1024-byte run (LBO = 1024, SBO = 128), so a
+//    block's columns of x are one contiguous span.
 //  - desc_sw128 (probe J5): the 128-byte swizzle that a TMA box of
 //    128-byte rows (64 bf16 or 32 float32 along k) lands in with
 //    CU_TENSOR_MAP_SWIZZLE_128B: row r at byte 128 r, its 16-byte chunk c
@@ -45,6 +49,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +64,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+
+// The same with the strides given: LBO between the 8-k core matrices, SBO
+// between the 8-row ones (multiples of 16 bytes below 256 KB).
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p, uint32_t lbo,
+                                                uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
 // Descriptor of a K-major operand in the 128-byte swizzle at p (shared
@@ -150,6 +163,54 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero; the low 13 bits of the result are zero.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Two floats rounded to bf16 (to nearest even) in one register, `lo` in
+// the low half (the lower k of a K-major operand).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// `count` threads (whole warps) of the block meet at named barrier `id`
+// (1-15; 0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Thread-block clusters. This block's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of every block of the cluster meets here; the shared-memory
+// writes before it are seen by the whole cluster after it. Every thread of
+// a warp executes it together.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of p (this block's shared memory) in the
+// shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
 }
 
 template <int N>

@@ -23,6 +23,15 @@ until after 192 of them only the copy term is left (about 1e-30). The
 inputs here (`make_inputs`) scale b by 1e3 / sqrt(M) so that x stays of
 order 1 through the chain; the function is the same.
 
+The kernel runs each group of 64 rows of x as a thread-block cluster of
+`cluster` blocks (8, or 16 where M is a multiple of 128), block c owning
+M / cluster columns of x and of bf16(b): `wgmma` products on its
+resident columns of b, the rounded columns sent to the cluster's other
+blocks through their shared memory after each product. Every block copies
+its 16-byte-aligned share of each chunk by TMA. `plan` mirrors the
+launch (blocks, columns, copy shares, ring slots, shared memory);
+`kernel_plan` reads the kernel's own on the card.
+
 Each row has the device time (CUDA events, median of K after a warm-up)
 and the host wall time a call over K back-to-back calls ended by one
 synchronize (what the TPU probe timed). On a CUDA tensor the wrapper
@@ -38,9 +47,10 @@ import torch
 from ..ops import fft_cuda
 from . import _common
 
-__all__ = ["VARIANTS", "HEADLINE", "SMALL", "b_operand", "dma_overlap",
-           "dma_overlap_plain", "make_inputs", "variant_cost", "verdict",
-           "run", "main", "LAUNCHES"]
+__all__ = ["VARIANTS", "HEADLINE", "SMALL", "CLUSTER", "CLUSTERS",
+           "b_operand", "dma_overlap", "dma_overlap_plain", "plan",
+           "kernel_plan", "make_inputs", "variant_cost", "verdict", "run",
+           "main", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -48,6 +58,10 @@ VARIANTS = ("copies", "dots", "both")
 # tools/dma_overlap_probe.py:41-44
 HEADLINE = dict(R=64, CH=4096, D=3, M=512)
 SMALL = dict(R=3, CH=8, D=3, M=128)
+CLUSTERS = (8, 16)
+CLUSTER = 8          # the kernel's default (csrc/dma_overlap.cu kCluster)
+# the kernel's constants (csrc/dma_overlap.cu)
+_ROWS, _PIECE, _MAX_SLOTS, _SMEM_MAX, _BARS = 64, 8192, 8, 232448, 12
 
 
 def _check(src, a, b, variant, R, CH):
@@ -97,30 +111,82 @@ def b_operand(b):
     return b.to(torch.bfloat16).t().contiguous()
 
 
-def dma_overlap(src, a, b, variant="both", R=64, CH=4096, D=3, bT=None):
+def _kernel_shape(M, cluster):
+    if M % 64 or not 64 <= M <= 512:
+        raise ValueError(f"the kernel takes M a multiple of 64 up to 512 "
+                         f"(got {M})")
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS} (got "
+                         f"{cluster!r})")
+
+
+def plan(M, CH, cluster=CLUSTER):
+    """The kernel's launch for (M, CH) at `cluster` (`plan` in
+    csrc/dma_overlap.cu): `cluster` blocks a group of 64 rows (taken down
+    to 8 where M is not a multiple of 8 * cluster), `n` columns a block
+    (block c: columns [c n, (c + 1) n)), `blocks` in all, each block's
+    share [lo, hi) of a chunk's CH M 4 bytes (16-byte units split evenly),
+    its ring `slots` of 8 KB and its dynamic shared memory `smem`."""
+    _kernel_shape(M, cluster)
+    C = cluster
+    while M % (8 * C):
+        C //= 2
+    n, G = M // C, M // _ROWS * C
+    fixed = 1024 + M * n * 2 + 2 * _ROWS * M * 2 + _BARS * 8
+    slots = min(_MAX_SLOTS, (_SMEM_MAX - fixed) // _PIECE)
+    units = CH * M * 4 // 16
+    shares = [(b * units // G * 16, (b + 1) * units // G * 16)
+              for b in range(G)]
+    return dict(cluster=C, n=n, blocks=G, groups=M // _ROWS, slots=slots,
+                smem=fixed + slots * _PIECE,
+                columns=[(c * n, (c + 1) * n) for c in range(C)],
+                shares=shares)
+
+
+def kernel_plan(M, cluster=CLUSTER):
+    """The kernel's own plan on the current CUDA device
+    (`ssq_dma_overlap_plan`): cluster, n, blocks, slots, smem and `fit`,
+    the clusters the card holds at once."""
+    import ctypes
+    from .. import _build
+    _kernel_shape(M, cluster)
+    v = (ctypes.c_int * 6)()
+    _build.check(_build.lib().ssq_dma_overlap_plan(M, int(cluster), v),
+                 "dma_overlap plan")
+    return dict(zip(("cluster", "n", "blocks", "slots", "smem", "fit"),
+                    list(v)))
+
+
+def _aligned(t):
+    """t float32 and contiguous at a 16-byte aligned address (TMA)."""
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def dma_overlap(src, a, b, variant="both", R=64, CH=4096, D=3, bT=None,
+                cluster=CLUSTER):
     """J7: the copies racing the chain, as `variant`; src (>= R CH, M), a,
     b (M, M) -> (8, M). A CUDA tensor launches the kernel (M a multiple of
-    64 up to 512) on `bT`, `b_operand(b)` when not given; a CPU tensor
-    runs `dma_overlap_plain`."""
+    64 up to 512) on `bT`, `b_operand(b)` when not given, in clusters of
+    `cluster` blocks (`plan`); a CPU tensor runs `dma_overlap_plain`."""
     _check(src, a, b, variant, R, CH)
     if a.device.type == "cpu":
         return dma_overlap_plain(src, a, b, variant, R, CH, D)
     M = a.shape[0]
-    if M % 64 or M > 512:
-        raise ValueError(f"the kernel takes M a multiple of 64 up to 512 "
-                         f"(got {M})")
+    _kernel_shape(M, cluster)
     bT = b_operand(b) if bT is None else bT
     if (bT.shape != (M, M) or bT.dtype != torch.bfloat16
-            or bT.device != a.device or not bT.is_contiguous()):
+            or bT.device != a.device or not bT.is_contiguous()
+            or bT.data_ptr() % 16):
         raise ValueError("bT must be b_operand(b): contiguous (M, M) "
-                         "bfloat16 on a's device")
+                         "bfloat16 on a's device, 16-byte aligned")
     from .. import _build
     global LAUNCHES
-    src, a = (t.to(torch.float32).contiguous() for t in (src, a))
+    src, a = _aligned(src), a.to(torch.float32).contiguous()
     out = torch.empty((8, M), dtype=torch.float32, device=a.device)
-    err = _build.lib().ssq_dma_overlap(
+    err = _build.lib().ssq_dma_overlap_cluster(
         src.data_ptr(), a.data_ptr(), bT.data_ptr(), out.data_ptr(), M,
-        int(R), int(D), int(CH), VARIANTS.index(variant) + 1,
+        int(R), int(D), int(CH), VARIANTS.index(variant) + 1, int(cluster),
         fft_cuda._stream(a.device))
     _build.check(err, f"dma_overlap kernel ({variant})")
     LAUNCHES += 1

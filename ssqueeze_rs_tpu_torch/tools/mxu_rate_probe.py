@@ -1,6 +1,7 @@
 """The in-kernel tensor-core rate by shape and precision, with independent
-chains, and the shared-memory rate: probe J5 (``csrc/rate_probe.cu``), the
-counterpart of the TPU probe ``tools/mxu_rate_probe.py``.
+chains, and the add rate on resident operands: probe J5
+(``csrc/rate_probe.cu``), the counterpart of the TPU probe
+``tools/mxu_rate_probe.py``.
 
     python -m ssqueeze_rs_tpu_torch.tools.mxu_rate_probe [K] [--chains] [--device cpu]
 
@@ -12,16 +13,21 @@ float32 out):
                     (cvt.rna), '3xtf32' (hi = tf32(v), lo = tf32(v - hi);
                     hi lo + lo hi + hi hi: the card's accurate float32
                     product on the tensor cores; the TPU probe's 'f32')
-  copy_probe        out = sum_{i<R} A_{i % 2}, through shared memory
+  copy_probe        out = sum_{i<R} A_{i % 2}, each tile of A loaded
+                    once, the adds in registers
   dot_probe_chains  out_c = sum_{i<R} A_{(i + c) % (C + 1)} @ B for c < C,
                     bf16: the chains in pairs, one a warpgroup
 
 The TPU ran GRID sequential steps, each computing the whole output again;
 here they are GRID copies of the grid, each writing the same values, so
-the rate is GRID * R * 2mkn over the time (the shared-memory rate GRID *
-R * 3 * m * n * 4 bytes over it). The shapes are the TPU probe's: nine
-(m, k, n) for the dots in each precision, four (m, n) for the copy, C in
-1, 2, 4, 8, 16, 24 at two shapes for the chains (`--chains`).
+the rate is GRID * R * 2mkn over the time. The copy keeps the TPU's
+resident operands: persistent blocks (`copy_walk`) load each tile of A's
+two slices once and run all GRID copies of its R adds in registers, so
+its rate is GRID * R * m * n adds over the time (its row's `smem_tb_s`:
+GRID * R * 3 * m * n * 4 bytes over it, the TPU probe's count of 3 x 4
+bytes an add through VMEM). The shapes are the TPU probe's: nine (m, k,
+n) for the dots in each precision, four (m, n) for the copy, C in 1, 2,
+4, 8, 16, 24 at two shapes for the chains (`--chains`).
 
 Each row has the device time (CUDA events, median of K after a warm-up)
 and the host wall time a call over K back-to-back calls ended by one
@@ -50,8 +56,8 @@ __all__ = ["PRECISIONS", "CHAINS", "SHAPES", "COPY_SHAPES", "CHAIN_SHAPES",
            "round_tf32", "prepass", "prepass_plain", "dot_probe",
            "dot_probe_plain", "copy_probe",
            "copy_probe_plain", "dot_probe_chains", "dot_probe_chains_plain",
-           "dot_cost", "copy_cost", "chains_cost", "operand_bytes", "run",
-           "run_chains",
+           "dot_cost", "copy_cost", "chains_cost", "operand_bytes",
+           "copy_walk", "run", "run_chains",
            "main", "LAUNCHES_DOT", "LAUNCHES_COPY", "LAUNCHES_CHAINS"]
 
 LAUNCHES_DOT = 0
@@ -67,6 +73,10 @@ SHAPES = ((256, 256, 256), (512, 512, 512), (1024, 1024, 1024),
           (1024, 512, 512), (512, 1024, 640), (1024, 1536, 512),
           (1024, 512, 1536), (128, 512, 512), (2048, 512, 512))
 COPY_SHAPES = ((512, 512), (1024, 512), (512, 4096), (1024, 4096))
+# the copy kernel's tile (floats of each slice) and persistent blocks an
+# SM (csrc/rate_probe.cu kCopyTile, kCopyBlocksPerSM)
+COPY_TILE = 2048
+COPY_BLOCKS_PER_SM = 2
 CHAIN_SHAPES = ((512, 512, 512), (1024, 512, 512))
 SMALL = dict(shapes=((16, 32, 16), (32, 64, 48)), copy=((16, 32), (24, 64)),
              chains=((16, 32, 16),), C=(1, 2, 4), grid=2)
@@ -244,10 +254,25 @@ def dot_probe(A, B, m, precision="bf16", R=R, grid=GRID):
     return out
 
 
+def copy_walk(m, n, sms):
+    """The copy kernel's walk on a card of `sms` SMs: (blocks, [(block,
+    first element, elements)] of every tile), block b taking tiles b,
+    b + blocks, ... of COPY_TILE floats of each slice."""
+    mn = m * n
+    tiles = -(-mn // COPY_TILE)
+    blocks = min(tiles, COPY_BLOCKS_PER_SM * sms)
+    walk = []
+    for b in range(blocks):
+        for t in range(b, tiles, blocks):
+            walk.append((b, t * COPY_TILE, min(COPY_TILE, mn - t * COPY_TILE)))
+    return blocks, walk
+
+
 def copy_probe(A, m, R=R, grid=GRID):
-    """J5 copy: A (2m, n) -> (m, n), the slices summed R times through
-    shared memory by `grid` copies of the grid. A CUDA tensor launches the
-    kernel, a CPU tensor runs `copy_probe_plain`."""
+    """J5 copy: A (2m, n) -> (m, n), the slices summed R times by `grid`
+    copies of the grid, each tile of A loaded once and the adds in
+    registers (`copy_walk`). A CUDA tensor launches the kernel, a CPU
+    tensor runs `copy_probe_plain`."""
     global LAUNCHES_COPY
     _check(A, None, m, 2, "bf16")
     if A.device.type == "cpu":
@@ -258,6 +283,8 @@ def copy_probe(A, m, R=R, grid=GRID):
         raise ValueError(f"copy_probe on CUDA needs m * n a multiple of 4 "
                          f"(got {m} x {n})")
     A = A.to(torch.float32).contiguous()
+    if A.data_ptr() % 16:          # the kernel's bulk copies
+        A = A.clone()
     out = torch.empty((m, n), dtype=torch.float32, device=A.device)
     err = _build.lib().ssq_rate_copy(A.data_ptr(), out.data_ptr(), m, n,
                                      int(R), int(grid),
@@ -408,7 +435,7 @@ def run_chains(device, reps=5, shapes=None, chains=None, grid=None, R=R,
 
 def main(argv=None):
     a = _common.parse_args(
-        argv, "Tensor-core and shared-memory rates (probe J5)",
+        argv, "Tensor-core and resident-add rates (probe J5)",
         flags=(("--chains", "time C independent chains "
                             "(dot_probe_chains) instead"),))
     device = _common.pick_device(a.device)

@@ -38,7 +38,7 @@ def test_library_name_follows_source_content(src_tree):
                                   "reassign.cu", "cwt_planes.cu",
                                   "reassign_mxu.cu",
                                   "reassign.cuh", "ablate_cwt.cu",
-                                  "ablate_reassign.cu", "mma.cuh",
+                                  "ablate_reassign.cu",
                                   "grid_slope.cu", "rate_probe.cu",
                                   "dma_overlap.cu", "mxu_probe.cu",
                                   "fft_radix.cuh", "planes.cuh",
@@ -112,28 +112,30 @@ def test_reassign_argtypes_follow_the_c_types(name):
 
 
 def test_tensor_core_helpers_are_shared():
-    """The probe's mma.sync kernel (J7) takes its tiles and roundings from
-    one header, which defines them once; kernel I and probes J5's products
-    and J6's dots take their wgmma products (J6 its register-A forms),
-    async copies and barriers from another (wgmma.cuh), J5, J6 and the
-    double B/B' their TMA copies and the tensor-map encoder from a third
-    (tma.cuh), the only file that defines tma_load; none of them writes
-    that PTX itself."""
+    """Kernel I and probes J5's products, J6's dots and J7's chain take
+    their wgmma products (J6 its register-A forms), roundings, async
+    copies, barriers and cluster helpers from one header (wgmma.cuh), J5,
+    J6, J7 and the double B/B' their TMA copies and the tensor-map encoder
+    from another (tma.cuh), the only file that defines tma_load; none of
+    them writes that PTX itself. The mma.sync header is gone with its last
+    user (J7's old chain)."""
     def read(name):
         with open(os.path.join(_build.CSRC, name)) as f:
             return f.read()
-    text = read("dma_overlap.cu")
-    assert '#include "mma.cuh"' in text
-    assert '"mma.sync' not in text and '"cvt.rna' not in text
-    for name in ("rate_probe.cu", "mxu_probe.cu"):
+    assert not os.path.exists(os.path.join(_build.CSRC, "mma.cuh"))
+    for name in ("rate_probe.cu", "mxu_probe.cu", "dma_overlap.cu"):
         text = read(name)
         assert '#include "wgmma.cuh"' in text, name
         assert '#include "tma.cuh"' in text, name
+        assert '"mma.cuh"' not in text, name
         for ptx in ("wgmma.mma_async", "cp.async.bulk", "mma.sync",
-                    '"cvt.rna', "asm"):
+                    '"cvt.rna', "mapa", "barrier.cluster", "asm"):
             assert ptx not in text, (name, ptx)
     text = read("mxu_probe.cu")
-    assert '#include "mma.cuh"' not in text and "WgmmaRS<" in text
+    assert "WgmmaRS<" in text
+    text = read("dma_overlap.cu")
+    assert "WgmmaSS<N>" in text and "cluster_rank()" in text
+    assert "bulk_copy_peer(" in text and "cudaLaunchKernelEx" in text
     text = read("reassign_mxu.cu")
     assert '#include "wgmma.cuh"' in text
     assert "asm" not in text
@@ -147,6 +149,10 @@ def test_tensor_core_helpers_are_shared():
     assert header.count("\"wgmma.mma_async.sync.aligned.m64n") == 20
     assert header.count(".f32.tf32.tf32 ") == 2
     assert header.count("struct WgmmaRS<") == 2
+    for helper in ("uint32_t tf32(", "uint32_t pack_bf16(",
+                   "int cluster_rank(", "void cluster_sync(",
+                   "uint32_t cluster_addr("):
+        assert header.count(helper) == 1, helper
 
 
 def test_cwt_kernels_share_the_four_step_header():

@@ -176,6 +176,52 @@ def test_copy_probe_matches_jax():
     assert np.array_equal(got.numpy(), out)
 
 
+def test_copy_probe_matches_jax_at_a_second_shape():
+    """A second shape and R (GRID 2, R 5; m n not a multiple of the
+    kernel's tile): bitwise the TPU probe."""
+    m, n = 40, 96
+    A = np.random.default_rng(4).standard_normal((2 * m, n)).astype(
+        np.float32)
+    with _jax_probe("mxu_rate_probe", GRID=2, R=5) as (mod, rec):
+        mod.copy_probe(jnp.asarray(A), jnp.float32(0), m=m, n=n)
+    (ins, out), = rec.calls
+    got = mrp.copy_probe(torch.as_tensor(A), m, R=5)
+    assert got.shape == (m, n) and np.array_equal(got.numpy(), out)
+
+
+@pytest.mark.parametrize("shape", mrp.COPY_SHAPES)
+def test_copy_walk_covers_every_element_once(shape):
+    """The copy kernel's persistent walk (`copy_walk`, at 132 SMs and at
+    a card of 7) takes every output element once, in whole tiles of
+    COPY_TILE floats but the last, each block's tiles in increasing
+    order."""
+    m, n = shape
+    for sms in (132, 7):
+        blocks, walk = mrp.copy_walk(m, n, sms)
+        assert blocks == min(-(-m * n // mrp.COPY_TILE),
+                             mrp.COPY_BLOCKS_PER_SM * sms)
+        hits = np.zeros(m * n, np.int32)
+        last = {}
+        for b, start, count in walk:
+            assert 0 <= b < blocks and start % mrp.COPY_TILE == 0
+            assert count == mrp.COPY_TILE or start + count == m * n
+            assert start > last.get(b, -1)
+            last[b] = start
+            hits[start:start + count] += 1
+        assert (hits == 1).all()
+        assert len(last) == blocks
+
+
+def test_copy_walk_mirrors_the_kernel():
+    """The mirror's constants are the kernel's."""
+    import re
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\w+);",
+                             _source("rate_probe.cu")))
+    assert int(consts["kCopyThreads"]) * int(consts["kCopyPer"]) == \
+        mrp.COPY_TILE
+    assert int(consts["kCopyBlocksPerSM"]) == mrp.COPY_BLOCKS_PER_SM
+
+
 @pytest.mark.parametrize("C", [2, 4])
 def test_chains_match_jax(C):
     m, k, n = 16, 32, 16
@@ -361,6 +407,79 @@ def test_dma_overlap_plain_is_exact_on_a_scaled_permutation():
                 x = x + src[r * 8, 0] * tiny
         assert torch.equal(dop.dma_overlap_plain(src, a, bp, v, 3, 8, 3),
                            x[:8]), v
+
+
+def test_dma_overlap_copies_match_jax_at_a_second_r():
+    """`copies` at R = 5 (the fixture runs R = 3), with src's rows of
+    order 1e29 so that each copy term (src[r CH, 0] 1e-30) moves x:
+    bitwise the TPU probe, its own rounding at every iteration."""
+    R, CH, M = 5, 8, 128
+    rng = np.random.default_rng(12)
+    src = (rng.standard_normal((R * CH, M)) * 1e29).astype(np.float32)
+    a = rng.standard_normal((M, M)).astype(np.float32)
+    b = rng.standard_normal((M, M)).astype(np.float32)
+    with _jax_probe("dma_overlap_probe", R=R, CH=CH, M=M) as (mod, rec):
+        mod.run(jnp.asarray(src), jnp.asarray(a), jnp.asarray(b), "copies")
+    (ins, out), = rec.calls
+    got = dop.dma_overlap(*(torch.as_tensor(t) for t in (src, a, b)),
+                          "copies", R=R, CH=CH, D=3).numpy()
+    start = torch.as_tensor(a[:8]).to(torch.bfloat16).float().numpy()
+    assert np.array_equal(got, out) and not np.array_equal(got, start)
+
+
+@pytest.mark.parametrize("size", ["HEADLINE", "SMALL"])
+@pytest.mark.parametrize("cluster", dop.CLUSTERS)
+def test_dma_overlap_plan_copies_every_chunk_byte_once(size, cluster):
+    """The kernel's launch (`plan`): groups of 64 rows, each a cluster of
+    `cluster` blocks (8 where M is not a multiple of 8 cluster) whose
+    column slices cover x's columns once, N a wgmma width (a multiple of
+    8 up to 64); every block's share of a chunk 16-byte aligned, the
+    shares covering the chunk's bytes exactly once and differing by at
+    most 16 bytes; the shared memory within a block's 227 KB."""
+    S = dop.HEADLINE if size == "HEADLINE" else dop.SMALL
+    M, CH = S["M"], S["CH"]
+    P = dop.plan(M, CH, cluster)
+    C = P["cluster"]
+    assert C == (cluster if M % (8 * cluster) == 0 else 8)
+    assert P["groups"] == M // 64 and P["blocks"] == P["groups"] * C
+    assert P["n"] * C == M and P["n"] % 8 == 0 and P["n"] <= 64
+    cols = np.zeros(M, np.int32)
+    for c0, c1 in P["columns"]:
+        cols[c0:c1] += 1
+    assert (cols == 1).all()
+    chunk = CH * M * 4
+    got = np.zeros(chunk // 16, np.int32)
+    sizes = []
+    for lo, hi in P["shares"]:
+        assert lo % 16 == 0 and hi % 16 == 0 and lo <= hi
+        got[lo // 16:hi // 16] += 1
+        sizes.append(hi - lo)
+    assert len(P["shares"]) == P["blocks"] and (got == 1).all()
+    assert max(sizes) - min(sizes) <= 16
+    assert 1 <= P["slots"] <= 8 and P["smem"] <= 232448
+    if (size, cluster) == ("HEADLINE", 8):
+        assert (P["n"], P["blocks"], P["slots"]) == (64, 64, 4)
+    if (size, cluster) == ("HEADLINE", 16):
+        assert (P["n"], P["blocks"], P["slots"]) == (32, 128, 8)
+
+
+def test_dma_overlap_plan_mirrors_the_kernel():
+    """The mirror's constants are the kernel's, and its default cluster
+    size is the kernel's."""
+    import re
+    text = _source("dma_overlap.cu")
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", text))
+    assert int(consts["kRows"]) == dop._ROWS
+    assert eval(consts["kPiece"]) == dop._PIECE
+    assert int(consts["kMaxSlots"]) == dop._MAX_SLOTS
+    assert int(consts["kSmemMax"]) == dop._SMEM_MAX
+    assert int(consts["kCluster"]) == dop.CLUSTER
+    assert consts["kBars"] == "4 + kMaxSlots" and dop._BARS == 12
+    for M in (64, 128, 192, 512):
+        for cl in dop.CLUSTERS:
+            with pytest.raises(ValueError):
+                dop.plan(M + 32, 8, cl)
+            assert dop.plan(M, 8, cl)["slots"] >= 1
 
 
 def test_dma_overlap_inputs_keep_the_chain_alive():
@@ -559,6 +678,12 @@ def test_dots_shape_is_what_question_hands_dots(mod, monkeypatch):
         assert got[name] == mp.dots_shape(name, size), name
     with pytest.raises(ValueError, match="not a dot question"):
         mp.dots_shape("q_trans", size)
+
+
+def _source(name):
+    with open(os.path.join(os.path.dirname(mp.__file__), os.pardir, "csrc",
+                           name)) as f:
+        return f.read()
 
 
 def _mxu_probe_source():
