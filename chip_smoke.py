@@ -170,9 +170,14 @@ Phases, one line each:
      --chains, J6 mxu_probe and mxu_probe2, J7 dma_overlap_probe, J8
      grid_slope_probe), each main() run as a user would, K = 5, the launch
      counts read around each; then every kernel against its plain version
-     at the probes' shapes: J8, the copy, J7 copies and J6's element
-     questions exact; the dots (every shape and precision, and an edge
-     shape off every tile and box, (200, 72, 136), at GRID and at an odd
+     at the probes' shapes: J8 (every configuration, the launch floor's
+     tile and three edge tiles, in both modes and both store routes), the
+     copy, J7 copies and J6's element questions exact; J8's persistent
+     plan on the card equal to its mirror (grid_slope_probe.plan), one
+     chunk load a block, and every FADD of its four kernels inside a loop
+     of their SASS (the adds are not folded across steps); the dots
+     (every shape and precision, and an edge shape off every tile and
+     box, (200, 72, 136), at GRID and at an odd
      grid, which runs unclustered), the chains and J6's dots within
      RATE_BAR of max|out|; J5's operand pre-pass bitwise its plain model,
      and timed alone; J5 at an odd grid (unclustered) timed beside the
@@ -194,7 +199,10 @@ Phases, one line each:
      versions timed over the kernels' GRID copies (J6: every step's
      product); the library yardsticks of the same work (torch.matmul of
      the same total product in bf16, TF32 and float32, J5's copy weights
-     over its GRID copies, torch.bmm, .t().contiguous(), torch.add)
+     over its GRID copies, torch.bmm, .t().contiguous(), torch.add, the
+     last equal to J8 in both modes); J8's entry carries its launch floor,
+     its `blocks` time and both store routes' times, and the row-out
+     plane's (293 steps) time and bound
  23. examples/component_separation.py at N = 160 000: a TestSignals sine
      plus a linear chirp at the example's fractions of the band, ssq_cwt
      with ('gmw', beta 6) (A and B once), extract_ridges (penalty 2, two
@@ -2809,7 +2817,9 @@ def rate_probe_phases(np, torch, dev, card, results):
         moved[key] = {k: after[k] - before[k] for k in after
                       if after[k] != before[k]}
     launches = counts()
-    n_grid = sum(len(c[4]) for c in gsp.CONFIGS)
+    # J8's main: the launch floor, then every configuration in every mode
+    # and store route
+    n_grid = sum(len(c[4]) for c in gsp.CONFIGS) * len(gsp.VARIANTS) + 1
     expect = dict(
         grid_slope={"grid_slope": calls * n_grid},
         rate={"rate_dot": calls * len(mrp.SHAPES) * len(mrp.PRECISIONS),
@@ -2831,19 +2841,43 @@ def rate_probe_phases(np, torch, dev, card, results):
         d = float((k - p).abs().max())
         return d / float(p.abs().max()), d
 
-    # J8: every configuration exact and repeated
-    J8 = {}
+    # J8: every configuration, and the plan's edges (the launch floor's
+    # tile below one chunk, chunks whose last is shorter, a tile of 40
+    # chunks), in both modes and both store routes, exact and repeated;
+    # the persistent plan equal to its mirror
+    J8, plans = {}, {}
     g = torch.Generator(device=dev).manual_seed(8)
-    for name, r_, L, vary, grids in gsp.CONFIGS:
+    cases = [(f"{name} g={grid}", r_, L, vary, grid)
+             for name, r_, L, vary, grids in gsp.CONFIGS for grid in grids]
+    cases += [(f"{gsp.FLOOR[0]} g=1", *gsp.FLOOR[1:]),
+              ("edge (3,5000) vary g=7", 3, 5000, True, 7),
+              ("edge (3,5000) const g=7", 3, 5000, False, 7),
+              ("edge (40,8192) const g=3", 40, 8192, False, 3)]
+    for key, r_, L, vary, grid in cases:
         x = torch.randn((r_, L), generator=g, device=dev)
-        for grid in grids:
-            k1, k2 = gsp.grid_slope(x, grid, vary), gsp.grid_slope(x, grid,
-                                                                   vary)
-            J8[f"{name} g={grid}"] = dict(
-                exact=equal(k1, gsp.grid_slope_plain(x, grid, vary)),
-                repeat=equal(k1, k2))
+        plain = gsp.grid_slope_plain(x, grid, vary)
+        for mode, store in gsp.VARIANTS:
+            k1 = gsp.grid_slope(x, grid, vary, mode, store)
+            k2 = gsp.grid_slope(x, grid, vary, mode, store)
+            J8[f"{key} {mode} {store or ''}".rstrip()] = dict(
+                exact=equal(k1, plain), repeat=equal(k1, k2))
+            if store:
+                kp = gsp.kernel_plan(r_, L, grid, vary, store)
+                mine = gsp.plan(r_, L, grid, vary, store, sms=kp["sms"])
+                plans[f"{key} {store}"] = dict(
+                    kp, equal={k: mine[k] for k in kp} == kp,
+                    loads=mine["loads"], stores=mine["stores"])
+        del x, plain, k1, k2
     check(all(v["exact"] and v["repeat"] for v in J8.values()),
           f"J8 grid_slope: {J8}")
+    check(all(p["equal"] and p["loads"] == p["blocks"] <= p["per_sm"] *
+              p["sms"] for p in plans.values()),
+          f"J8's plan is not its mirror's: {plans}")
+    # each step's adds stay in the step loop of every persistent kernel
+    sass8 = fadd_count()
+    check(isinstance(sass8, dict) and len(sass8) == 4 and all(
+        n >= 4 and inside == n for n, inside in sass8.values()),
+        f"J8: the persistent kernels' adds are not all in a loop: {sass8}")
     # the plain versions and library calls are timed as the probes time
     # their kernels: the runs queued ahead of the card (`_common.time_ms`),
     # so a call shorter than the host's launch work is not timed by it
@@ -2855,9 +2889,10 @@ def rate_probe_phases(np, torch, dev, card, results):
     g_last = gsp.CONFIGS[1][4][-1]
     grid_plain_ms = qms(lambda: gsp.grid_slope_plain(x, g_last, True))
     grid_lib = lambda: torch.add(x.expand(g_last, *x.shape), 1)
-    J8["library equal"] = dict(exact=equal(
-        grid_lib().reshape(-1, x.shape[1]), gsp.grid_slope(x, g_last, True)),
-        repeat=True)
+    J8["library equal"] = dict(exact=all(equal(
+        grid_lib().reshape(-1, x.shape[1]),
+        gsp.grid_slope(x, g_last, True, mode, store))
+        for mode, store in gsp.VARIANTS), repeat=True)
     check(J8["library equal"]["exact"],
           "J8: torch.add over the grid's copies is not the kernel's output")
     grid_lib_ms = qms(grid_lib)
@@ -3171,12 +3206,16 @@ def rate_probe_phases(np, torch, dev, card, results):
 
     results["rate_probes"] = dict(
         launches=launches, moved=moved, J5=J5, J6=J6, J7=J7, J8=J8,
+        J8_plans=plans, J8_fadds=sass8,
         j5_unclustered_ms=unclustered,
         library=dict(dot=lib, copy=copy_lib_ms, chains=chains_lib_ms,
                      grid=grid_lib_ms, j6=lib6),
         rows={k: list(v.values()) for k, v in rows.items()},
         slopes=gsp.slopes(list(rows["grid_slope"].values())))
     rr = rows["rate"]
+    rg = rows["grid_slope"]
+    floor8 = rg[gsp.FLOOR[0]]
+    labels8 = [f"{m} {st}".rstrip() if st else m for m, st in gsp.VARIANTS]
     worst = {p: max(v["rel"] for key, v in J5.items()
                     if key.startswith(f"dot {p} ")) for p in mrp.PRECISIONS}
     chains = rows["rate_chains"]
@@ -3224,11 +3263,19 @@ def rate_probe_phases(np, torch, dev, card, results):
             f" ms {c['word']} hidden {c['hidden']:.0%}, "
             f"{c['plan']['blocks']} blocks, {c['plan']['fit']} clusters at "
             "once" for cl, c in J7["clusters"].items()) +
-        "); J8 per block (events/wall us) " +
+        f"); J8 launch floor {floor8['ms']:.5f} ms; " + ", ".join(
+            f"{c} (" + ", ".join(
+                f"{lab} {rg[f'{c} {lab}']['ms']:.5f}"
+                for lab in labels8) + ")"
+            for c in (f"tiny const g={g_last}", f"tiny vary g={g_last}",
+                      "row-out vary g=37", "row-out vary g=293")) +
+        " ms; J8 per block (blocks) or step (persistent), events/wall us " +
         ", ".join(f"{k} " + "/".join(f"{u:.4f}" for u in v)
                   for k, v in results["rate_probes"]["slopes"].items()) +
-        f"; element questions, copies and J8 exact; launches {launches} "
-        f"({card})")
+        "; J8 FADDs (in the step loop) " + ", ".join(
+            f"{k} {n} ({i})" for k, (n, i) in sass8.items()) +
+        f"; element questions, copies and J8 exact, J8's plan its mirror's;"
+        f" launches {launches} ({card})")
 
     tools = "tools/"
     rd = rr[f"dot bf16 ({m},{k},{n})"]
@@ -3236,7 +3283,8 @@ def rate_probe_phases(np, torch, dev, card, results):
     rch = rows["rate_chains"][f"chains C={C8} ({m},{k},{n})"]
     q1, q2 = rows["mxu_probe"]["q_dots"], rows["mxu_probe2"]["q_dots"]
     ov = rows["dma_overlap"]["both"]
-    gs = rows["grid_slope"][f"tiny vary g={g_last}"]
+    gs = rg[f"tiny vary g={g_last} persistent {gsp.STORE}"]
+    ro = rg[f"row-out vary g={gsp.CONFIGS[2][4][-1]} persistent {gsp.STORE}"]
     bnd = lambda r: (r["bound_ms"], r["bound_by"])
     # the operand pre-pass is the first of a dot's two launches: its time
     # alone is in the entries beside the call's
@@ -3269,9 +3317,23 @@ def rate_probe_phases(np, torch, dev, card, results):
                      "dma_overlap_probe.py:88", launches["dma_overlap"],
                      J7["both"]["abs"], ov["ms"], overlap_plain_ms,
                      bnd(ov), None, root=tools),
-        kernel_entry("grid_slope", "grid_slope.cu", "grid_slope_probe.py:50",
-                     launches["grid_slope"], 0.0, gs["ms"],
-                     grid_plain_ms, bnd(gs), grid_lib_ms, root=tools),
+        # the persistent kernel by its default store route; beside it the
+        # launch floor, the other routes and the row-out plane
+        dict(kernel_entry("grid_slope", "grid_slope.cu",
+                          "grid_slope_probe.py:50", launches["grid_slope"],
+                          0.0, gs["ms"], grid_plain_ms, bnd(gs), grid_lib_ms,
+                          root=tools),
+             store=gsp.STORE, floor_ms=floor8["ms"],
+             past_floor_ms=gs["past_floor_ms"],
+             blocks_ms=rg[f"tiny vary g={g_last} blocks"]["ms"],
+             store_ms={st: rg[f"tiny vary g={g_last} persistent {st}"]["ms"]
+                       for st in gsp.STORES},
+             rowout_ms=ro["ms"], rowout_bound_ms=ro["bound_ms"],
+             rowout_store_ms={
+                 st: rg[ro["name"].replace(gsp.STORE, st)]["ms"]
+                 for st in gsp.STORES},
+             rowout_blocks_ms=rg[ro["name"].replace(
+                 f"persistent {gsp.STORE}", "blocks")]["ms"]),
     ]
 
 
@@ -3283,26 +3345,90 @@ RIDGE_PROFILE_COLS = 2048
 SEP_WAVELET = ("gmw", {"beta": 6.0})
 
 
+_SASS = {}
+
+
+def library_functions():
+    """[SASS of each function] of the built library (cuobjdump -sass, read
+    once a process), or why it could not be read."""
+    import re
+    import shutil
+    from ssqueeze_rs_tpu_torch import _build
+    if "fns" not in _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if not os.path.exists(tool):
+            return "cuobjdump not found"
+        res = subprocess.run([tool, "-sass", _build.library_path()],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            return f"cuobjdump failed ({res.returncode})"
+        _SASS["fns"] = re.split(r"\n\s*Function : ", res.stdout)[1:]
+    return _SASS["fns"]
+
+
 def hgmma_count():
     """HGMMA instructions in each instantiation of kernel I (by its wgmma
     width N) in the built library's SASS (cuobjdump -sass), or why they
     could not be counted."""
     import re
-    import shutil
-    from ssqueeze_rs_tpu_torch import _build
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return "cuobjdump not found"
-    res = subprocess.run([tool, "-sass", _build.library_path()],
-                         capture_output=True, text=True, timeout=300)
-    if res.returncode != 0:
-        return f"cuobjdump failed ({res.returncode})"
+    fns = library_functions()
+    if isinstance(fns, str):
+        return fns
     counts = {}
-    for fn in re.split(r"\n\s*Function : ", res.stdout)[1:]:
+    for fn in fns:
         m = re.match(r"\S*reassign_mxu_kernelILi(\d+)E", fn)
         if m:
             counts[int(m.group(1))] = fn.count("HGMMA")
     return dict(sorted(counts.items())) or "no kernel I in the SASS"
+
+
+def loop_fadds(fn):
+    """(FADDs, FADDs inside a loop) of one function's SASS: a loop is the
+    span from a backward branch's target to the branch."""
+    import re
+    insts, labels, pending = [], {}, []
+    for line in fn.splitlines():
+        text = line.strip()
+        m = re.match(r"(\.L_x_\d+):", text)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"/\*([0-9a-f]{4,})\*/\s+(.*)", text)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((p, addr) for p in pending)
+            pending = []
+            insts.append((addr, m.group(2)))
+    loops = []
+    for addr, text in insts:
+        m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                      text)
+        if m:
+            to = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+            if to is not None and to <= addr:
+                loops.append((to, addr))
+    fadds = [a for a, text in insts if re.search(r"\bFADD\b", text)]
+    return len(fadds), sum(any(lo <= a <= hi for lo, hi in loops)
+                           for a in fadds)
+
+
+def fadd_count():
+    """{J8's persistent kernel by store route and output: (FADDs, FADDs
+    inside a loop)} in the built library's SASS, or why they could not be
+    counted."""
+    import re
+    from ssqueeze_rs_tpu_torch.tools import grid_slope_probe as gsp
+    fns = library_functions()
+    if isinstance(fns, str):
+        return fns
+    counts = {}
+    for fn in fns:
+        m = re.match(r"\S*grid_slope_persistentILi(\d)ELi(\d)E", fn)
+        if m:
+            counts[f"{gsp.STORES[int(m.group(1))]} "
+                   f"{'vary' if m.group(2) == '1' else 'const'}"] = \
+                loop_fadds(fn)
+    return dict(sorted(counts.items())) or "no J8 kernel in the SASS"
 
 
 def wall_ms(torch, fn):

@@ -74,7 +74,10 @@ _SIGNATURES = {
                            _PLAN + [_I, _I, _I, _P, _P, _P],
     "ssq_ablate_reassign3": [_P] * 4 + [_I, _I, _LL, _I, _I, _I] + _PLAN +
                             [_I, _I, _P, _P, _P],
-    "ssq_grid_slope": [_P, _P, _LL, _I, _I, _P],
+    # x, out, tile, grid, vary, mode, store, stream
+    "ssq_grid_slope": [_P, _P, _LL, _I, _I, _I, _I, _P],
+    # tile, grid, vary, store, the plan's seven ints
+    "ssq_grid_slope_plan": [_LL, _I, _I, _I, _P],
     # A, B, the operand scratch, out; m, k, n, R, grid, precision, chains
     "ssq_rate_dot": [_P] * 4 + [_I] * 7 + [_P],
     "ssq_rate_prep": [_P] * 3 + [_I] * 5 + [_P],

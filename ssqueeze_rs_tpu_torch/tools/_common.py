@@ -164,15 +164,18 @@ def row(name, ms, nbytes, flops, rate=F32_FLOP_S, **extra):
                 bound_by=b[1], **extra)
 
 
-def print_rows(rows, card, width=12):
+def print_rows(rows, card, width=12, digits=3):
+    """One line a row, its times to `digits` decimals of a ms."""
     for r in rows:
         per = ""
         if "per_transform_ms" in r:
             per = f" ({r['per_transform_ms']:.3f} a transform)"
+        if "past_floor_ms" in r:
+            per += f" (past the floor {r['past_floor_ms']:.{digits}f})"
         if "wall_ms" in r:
-            per += f" (wall {r['wall_ms']:.3f})"
+            per += f" (wall {r['wall_ms']:.{digits}f})"
         if "note" in r:
             per += f" {r['note']}"
-        print(f"{r['name']:<{width}s} {r['ms']:9.3f} ms{per}  bound "
+        print(f"{r['name']:<{width}s} {r['ms']:9.{digits}f} ms{per}  bound "
               f"{r['bound_ms']:.4g} ms ({r['bound_by']})  | {card}",
               flush=True)

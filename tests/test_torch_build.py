@@ -69,6 +69,7 @@ def test_entry_points_have_signatures():
             "ssq_cwt_planes", "ssq_ifft_halfband",
             "ssq_reassign_mxu", "ssq_ablate_cwt", "ssq_cwt_copy_floor",
             "ssq_cwt_staged", "ssq_ablate_reassign", "ssq_grid_slope",
+            "ssq_grid_slope_plan",
             "ssq_rate_dot", "ssq_rate_copy", "ssq_dma_overlap",
             "ssq_mxu_dots", "ssq_mxu_elem", "ssq_reassign_f64",
             "ssq_reassign4_f64", "ssq_reassign_bwd_f64",

@@ -109,17 +109,124 @@ def _t(a):
 
 
 # -- J8 ------------------------------------------------------------------------
+@pytest.mark.parametrize("mode, store", [("persistent", None),
+                                         ("persistent", "regs"),
+                                         ("persistent", "bulk"),
+                                         ("blocks", None)])
 @pytest.mark.parametrize("rows, L, vary, grid", [
     (8, 128, False, 2), (8, 128, True, 4), (1, 1024, True, 3)])
-def test_grid_slope_matches_jax(rows, L, vary, grid):
+def test_grid_slope_matches_jax(rows, L, vary, grid, mode, store):
     x = np.random.default_rng(grid).standard_normal((rows, L)).astype(
         np.float32)
     with _jax_probe("grid_slope_probe") as (mod, rec):
         mod.build(grid, rows, L, vary)(jnp.asarray(x), 0)
     (ins, out), = rec.calls
-    got = gsp.grid_slope(torch.as_tensor(x), grid, vary)
+    got = gsp.grid_slope(torch.as_tensor(x), grid, vary, mode, store)
     assert got.shape == out.shape
     assert np.array_equal(got.numpy(), out)
+
+
+# every configuration of the probe and its CPU size, the launch floor, a
+# tile of chunks whose last is shorter, one of many chunks, and a grid
+# below the blocks a chunk could have
+PLAN_CASES = ([(r, L, v, g) for _, r, L, v, gs in gsp.CONFIGS + gsp.SMALL
+               for g in gs] + [gsp.FLOOR[1:]] +
+              [(3, 5000, True, 7), (3, 5000, False, 7),
+               (1, 1_000_000, True, 2), (40, 8192, False, 3),
+               (1, 163_840, True, 1)])
+
+
+@pytest.mark.parametrize("store", gsp.STORES)
+@pytest.mark.parametrize("rows, L, vary, grid", PLAN_CASES)
+def test_grid_slope_plan_covers_every_item_once(rows, L, vary, grid, store):
+    """Every (step, chunk) is one block's exactly once, each block owns
+    one chunk (and loads it once), and the blocks stay under the
+    occupancy's blocks an SM times the SMs."""
+    for sms in (132, 7):
+        try:
+            p = gsp.plan(rows, L, grid, vary, store, sms=sms)
+        except ValueError:
+            # refused only where the chunks outnumber the blocks at once
+            full = gsp.plan(rows, L, grid, vary, store)
+            assert sms == 7 and full["chunks"] > full["per_sm"] * sms
+            continue
+        tile = rows * L
+        assert p["chunks"] * p["chunk"] >= tile > (p["chunks"] - 1) * \
+            p["chunk"]
+        assert p["chunk"] <= gsp.CHUNK and p["chunk"] * 4 % 16 == 0
+        assert p["blocks"] == len(p["work"]) == p["loads"]
+        assert p["blocks"] <= p["per_sm"] * sms
+        assert p["blocks"] <= grid * p["chunks"]
+        assert 1 <= p["per_sm"] <= gsp.PER_SM
+        assert p["per_sm"] * (p["smem"] + gsp.SMEM_RESERVED) <= \
+            gsp.SMEM_PER_SM
+        items = sorted((s, c) for c, lo, hi in p["work"]
+                       for s in range(lo, hi))
+        assert items == sorted((s, c) for s in range(grid)
+                               for c in range(p["chunks"]))
+        # one chunk a block, each step range contiguous and not empty
+        assert all(lo < hi for _, lo, hi in p["work"])
+        assert p["stores"] == (grid * p["chunks"] if vary else p["chunks"])
+        # the constant output: one block a chunk owns its last step
+        owners = [c for c, _, hi in p["work"] if hi == grid]
+        assert sorted(owners) == list(range(p["chunks"]))
+
+
+def test_grid_slope_plan_shares():
+    """The shared memory each design takes and the blocks it gets: the
+    bulk route stages SLOTS chunks beside x, the constant output one
+    resident chunk; row-out at 37 steps spreads its 20 chunks over every
+    SM, two blocks an SM; the launch floor is one block of one float4;
+    the shared memory caps the blocks an SM below PER_SM."""
+    for store, bufs in (("bulk", 3), ("regs", 1)):
+        p = gsp.plan(1, 163_840, 37, True, store)
+        assert (p["chunk"], p["chunks"], p["smem"]) == (8192, 20,
+                                                        bufs * 32768 + 16)
+        assert p["per_sm"] == 2 and p["blocks"] == 20 * (264 // 20)
+    p = gsp.plan(8, 128, 1024, False)
+    assert p["smem"] == 2 * 4096 + 16 and p["blocks"] == 264
+    assert gsp._fit(150_000) == 1 and gsp._fit(1000) == gsp.PER_SM
+    p = gsp.plan(*gsp.FLOOR[1:])
+    assert (p["chunk"], p["chunks"], p["blocks"], p["work"]) == (
+        4, 1, 1, [(0, 0, 1)])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gsp.plan(1, 6, 2, True)
+    with pytest.raises(ValueError, match="store"):
+        gsp.plan(8, 128, 2, True, "tma")
+    with pytest.raises(ValueError, match="holds at once"):
+        gsp.plan(1, 2_000_000, 2, True, "bulk", sms=1)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(os.path.dirname(TOOLS), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_grid_slope_adds_are_counted_inside_loops():
+    """chip_smoke's check that J8's adds were not folded: FADDs between a
+    backward branch's target and the branch are inside a loop, in both
+    forms of branch target that cuobjdump prints; an add hoisted before
+    the loop is not."""
+    cs = _chip_smoke()
+    sass = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x0000 */
+        /*0010*/                   FADD R2, R2, 1 ;          /* 0x0000 */
+.L_x_1:
+        /*0020*/                   LDS.128 R4, [R3] ;        /* 0x0000 */
+        /*0030*/                   FADD R4, R4, 1 ;          /* 0x0000 */
+        /*0040*/                   FADD R5, R5, 1 ;          /* 0x0000 */
+        /*0050*/                   STG.E.128 [R8], R4 ;      /* 0x0000 */
+        /*0060*/              @P0 BRA `(.L_x_1) ;            /* 0x0000 */
+        /*0070*/                   FADD R6, R6, 1 ;          /* 0x0000 */
+        /*0080*/              @P1 BRA 0x70 ;                 /* 0x0000 */
+        /*0090*/                   BRA `(.L_x_2) ;           /* 0x0000 */
+.L_x_2:
+        /*00a0*/                   EXIT ;                    /* 0x0000 */
+"""
+    assert cs.loop_fadds(sass) == (4, 3)
 
 
 # -- J5 ------------------------------------------------------------------------
@@ -723,7 +830,10 @@ def test_dots_variants_read_ptxas_and_need_the_card(monkeypatch):
 # -- the entry points ------------------------------------------------------------
 def _names(mod, argv):
     if mod is gsp:
-        return [f"{n} g={g}" for n, _, _, _, gs in gsp.SMALL for g in gs]
+        return [gsp.FLOOR[0]] + [
+            f"{n} g={g} " + (f"{m} {st}" if st else m)
+            for n, _, _, _, gs in gsp.SMALL for g in gs
+            for m, st in gsp.VARIANTS]
     if mod is mrp and "--chains" in argv:
         return [f"chains C={C} ({m},{k},{n})"
                 for m, k, n in mrp.SMALL["chains"] for C in mrp.SMALL["C"]]
@@ -754,6 +864,10 @@ def test_main_on_cpu(mod, extra, capsys):
     assert "TFLOP/s" not in "".join(lines) and "TB/s" not in "".join(lines)
     if mod is gsp:
         assert sum("per-block cost" in line for line in lines) == 3
+        assert sum("per-step cost" in line for line in lines) == 6
+        assert sum(line.startswith("launch floor") for line in lines) == 2
+        assert rows[0]["past_floor_ms"] == 0 and all(
+            r["past_floor_ms"] == r["ms"] - rows[0]["ms"] for r in rows)
     if mod is dop:
         assert sum("sum(floors)" in line for line in lines) == 2
     # CPU runs launch nothing
@@ -788,6 +902,14 @@ def test_wrappers_refuse_bad_arguments():
         dop.dma_overlap(src, a, b, "both", R=3, CH=8)
     with pytest.raises(ValueError, match="grid"):
         gsp.grid_slope(torch.zeros(8, 128), 0, True)
+    with pytest.raises(ValueError, match="mode"):
+        gsp.grid_slope(torch.zeros(8, 128), 2, True, "resident")
+    with pytest.raises(ValueError, match="store"):
+        gsp.grid_slope(torch.zeros(8, 128), 2, True, "persistent", "tma")
+    with pytest.raises(ValueError, match="store"):
+        gsp.grid_slope(torch.zeros(8, 128), 2, True, "blocks", "regs")
+    with pytest.raises(ValueError, match="store"):
+        gsp.kernel_plan(8, 128, 2, True, "tma")
     with pytest.raises(ValueError, match="int32"):
         mp.trans(torch.zeros(4, 8), 1)
     with pytest.raises(ValueError, match="multiple"):
