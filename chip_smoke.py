@@ -312,6 +312,34 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# the kernels by the names this script reports -> the C entry points whose
+# calls ssqueeze_rs_tpu_torch.trace.COUNTS counts as "launch.<entry>"
+ENTRIES = {"cwt_phase": "ssq_cwt_phase", "cwt_fused": "ssq_cwt_planes",
+           "ifft_halfband": "ssq_ifft_halfband", "reassign": "ssq_reassign",
+           "reassign4": "ssq_reassign4", "reassign_mxu": "ssq_reassign_mxu",
+           "reassign_bwd": "ssq_reassign_bwd",
+           "reassign4_bwd": "ssq_reassign4_bwd",
+           "reassign_f64": "ssq_reassign_f64",
+           "reassign4_f64": "ssq_reassign4_f64",
+           "reassign_bwd_f64": "ssq_reassign_bwd_f64",
+           "reassign4_bwd_f64": "ssq_reassign4_bwd_f64",
+           "stft_dft": "ssq_stft_dft", "ssq_stft": "ssq_stft_fused",
+           "istft_ola": "ssq_istft_ola"}
+
+
+def counted_launches(*names):
+    """{name: launches counted} of the kernels `names`."""
+    from ssqueeze_rs_tpu_torch.trace import COUNTS
+    return {n: COUNTS["launch." + ENTRIES[n]] for n in names}
+
+
+def zero_launch_counts(*names):
+    """Set the launch counts of the kernels `names` to 0."""
+    from ssqueeze_rs_tpu_torch.trace import COUNTS
+    for n in names:
+        COUNTS["launch." + ENTRIES[n]] = 0
+
+
 LAPS = {}                         # wall seconds by part of the script
 _LAP_T = [time.perf_counter()]
 
@@ -764,25 +792,24 @@ def main():
         "chirp": (torch.as_tensor(np.cos(2 * np.pi * (5 * t + 1.5 * t * t)),
                                   dtype=torch.float32, device=dev), 1000.0),
     }
-    fft_cuda.LAUNCHES = reassign_cuda.LAUNCHES = 0
+    zero_launch_counts("cwt_phase", "reassign")
     outs, req_ms = {}, {}
     for name, (x, fs) in requests.items():
-        before = (fft_cuda.LAUNCHES, reassign_cuda.LAUNCHES)
+        before = tuple(counted_launches("cwt_phase", "reassign").values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = ssq_cwt(x, wavelet, scales=scales, fs=fs)
         torch.cuda.synchronize()
         req_ms[name] = (time.perf_counter() - t0) * 1e3
-        moved = (fft_cuda.LAUNCHES - before[0],
-                 reassign_cuda.LAUNCHES - before[1])
+        now = tuple(counted_launches("cwt_phase", "reassign").values())
+        moved = (now[0] - before[0], now[1] - before[1])
         check(moved == (1, 1), f"{name}: kernel launches moved by {moved}")
         check(out[0].is_cuda and out[1].is_cuda, f"{name}: output left the GPU")
         check(tuple(out[0].shape) == (nf, N) and tuple(out[1].shape) ==
               (len(sc), N), f"{name}: shapes {out[0].shape} {out[1].shape}")
         check(bool(torch.isfinite(out[0]).all()), f"{name}: Tx not finite")
         outs[name] = out
-    launches = {"cwt_phase": fft_cuda.LAUNCHES,
-                "reassign": reassign_cuda.LAUNCHES}
+    launches = counted_launches("cwt_phase", "reassign")
 
     Tx, _, ssq_freqs, _ = outs["sine100"]
     f_peak = float(ssq_freqs[int(Tx.abs().mean(-1).argmax())])
@@ -1265,12 +1292,9 @@ def stft_phases(np, torch, dev, card, results):
         "chirp": (torch.as_tensor(np.cos(2 * np.pi * (5 * t + 1.5 * t * t)),
                                   dtype=torch.float32, device=dev), 1000.0),
     }
-    counts = lambda: dict(stft_cuda.LAUNCHES,
-                          reassign4=reassign_cuda.LAUNCHES4,
-                          reassign=reassign_cuda.LAUNCHES)
-    for key in stft_cuda.LAUNCHES:
-        stft_cuda.LAUNCHES[key] = 0
-    reassign_cuda.LAUNCHES4 = reassign_cuda.LAUNCHES = 0
+    names11 = ("stft_dft", "ssq_stft", "istft_ola", "reassign4", "reassign")
+    counts = lambda: counted_launches(*names11)
+    zero_launch_counts(*names11)
     req_ms, peak = {}, None
     for name, (xq, fs) in requests.items():
         nf_fs = np.linspace(0, 0.5 * fs, nf, dtype=np.float32)
@@ -1398,7 +1422,7 @@ def grad_phases(np, torch, dev, card, results, cwt):
     """Phases 12-14: kernels C and C', the gradient of ssq_cwt, the STFT
     family's gradients. Returns C's and C''s entries of the JSON line."""
     from ssqueeze_rs_tpu_torch import ssq_cwt, stft, istft, ssq_stft
-    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda, stft_cuda
+    from ssqueeze_rs_tpu_torch.ops import reassign_cuda, stft_cuda
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_reassignment
     from ssqueeze_rs_tpu_torch.ops.stft import (_k_t, _win_bytes, _dft_spec,
                                                 _irfft_mats_weighted,
@@ -1467,18 +1491,12 @@ def grad_phases(np, torch, dev, card, results, cwt):
 
     # 13. the gradient of ssq_cwt at the headline width
     wavelet, scales = cwt["wavelet"], cwt["scales"]
-    counts = lambda: dict(stft_cuda.LAUNCHES, cwt_phase=fft_cuda.LAUNCHES,
-                          reassign=reassign_cuda.LAUNCHES,
-                          reassign4=reassign_cuda.LAUNCHES4,
-                          reassign_bwd=reassign_cuda.LAUNCHES_BWD,
-                          reassign4_bwd=reassign_cuda.LAUNCHES4_BWD)
+    names13 = ("stft_dft", "ssq_stft", "istft_ola", "cwt_phase", "reassign",
+               "reassign4", "reassign_bwd", "reassign4_bwd")
+    counts = lambda: counted_launches(*names13)
 
     def zero_counts():
-        for key in stft_cuda.LAUNCHES:
-            stft_cuda.LAUNCHES[key] = 0
-        fft_cuda.LAUNCHES = reassign_cuda.LAUNCHES = 0
-        reassign_cuda.LAUNCHES4 = reassign_cuda.LAUNCHES_BWD = 0
-        reassign_cuda.LAUNCHES4_BWD = 0
+        zero_launch_counts(*names13)
 
     def moved_by(fn):
         before = counts()
@@ -1666,7 +1684,7 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
     family end to end, the cwt gradient. Returns D's and E's entries of
     the JSON line."""
     from ssqueeze_rs_tpu_torch import cwt, icwt, ssq_cwt, mad_rms
-    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda
     from ssqueeze_rs_tpu_torch.ops.cwt import cwt_phase_args
     from ssqueeze_rs_tpu_torch.scales import process_scales
     from ssqueeze_rs_tpu_torch.utils.pad import padsignal
@@ -1794,16 +1812,14 @@ def cwt_family_phases(np, torch, dev, card, results, ctx):
         for k, v in DE.items()) + f" ({card})")
 
     # 16. cwt / icwt / ssq_cwt end to end: three requests
+    names16 = ("cwt_phase", "cwt_fused", "ifft_halfband", "reassign",
+               "reassign4")
+
     def counts():
-        return dict(cwt_phase=fft_cuda.LAUNCHES,
-                    cwt_fused=fft_cuda.LAUNCHES_D,
-                    ifft_halfband=fft_cuda.LAUNCHES_E,
-                    reassign=reassign_cuda.LAUNCHES,
-                    reassign4=reassign_cuda.LAUNCHES4)
+        return counted_launches(*names16)
 
     def zero_counts():
-        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
-        reassign_cuda.LAUNCHES = reassign_cuda.LAUNCHES4 = 0
+        zero_launch_counts(*names16)
 
     calls = {
         "cwt": (lambda xq, fs: cwt(xq, wavelet, scales=scales, fs=fs),
@@ -1997,7 +2013,7 @@ def serving_phases(np, torch, dev, card, results, ctx):
                                        TransformServer, ssq_cwt, ssq_stft,
                                        stft)
     from ssqueeze_rs_tpu_torch.parallel import process_recording
-    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda, stft_cuda
+    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
     from ssqueeze_rs_tpu_torch.ops.cwt import cwt_phase_args
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import (plan_ssqueeze,
                                                     plan_reassignment)
@@ -2010,16 +2026,15 @@ def serving_phases(np, torch, dev, card, results, ctx):
     R = reassign_cuda
 
     def counts():
-        return dict(cwt_phase=fft_cuda.LAUNCHES, cwt_fused=fft_cuda.LAUNCHES_D,
-                    reassign=R.LAUNCHES, reassign4=R.LAUNCHES4,
-                    reassign_mxu=R.LAUNCHES_MXU, **stft_cuda.LAUNCHES)
+        return counted_launches("cwt_phase", "cwt_fused", "reassign",
+                                "reassign4", "reassign_mxu", "stft_dft",
+                                "ssq_stft", "istft_ola")
 
     def zero_counts():
-        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
-        R.LAUNCHES = R.LAUNCHES4 = R.LAUNCHES_MXU = 0
-        R.LAUNCHES_BWD = R.LAUNCHES4_BWD = 0
-        for key in stft_cuda.LAUNCHES:
-            stft_cuda.LAUNCHES[key] = 0
+        zero_launch_counts("cwt_phase", "cwt_fused", "ifft_halfband",
+                           "reassign", "reassign4", "reassign_mxu",
+                           "reassign_bwd", "reassign4_bwd", "stft_dft",
+                           "ssq_stft", "istft_ola")
 
     def moved_since(before):
         return {k: v - before[k] for k, v in counts().items()
@@ -3449,17 +3464,17 @@ def component_phases(np, torch, dev, card, results, ctx):
                                        extract_ridges, issq_cwt, mad_rms,
                                        ssq_cwt, tkeo, tkeo_modified)
     from ssqueeze_rs_tpu_torch.config import EPS32
-    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda as R
+    from ssqueeze_rs_tpu_torch.ops import reassign_cuda as R
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_ssqueeze
 
+    names23 = ("cwt_phase", "cwt_fused", "ifft_halfband", "reassign",
+               "reassign4", "reassign_mxu")
+
     def zero_counts():
-        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
-        R.LAUNCHES = R.LAUNCHES4 = R.LAUNCHES_MXU = 0
+        zero_launch_counts(*names23)
 
     def counts():
-        return dict(cwt_phase=fft_cuda.LAUNCHES, cwt_fused=fft_cuda.LAUNCHES_D,
-                    ifft_halfband=fft_cuda.LAUNCHES_E, reassign=R.LAUNCHES,
-                    reassign4=R.LAUNCHES4, reassign_mxu=R.LAUNCHES_MXU)
+        return counted_launches(*names23)
 
     out = {}
     path_launches = {"reassign": 0, "reassign4": 0}
@@ -3614,11 +3629,11 @@ def component_phases(np, torch, dev, card, results, ctx):
                     ref64.abs().max())
     ms_sum = cuda_ms(torch, lambda: algos.indexed_sum(a, kb), iters=5)
     # a complex128 input runs B in double (its planes kept float64)
-    R.LAUNCHES_F64 = 0
+    zero_launch_counts("reassign_f64")
     W64, w64 = Wx.to(torch.complex128), w.double()
     T64 = algos.indexed_sum_onfly(W64, w64, freqs, const_arr, logscale=True,
                                   flipud=True)
-    moved64 = R.LAUNCHES_F64
+    moved64 = counted_launches("reassign_f64")["reassign_f64"]
     path_launches["reassign_f64"] = moved64
     P64 = torch.complex(*R.reassign_plain(
         W64.real, W64.imag, w64, torch.as_tensor(const_arr, device=dev),
@@ -3775,8 +3790,7 @@ def float64_phases(np, torch, dev, card, results, ctx):
     from ssqueeze_rs_tpu_torch import (_build, compat, cwt, icwt, ssq_cwt,
                                        ssq_stft, stft)
     from ssqueeze_rs_tpu_torch.config import EPS32, EPS64
-    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda as R
-    from ssqueeze_rs_tpu_torch.ops import stft_cuda
+    from ssqueeze_rs_tpu_torch.ops import reassign_cuda as R
     from ssqueeze_rs_tpu_torch.ops.cwt import _FB_CACHE
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import bin_params, plan_ssqueeze
 
@@ -3788,25 +3802,10 @@ def float64_phases(np, torch, dev, card, results, ctx):
     rng = np.random.default_rng(24)
 
     def zero_counts():
-        fft_cuda.LAUNCHES = fft_cuda.LAUNCHES_D = fft_cuda.LAUNCHES_E = 0
-        for k in stft_cuda.LAUNCHES:
-            stft_cuda.LAUNCHES[k] = 0
-        R.LAUNCHES = R.LAUNCHES4 = R.LAUNCHES_MXU = 0
-        R.LAUNCHES_BWD = R.LAUNCHES4_BWD = 0
-        R.LAUNCHES_F64 = R.LAUNCHES4_F64 = 0
-        R.LAUNCHES_BWD_F64 = R.LAUNCHES4_BWD_F64 = 0
+        zero_launch_counts(*ENTRIES)
 
     def counts():
-        return dict(stft_cuda.LAUNCHES, cwt_phase=fft_cuda.LAUNCHES,
-                    cwt_fused=fft_cuda.LAUNCHES_D,
-                    ifft_halfband=fft_cuda.LAUNCHES_E, reassign=R.LAUNCHES,
-                    reassign4=R.LAUNCHES4, reassign_mxu=R.LAUNCHES_MXU,
-                    reassign_bwd=R.LAUNCHES_BWD,
-                    reassign4_bwd=R.LAUNCHES4_BWD,
-                    reassign_f64=R.LAUNCHES_F64,
-                    reassign4_f64=R.LAUNCHES4_F64,
-                    reassign_bwd_f64=R.LAUNCHES_BWD_F64,
-                    reassign4_bwd_f64=R.LAUNCHES4_BWD_F64)
+        return counted_launches(*ENTRIES)
 
     def only(**nonzero):
         want = {k: 0 for k in counts()}
@@ -4240,14 +4239,11 @@ MXU_BAR = 2e-5          # kernel I against B': sum|d| / sum|B'|
 
 def launch_counts():
     """Every kernel launch counter the main paths move, by JSON name."""
-    from ssqueeze_rs_tpu_torch.ops import (fft_cuda, reassign_cuda as R,
-                                           stft_cuda)
-    return dict(stft_cuda.LAUNCHES, cwt_phase=fft_cuda.LAUNCHES,
-                cwt_fused=fft_cuda.LAUNCHES_D,
-                ifft_halfband=fft_cuda.LAUNCHES_E, reassign=R.LAUNCHES,
-                reassign4=R.LAUNCHES4, reassign_mxu=R.LAUNCHES_MXU,
-                reassign_f64=R.LAUNCHES_F64, reassign4_f64=R.LAUNCHES4_F64,
-                reassign_bwd=R.LAUNCHES_BWD, reassign4_bwd=R.LAUNCHES4_BWD)
+    return counted_launches("stft_dft", "ssq_stft", "istft_ola",
+                            "cwt_phase", "cwt_fused", "ifft_halfband",
+                            "reassign", "reassign4", "reassign_mxu",
+                            "reassign_f64", "reassign4_f64", "reassign_bwd",
+                            "reassign4_bwd")
 
 
 def moved(before):
@@ -4425,7 +4421,7 @@ def range_phases(np, torch, dev, card, results, ctx):
                nf0, "cwt")
         oneI = R.reassign4(*a4h)
         forcedI, countI = R._launch_ranges(
-            lambda lib: lib.ssq_reassign_mxu, planes4, [ctx["const"], zeros],
+            "ssq_reassign_mxu", planes4, [ctx["const"], zeros],
             [R.TRANSFORMS["cwt"], R.MODES[mode0], 1],
             [R._gamma2(10 * EPS32)] + R._plan_floats(mode0, prm0), nf0,
             "reassign_mxu kernel", RANGE_SPLIT,
@@ -4757,7 +4753,6 @@ def native_pipeline_phases(np, torch, dev, card, results, ctx):
     launches by kernel name."""
     import tempfile
     from ssqueeze_rs_tpu_torch import cwt, native
-    from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
     from ssqueeze_rs_tpu_torch.ops.ssqueeze import bin_params, reassign
     from ssqueeze_rs_tpu_torch.parallel import process_recording
     from ssqueeze_rs_tpu_torch.utils.pad import _reflect_indices
@@ -4770,8 +4765,7 @@ def native_pipeline_phases(np, torch, dev, card, results, ctx):
     S26 = {}
 
     def counts():
-        return dict(cwt_phase=fft_cuda.LAUNCHES,
-                    reassign=reassign_cuda.LAUNCHES)
+        return counted_launches("cwt_phase", "reassign")
 
     # (a) the library
     t0 = time.perf_counter()

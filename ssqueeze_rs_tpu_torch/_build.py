@@ -7,7 +7,9 @@ library lands in ``_build/`` under a name that carries the hash of the
 sources and flags, so an edited source rebuilds at its next use and an
 unchanged one is loaded as it is. Nothing is built or imported until a
 kernel is first launched on a CUDA tensor: importing the package needs
-neither nvcc nor a GPU.
+neither nvcc nor a GPU. The transforms call their kernels through
+`launch`, which spans each call (`trace.span`) and counts it
+(`trace.COUNTS`); the probes under ``tools/`` keep their own counters.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+from . import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -200,3 +204,13 @@ def check(err: int, what: str):
     if err != 0:
         name = lib().ssq_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+def launch(entry: str, *args, what: str):
+    """Call the C entry point `entry` with `args` inside the span
+    `ssq.launch.<entry>`, raise on its error (`what` names it), and count
+    it in `trace.COUNTS["launch.<entry>"]`."""
+    with trace.span("ssq.launch." + entry):
+        err = getattr(lib(), entry)(*args)
+    check(err, what)
+    trace.count("launch." + entry)

@@ -32,6 +32,7 @@ import torch
 from ..config import real_dtype
 from ..scales import (process_scales, process_fs_and_t,
                       logscale_transition_idx)
+from ..trace import span
 from ..utils.common import as_signal
 from ..utils.fft import xifn
 from ..utils.pad import padsignal
@@ -114,8 +115,9 @@ def cwt_phase_args(xp: torch.Tensor, scales, dt: float, wavelet: Wavelet,
     if filterbank is not None:
         Pw, pnyq = filterbank
     else:
-        sc = torch.as_tensor(np.asarray(scales, dtype=np.float32),
-                             device=device)
+        with span("ssq.plan"):
+            sc = torch.as_tensor(np.asarray(scales, dtype=np.float32),
+                                 device=device)
         Pw = wavelet.psih(sc[:, None, None] * xig[None], torch).to(f32)
         pnyq = (wavelet.psih(sc * np.float32(np.pi), torch) / 2).to(f32)
     na = Pw.shape[0]
@@ -171,7 +173,8 @@ def cwt_core(xp, scales, dt, *, wavelet: Wavelet, derivative: bool,
             torch.as_tensor(np.sqrt(sc), device=xp.device)[:, None])
 
     if route == "planar":
-        args = cwt_phase_args(xp, sc, dt, wavelet, filterbank)
+        with span("ssq.prep"):
+            args = cwt_phase_args(xp, sc, dt, wavelet, filterbank)
         if phase_gamma is not None:
             if not (planar_out and derivative):
                 raise ValueError("phase_gamma needs planar_out and derivative")
@@ -190,8 +193,9 @@ def cwt_core(xp, scales, dt, *, wavelet: Wavelet, derivative: bool,
         pw, pd = tuple(planes[:2]), tuple(planes[2:]) or None
         if planar_out:
             return pw, pd
-        return (torch.complex(*pw),
-                torch.complex(*pd) if pd is not None else None)
+        with span("ssq.pack"):
+            return (torch.complex(*pw),
+                    torch.complex(*pd) if pd is not None else None)
 
     cdt = torch.complex128 if rdt == np.float64 else torch.complex64
     if route == "halfband":
@@ -209,7 +213,8 @@ def cwt_core(xp, scales, dt, *, wavelet: Wavelet, derivative: bool,
         zp = Zf[:, :M // 2].reshape(b * rows, M1 // 2, M2)
         outr, outi = ifft_halfband_planar(zp.real, zp.imag, keep,
                                           Zf[:, -1].real, Zf[:, -1].imag)
-        W = torch.complex(outr, outi).reshape(batch + (rows, L))
+        with span("ssq.pack"):
+            W = torch.complex(outr, outi).reshape(batch + (rows, L))
     else:
         xh = torch.fft.fft(xp, dim=-1)
         Psih = wavelet.sample(sc, M, nohalf=False, device=xp.device).to(cdt)

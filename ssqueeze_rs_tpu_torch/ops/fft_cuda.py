@@ -11,8 +11,10 @@ two launches on the register-radix core ``csrc/fft_radix.cuh``: A is D
 with the derivative and a phase epilogue, E D with its own loader) or
 raises; on a CPU tensor it runs its plain version (`*_plain`), the same
 function in plain torch.
-`LAUNCHES` (A), `LAUNCHES_D` and `LAUNCHES_E` count kernel launches, so a
-run can show that it went through each kernel. All three are differentiable
+Each kernel call goes through `_build.launch`, which counts it in
+`trace.COUNTS` (`launch.ssq_cwt_phase` for A, `launch.ssq_cwt_planes` for
+D, `launch.ssq_ifft_halfband` for E), so a run can show that it went
+through each kernel. All three are differentiable
 (`CwtPhaseFn`, `CwtFusedFn`, `IfftHalfbandFn`) with the JAX package's
 gradients (`_cwt_fused_bwd`, `_fused_ifft_bwd`): `cwt_fused_vjp` and
 `ifft_halfband_vjp`, plain torch + cuFFT on either device, as the JAX
@@ -27,12 +29,8 @@ from torch.autograd.function import once_differentiable
 __all__ = ["cwt_phase", "cwt_phase_plain", "CwtPhaseFn", "cwt_fused",
            "cwt_fused_plain", "CwtFusedFn", "ifft_halfband_planar",
            "ifft_halfband_planar_plain", "IfftHalfbandFn", "cwt_fused_vjp",
-           "ifft_halfband_vjp", "best_split", "d_chunk_rows", "LAUNCHES",
-           "LAUNCHES_D", "LAUNCHES_E"]
+           "ifft_halfband_vjp", "best_split", "d_chunk_rows"]
 
-LAUNCHES = 0            # kernel A
-LAUNCHES_D = 0
-LAUNCHES_E = 0
 _TWO_PI = 6.283185307179586
 _MAX_FACTOR = 2048      # largest M1 or M2 the kernels' shared memory holds
 _Y_BYTES = 2 << 30      # cap on the adjoints' cotangent spectra (plain
@@ -244,7 +242,6 @@ def _stream(device):
 
 def _cwt_phase_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, gamma):
     from .. import _build
-    global LAUNCHES
     na, K1, M2 = Pw.shape
     rows = xr.shape[0] * na
     M1, M = _check_split(K1, M2, keep)
@@ -255,20 +252,18 @@ def _cwt_phase_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, gamma):
     Y = torch.empty((2, ychunk, M, 2), dtype=torch.float32, device=device)
     owr, owi, ow = (torch.empty((rows, L), dtype=torch.float32, device=device)
                     for _ in range(3))
-    err = _build.lib().ssq_cwt_phase(
-        Pw.data_ptr(), xr.data_ptr(), xi.data_ptr(), xig.data_ptr(),
-        _f32_scalar(inv_dt), *(v.data_ptr() for v in nyq),
+    _build.launch(
+        "ssq_cwt_phase", Pw.data_ptr(), xr.data_ptr(), xi.data_ptr(),
+        xig.data_ptr(), _f32_scalar(inv_dt), *(v.data_ptr() for v in nyq),
         rows, na, M1.bit_length() - 1, M2.bit_length() - 1, start, L,
         float(np.float32(float(gamma) ** 2)), Y.data_ptr(), ychunk,
-        owr.data_ptr(), owi.data_ptr(), ow.data_ptr(), _stream(device))
-    _build.check(err, "cwt_phase kernel")
-    LAUNCHES += 1
+        owr.data_ptr(), owi.data_ptr(), ow.data_ptr(), _stream(device),
+        what="cwt_phase kernel")
     return owr, owi, ow
 
 
 def _cwt_fused_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, derivative):
     from .. import _build
-    global LAUNCHES_D
     na, K1, M2 = Pw.shape
     rows = xr.shape[0] * na
     M1, M = _check_split(K1, M2, keep)
@@ -281,19 +276,17 @@ def _cwt_fused_cuda(device, Pw, xr, xi, xig, inv_dt, nyq, keep, derivative):
     out = [torch.empty((rows, L), dtype=torch.float32, device=device)
            for _ in range(2 * pipes)]
     ptrs = [o.data_ptr() for o in out] + [None] * (4 - len(out))
-    err = _build.lib().ssq_cwt_planes(
-        Pw.data_ptr(), xr.data_ptr(), xi.data_ptr(), xig.data_ptr(),
-        _f32_scalar(inv_dt), *(v.data_ptr() for v in nyq),
+    _build.launch(
+        "ssq_cwt_planes", Pw.data_ptr(), xr.data_ptr(), xi.data_ptr(),
+        xig.data_ptr(), _f32_scalar(inv_dt), *(v.data_ptr() for v in nyq),
         rows, na, M1.bit_length() - 1, M2.bit_length() - 1, start, L,
-        int(derivative), Y.data_ptr(), ychunk, *ptrs, _stream(device))
-    _build.check(err, "cwt_fused kernel")
-    LAUNCHES_D += 1
+        int(derivative), Y.data_ptr(), ychunk, *ptrs, _stream(device),
+        what="cwt_fused kernel")
     return tuple(out)
 
 
 def _ifft_halfband_cuda(device, Zr, Zi, nr, ni, keep):
     from .. import _build
-    global LAUNCHES_E
     B, K1, M2 = Zr.shape
     M1, M = _check_split(K1, M2, keep)
     start, L = keep
@@ -302,12 +295,11 @@ def _ifft_halfband_cuda(device, Zr, Zi, nr, ni, keep):
     Y = torch.empty((ychunk, M, 2), dtype=torch.float32, device=device)
     outr, outi = (torch.empty((B, L), dtype=torch.float32, device=device)
                   for _ in range(2))
-    err = _build.lib().ssq_ifft_halfband(
-        Zr.data_ptr(), Zi.data_ptr(), nr.data_ptr(), ni.data_ptr(), B,
-        M1.bit_length() - 1, M2.bit_length() - 1, start, L, Y.data_ptr(),
-        ychunk, outr.data_ptr(), outi.data_ptr(), _stream(device))
-    _build.check(err, "ifft_halfband kernel")
-    LAUNCHES_E += 1
+    _build.launch(
+        "ssq_ifft_halfband", Zr.data_ptr(), Zi.data_ptr(), nr.data_ptr(),
+        ni.data_ptr(), B, M1.bit_length() - 1, M2.bit_length() - 1, start,
+        L, Y.data_ptr(), ychunk, outr.data_ptr(), outi.data_ptr(),
+        _stream(device), what="ifft_halfband kernel")
     return outr, outi
 
 

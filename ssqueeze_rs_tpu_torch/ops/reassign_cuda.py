@@ -42,11 +42,12 @@ bin falls in its range, so each Tx entry takes the same adds in the same
 order as in one launch: Tx does not depend on the split. At nf at or
 under the limit a call is one launch, as before.
 
-`LAUNCHES` (B), `LAUNCHES4` (B'), `LAUNCHES_MXU` (I), `LAUNCHES_BWD` (C)
-and `LAUNCHES4_BWD` (C') count float32 kernel launches, `LAUNCHES_F64`,
-`LAUNCHES4_F64`, `LAUNCHES_BWD_F64` and `LAUNCHES4_BWD_F64` the double
-ones. They count launches, not calls: a call split into ranges adds one
-a range.
+Each launch goes through `_build.launch`, which counts it in
+`trace.COUNTS` under `launch.<entry>`: `launch.ssq_reassign` (B),
+`launch.ssq_reassign4` (B'), `launch.ssq_reassign_mxu` (I),
+`launch.ssq_reassign_bwd` (C) and `launch.ssq_reassign4_bwd` (C') for
+float32, the same names with `_f64` for the double ones. They count
+launches, not calls: a call split into ranges adds one a range.
 """
 from __future__ import annotations
 
@@ -64,19 +65,8 @@ __all__ = ["reassign", "reassign_plain", "reassign4", "reassign4_plain",
            "reassign_bwd", "reassign_bwd_plain", "reassign4_bwd",
            "reassign4_bwd_plain", "ReassignFn", "Reassign4Fn", "phase_w",
            "bin_indices", "reassign_mxu_plain",
-           "reassign_impl", "LAUNCHES", "LAUNCHES4", "LAUNCHES_MXU",
-           "LAUNCHES_BWD", "LAUNCHES4_BWD", "LAUNCHES_F64", "LAUNCHES4_F64",
-           "LAUNCHES_BWD_F64", "LAUNCHES4_BWD_F64"]
+           "reassign_impl"]
 
-LAUNCHES = 0
-LAUNCHES4 = 0
-LAUNCHES_MXU = 0
-LAUNCHES_BWD = 0
-LAUNCHES4_BWD = 0
-LAUNCHES_F64 = 0
-LAUNCHES4_F64 = 0
-LAUNCHES_BWD_F64 = 0
-LAUNCHES4_BWD_F64 = 0
 MODES = {"log": 0, "log-piecewise": 1, "lin": 2}
 TRANSFORMS = {"cwt": 0, "stft": 1}
 _PARAM_ORDER = {"log": ("vlmin", "dvl"),
@@ -352,7 +342,7 @@ def reassign4_bwd_plain(wr, wi, dr, di, const, Sfs, gr, gi, gamma,
 
 def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
             per_block=None, out=None):
-    """Common launch of the C entry points: planes (..., na, n) and
+    """Common launch of the C entry point named `entry`: planes (..., na, n) and
     per-row vectors in. The forward ones (B, B', I and probe P4's 3-plane
     `full`; `grads` None) take the launch-shape ints `per_block` (float32
     B, B': the columns a block, `_block_cols`, when it is None; double B,
@@ -387,10 +377,9 @@ def _launch(entry, planes, vecs, ints, plan, nf, what, grads=None,
              for _ in range(2)])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = entry(_build.lib())(
-            *(t.data_ptr() for t in planes + vecs), B, na, n, nf, *ints,
-            *plan, *mid, *(o.data_ptr() for o in outs), stream)
-    _build.check(err, what)
+        _build.launch(entry, *(t.data_ptr() for t in planes + vecs), B, na,
+                      n, nf, *ints, *plan, *mid,
+                      *(o.data_ptr() for o in outs), stream, what=what)
     return tuple(outs)
 
 
@@ -408,10 +397,9 @@ def _launch_ranges(entry, planes, vecs, ints, plan, nf, what, most, shape):
 
 
 def _entry(name, dtype):
-    """The C entry point `name`, or its double instantiation `name_f64`
-    for float64 planes, as `_launch` takes it."""
-    name += "_f64" if dtype == torch.float64 else ""
-    return lambda lib: getattr(lib, name)
+    """The name of the C entry point `name`, or of its double
+    instantiation `name_f64` for float64 planes, as `_launch` takes it."""
+    return name + ("_f64" if dtype == torch.float64 else "")
 
 
 def _f64_shape(dtype, nf, planes):
@@ -442,17 +430,12 @@ def _cotangent(g, device, dtype):
 
 def _reassign_dispatch(device, wr, wi, w, const, plan_params, mode, flipud,
                        nf):
-    global LAUNCHES, LAUNCHES_F64
     if device.type == "cuda":
         plan = _plan_floats(mode, plan_params, w.dtype)
-        out, count = _launch_ranges(
+        out, _ = _launch_ranges(
             _entry("ssq_reassign", w.dtype), [wr, wi, w], [const],
             [MODES[mode], int(bool(flipud))], plan, nf, "reassign kernel",
             *_scatter_shape(w.dtype, 3))
-        if w.dtype == torch.float64:
-            LAUNCHES_F64 += count
-        else:
-            LAUNCHES += count
         return out
     if device.type == "cpu":
         return reassign_plain(wr, wi, w, const, plan_params, mode, flipud, nf)
@@ -466,19 +449,13 @@ def reassign_bwd(w, const, gr, gi, plan_params, mode, flipud, nf):
     0 where masked. On a CUDA tensor it launches the kernel or raises; on
     a CPU tensor it runs `reassign_bwd_plain`. In w's type (float32 or
     float64)."""
-    global LAUNCHES_BWD, LAUNCHES_BWD_F64
     device, dtype = _device_of(w), _plane_dtype(w)
     w, const = _as(w, device, dtype), _as(const, device, dtype)
     if device.type == "cuda":
-        out = _launch(_entry("ssq_reassign_bwd", dtype), [w], [const],
-                      [MODES[mode], int(bool(flipud))],
-                      _plan_floats(mode, plan_params, dtype), nf,
-                      "reassign_bwd kernel", grads=(gr, gi))
-        if dtype == torch.float64:
-            LAUNCHES_BWD_F64 += 1
-        else:
-            LAUNCHES_BWD += 1
-        return out
+        return _launch(_entry("ssq_reassign_bwd", dtype), [w], [const],
+                       [MODES[mode], int(bool(flipud))],
+                       _plan_floats(mode, plan_params, dtype), nf,
+                       "reassign_bwd kernel", grads=(gr, gi))
     if device.type == "cpu":
         return reassign_bwd_plain(w, const, _cotangent(gr, device, dtype),
                                   _cotangent(gi, device, dtype), plan_params,
@@ -563,7 +540,6 @@ def reassign_impl() -> str:
 
 def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
                         plan_params, mode, flipud, nf, transform):
-    global LAUNCHES4, LAUNCHES4_F64
     dtype = wr.dtype
     if reassign_impl() == "mxu" and dtype == torch.float32:
         return _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
@@ -571,14 +547,10 @@ def _reassign4_dispatch(device, wr, wi, dr, di, const, Sfs, gamma,
     if device.type == "cuda":
         plan = ([_gamma2(gamma, dtype)] +
                 _plan_floats(mode, plan_params, dtype))
-        out, count = _launch_ranges(
+        out, _ = _launch_ranges(
             _entry("ssq_reassign4", dtype), [wr, wi, dr, di], [const, Sfs],
             [TRANSFORMS[transform], MODES[mode], int(bool(flipud))], plan,
             nf, "reassign4 kernel", *_scatter_shape(dtype, 4))
-        if dtype == torch.float64:
-            LAUNCHES4_F64 += count
-        else:
-            LAUNCHES4 += count
         return out
     if device.type == "cpu":
         return reassign4_plain(wr, wi, dr, di, const, Sfs, gamma,
@@ -591,7 +563,6 @@ def reassign4_bwd(wr, wi, dr, di, const, Sfs, gr, gi, gamma, plan_params,
     """VJP gather of the 4-plane reassignment (kernel C'): as
     `reassign_bwd`, with the bins of `reassign4` (w and the mask formed
     from Wx and dWx)."""
-    global LAUNCHES4_BWD, LAUNCHES4_BWD_F64
     _check_transform(transform)
     device, wr, wi, dr, di, const, Sfs = _prepare4(wr, wi, dr, di, const,
                                                    Sfs)
@@ -599,15 +570,10 @@ def reassign4_bwd(wr, wi, dr, di, const, Sfs, gr, gi, gamma, plan_params,
     if device.type == "cuda":
         plan = ([_gamma2(gamma, dtype)] +
                 _plan_floats(mode, plan_params, dtype))
-        out = _launch(_entry("ssq_reassign4_bwd", dtype), [wr, wi, dr, di],
-                      [const, Sfs], [TRANSFORMS[transform], MODES[mode],
-                                     int(bool(flipud))], plan, nf,
-                      "reassign4_bwd kernel", grads=(gr, gi))
-        if dtype == torch.float64:
-            LAUNCHES4_BWD_F64 += 1
-        else:
-            LAUNCHES4_BWD += 1
-        return out
+        return _launch(_entry("ssq_reassign4_bwd", dtype), [wr, wi, dr, di],
+                       [const, Sfs], [TRANSFORMS[transform], MODES[mode],
+                                      int(bool(flipud))], plan, nf,
+                       "reassign4_bwd kernel", grads=(gr, gi))
     if device.type == "cpu":
         return reassign4_bwd_plain(wr, wi, dr, di, const, Sfs,
                                    _cotangent(gr, device, dtype),
@@ -808,17 +774,15 @@ def _mxu_dispatch(device, wr, wi, dr, di, const, Sfs, gamma, plan_params,
     """Kernel I (CUDA tensors) or `reassign_mxu_plain` (CPU tensors), on
     inputs `_prepare4` has checked; `reassign4`'s forward under
     SSQ_TPU_REASSIGN_IMPL=mxu."""
-    global LAUNCHES_MXU
     if device.type == "cuda":
         if wr.dtype != torch.float32:
             raise ValueError("kernel I takes float32 planes only")
         plan = [_gamma2(gamma)] + _plan_floats(mode, plan_params)
-        out, count = _launch_ranges(
-            lambda lib: lib.ssq_reassign_mxu, [wr, wi, dr, di], [const, Sfs],
+        out, _ = _launch_ranges(
+            "ssq_reassign_mxu", [wr, wi, dr, di], [const, Sfs],
             [TRANSFORMS[transform], MODES[mode], int(bool(flipud))], plan,
             nf, "reassign_mxu kernel", MXU_MAX_NF,
             lambda rows: (_mxu_plan(rows).n_tile,))
-        LAUNCHES_MXU += count
         return out
     if device.type == "cpu":
         return reassign_mxu_plain(wr, wi, dr, di, const, Sfs, gamma,

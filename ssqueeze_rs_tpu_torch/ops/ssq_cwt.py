@@ -14,6 +14,9 @@ Forward routes, all on the input's device, as the JAX package's:
     `cwt.cwt_core`), then B' from dWx or B from `phase_cwt` /
     `phase_cwt_num` with `get_w` (in double for float64);
   * `order > 0`: `cwt_higher_order` (kernel D per order) + `trigdiff`.
+
+A call runs in the span `ssq.ssq_cwt`, its stages in `ssq.plan`,
+`ssq.prep`, `ssq.launch.<entry>` and `ssq.pack` (`trace`).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from ..config import EPS32, EPS64, real_dtype
 from ..scales import process_scales, process_fs_and_t
+from ..trace import span, spanned
 from ..utils.common import as_signal
 from ..utils.pad import padsignal, p2up
 from ..wavelets.adm import adm_ssq
@@ -43,6 +47,7 @@ def _planar_ssq_ok(N, wavelet, padtype, squeezing):
             squeezing == "sum")
 
 
+@spanned("ssq.ssq_cwt")
 def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
             t=None, ssq_freqs=None, padtype="reflect", squeezing="sum",
             maprange="peak", difftype="trig", difforder=None, gamma=None,
@@ -59,18 +64,23 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
     planar route's filterbank from `cwt.cache_filterbank`.
     `vectorized`, `preserve_transform`, `astensor` and `patience` are
     accepted and ignored, as in the JAX package."""
-    difforder = check_ssqueezing_args(squeezing, maprange, wavelet, difftype,
-                                      difforder, get_w, transform="cwt")
-    dtype = real_dtype(dtype)
-    planes_w = w_plane = dwx_planes = None
-    x = as_signal(x, device)
-    N = x.shape[-1]
-    dt, fs, _ = process_fs_and_t(fs, t, N)
-    if nv is None and isinstance(scales, str):
-        nv = 32
+    with span("ssq.plan"):
+        difforder = check_ssqueezing_args(squeezing, maprange, wavelet,
+                                          difftype, difforder, get_w,
+                                          transform="cwt")
+        dtype = real_dtype(dtype)
+        x = as_signal(x, device)
+        N = x.shape[-1]
+        dt, fs, _ = process_fs_and_t(fs, t, N)
+        if nv is None and isinstance(scales, str):
+            nv = 32
 
-    wavelet = Wavelet.build(wavelet, l1_norm=True)
-    higher = isinstance(order, (tuple, list, range)) or order > 0
+        wavelet = Wavelet.build(wavelet, l1_norm=True)
+        higher = isinstance(order, (tuple, list, range)) or order > 0
+        if not higher:
+            scales, cwt_scaletype, *_ = process_scales(
+                scales, N, wavelet, nv=nv, get_params=True)
+    planes_w = w_plane = dwx_planes = None
     if higher:
         # averaged higher-order CWT; the derivative by trig differentiation
         # of the padded transform
@@ -86,37 +96,40 @@ def ssq_cwt(x, wavelet="gmw", scales="log-piecewise", nv=None, fs=None,
         cwt_scaletype = process_scales(scales, N, wavelet, nv=nv,
                                        get_params=True)[1]
     else:
-        scales, cwt_scaletype, *_ = process_scales(scales, N, wavelet, nv=nv,
-                                                   get_params=True)
         rpadded = difftype == "numeric"
         if (not rpadded and not get_w and dtype == "float32" and
                 _planar_ssq_ok(N, wavelet, padtype, squeezing)):
-            xx = x
-            if nan_checks is None or nan_checks:
-                xx = torch.nan_to_num(xx, nan=0.0, posinf=0.0, neginf=0.0)
-            xx = xx.to(torch.float32)
-            if padtype is not None:
-                xp, _, n1, _ = padsignal(xx, padtype, get_params=True)
-            else:
-                xp, n1 = xx, 0
+            with span("ssq.prep"):
+                xx = x
+                if nan_checks is None or nan_checks:
+                    xx = torch.nan_to_num(xx, nan=0.0, posinf=0.0,
+                                          neginf=0.0)
+                xx = xx.to(torch.float32)
+                if padtype is not None:
+                    xp, _, n1, _ = padsignal(xx, padtype, get_params=True)
+                else:
+                    xp, n1 = xx, 0
             # kernel A forms the phase itself unless the dWx planes are
             # asked for (then kernel D emits them for B')
             phase_gamma = (float(gamma if gamma is not None else 10 * EPS32)
                            if not get_dWx and difftype == "trig" else None)
             sc = np.asarray(scales).squeeze(-1)
-            filterbank = (cache_filterbank(wavelet, sc, xp.shape[-1],
-                                           xp.device)
-                          if cache_wavelet else None)
+            filterbank = None
+            if cache_wavelet:
+                with span("ssq.plan"):
+                    filterbank = cache_filterbank(wavelet, sc, xp.shape[-1],
+                                                  xp.device)
             planes_w, planes_d = cwt_core(
                 xp, sc, dt, wavelet=wavelet, derivative=True, l1_norm=True,
                 N=N, n1=n1, rpadded=False, planar_out=True,
                 phase_gamma=phase_gamma, filterbank=filterbank)
-            Wx = torch.complex(*planes_w)
-            if phase_gamma is not None:
-                w_plane, dWx = planes_d, None
-            else:
-                dwx_planes = planes_d
-                dWx = torch.complex(*planes_d) if get_dWx else None
+            with span("ssq.pack"):
+                Wx = torch.complex(*planes_w)
+                if phase_gamma is not None:
+                    w_plane, dWx = planes_d, None
+                else:
+                    dwx_planes = planes_d
+                    dWx = torch.complex(*planes_d) if get_dWx else None
         else:
             Wx, _, dWx = cwt(x, wavelet, scales=scales, fs=fs, nv=nv,
                              l1_norm=True, derivative=True, padtype=padtype,

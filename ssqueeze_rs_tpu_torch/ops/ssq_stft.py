@@ -11,6 +11,9 @@ Routes, decided from the arguments and shapes before anything launches
   * otherwise the complex STFT (the rfft route for float64) ->
     `ssqueeze` (B' from dSx, or B from w when get_w; their double
     instantiations for float64 on the card).
+
+A call runs in the span `ssq.ssq_stft`, its stages in `ssq.plan`,
+`ssq.prep`, `ssq.launch.<entry>` and `ssq.pack` (`trace`).
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ import torch
 
 from ..config import EPS32, EPS64, real_dtype
 from ..scales import process_fs_and_t, infer_scaletype
+from ..trace import span, spanned
 from ..utils.common import WARN, as_signal
 from ..utils.pad import padsignal
 from ..utils.windows import get_window, check_nola
+from .fft_cuda import _f32
 from .phase import phase_stft
 from .ssq_cwt import _process_component_inversion_args, _invert_components
 from .ssqueeze import ssqueeze, check_ssqueezing_args, plan_reassignment
@@ -38,6 +43,7 @@ def make_Sfs(Sx, fs):
     return np.linspace(0, 0.5 * fs, Sx.shape[-2], dtype=dtype)
 
 
+@spanned("ssq.ssq_stft")
 def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
              t=None, modulated=True, ssq_freqs=None, padtype="reflect",
              squeezing="sum", gamma=None, preserve_transform=None, dtype=None,
@@ -51,21 +57,23 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
     + 1, n_hops), complex64 for `dtype` float32 (the default) and
     complex128 for float64; ssq_freqs, Sfs numpy. `preserve_transform`
     and `astensor` are accepted for signature parity and unused."""
-    x = as_signal(x, device)
-    N = x.shape[-1]
-    _, fs, _ = process_fs_and_t(fs, t, N)
-    check_ssqueezing_args(squeezing)
-    if (isinstance(ssq_freqs, (np.ndarray, torch.Tensor)) and
-            infer_scaletype(np.asarray(ssq_freqs))[0] != "linear"):
-        raise ValueError("`ssq_freqs` must be linearly distributed for "
-                         "`ssq_stft`")
-    dtype = real_dtype(dtype)
+    with span("ssq.plan"):
+        x = as_signal(x, device)
+        N = x.shape[-1]
+        _, fs, _ = process_fs_and_t(fs, t, N)
+        check_ssqueezing_args(squeezing)
+        if (isinstance(ssq_freqs, (np.ndarray, torch.Tensor)) and
+                infer_scaletype(np.asarray(ssq_freqs))[0] != "linear"):
+            raise ValueError("`ssq_freqs` must be linearly distributed for "
+                             "`ssq_stft`")
+        dtype = real_dtype(dtype)
 
-    n_fft_eff = int(n_fft or min(N // hop_len, 512))
-    planar = (dtype == "float32" and n_fft_eff <= MATMUL_NFFT_MAX and
-              squeezing == "sum" and not get_w)
-    if (planar and hop_len == 1 and not get_dWx and ssq_freqs is None and
-            ssq_stft_fused_ok(n_fft_eff)):
+        n_fft_eff = int(n_fft or min(N // hop_len, 512))
+        planar = (dtype == "float32" and n_fft_eff <= MATMUL_NFFT_MAX and
+                  squeezing == "sum" and not get_w)
+        fused = (planar and hop_len == 1 and not get_dWx and
+                 ssq_freqs is None and ssq_stft_fused_ok(n_fft_eff))
+    if fused:
         return _ssq_stft_fused(x, window, n_fft_eff, win_len, fs, modulated,
                                padtype, gamma, flipud)
     kw = dict(n_fft=n_fft_eff, win_len=win_len, hop_len=hop_len, fs=fs,
@@ -73,13 +81,15 @@ def ssq_stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None,
               dtype=dtype)
     if planar:
         sxp, dsp = stft(x, window, planar_out=True, **kw)
-        Sx = torch.complex(*sxp)
-        dSx = torch.complex(*dsp) if get_dWx else dsp
+        with span("ssq.pack"):
+            Sx = torch.complex(*sxp)
+            dSx = torch.complex(*dsp) if get_dWx else dsp
     else:
         sxp = None
         Sx, dSx = stft(x, window, **kw)
 
-    Sfs = make_Sfs(Sx, fs)
+    with span("ssq.plan"):
+        Sfs = make_Sfs(Sx, fs)
     if gamma is None:
         gamma = 10 * (EPS64 if Sx.dtype == torch.complex128 else EPS32)
 
@@ -112,23 +122,28 @@ def _ssq_stft_fused(x, window, n_fft, win_len, fs, modulated, padtype,
     ssq_freqs; host planning as on the other routes (same window and DFT
     matrices, same plan_reassignment)."""
     N = x.shape[-1]
-    if win_len is None:
-        win_len = (len(window) if isinstance(window, (np.ndarray, torch.Tensor))
-                   else n_fft)
-    window, diff_window = get_window(window, int(win_len), n_fft,
-                                     derivative=True, dtype="float32")
-    check_nola(window, 1)
-    wins = (_win_bytes(window), _win_bytes(diff_window), int(n_fft),
-            bool(modulated))
-    K_T = _k_t(*wins, x.device)
-    nf = n_fft // 2 + 1
-    Sfs = np.linspace(0, 0.5 * fs, nf, dtype=np.float32)
-    const_arr, mode, params = plan_reassignment(Sfs, nf, False,
-                                                transform="stft")
+    with span("ssq.plan"):
+        if win_len is None:
+            win_len = (len(window)
+                       if isinstance(window, (np.ndarray, torch.Tensor))
+                       else n_fft)
+        window, diff_window = get_window(window, int(win_len), n_fft,
+                                         derivative=True, dtype="float32")
+        check_nola(window, 1)
+        wins = (_win_bytes(window), _win_bytes(diff_window), int(n_fft),
+                bool(modulated))
+        K_T = _k_t(*wins, x.device)
+        nf = n_fft // 2 + 1
+        Sfs = np.linspace(0, 0.5 * fs, nf, dtype=np.float32)
+        const_arr, mode, params = plan_reassignment(Sfs, nf, False,
+                                                    transform="stft")
+        Sfs_d, const_d = (_f32(a, x.device) for a in (Sfs, const_arr))
     if gamma is None:
         gamma = 10 * EPS32
-    xp = padsignal(x.to(torch.float32), padtype, padlength=N + n_fft - 1)
-    Tx, Sx = ssq_stft_fused(xp, K_T, n_fft, N, fs, Sfs, const_arr, gamma,
+    with span("ssq.prep"):
+        xp = padsignal(x.to(torch.float32), padtype,
+                       padlength=N + n_fft - 1)
+    Tx, Sx = ssq_stft_fused(xp, K_T, n_fft, N, fs, Sfs_d, const_d, gamma,
                             params, mode, bool(flipud), spec=_dft_spec(*wins))
     return Tx, Sx, (Sfs[::-1] if flipud else Sfs), Sfs
 

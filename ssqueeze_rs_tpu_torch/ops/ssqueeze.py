@@ -23,6 +23,7 @@ import torch
 from ..config import EPS64
 from ..scales import (process_scales, process_fs_and_t, infer_scaletype,
                       logscale_transition_idx)
+from ..trace import span
 from ..utils.common import WARN, NOTE, as_signal, assert_is_one_of
 from ..utils.pad import p2up
 from ..wavelets.base import Wavelet
@@ -325,9 +326,10 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     device = Wx.device
     if w is not None and not isinstance(w, torch.Tensor):
         w = as_signal(w, device)
-    ssq_freqs, const_arr, mode, params = plan_ssqueeze(
-        Wx.shape[-1], Wx.shape[-2], ssq_freqs, scales, fs, t, maprange,
-        wavelet, was_padded, transform)
+    with span("ssq.plan"):
+        ssq_freqs, const_arr, mode, params = plan_ssqueeze(
+            Wx.shape[-1], Wx.shape[-2], ssq_freqs, scales, fs, t, maprange,
+            wavelet, was_padded, transform)
 
     # squeezing transform of Wx
     if isinstance(squeezing, FunctionType):
@@ -342,7 +344,8 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     # package's `jnp.asarray(const_arr, rdtype)`)
     rdtype = (torch.float64 if Wx.dtype in (torch.complex128, torch.float64)
               else torch.float32)
-    const = torch.as_tensor(const_arr, dtype=rdtype, device=device)
+    with span("ssq.plan"):
+        const = torch.as_tensor(const_arr, dtype=rdtype, device=device)
     nf = len(ssq_freqs)
     wr, wi = (wx_planes if (wx_planes is not None and squeezing == "sum")
               else _planes(Wx))
@@ -361,5 +364,6 @@ def ssqueeze(Wx, w=None, ssq_freqs=None, scales=None, Sfs=None, fs=None,
     # `scales` go high -> low: the CWT frequency grid is reported reversed
     if (transform == "cwt" and not flipud) or flipud:
         ssq_freqs = ssq_freqs[::-1]
-    Tx = torch.complex(txr, txi) if Wx.is_complex() else txr
+    with span("ssq.pack"):
+        Tx = torch.complex(txr, txi) if Wx.is_complex() else txr
     return Tx, ssq_freqs

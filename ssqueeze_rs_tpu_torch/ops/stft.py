@@ -32,6 +32,7 @@ import torch
 
 from ..config import real_dtype
 from ..scales import process_fs_and_t
+from ..trace import span
 from ..utils.common import as_signal
 from ..utils.pad import padsignal
 from ..utils.windows import get_window, window_norm, check_nola
@@ -123,9 +124,10 @@ def stft_core(xp, window, diff_window, fs, *, n_fft, hop_len, modulated,
         planes = out.split(n_freqs, dim=-2)
         if planar_out:
             return planes
-        Sx = torch.complex(planes[0], planes[1])
-        return Sx, (torch.complex(planes[2], planes[3]) if derivative
-                    else None)
+        with span("ssq.pack"):
+            Sx = torch.complex(planes[0], planes[1])
+            return Sx, (torch.complex(planes[2], planes[3]) if derivative
+                        else None)
 
     frames = xp.unfold(-1, n_fft, hop_len)              # (..., n_segs, n_fft)
 
@@ -160,12 +162,14 @@ def stft(x, window=None, n_fft=None, win_len=None, hop_len=1, fs=None, t=None,
         win_len = (len(window) if isinstance(window, (np.ndarray, torch.Tensor))
                    else n_fft)
     dtype = real_dtype(dtype)
-    window, diff_window = get_window(window, win_len, n_fft, derivative=True,
-                                     dtype=dtype)
-    check_nola(window, hop_len)
+    with span("ssq.plan"):
+        window, diff_window = get_window(window, win_len, n_fft,
+                                         derivative=True, dtype=dtype)
+        check_nola(window, hop_len)
 
-    xp = padsignal(x.to(getattr(torch, dtype)), padtype,
-                   padlength=N + n_fft - 1)
+    with span("ssq.prep"):
+        xp = padsignal(x.to(getattr(torch, dtype)), padtype,
+                       padlength=N + n_fft - 1)
     out = stft_core(xp, window, diff_window, fs, n_fft=n_fft,
                     hop_len=hop_len, modulated=modulated,
                     derivative=derivative, planar_out=planar_out)

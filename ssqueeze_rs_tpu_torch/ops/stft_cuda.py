@@ -22,7 +22,9 @@ Each wrapper dispatches on the device of its inputs: on a CUDA tensor it
 launches its kernel or raises (also when the caller gives no `DftSpec`);
 on a CPU tensor it runs its plain-torch version (beside it,
 `*_plain`).
-`LAUNCHES` counts kernel launches per kernel. The gates
+Each launch goes through `_build.launch`, which counts it in
+`trace.COUNTS` (`launch.ssq_stft_dft` for F, `launch.ssq_stft_fused` for
+G, `launch.ssq_istft_ola` for H). The gates
 `ssq_stft_fused_ok` and `istft_ola_ok` decide from shapes alone whether a
 kernel takes an n_fft (G's shared-memory plan, H's transform length).
 
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..trace import span
 from .fft_cuda import _device_of, _f32, _zeros_for
 from .reassign_cuda import (MAX_SMEM, MODES, _gamma2, _plan_floats,
                             reassign4_plain, reassign4_bwd)
@@ -49,9 +52,8 @@ __all__ = ["DftSpec", "bluestein_tables", "stft_dft", "stft_dft_plain",
            "stft_dft_vjp", "ssq_stft_fused",
            "ssq_stft_fused_plain", "ssq_stft_fused_ok", "istft_ola",
            "istft_ola_plain", "istft_ola_vjp", "istft_ola_ok", "ola_plain",
-           "StftDftFn", "IstftOlaFn", "SsqStftFusedFn", "LAUNCHES"]
+           "StftDftFn", "IstftOlaFn", "SsqStftFusedFn"]
 
-LAUNCHES = {"stft_dft": 0, "ssq_stft": 0, "istft_ola": 0}
 _H_FRAMES = 64      # frames a block of kernel H (csrc/istft_ola.cu kFrames)
 _MAX_Q = 4096       # the register-radix core's largest transform
 
@@ -198,13 +200,12 @@ def _stft_dft_cuda(device, xp, K_T, n_fft, n_out, fs, spec):
     B, mp = x2.shape
     out = torch.empty((B, rows, n_out), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = _build.lib().ssq_stft_dft(
-            x2.data_ptr(), A.data_ptr(), Bt.data_ptr(), D.data_ptr(), B, mp,
-            n_fft, spec.nf, W, Q.bit_length() - 1, n_out,
-            float(fs if fs is not None else 1.0),
-            int(fs is not None and W == 2), out.data_ptr(), _stream(device))
-    _build.check(err, "stft_dft kernel")
-    LAUNCHES["stft_dft"] += 1
+        _build.launch(
+            "ssq_stft_dft", x2.data_ptr(), A.data_ptr(), Bt.data_ptr(),
+            D.data_ptr(), B, mp, n_fft, spec.nf, W, Q.bit_length() - 1,
+            n_out, float(fs if fs is not None else 1.0),
+            int(fs is not None and W == 2), out.data_ptr(), _stream(device),
+            what="stft_dft kernel")
     return out.reshape(batch + (rows, n_out))
 
 
@@ -334,7 +335,8 @@ def ssq_stft_fused_plain(xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
     txr, txi, sxr, sxi = _ssq_stft_planes_plain(
         xp, K_T, n_fft, n_out, fs, Sfs, const, gamma, plan_params, mode,
         flipud)
-    return torch.complex(txr, txi), torch.complex(sxr, sxi)
+    with span("ssq.pack"):
+        return torch.complex(txr, txi), torch.complex(sxr, sxi)
 
 
 def _ssq_stft_cuda(device, xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
@@ -353,15 +355,14 @@ def _ssq_stft_cuda(device, xp, K_T, n_fft, n_out, fs, Sfs, const, gamma,
     outs = [torch.empty((B, nf, n_out), dtype=torch.float32, device=device)
             for _ in range(4)]
     with torch.cuda.device(device):
-        err = _build.lib().ssq_stft_fused(
-            x2.data_ptr(), A.data_ptr(), Bt.data_ptr(), D.data_ptr(), B, mp,
-            n_fft, nf, Q.bit_length() - 1, n_out, float(fs),
-            const.contiguous().data_ptr(), Sfs.contiguous().data_ptr(),
-            _gamma2(gamma), MODES[mode], int(bool(flipud)),
-            *_plan_floats(mode, plan_params), T, SS,
-            *(o.data_ptr() for o in outs), _stream(device))
-    _build.check(err, "ssq_stft kernel")
-    LAUNCHES["ssq_stft"] += 1
+        _build.launch(
+            "ssq_stft_fused", x2.data_ptr(), A.data_ptr(), Bt.data_ptr(),
+            D.data_ptr(), B, mp, n_fft, nf, Q.bit_length() - 1, n_out,
+            float(fs), const.contiguous().data_ptr(),
+            Sfs.contiguous().data_ptr(), _gamma2(gamma), MODES[mode],
+            int(bool(flipud)), *_plan_floats(mode, plan_params), T, SS,
+            *(o.data_ptr() for o in outs), _stream(device),
+            what="ssq_stft kernel")
     return tuple(o.reshape(batch + (nf, n_out)) for o in outs)
 
 
@@ -432,7 +433,8 @@ def ssq_stft_fused(xp, K_T, n_fft: int, n_out: int, fs, Sfs, const, gamma,
     txr, txi, sxr, sxi = SsqStftFusedFn.apply(
         xp, K_T, n_fft, n_out, fs, Sfs, const, gamma, plan_params, mode,
         flipud, spec)
-    return torch.complex(txr, txi), torch.complex(sxr, sxi)
+    with span("ssq.pack"):
+        return torch.complex(txr, txi), torch.complex(sxr, sxi)
 
 
 # -- H: irfft product + overlap-add -------------------------------------------
@@ -494,13 +496,11 @@ def _istft_ola_cuda(device, Sr, Si, n_fft, spec):
                        device=device)
     out = torch.empty((B, L), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = _build.lib().ssq_istft_ola(
-            sr.data_ptr(), si.data_ptr(), A.data_ptr(), Bt.data_ptr(),
-            D.data_ptr(), B, h, n_segs, n_fft, spec.nf, len(spec.windows),
-            Q.bit_length() - 1, part.data_ptr(), out.data_ptr(),
-            _stream(device))
-    _build.check(err, "istft_ola kernel")
-    LAUNCHES["istft_ola"] += 1
+        _build.launch(
+            "ssq_istft_ola", sr.data_ptr(), si.data_ptr(), A.data_ptr(),
+            Bt.data_ptr(), D.data_ptr(), B, h, n_segs, n_fft, spec.nf,
+            len(spec.windows), Q.bit_length() - 1, part.data_ptr(),
+            out.data_ptr(), _stream(device), what="istft_ola kernel")
     return out.reshape(batch + (L,))
 
 

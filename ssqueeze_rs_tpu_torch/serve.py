@@ -13,12 +13,19 @@ analysis configuration (scale grid, ssq frequency rows).
 
 Requests run on the server's device (`device`: the CUDA device by
 default, `utils.common.array_device`); outputs come back as numpy arrays.
+
+A request runs in the span `ssq.serve.request`, the transform in
+`ssq.serve.run` and the trim and copy to host memory in `ssq.serve.fetch`
+(`trace`). `trace.COUNTS` adds the samples requested to `serve.samples`
+and the samples transformed, after the pad to the bucket, to
+`serve.bucket_samples`: their ratio is the buckets' pad waste.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .trace import count, span, spanned
 from .utils.common import array_device, assert_is_one_of
 
 __all__ = ["TransformServer", "DEFAULT_BUCKETS"]
@@ -67,6 +74,7 @@ class TransformServer:
         the counterpart of the JAX server's compiled programs."""
         return len(self._shapes)
 
+    @spanned("ssq.serve.run")
     def _run(self, xp):
         """The transform of the padded (C, b) requests: a dict of tensors
         on the device; the host planning outputs go to `_meta[b]`."""
@@ -107,6 +115,7 @@ class TransformServer:
             torch.cuda.synchronize(self.device)
         return self
 
+    @spanned("ssq.serve.request")
     def __call__(self, x):
         """x: (N,) or (channels, N) array. Returns a dict of numpy arrays:
         the outputs trimmed to N columns, and the bucket's metadata."""
@@ -117,13 +126,18 @@ class TransformServer:
         b = self.bucket_for(N)
         pad = b - N
         xp = np.pad(x, ((0, 0), (0, pad)), mode="reflect") if pad else x
+        count("serve.samples", x.size)
+        count("serve.bucket_samples", xp.size)
         res = {}
-        for k, v in self._run(xp).items():
-            a = v[..., :self._out_cols(N, b, v)].cpu().numpy()
-            res[k] = a[0] if squeeze else a
+        out = self._run(xp)
+        with span("ssq.serve.fetch"):
+            for k, v in out.items():
+                a = v[..., :self._out_cols(N, b, v)].cpu().numpy()
+                res[k] = a[0] if squeeze else a
         res.update(self._meta.get(b, {}))
         return res
 
+    @spanned("ssq.serve.request")
     def batch(self, xs):
         """Serve many 1-D requests in one call: each is reflect-padded to
         the bucket of the longest, they are stacked on the channel axis,
@@ -144,12 +158,16 @@ class TransformServer:
         padded = [np.pad(x, (0, b - len(x)), mode="reflect")
                   if len(x) < b else x for x in xs]
         padded += [padded[-1]] * (nb - n)
+        count("serve.samples", sum(x.size for x in xs))
+        count("serve.bucket_samples", nb * b)
         results = [dict() for _ in xs]
-        for k, v in self._run(np.stack(padded)).items():
-            # fetch only the requests and columns that are kept
-            a = v[:n, ..., :self._out_cols(longest, b, v)].cpu().numpy()
-            for i, x in enumerate(xs):
-                results[i][k] = a[i, ..., :self._out_cols(len(x), b, v)]
+        out = self._run(np.stack(padded))
+        with span("ssq.serve.fetch"):
+            for k, v in out.items():
+                # fetch only the requests and columns that are kept
+                a = v[:n, ..., :self._out_cols(longest, b, v)].cpu().numpy()
+                for i, x in enumerate(xs):
+                    results[i][k] = a[i, ..., :self._out_cols(len(x), b, v)]
         for r in results:
             r.update(self._meta.get(b, {}))
         return results

@@ -278,7 +278,7 @@ def ablate_reassign3(wr, wi, w, const, plan_params, mode, flipud, nf,
         raise ValueError(f"ablate_reassign3: unsupported device {device}")
     _check_f32(wr)
     out = reassign_cuda._launch(
-        lambda lib: lib.ssq_ablate_reassign3, [wr, wi, w], [const],
+        "ssq_ablate_reassign3", [wr, wi, w], [const],
         [reassign_cuda.MODES[mode], int(bool(flipud))],
         reassign_cuda._plan_floats(mode, plan_params), nf,
         f"ablate_reassign3 kernel ({variant})",

@@ -43,6 +43,7 @@ from ssqueeze_rs_tpu.utils.pad import padsignal
 from ssqueeze_rs_tpu.wavelets import Wavelet
 import ssqueeze_rs_tpu_torch as T
 from ssqueeze_rs_tpu_torch.ops import fft_cuda
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 from ssqueeze_rs_tpu_torch.ops.phase import unwrap
 
 N, NV, FS = 9000, 4, 1000.0
@@ -145,11 +146,12 @@ def test_cwt_fused_cpu_dispatch_and_planes(kcase):
     without the derivative they are the derivative run's first two."""
     args = _args(kcase, 2)
     keep = (kcase["n1"], N)
-    before = (fft_cuda.LAUNCHES, fft_cuda.LAUNCHES_D, fft_cuda.LAUNCHES_E)
+    keys = ("launch.ssq_cwt_phase", "launch.ssq_cwt_planes",
+            "launch.ssq_ifft_halfband")
+    before = [COUNTS[k] for k in keys]
     d4 = fft_cuda.cwt_fused(*args, keep=keep, derivative=True)
     d2 = fft_cuda.cwt_fused(*args, keep=keep, derivative=False)
-    assert (fft_cuda.LAUNCHES, fft_cuda.LAUNCHES_D,
-            fft_cuda.LAUNCHES_E) == before
+    assert [COUNTS[k] for k in keys] == before
     a = fft_cuda.cwt_phase_plain(*args, keep=keep, gamma=1e-6)
     for p in range(2):
         assert d4[p].device.type == "cpu"
@@ -188,9 +190,9 @@ def test_ifft_halfband_plain_matches_jax(keep):
 
 def test_ifft_halfband_cpu_dispatch_and_checks():
     Zr, Zi, nr, ni = _zcase(3)
-    before = fft_cuda.LAUNCHES_E
+    before = COUNTS["launch.ssq_ifft_halfband"]
     got = fft_cuda.ifft_halfband_planar(Zr, Zi, None, nr, ni)
-    assert fft_cuda.LAUNCHES_E == before
+    assert COUNTS["launch.ssq_ifft_halfband"] == before
     ref = fft_cuda.ifft_halfband_planar_plain(Zr, Zi, None, nr, ni)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert got[0].shape == (3, 1 << 14)

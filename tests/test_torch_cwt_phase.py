@@ -29,6 +29,7 @@ from ssqueeze_rs_tpu.wavelets import Wavelet
 from ssqueeze_rs_tpu_torch.ops import fft_cuda
 from ssqueeze_rs_tpu_torch.ops.reassign_cuda import bin_indices
 from ssqueeze_rs_tpu_torch.ops.ssqueeze import plan_ssqueeze
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 
 N, NV, FS = 9000, 4, 1000.0
 GAMMA = 10 * float(np.finfo(np.float32).eps)
@@ -113,9 +114,9 @@ def test_phase_plane(case):
 def test_cpu_dispatch_takes_plain_route(case):
     """A CPU tensor (or numpy input) runs the plain version and never the
     kernel: the launch counter stays put and the result is identical."""
-    before = fft_cuda.LAUNCHES
+    before = COUNTS["launch.ssq_cwt_phase"]
     got = fft_cuda.cwt_phase(*case["args"], keep=case["keep"], gamma=GAMMA)
-    assert fft_cuda.LAUNCHES == before
+    assert COUNTS["launch.ssq_cwt_phase"] == before
     for a, b in zip(got, case["torch"]):
         assert a.device.type == "cpu"
         assert np.array_equal(a.numpy(), b)

@@ -25,6 +25,7 @@ from ssqueeze_rs_tpu import cwt
 from ssqueeze_rs_tpu.ops.reassign_pallas import _bin_indices, reassign_pallas
 from ssqueeze_rs_tpu.ops.ssqueeze import bin_params
 from ssqueeze_rs_tpu_torch.ops import reassign_cuda
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 
 GAMMA = 1e-6
 
@@ -111,9 +112,9 @@ def test_batch_and_cpu_dispatch(planes):
     C2 = np.stack([C, 2 * C])
     D2 = np.stack([D, 2 * D])
     w2 = np.stack([w, w])
-    before = reassign_cuda.LAUNCHES
+    before = COUNTS["launch.ssq_reassign"]
     two = reassign_cuda.reassign(C2, D2, w2, const, params, mode, True, nf)
-    assert reassign_cuda.LAUNCHES == before
+    assert COUNTS["launch.ssq_reassign"] == before
     assert two[0].device.type == "cpu" and two[0].shape == (2, nf, C.shape[1])
     for a, b in zip(two, one):
         assert torch.equal(a[0], b)
@@ -160,10 +161,10 @@ def test_plain4_matches_jax_kernel(planes, mode_expect, transform):
     agree = k_jax == k_t
     assert agree[unmasked].mean() >= 0.9999
 
-    before = reassign_cuda.LAUNCHES4
+    before = COUNTS["launch.ssq_reassign4"]
     txr, txi = reassign_cuda.reassign4(C, D, A, B, const, Sfs, GAMMA, params,
                                        mode, flipud, nf, transform)
-    assert reassign_cuda.LAUNCHES4 == before
+    assert COUNTS["launch.ssq_reassign4"] == before
     tx = (txr + 1j * txi).numpy()
     tx_jax = np.asarray(reassign_pallas(
         (jnp.asarray(C), jnp.asarray(D)), (jnp.asarray(A), jnp.asarray(B)),
@@ -699,27 +700,35 @@ def test_range_launches_plumbing(monkeypatch, dtype, planes, impl):
     """On the CUDA route a call past the bins one launch takes makes one
     launch a range, each with its range's launch shape and (k0, rows)
     after it, all into one Tx pair, and its counter moves by the ranges
-    (launches stand in for the kernel here)."""
+    (launches stand in for the kernel here, and a library whose entry
+    points return 0 for the kernels)."""
+    from ssqueeze_rs_tpu_torch import _build
     R = reassign_cuda
     calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
 
     def fake(entry, pl, vecs, ints, plan, nf, what, grads=None,
              per_block=None, out=None):
         calls.append(list(per_block))
+        _build.launch(entry, what=what)
         shape = pl[0].shape[:-2] + (nf, pl[0].shape[-1])
         return out or (torch.zeros(shape, dtype=dtype),
                        torch.zeros(shape, dtype=dtype))
 
     monkeypatch.setattr(R, "_launch", fake)
+    monkeypatch.setattr(_build, "lib", Lib)
     monkeypatch.setenv("SSQ_TPU_REASSIGN_IMPL", impl)
     nf, na, n = 5000, 6, 16
     mode, params = bin_params(np.geomspace(0.05, 50.0, nf), True)
     p = [torch.ones(na, n, dtype=dtype) for _ in range(4)]
     const = torch.ones(na, dtype=dtype)
     cuda = torch.device("cuda")
-    counters = ("LAUNCHES", "LAUNCHES4", "LAUNCHES_MXU", "LAUNCHES_F64",
-                "LAUNCHES4_F64")
-    before = {c: getattr(R, c) for c in counters}
+    counters = ("ssq_reassign", "ssq_reassign4", "ssq_reassign_mxu",
+                "ssq_reassign_f64", "ssq_reassign4_f64")
+    before = {c: COUNTS["launch." + c] for c in counters}
     if planes == 3:
         out = R._reassign_dispatch(cuda, p[0], p[1], p[2], const, params,
                                    mode, True, nf)
@@ -738,10 +747,9 @@ def test_range_launches_plumbing(monkeypatch, dtype, planes, impl):
         return [R._block_cols(rows)]
 
     assert calls == [shape(r) + [k0, r] for k0, r in R._ranges(nf, most)]
-    name = ("LAUNCHES_MXU" if impl == "mxu" else
-            "LAUNCHES" + ("4" if planes == 4 else "") +
-            ("_F64" if dtype == torch.float64 else ""))
-    moved = {c: getattr(R, c) - before[c] for c in counters}
+    name = ("ssq_reassign_mxu" if impl == "mxu" else
+            R._entry("ssq_reassign" + ("4" if planes == 4 else ""), dtype))
+    moved = {c: COUNTS["launch." + c] - before[c] for c in counters}
     assert moved == {c: (2 if c == name else 0) for c in counters}
 
 

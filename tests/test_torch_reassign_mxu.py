@@ -29,6 +29,7 @@ from ssqueeze_rs_tpu import cwt
 from ssqueeze_rs_tpu.ops.reassign_pallas import reassign_pallas
 from ssqueeze_rs_tpu.ops.ssqueeze import bin_params
 from ssqueeze_rs_tpu_torch.ops import reassign_cuda
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 
 GAMMA = 1e-5
 FREQS = {
@@ -92,9 +93,11 @@ def test_mxu_matches_jax_mxu(monkeypatch, planes, mode_expect, flipud):
 
     def both(impl):
         monkeypatch.setenv("SSQ_TPU_REASSIGN_IMPL", impl)
-        before = (reassign_cuda.LAUNCHES4, reassign_cuda.LAUNCHES_MXU)
+        before = (COUNTS["launch.ssq_reassign4"],
+                  COUNTS["launch.ssq_reassign_mxu"])
         out = _tx(reassign_cuda.reassign4(*a))
-        assert (reassign_cuda.LAUNCHES4, reassign_cuda.LAUNCHES_MXU) == before
+        assert (COUNTS["launch.ssq_reassign4"],
+                COUNTS["launch.ssq_reassign_mxu"]) == before
         ref = np.asarray(reassign_pallas(
             (jnp.asarray(C), jnp.asarray(D)), (jnp.asarray(A), jnp.asarray(B)),
             jnp.asarray(const), GAMMA, jnp.asarray(Sfs), a[7], mode=a[8],

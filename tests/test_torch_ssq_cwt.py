@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from ssqueeze_rs_tpu import ssq_cwt as j_ssq_cwt, issq_cwt as j_issq_cwt
 from ssqueeze_rs_tpu_torch import ssq_cwt, issq_cwt
-from ssqueeze_rs_tpu_torch.ops import fft_cuda, reassign_cuda
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 from ssqueeze_rs_tpu_torch.scales import process_scales
 from ssqueeze_rs_tpu_torch.utils.fft import xifn
 from ssqueeze_rs_tpu_torch.utils.pad import p2up
@@ -129,9 +129,10 @@ def test_sine_probe():
     """100 Hz sine at fs = 1000: the ssq peak lands within 1 % of 100 Hz
     and the inversion reconstructs it."""
     x = np.cos(2 * np.pi * 100 * np.arange(N) / FS).astype(np.float32)
-    before = (fft_cuda.LAUNCHES, reassign_cuda.LAUNCHES)
+    before = (COUNTS["launch.ssq_cwt_phase"], COUNTS["launch.ssq_reassign"])
     Tx, _, f, _ = ssq_cwt(torch.as_tensor(x), "gmw", fs=FS)
-    assert (fft_cuda.LAUNCHES, reassign_cuda.LAUNCHES) == before
+    assert (COUNTS["launch.ssq_cwt_phase"],
+            COUNTS["launch.ssq_reassign"]) == before
     assert Tx.device.type == "cpu" and bool(torch.isfinite(Tx).all())
     peak = f[int(Tx.abs().mean(-1).argmax())]
     assert abs(peak - 100) < 1.0

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from ssqueeze_rs_tpu import (ssq_stft as j_ssq_stft, issq_stft as j_issq_stft,
                              issq_cwt as j_issq_cwt)
 from ssqueeze_rs_tpu_torch import ssq_stft, issq_stft, issq_cwt, ssqueeze
-from ssqueeze_rs_tpu_torch.ops import reassign_cuda, stft_cuda
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 from ssqueeze_rs_tpu_torch.utils.common import as_signal
 
 N, N_FFT, FS = 2000, 256, 1000.0
@@ -62,8 +62,9 @@ def _jax(monkeypatch, kernels, **kw):
 
 
 def _counts():
-    return (dict(stft_cuda.LAUNCHES), reassign_cuda.LAUNCHES,
-            reassign_cuda.LAUNCHES4)
+    return tuple(COUNTS["launch." + k] for k in (
+        "ssq_stft_dft", "ssq_stft_fused", "ssq_istft_ola", "ssq_reassign",
+        "ssq_reassign4"))
 
 
 def test_fused_route_matches_jax_kernel(monkeypatch):

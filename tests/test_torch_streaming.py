@@ -21,7 +21,7 @@ import torch
 
 import ssqueeze_rs_tpu.streaming as J
 import ssqueeze_rs_tpu_torch as T
-from ssqueeze_rs_tpu_torch.ops import reassign_cuda
+from ssqueeze_rs_tpu_torch.trace import COUNTS
 
 FS = 1000.0
 
@@ -224,13 +224,14 @@ def test_streaming_multichannel_and_device_rule(monkeypatch):
 
 def test_streaming_ssq_cwt_launches_nothing_on_cpu():
     """A CPU streamer runs the plain versions: no kernel launch counted."""
-    before = (reassign_cuda.LAUNCHES4, reassign_cuda.LAUNCHES_MXU)
+    keys = ("launch.ssq_reassign4", "launch.ssq_reassign_mxu")
+    before = [COUNTS[k] for k in keys]
     s = T.StreamingSSQCWT(block=256, fs=FS, nv=8, plan_N=1024, halo=128,
                           device="cpu")
     Tx, Wx = _stream(s, _chirp(700), [300])
     assert Tx.shape[-1] == Wx.shape[-1] == 700
     assert np.isfinite(Tx).all()
-    assert (reassign_cuda.LAUNCHES4, reassign_cuda.LAUNCHES_MXU) == before
+    assert [COUNTS[k] for k in keys] == before
 
 
 def test_streaming_stft_geometry_sweep():
