@@ -2390,6 +2390,48 @@ def serving_phases(np, torch, dev, card, results, ctx):
         check(moved == {"ssq_stft": 1} and out["Tx"].shape == (300, n) and
               np.isfinite(out["Tx"]).all(), f"server ssq_stft {n}: launches "
               f"{moved}, {out['Tx'].shape}")
+    del out
+    # the fetch into page-locked blocks at N: the arrays pinned and bitwise
+    # a pageable copy of the same views, both rates over a warm block, and
+    # the pinned pool's reuse over 4 requests whose results are dropped
+    from ssqueeze_rs_tpu_torch.serve import _fetch
+    from ssqueeze_rs_tpu_torch.trace import COUNTS
+    fetch_keys = ("serve.fetch_bytes", "serve.fetch_pinned",
+                  "serve.fetch_pinned_new")
+    for name, fsrv in (("ssq_cwt", srv), ("ssq_stft", srv2)):
+        fb = fsrv.bucket_for(N)
+        fxp = np.pad(sig["chirp"][:N], (0, fb - N), mode="reflect")[None]
+        views = {k: v[..., :N] for k, v in fsrv._run(fxp).items()}
+        _fetch(views)                     # the blocks' first allocation
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = _fetch(views)
+        t_pin = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pageable = {k: v.cpu().numpy() for k, v in views.items()}
+        t_page = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in pinned.values())
+        same = all(np.array_equal(pinned[k], pageable[k]) for k in views)
+        locked = all(torch.from_numpy(a).is_pinned()
+                     for a in pinned.values())
+        del views, pinned, pageable
+        before = {k: COUNTS[k] for k in fetch_keys}
+        for _ in range(4):
+            out = fsrv(sig["chirp"][:N])
+            del out
+        moved = {k: COUNTS[k] - before[k] for k in fetch_keys}
+        reuse = 1 - moved["serve.fetch_pinned_new"] / moved[
+            "serve.fetch_pinned"]
+        S20[f"fetch {name} {N}"] = dict(
+            bytes=nbytes, pinned_gb_s=nbytes / t_pin / 1e9,
+            pageable_gb_s=nbytes / t_page / 1e9, reuse_share=reuse,
+            counts=moved, host_peak_gb=torch.cuda.host_memory_stats()[
+                "allocated_bytes.peak"] / 1e9)
+        check(same and locked, f"fetch {name}: pinned {locked}, bitwise "
+              f"the pageable copy {same}")
+        check(moved["serve.fetch_pinned"] == 8 and reuse == 1 and
+              moved["serve.fetch_bytes"] == 4 * nbytes,
+              f"fetch {name}: counts {moved}")
     lap("20 server")
 
     # the recording pipeline: 10 minutes of 64 channels at 1 kHz, tones of
@@ -2481,7 +2523,12 @@ def serving_phases(np, torch, dev, card, results, ctx):
         f"; batch 16 x "
         f"10000 {wall_b:.1f} ms vs {wall_s:.1f} ms as singles (rel "
         f"{S20['batch 16 x 10000']['vs_singles']:.1e}); ssq_stft 160k "
-        f"{S20['ssq_stft 160000']['ms']:.1f} ms; pipeline energy 64 x 600000 "
+        f"{S20['ssq_stft 160000']['ms']:.1f} ms; fetch " + ", ".join(
+            f"{k[6:]} {v['bytes'] / 1e6:.0f} MB pinned {v['pinned_gb_s']:.1f} "
+            f"GB/s, pageable {v['pageable_gb_s']:.2f} GB/s, reuse "
+            f"{v['reuse_share']:.2f}" for k, v in S20.items()
+            if k.startswith("fetch")) + "; pipeline energy 64 x 600000 "
+        f"{S20['pipeline energy 64 x 600000']['s']:.2f} s = "
         f"{S20['pipeline energy 64 x 600000']['s']:.2f} s = "
         f"{S20['pipeline energy 64 x 600000']['msamples_s']:.2f} MSamples/s, "
         f"peak {peak:.2f} GB; numpy 8 x 60000 col rel vs offline "

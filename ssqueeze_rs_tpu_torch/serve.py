@@ -13,12 +13,20 @@ analysis configuration (scale grid, ssq frequency rows).
 
 Requests run on the server's device (`device`: the CUDA device by
 default, `utils.common.array_device`); outputs come back as numpy arrays.
+From a CUDA device each array is the memory of a page-locked host block
+of PyTorch's caching host allocator, copied into without a bounce buffer
+and handed back only after the copy is complete; the block returns to
+the allocator's cache when the caller drops the array. A caller who
+holds many results holds that much page-locked host memory.
 
 A request runs in the span `ssq.serve.request`, the transform in
 `ssq.serve.run` and the trim and copy to host memory in `ssq.serve.fetch`
 (`trace`). `trace.COUNTS` adds the samples requested to `serve.samples`
 and the samples transformed, after the pad to the bucket, to
-`serve.bucket_samples`: their ratio is the buckets' pad waste.
+`serve.bucket_samples`: their ratio is the buckets' pad waste. The fetch
+adds the bytes it hands back to `serve.fetch_bytes`, the arrays copied
+into page-locked blocks to `serve.fetch_pinned`, and those whose block
+grew the pinned pool to `serve.fetch_pinned_new`.
 """
 from __future__ import annotations
 
@@ -128,12 +136,12 @@ class TransformServer:
         xp = np.pad(x, ((0, 0), (0, pad)), mode="reflect") if pad else x
         count("serve.samples", x.size)
         count("serve.bucket_samples", xp.size)
-        res = {}
         out = self._run(xp)
         with span("ssq.serve.fetch"):
-            for k, v in out.items():
-                a = v[..., :self._out_cols(N, b, v)].cpu().numpy()
-                res[k] = a[0] if squeeze else a
+            res = _fetch({k: v[..., :self._out_cols(N, b, v)]
+                          for k, v in out.items()})
+            if squeeze:
+                res = {k: a[0] for k, a in res.items()}
         res.update(self._meta.get(b, {}))
         return res
 
@@ -163,11 +171,13 @@ class TransformServer:
         results = [dict() for _ in xs]
         out = self._run(np.stack(padded))
         with span("ssq.serve.fetch"):
-            for k, v in out.items():
-                # fetch only the requests and columns that are kept
-                a = v[:n, ..., :self._out_cols(longest, b, v)].cpu().numpy()
+            # fetch only the requests and columns that are kept
+            host = _fetch({k: v[:n, ..., :self._out_cols(longest, b, v)]
+                           for k, v in out.items()})
+            for k, a in host.items():
                 for i, x in enumerate(xs):
-                    results[i][k] = a[i, ..., :self._out_cols(len(x), b, v)]
+                    results[i][k] = a[i, ...,
+                                      :self._out_cols(len(x), b, out[k])]
         for r in results:
             r.update(self._meta.get(b, {}))
         return results
@@ -180,3 +190,34 @@ class TransformServer:
         # transform of length N has (N - 1)//hop + 1 columns
         hop = int(self.kw.get("hop_len", 1))
         return min(n_out, (N - 1) // hop + 1)
+
+
+def _fetch(views):
+    """The tensors of the dict `views` as numpy arrays in host memory.
+
+    A CUDA tensor is copied into a page-locked block of PyTorch's
+    caching host allocator (`copy_` makes a strided view contiguous on the
+    card first, as `.cpu()` does); the copies are enqueued back to back on
+    the device's current stream and one event recorded after the last is
+    waited on before any array is returned. Each array owns its block
+    until the caller drops it, so no later fetch writes into a result
+    still held. Any other tensor comes back by `.cpu()`."""
+    on_card = [v for v in views.values() if v.is_cuda]
+    if on_card:
+        allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    host = {}
+    for k, v in views.items():
+        if v.is_cuda:
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        else:
+            host[k] = v.cpu()
+        count("serve.fetch_bytes", host[k].nbytes)
+    if on_card:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(on_card[-1].device))
+        done.synchronize()
+        count("serve.fetch_pinned", len(on_card))
+        count("serve.fetch_pinned_new",
+              torch.cuda.host_memory_stats()["num_host_alloc"] - allocs)
+    return {k: t.numpy() for k, t in host.items()}

@@ -18,9 +18,14 @@ profiler is the only switch. The spans, by time on the caller's thread:
 
 `COUNTS` counts, always: `launch.<entry>`, the calls into each C entry
 point (one a call: kernel A's call runs its whole row-chunk loop, B's one
-a bin range), and `serve.samples` and `serve.bucket_samples`, the samples
+a bin range), `serve.samples` and `serve.bucket_samples`, the samples
 TransformServer was handed and those it transformed after the pad to its
-buckets.
+buckets, and of the server's fetch to host memory: `serve.fetch_bytes`,
+the bytes of the arrays it hands back (on every device);
+`serve.fetch_pinned`, the arrays copied from a CUDA device into
+page-locked blocks; `serve.fetch_pinned_new`, those of them whose block
+grew the pinned pool (the change of `torch.cuda.host_memory_stats()`'s
+`num_host_alloc` over the fetch; 1 - new / pinned is the pool's reuse).
 """
 from __future__ import annotations
 

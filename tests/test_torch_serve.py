@@ -16,6 +16,7 @@ import torch
 
 from ssqueeze_rs_tpu.serve import TransformServer as JServer
 import ssqueeze_rs_tpu_torch as T
+from ssqueeze_rs_tpu_torch import trace
 from ssqueeze_rs_tpu_torch.serve import TransformServer, DEFAULT_BUCKETS
 
 
@@ -126,3 +127,80 @@ def test_server_metadata_and_guards(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TransformServer("cwt")
+
+
+def _fetch_counts():
+    return {k: trace.COUNTS[k] for k in ("serve.fetch_bytes",
+                                         "serve.fetch_pinned",
+                                         "serve.fetch_pinned_new")}
+
+
+def test_served_requests_keep_independent_outputs():
+    """A second request leaves the arrays of the first as they were: each
+    request's outputs own their memory."""
+    srv = TransformServer("ssq_cwt", buckets=(1024,), fs=100.0,
+                          device="cpu")
+    rng = np.random.default_rng(5)
+    first = srv(rng.standard_normal(900).astype(np.float32))
+    kept = {k: first[k].copy() for k in ("Tx", "Wx")}
+    second = srv(rng.standard_normal(900).astype(np.float32))
+    for k in ("Tx", "Wx"):
+        assert np.array_equal(first[k], kept[k])
+        assert not np.array_equal(first[k], second[k])
+        assert not np.shares_memory(first[k], second[k])
+
+
+def test_batch_equals_singles_after_a_further_request():
+    """batch()'s results equal single requests (test_server_batch_equals_
+    singles's bar) and stay as they were after a further request."""
+    srv = TransformServer("ssq_stft", buckets=(1024,), n_fft=64, fs=100.0,
+                          device="cpu")
+    rng = np.random.default_rng(6)
+    xs = [rng.standard_normal(n).astype(np.float32) for n in (1000, 700)]
+    outs = srv.batch(xs)
+    kept = [{k: o[k].copy() for k in ("Tx", "Sx")} for o in outs]
+    srv(rng.standard_normal(1000).astype(np.float32))
+    for x, got, was in zip(xs, outs, kept):
+        one = srv(x)
+        for k in ("Tx", "Sx"):
+            assert np.array_equal(got[k], was[k])
+            assert got[k].shape == one[k].shape == (33, len(x))
+            top = np.abs(one[k]).max()
+            assert np.abs(got[k] - one[k]).max() <= 1e-6 * top
+
+
+@pytest.mark.parametrize("kind", ["one", "channels", "batch"])
+def test_fetch_bytes_counts_the_returned_arrays(kind):
+    """serve.fetch_bytes grows by the bytes of the output arrays handed
+    back; on the CPU nothing is copied into page-locked memory."""
+    srv = TransformServer("ssq_cwt", buckets=(512,), fs=100.0, nv=8,
+                          device="cpu")
+    rng = np.random.default_rng(7)
+    before = _fetch_counts()
+    if kind == "one":
+        outs = [srv(rng.standard_normal(400).astype(np.float32))]
+    elif kind == "channels":
+        outs = [srv(rng.standard_normal((2, 300)).astype(np.float32))]
+    else:
+        outs = srv.batch([rng.standard_normal(500).astype(np.float32)
+                          for _ in range(3)])
+    moved = {k: v - before[k] for k, v in _fetch_counts().items()}
+    returned = sum(o[k].nbytes for o in outs for k in ("Tx", "Wx"))
+    assert returned > 0
+    assert moved == {"serve.fetch_bytes": returned, "serve.fetch_pinned": 0,
+                     "serve.fetch_pinned_new": 0}
+
+
+def test_batch_fetch_bytes_count_the_longest_request():
+    """batch() of mixed lengths fetches every kept request at the longest
+    one's columns and splits the block: serve.fetch_bytes counts the
+    block."""
+    srv = TransformServer("stft", buckets=(512,), n_fft=32, device="cpu")
+    rng = np.random.default_rng(8)
+    before = _fetch_counts()["serve.fetch_bytes"]
+    outs = srv.batch([rng.standard_normal(n).astype(np.float32)
+                      for n in (500, 200, 350)])
+    rows, item = outs[0]["Sx"].shape[0], outs[0]["Sx"].itemsize
+    assert [o["Sx"].shape[-1] for o in outs] == [500, 200, 350]
+    assert _fetch_counts()["serve.fetch_bytes"] - before == \
+        3 * rows * 500 * item
